@@ -35,3 +35,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (multi-process cluster, "
         "large serde round-trips)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (the PyTorch port's kernels); "
+        "skips without one")
