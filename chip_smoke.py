@@ -8,12 +8,15 @@ Phases (each raises on failure; the exit code is non-zero on any):
    as ``nvidia-smi --query-gpu=name,power.limit`` gives them;
 2. build: compiles every kernel source of the port with nvcc;
 3. kernels: at the full width of the attention model (batch 2, T=8192,
-   4 heads, d_head 64, causal), each kernel (K1 forward in both modes, K2
-   dK/dV, K3 dQ) is held against its plain PyTorch version on the same
-   inputs, in bfloat16 and float32, then timed with CUDA events against
-   its plain version and against the PyTorch library call that computes
-   the same function (``scaled_dot_product_attention``, a yardstick the
-   port never calls);
+   4 heads, d_head 64), each kernel (K1 forward in both modes, K4
+   partials causal and not, K2 dK/dV, K3 dQ, K2/K3 in segment form
+   against a K/V half with Tk=4096, and K2/K3 as the ring's non-causal
+   8192x8192 step with the L and D of a T=16384 sequence) is held
+   against its plain PyTorch
+   version on the same inputs, in bfloat16 and float32, then timed with
+   CUDA events against its plain version and against the PyTorch library
+   call that computes the same function (``scaled_dot_product_attention``,
+   a yardstick the port never calls);
 4. reference: a small network trains 2 steps on the card (kernels) and on
    the CPU (plain versions) from the same weights, in fp32; scores and
    params must agree;
@@ -23,9 +26,17 @@ Phases (each raises on failure; the exit code is non-zero on any):
    3 fit steps; the score must be finite and every kernel's
    launch count must rise by exactly one per step;
 6. inference: ``output()`` of the trained net must be finite
-   probabilities of the right shape.
+   probabilities of the right shape;
+7. ring: ``SequenceParallel(devices=["cuda"] * 4).attention(...,
+   causal=True, impl="ring_flash")`` at batch 2, T=32768, 4 heads,
+   d_head 64 (each shard the training slice's shape), forward and
+   ``backward(g)``, in float32 and bfloat16, against the one-device
+   ``flash_attention`` (K1-K3) at the same T; one causal fwd+bwd must
+   launch K4, K2 and K3 exactly 10 times each and K1 never; both paths
+   are timed in bfloat16.
 
-Prints a JSON line of the reference, training and inference results, one
+Prints a JSON line of the reference, training, inference and ring
+results, one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -45,6 +56,10 @@ import torch
 BATCH, SEQ, HEADS, D_HEAD = 2, 8192, 4, 64
 N_IN, HIDDEN, N_OUT = 64, 256, 32
 STEPS = 3
+# the ring: 4 shards of the training slice's shape, T = 32768 in all
+RING_SHARDS = 4
+RING_SEQ = RING_SHARDS * SEQ
+RING_STEPS = RING_SHARDS * (RING_SHARDS + 1) // 2   # causal steps with keys
 
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
@@ -58,6 +73,11 @@ PEAK_BYTES = 3.35e12
 F32_RTOL = 1e-4
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 REF_RTOL = 1e-4     # card vs CPU reference network, fp32
+# Ring vs one device, bf16 gradients: element by element, rtol 2^-7 (one
+# bf16 ulp, both sides round f32 sums taken in another order) and an atol
+# of 1e-3 x RMS of the reference for elements near zero, where the f32
+# sums cancel and their order shows.
+RING_GRAD_ATOL_RMS = 1e-3
 
 
 def log(msg: str) -> None:
@@ -86,9 +106,12 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(what: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+def compare(what: str, got: torch.Tensor, want: torch.Tensor,
+            atol: float = BF16_ATOL) -> dict:
     """Hold a kernel's result against its plain version; raises when they
-    disagree.  Returns max|err| and max|err| / max|plain|."""
+    disagree.  A bf16 result is checked element by element (rtol 2^-7,
+    ``atol``), an f32 one to 1e-4 of max|plain|.  Returns max|err| and
+    max|err| / max|plain|."""
     bf16 = got.dtype == torch.bfloat16
     got, want = got.float(), want.float()
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
@@ -100,15 +123,15 @@ def compare(what: str, got: torch.Tensor, want: torch.Tensor) -> dict:
     diff = (got - want).abs()
     err = diff.max().item()
     if bf16:
-        bad = int((diff > BF16_ATOL + BF16_RTOL * want.abs()).sum().item())
-        ok, tol = bad == 0, f"rtol {BF16_RTOL:g}, atol {BF16_ATOL:g}, " \
+        bad = int((diff > atol + BF16_RTOL * want.abs()).sum().item())
+        ok, tol = bad == 0, f"rtol {BF16_RTOL:g}, atol {atol:g}, " \
                             f"element-wise; {bad} elements outside"
     else:
         ok, tol = err <= F32_RTOL * scale, f"{F32_RTOL:g} of max|plain|"
-    log(f"[kernels] {what}: max_abs_err={err:.3e} rel={err / scale:.3e} "
+    log(f"[check] {what}: max_abs_err={err:.3e} rel={err / scale:.3e} "
         f"({tol})")
     if not ok:
-        raise RuntimeError(f"{what} disagrees with its plain version ({tol})")
+        raise RuntimeError(f"{what}: disagrees with its reference ({tol})")
     return {"max_abs_err": err, "rel": err / scale}
 
 
@@ -117,27 +140,55 @@ def nbytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(products: int, q: torch.Tensor, inputs, outputs) -> tuple:
-    """Least time for ``products`` (T x T x d, causal half) matrix products
-    on bf16 ``q``'s shape at the bf16 peak, or for the bytes of ``inputs``
-    read once and ``outputs`` written once: the larger, and which of the
-    two it is."""
+def causal_pairs(t: int) -> int:
+    """(query, key) pairs of causal attention over t positions."""
+    return t * (t + 1) // 2
+
+
+def bound_ms(products: int, pairs: int, q: torch.Tensor, inputs,
+             outputs) -> tuple:
+    """Least time for ``products`` matrix products over ``pairs`` (query,
+    key) pairs of bf16 ``q``'s batch and heads, each pair a d-long dot, at
+    the bf16 peak, or for the bytes of ``inputs`` read once and ``outputs``
+    written once: the larger, and which of the two it is."""
     assert q.dtype == torch.bfloat16
-    b, t, h, d = q.shape
-    flops = products * 2.0 * d * (t * (t + 1) // 2) * b * h
+    b, _, h, d = q.shape
+    flops = products * 2.0 * d * pairs * b * h
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = (nbytes(*inputs) + nbytes(*outputs)) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 # ------------------------------------------------------------- phases
+KERNELS = ("flash_fwd", "flash_fwd_partials", "flash_bwd_dkdv",
+           "flash_bwd_dq")
+
+
+def ring_step_inputs(A, gen, dtype, scale: float):
+    """K2/K3's inputs as the ring launches them most often (6 of the 10
+    launches of one causal 4-shard ring): a non-causal full SEQ x SEQ
+    segment, the queries of the second half of a causal 2 * SEQ sequence
+    against the keys of its first half, with that sequence's global L and
+    D.  Returns (q, k, v, dO, causal=False, L, D)."""
+    q, k, v, g = (torch.randn((BATCH, 2 * SEQ, HEADS, D_HEAD), generator=gen,
+                              device="cuda").to(dtype) for _ in range(4))
+    out, lse = A.flash_forward(q, k, v, causal=True, sm_scale=scale,
+                               with_lse=True)
+    late = slice(SEQ, 2 * SEQ)
+    D = (g[:, late].float() * out[:, late].float()).sum(-1).contiguous()
+    return (q[:, late].contiguous(), k[:, :SEQ].contiguous(),
+            v[:, :SEQ].contiguous(), g[:, late].contiguous(), False,
+            lse[:, late].contiguous(), D)
+
+
 def phase_kernels(A, seed: int):
     """Each kernel against its plain version (bf16 and f32), then timed
-    in bf16, the dtype the training path gives it."""
+    in bf16, the dtype the training path and the ring give it."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shape = (BATCH, SEQ, HEADS, D_HEAD)
     scale = 1.0 / D_HEAD ** 0.5
-    checks = {"flash_fwd": [], "flash_bwd_dkdv": [], "flash_bwd_dq": []}
+    half = SEQ // 2
+    checks = {name: [] for name in KERNELS}
     inputs = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
@@ -145,7 +196,7 @@ def phase_kernels(A, seed: int):
         out, lse = A.flash_forward(q, k, v, causal=True, sm_scale=scale,
                                    with_lse=True)
         plain_out, plain_lse = A.flash_forward_plain(q, k, v, True, scale,
-                                                     True)
+                                                     "normalized_lse")
         out_n = A.flash_forward(q, k, v, causal=True, sm_scale=scale,
                                 with_lse=False)
         Drow = (g.float() * out.float()).sum(-1).contiguous()
@@ -161,7 +212,44 @@ def phase_kernels(A, seed: int):
                           ("lse", lse, plain_lse)],
             "flash_bwd_dkdv": [("dk", dk, pdk), ("dv", dv, pdv)],
             "flash_bwd_dq": [("dq", dq, pdq)],
+            "flash_fwd_partials": [],
         }
+        del dk, dv, dq, pdk, pdv, pdq, plain_out, plain_lse, out_n
+        # K4, causal (the diagonal ring step) and not (every other step)
+        for causal in (True, False):
+            got = A.flash_attention_partial(q, k, v, causal=causal,
+                                            sm_scale=scale)
+            want = A.flash_forward_plain(q, k, v, causal, scale, "partials")
+            items["flash_fwd_partials"] += [
+                (f"{r} causal={causal}", a, b)
+                for r, a, b in zip(("acc", "m", "l"), got, want)]
+        # K2/K3 in segment form, Tq = SEQ against a K/V half (Tk = SEQ/2)
+        # with the global L and D of the whole sequence: the causal first
+        # half (local positions are global there) and the non-causal
+        # second half; and the ring's most common step, Tq = Tk = SEQ
+        # non-causal with the L and D of a 2 * SEQ sequence
+        out_nc, lse_nc = A.flash_forward(q, k, v, causal=False,
+                                         sm_scale=scale, with_lse=True)
+        D_nc = (g.float() * out_nc.float()).sum(-1).contiguous()
+        ring_step = ring_step_inputs(A, gen, dtype, scale)
+        segments = {
+            "first half causal": (q, k[:, :half], v[:, :half], g, True, lse,
+                                  Drow),
+            "second half": (q, k[:, half:], v[:, half:], g, False, lse_nc,
+                            D_nc),
+            f"ring step {SEQ}x{SEQ}": ring_step}
+        for label, (q_, ks, vs, g_, causal, L_, D_) in segments.items():
+            ks, vs = ks.contiguous(), vs.contiguous()
+            sdk, sdv = A.flash_dkdv(q_, ks, vs, g_, L_, D_, causal=causal,
+                                    sm_scale=scale)
+            sdq = A.flash_dq(q_, ks, vs, g_, L_, D_, causal=causal,
+                             sm_scale=scale)
+            psdk, psdv = A.flash_dkdv_plain(q_, ks, vs, g_, L_, D_, causal,
+                                            scale)
+            psdq = A.flash_dq_plain(q_, ks, vs, g_, L_, D_, causal, scale)
+            items["flash_bwd_dkdv"] += [(f"segment {label} dk", sdk, psdk),
+                                        (f"segment {label} dv", sdv, psdv)]
+            items["flash_bwd_dq"] += [(f"segment {label} dq", sdq, psdq)]
         dname = str(dtype).replace("torch.", "")
         for name, results in items.items():
             for result, got, want in results:
@@ -169,18 +257,21 @@ def phase_kernels(A, seed: int):
                     {"result": result, "inputs": dname,
                      **compare(f"{name} {result} ({dname} inputs)", got,
                                want)})
-        inputs[dtype] = (q, k, v, g, out, lse, Drow)
-        del dk, dv, dq, pdk, pdv, pdq, plain_out, plain_lse, out_n
+        inputs[dtype] = (q, k, v, g, out, lse, Drow, lse_nc, D_nc,
+                         ring_step)
+        del items, got, want, sdk, sdv, sdq, psdk, psdv, psdq
 
-    q, k, v, g, out, lse, Drow = inputs[torch.bfloat16]
+    q, k, v, g, out, lse, Drow, lse_nc, D_nc, ring_step = \
+        inputs[torch.bfloat16]
+    rq, rk, rv, rg, _, rL, rD = ring_step
     del inputs[torch.float32]
     torch.cuda.empty_cache()
     A.reset_launches()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def sdpa_fwd():
-        return sdpa(qt, kt, vt, is_causal=True, scale=scale)
+    def sdpa_fwd(causal=True):
+        return sdpa(qt, kt, vt, is_causal=causal, scale=scale)
 
     qr, kr, vr = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
     sdpa_out = sdpa(qr, kr, vr, is_causal=True, scale=scale)
@@ -190,49 +281,86 @@ def phase_kernels(A, seed: int):
         return torch.autograd.grad(sdpa_out, (qr, kr, vr), gt,
                                    retain_graph=True)
 
+    ks, vs = k[:, half:].contiguous(), v[:, half:].contiguous()
+    plain = dict(iters=3, warmup=1)
     t = {
         "flash_fwd": time_ms(lambda: A.flash_forward(
             q, k, v, causal=True, sm_scale=scale, with_lse=True)),
         "flash_fwd_normalized": time_ms(lambda: A.flash_forward(
             q, k, v, causal=True, sm_scale=scale, with_lse=False)),
+        "flash_fwd_partials": time_ms(lambda: A.flash_attention_partial(
+            q, k, v, causal=False, sm_scale=scale)),
         "flash_bwd_dkdv": time_ms(lambda: A.flash_dkdv(
             q, k, v, g, lse, Drow, causal=True, sm_scale=scale)),
         "flash_bwd_dq": time_ms(lambda: A.flash_dq(
             q, k, v, g, lse, Drow, causal=True, sm_scale=scale)),
+        "segment_dkdv": time_ms(lambda: A.flash_dkdv(
+            q, ks, vs, g, lse_nc, D_nc, causal=False, sm_scale=scale)),
+        "segment_dq": time_ms(lambda: A.flash_dq(
+            q, ks, vs, g, lse_nc, D_nc, causal=False, sm_scale=scale)),
+        "ring_step_dkdv": time_ms(lambda: A.flash_dkdv(
+            rq, rk, rv, rg, rL, rD, causal=False, sm_scale=scale)),
+        "ring_step_dq": time_ms(lambda: A.flash_dq(
+            rq, rk, rv, rg, rL, rD, causal=False, sm_scale=scale)),
     }
-    plain = {
+    plain_t = {
         "flash_fwd": time_ms(lambda: A.flash_forward_plain(
-            q, k, v, True, scale, True), iters=3, warmup=1),
+            q, k, v, True, scale, "normalized_lse"), **plain),
+        "flash_fwd_partials": time_ms(lambda: A.flash_forward_plain(
+            q, k, v, False, scale, "partials"), **plain),
         "flash_bwd_dkdv": time_ms(lambda: A.flash_dkdv_plain(
-            q, k, v, g, lse, Drow, True, scale), iters=3, warmup=1),
+            q, k, v, g, lse, Drow, True, scale), **plain),
         "flash_bwd_dq": time_ms(lambda: A.flash_dq_plain(
-            q, k, v, g, lse, Drow, True, scale), iters=3, warmup=1),
+            q, k, v, g, lse, Drow, True, scale), **plain),
     }
     lib_fwd, lib_bwd = time_ms(sdpa_fwd), time_ms(sdpa_bwd)
+    lib_fwd_full = time_ms(lambda: sdpa_fwd(causal=False))
     A.reset_launches()
     f32_grad = torch.empty(q.shape, dtype=torch.float32, device="meta")
+    f32_seg = torch.empty(ks.shape, dtype=torch.float32, device="meta")
+    rows = torch.empty(q.shape[:3], dtype=torch.float32, device="meta")
     bwd_in = (q, k, v, g, lse, Drow)
+    seg_in = (q, ks, vs, g, lse_nc, D_nc)
+    tri, full, seg = causal_pairs(SEQ), SEQ * SEQ, SEQ * half
     bounds = {
         # q, k, v in; out + lse out; two products (S = QK^T, PV)
-        "flash_fwd": bound_ms(2, q, (q, k, v), (out, lse)),
+        "flash_fwd": bound_ms(2, tri, q, (q, k, v), (out, lse)),
+        # q, k, v in; acc, m, l out (f32); the same two, no causal half
+        "flash_fwd_partials": bound_ms(2, full, q, (q, k, v),
+                                       (f32_grad, rows, rows)),
         # q, k, v, dO, L, D in; dk, dv out (f32); four (S, dP, dV, dK)
-        "flash_bwd_dkdv": bound_ms(4, q, bwd_in, (f32_grad, f32_grad)),
+        "flash_bwd_dkdv": bound_ms(4, tri, q, bwd_in, (f32_grad, f32_grad)),
         # same in; dq out (f32); three (S, dP, dQ)
-        "flash_bwd_dq": bound_ms(3, q, bwd_in, (f32_grad,)),
+        "flash_bwd_dq": bound_ms(3, tri, q, bwd_in, (f32_grad,)),
     }
-    library = {"flash_fwd": lib_fwd, "flash_bwd_dkdv": lib_bwd,
-               "flash_bwd_dq": lib_bwd}
-    timing = {name: {"ms": t[name], "plain_ms": plain[name],
+    seg_bounds = {
+        "flash_bwd_dkdv": bound_ms(4, seg, q, seg_in, (f32_seg, f32_seg)),
+        "flash_bwd_dq": bound_ms(3, seg, q, seg_in, (f32_grad,)),
+    }
+    ring_in = (rq, rk, rv, rg, rL, rD)
+    ring_bounds = {
+        "flash_bwd_dkdv": bound_ms(4, full, q, ring_in, (f32_grad, f32_grad)),
+        "flash_bwd_dq": bound_ms(3, full, q, ring_in, (f32_grad,)),
+    }
+    library = {"flash_fwd": lib_fwd, "flash_fwd_partials": lib_fwd_full,
+               "flash_bwd_dkdv": lib_bwd, "flash_bwd_dq": lib_bwd}
+    timing = {name: {"ms": t[name], "plain_ms": plain_t[name],
                      "bound_ms": bounds[name][0],
                      "bound_by": bounds[name][1],
                      "library_ms": library[name],
                      "max_abs_err": max(c["max_abs_err"]
                                         for c in checks[name]),
                      "checks": checks[name]}
-              for name in bounds}
+              for name in KERNELS}
     timing["flash_fwd"]["ms_normalized"] = t["flash_fwd_normalized"]
-    log(f"[kernels] library yardsticks: sdpa fwd {lib_fwd:.4f} ms, sdpa "
-        f"bwd (dq, dk, dv together) {lib_bwd:.4f} ms")
+    for name, kind in (("flash_bwd_dkdv", "dkdv"), ("flash_bwd_dq", "dq")):
+        timing[name]["segment_ms"] = t["segment_" + kind]
+        timing[name]["segment_bound_ms"] = seg_bounds[name][0]
+        timing[name]["ring_step_ms"] = t["ring_step_" + kind]
+        timing[name]["ring_step_bound_ms"] = ring_bounds[name][0]
+    log(f"[kernels] library yardsticks: sdpa fwd causal {lib_fwd:.4f} ms, "
+        f"non-causal {lib_fwd_full:.4f} ms, sdpa bwd causal (dq, dk, dv "
+        f"together) {lib_bwd:.4f} ms")
     return timing
 
 
@@ -317,10 +445,11 @@ def phase_training(N, A, seed: int):
         f"{launches}; peak memory {peak / 2**30:.3f} GiB")
     if not all(np.isfinite(scores)):
         raise RuntimeError(f"non-finite training score: {scores}")
-    for name, n in launches.items():
-        if n != STEPS:
-            raise RuntimeError(f"{name} launched {n} times in {STEPS} "
-                               "steps, expected one per step")
+    expected = {name: STEPS for name in KERNELS}
+    expected["flash_fwd_partials"] = 0         # the ring's kernel only
+    if launches != expected:
+        raise RuntimeError(f"launches in {STEPS} steps: {launches}, "
+                           f"expected {expected}")
     return net, ds, {"scores": scores, "step_ms": step_ms,
                      "peak_mem_bytes": peak, "launches": launches}
 
@@ -342,6 +471,59 @@ def phase_inference(net, ds) -> dict:
     return {"output_ms": ms, "row_sum_err": row_err}
 
 
+def phase_ring(A, S, seed: int) -> dict:
+    """The ring flash attention over 4 shards on one card, forward and
+    ``backward(g)``, against the one-device flash attention (K1-K3) at the
+    same T, in f32 and bf16; the exact launch counts of one causal
+    fwd+bwd; both paths timed in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    shape = (BATCH, RING_SEQ, HEADS, D_HEAD)
+    sp = S.SequenceParallel(devices=["cuda"] * RING_SHARDS)
+    expected = {"flash_fwd": 0, "flash_fwd_partials": RING_STEPS,
+                "flash_bwd_dkdv": RING_STEPS, "flash_bwd_dq": RING_STEPS}
+
+    def fwd_bwd(q, k, v, g, ring: bool):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = (sp.attention(*xs, causal=True, impl="ring_flash") if ring
+               else A.flash_attention(*xs, causal=True))
+        out.backward(g)
+        return [out.detach()] + [x.grad for x in xs]
+
+    result = {"shards": RING_SHARDS, "shape": list(shape), "checks": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                      .to(dtype) for _ in range(4))
+        torch.cuda.synchronize()
+        A.reset_launches()        # counts of the ring's run only
+        ring = fwd_bwd(q, k, v, g, True)
+        torch.cuda.synchronize()
+        launches = dict(A.LAUNCHES)
+        dname = str(dtype).replace("torch.", "")
+        log(f"[ring] {dname} causal fwd+bwd launches {launches}")
+        if launches != expected:
+            raise RuntimeError(f"ring launches {launches}, expected "
+                               f"{expected}")
+        result["launches"] = launches
+        ref = fwd_bwd(q, k, v, g, False)
+        for name, got, want in zip(("out", "dq", "dk", "dv"), ring, ref):
+            atol = (BF16_ATOL if name == "out" else RING_GRAD_ATOL_RMS
+                    * want.float().pow(2).mean().sqrt().item())
+            result["checks"].append(
+                {"result": name, "inputs": dname,
+                 **compare(f"ring {name} vs one device ({dname} inputs)",
+                           got, want, atol=atol)})
+        del ring, ref
+        if dtype == torch.bfloat16:
+            result["ring_ms"] = time_ms(lambda: fwd_bwd(q, k, v, g, True),
+                                        iters=3, warmup=1)
+            result["one_device_ms"] = time_ms(
+                lambda: fwd_bwd(q, k, v, g, False), iters=3, warmup=1)
+            log(f"[ring] bf16 fwd+bwd at T={RING_SEQ}: ring "
+                f"{result['ring_ms']:.3f} ms, one device "
+                f"{result['one_device_ms']:.3f} ms")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -356,6 +538,7 @@ def main(argv=None) -> int:
         neural_net_configuration as N
     from deeplearning4j_tpu_torch.ops import attention as A
     from deeplearning4j_tpu_torch.ops import kernel_build
+    from deeplearning4j_tpu_torch.parallel import sequence as S
 
     t0 = time.perf_counter()
     for source in kernel_build.SOURCES:
@@ -367,20 +550,28 @@ def main(argv=None) -> int:
     reference = phase_reference(N, A, args.seed)
     net, ds, training = phase_training(N, A, args.seed)
     inference = phase_inference(net, ds)
+    del net
+    torch.cuda.empty_cache()
+    ring = phase_ring(A, S, args.seed)
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
+               "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
                "flash_bwd_dkdv": "deeplearning4j_tpu/ops/attention.py:479",
                "flash_bwd_dq": "deeplearning4j_tpu/ops/attention.py:502"}
+    # the main paths, each run with the counts set to 0 just before it
+    paths = {"training": training["launches"], "ring": ring["launches"]}
     kernels = [dict(name=name, route="cuda",
                     source="deeplearning4j_tpu_torch/ops/csrc/"
                            "flash_attention.cu",
                     replaces=sources[name],
-                    launches=training["launches"][name],
-                    **{k: v for k, v in timing[name].items()})
+                    launches=sum(counts[name] for counts in paths.values()),
+                    launches_by_path={path: counts[name]
+                                      for path, counts in paths.items()},
+                    **timing[name])
                for name in sources]
     print(json.dumps({"build_s": build_s, "reference": reference,
-                      "training": training,
-                      "inference": inference}))
+                      "training": training, "inference": inference,
+                      "ring": ring}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

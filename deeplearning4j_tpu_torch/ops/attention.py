@@ -6,19 +6,25 @@ Kernels, hand-written CUDA for Hopper in ``csrc/flash_attention.cu``:
 - K1 ``flash_fwd``: streaming-softmax forward, plain (``normalized``) or
   with the per-row logsumexp (``normalized_lse``), one templated body.
   Replaces the Pallas ``_make_flash_kernel`` launched by ``_flash_forward``.
+- K4 ``flash_fwd_partials``: the same body in mode ``partials``, the
+  unnormalized (acc, m, l) of q against one K/V segment whose length may
+  differ from q's.  Replaces the kernel launched by
+  ``flash_attention_partial``; the ring flash attention merges these.
 - K2 ``flash_bwd_dkdv`` and K3 ``flash_bwd_dq``: the fused two-pass
   backward that rebuilds P from the saved logsumexp, sharing one tile
   function.  Replace ``_make_dkdv_kernel``/``_make_dq_kernel`` launched by
-  ``flash_attention_bwd``.
+  ``flash_attention_bwd``.  K/V may be one segment of a longer sequence
+  (``Tk != Tq``): with the global logsumexp and D the gradients are that
+  segment's exact contribution, and contributions of segments sum.
 
-Beside each kernel is its plain PyTorch version (``flash_forward_plain``,
-``flash_dkdv_plain``, ``flash_dq_plain``) running the same tiled
-streaming arithmetic.  A wrapper runs the plain version only for a tensor
-on the CPU; for a CUDA tensor it launches the kernel or raises.  Each
-launch adds one to ``LAUNCHES[<kernel>]``.
+Beside each kernel is its plain PyTorch version (``flash_forward_plain``
+in its three modes, ``flash_dkdv_plain``, ``flash_dq_plain``) running the
+same tiled streaming arithmetic.  A wrapper runs the plain version only
+for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises.  Each launch adds one to ``LAUNCHES[<kernel>]``.
 
 Layouts are the JAX package's: q, k, v are (batch, T, heads, d); the
-logsumexp and D = rowsum(dO * O) are (batch, T, heads) float32; gradients
+logsumexp and D = rowsum(dO * O) are (batch, Tq, heads) float32; gradients
 come out float32 and are cast once, at the autograd boundary, to the
 input dtype.
 
@@ -45,8 +51,10 @@ _NEG_INF = -1e30
 TILE = 64                  # the kernels' q-tile and k-tile rows
 MAX_HEAD_DIM = 128
 _SOURCE = "flash_attention.cu"
+_FWD_MODES = ("normalized", "normalized_lse", "partials")
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_fwd_partials": 0, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
 
 
 def reset_launches() -> None:
@@ -57,13 +65,12 @@ def reset_launches() -> None:
 # ------------------------------------------------------------ the library
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_GEOM = [_I] * 5 + [_L] * 6       # B, Tq, Tk, H, d, q strides, k strides
 _SIGNATURES = {
-    "dl4j_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F,
-                       _I, _I, _I, _P],
-    "dl4j_flash_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _L, _L, _L, _F, _I, _I, _P],
-    "dl4j_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
-                          _L, _L, _F, _I, _I, _P],
+    "dl4j_flash_fwd": [_P] * 5 + _GEOM + [_F, _I, _I, _I, _P],
+    "dl4j_flash_fwd_partials": [_P] * 6 + _GEOM + [_F, _I, _I, _P],
+    "dl4j_flash_bwd_dkdv": [_P] * 8 + _GEOM + [_F, _I, _I, _I, _P],
+    "dl4j_flash_bwd_dq": [_P] * 7 + _GEOM + [_F, _I, _I, _I, _P],
 }
 _bound = None
 
@@ -81,30 +88,53 @@ def _lib():
     return _bound
 
 
-def _check_rc(rc: int, name: str) -> None:
+def _launch(name: str, fn: str, device: torch.device, *args) -> None:
+    """Call one C entry point with ``device`` (the tensors' card) current
+    and on that card's current stream, raise on a refused launch, count
+    it.  The launch and the kernels' shared-memory opt-in act on the
+    current device, so on any card but the current one they would go to
+    the wrong card without the guard."""
+    with torch.cuda.device(device):
+        rc = getattr(_lib(), fn)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: CUDA "
                            f"error {rc}")
+    LAUNCHES[name] += 1
 
 
-def _check_kernel_inputs(name: str, *tensors: Tensor) -> None:
-    """What the kernels take: CUDA, float32 or bfloat16 (all the same),
-    one (B, T, H, d) shape with d <= 128, contiguous."""
-    ref = tensors[0]
-    if ref.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: dtype {ref.dtype} not supported "
+def _check_on_card(name: str, ref: Tensor, t: Tensor) -> None:
+    if t.device.type != "cuda" or t.device != ref.device:
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _check_kernel_inputs(name: str, q: Tensor, k: Tensor, v: Tensor,
+                         dout: Optional[Tensor] = None) -> None:
+    """What the kernels take: q on a CUDA device, float32 or bfloat16,
+    (B, Tq, H, d) with d <= 128, contiguous; k and v on q's device in q's
+    dtype, contiguous (their shapes were held against q's by
+    ``_validate_qkv``); a cotangent in q's shape, in q's dtype or
+    float32."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {q.dtype} not supported "
                         "(float32 or bfloat16)")
-    if ref.dim() != 4 or ref.shape[-1] > MAX_HEAD_DIM:
+    if q.dim() != 4 or q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"{name}: expected (batch, T, heads, d<=128), got "
-                         f"{tuple(ref.shape)}")
-    for t in tensors:
-        if t.device.type != "cuda" or t.device != ref.device:
-            raise ValueError(f"{name}: all inputs must be on one CUDA "
-                             "device")
-        if t.dtype != ref.dtype or t.shape != ref.shape:
-            raise ValueError(f"{name}: inputs differ in dtype or shape")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
+                         f"{tuple(q.shape)}")
+    for t in (q, k, v):
+        _check_on_card(name, q, t)
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name}: inputs differ in dtype")
+    if dout is not None:
+        if dout.dtype not in (q.dtype, torch.float32):
+            raise TypeError(f"{name}: dO dtype {dout.dtype} (q's dtype or "
+                            "float32)")
+        _check_on_card(name, q, dout)
+        if dout.shape != q.shape:
+            raise ValueError(f"{name}: dO shape {tuple(dout.shape)} is not "
+                             f"q's {tuple(q.shape)}")
 
 
 def _check_row_stats(name: str, ref: Tensor, *stats: Tensor) -> None:
@@ -116,23 +146,33 @@ def _check_row_stats(name: str, ref: Tensor, *stats: Tensor) -> None:
                              f"{ref.device}")
 
 
-def _geometry(x: Tensor):
-    B, T, H, D = x.shape
-    sb, st, sh, _ = x.stride()
-    return B, T, H, D, sb, st, sh
+def _geometry(q: Tensor, k: Tensor):
+    """B, Tq, Tk, H, d, then q's and k's (batch, time, head) strides."""
+    B, Tq, H, D = q.shape
+    return (B, Tq, k.shape[1], H, D, *q.stride()[:3], *k.stride()[:3])
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _validate_qkv(q: Tensor, k: Tensor, v: Tensor) -> None:
+def _validate_qkv(q: Tensor, k: Tensor, v: Tensor, same_t: bool) -> None:
+    """The JAX package's shape rules: k and v alike; q may have another T
+    unless ``same_t``; batch, heads and d agree."""
     if q.dim() != 4:
         raise ValueError(f"expected (batch, T, heads, d), got "
                          f"{tuple(q.shape)}")
-    if q.shape != k.shape or k.shape != v.shape:
+    if k.shape != v.shape:
+        raise ValueError(f"k/v shapes differ: {tuple(k.shape)} vs "
+                         f"{tuple(v.shape)}")
+    if same_t and q.shape != k.shape:
         raise ValueError(f"q/k/v shapes differ: {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
+    if (q.shape[0], q.shape[2], q.shape[3]) != \
+            (k.shape[0], k.shape[2], k.shape[3]):
+        raise ValueError(f"q and k/v disagree on batch/heads/d: "
+                         f"{tuple(q.shape)} vs {tuple(k.shape)}")
+
+
+def _default_scale(q: Tensor, sm_scale: Optional[float]) -> float:
+    return (float(sm_scale) if sm_scale is not None
+            else 1.0 / math.sqrt(q.shape[-1]))
 
 
 def _bhtd(x: Tensor) -> Tensor:
@@ -145,24 +185,37 @@ def _btrow(x: Tensor) -> Tensor:
     return x.permute(0, 2, 1).unsqueeze(-1)
 
 
-# ---------------------------------------------------------------- K1
+def _rows_back(x: Tensor) -> Tensor:
+    """(B, H, T, 1) -> contiguous (B, T, H)."""
+    return x[..., 0].permute(0, 2, 1).contiguous()
+
+
+# ---------------------------------------------------------------- K1 / K4
 def flash_forward_plain(q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                        sm_scale: float, with_lse: bool,
+                        sm_scale: float, mode: str = "normalized",
                         block: int = TILE):
-    """Plain PyTorch twin of K1: the streaming softmax over k-blocks of
+    """Plain PyTorch twin of K1 and K4, one body for the three modes of
+    ``_make_flash_kernel``: the streaming softmax over k-blocks of
     ``block`` keys with a running max, denominator and f32 accumulator,
-    the -1e30 sentinel and ``alive`` guard, and the ``acc / max(l, 1e-30)``
-    finalize.  All queries are processed at once per k-block.  Returns
-    ``out`` in q's dtype, plus the (B, T, H) f32 logsumexp when
-    ``with_lse``."""
-    B, T, H, D = q.shape
+    the -1e30 sentinel and ``alive`` guard; all queries at once per
+    k-block; causal masking by local positions (query i sees key j <= i).
+    Only the finalize differs:
+
+    - ``normalized``: ``out`` = acc / max(l, 1e-30) in q's dtype;
+    - ``normalized_lse``: ``(out, lse)`` with the (B, Tq, H) f32
+      logsumexp m + log(max(l, 1e-30));
+    - ``partials``: the f32 ``(acc, m, l)``, unnormalized.
+    """
+    if mode not in _FWD_MODES:
+        raise ValueError(f"unknown kernel mode {mode!r}")
+    B, Tq, H, D = q.shape
     qf, kf, vf = _bhtd(q), _bhtd(k), _bhtd(v)
     dev = q.device
-    m = torch.full((B, H, T, 1), _NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, H, T, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, T, D), dtype=torch.float32, device=dev)
-    q_pos = torch.arange(T, device=dev)[:, None]
-    for k0 in range(0, T, block):
+    m = torch.full((B, H, Tq, 1), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Tq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=dev)
+    q_pos = torch.arange(Tq, device=dev)[:, None]
+    for k0 in range(0, k.shape[1], block):
         kb, vb = kf[:, :, k0:k0 + block], vf[:, :, k0:k0 + block]
         s = (qf @ kb.transpose(-1, -2)) * sm_scale
         if causal:
@@ -175,40 +228,72 @@ def flash_forward_plain(q: Tensor, k: Tensor, v: Tensor, causal: bool,
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + p @ vb
         m = m_new
+    if mode == "partials":
+        return (acc.permute(0, 2, 1, 3).contiguous(), _rows_back(m),
+                _rows_back(l))
     denom = torch.clamp_min(l, 1e-30)
     out = (acc / denom).to(q.dtype).permute(0, 2, 1, 3).contiguous()
-    if not with_lse:
+    if mode == "normalized":
         return out
-    lse = (m + torch.log(denom))[..., 0].permute(0, 2, 1).contiguous()
-    return out, lse
+    return out, _rows_back(m + torch.log(denom))
 
 
 def flash_forward(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                   sm_scale: float, with_lse: bool):
     """K1.  ``out`` (and the f32 logsumexp when ``with_lse``): the plain
     version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    _validate_qkv(q, k, v)
+    _validate_qkv(q, k, v, same_t=True)
     if q.device.type == "cpu":
-        return flash_forward_plain(q, k, v, causal, sm_scale, with_lse)
+        return flash_forward_plain(
+            q, k, v, causal, sm_scale,
+            "normalized_lse" if with_lse else "normalized")
     _check_kernel_inputs("flash_fwd", q, k, v)
-    B, T, H, D, sb, st, sh = _geometry(q)
     out = torch.empty_like(q)
-    lse = (torch.empty((B, T, H), dtype=torch.float32, device=q.device)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if with_lse else None)
-    rc = _lib().dl4j_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if with_lse else None, B, T, H, D, sb, st, sh,
-        float(sm_scale), int(causal), int(q.dtype == torch.bfloat16),
-        int(with_lse), _stream())
-    _check_rc(rc, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _launch("flash_fwd", "dl4j_flash_fwd", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, *_geometry(q, k),
+            float(sm_scale), int(causal), int(q.dtype == torch.bfloat16),
+            int(with_lse))
     return (out, lse) if with_lse else out
+
+
+def flash_attention_partial(q: Tensor, k: Tensor, v: Tensor, *,
+                            causal: bool = False,
+                            sm_scale: Optional[float] = None
+                            ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K4: unnormalized attention of ``q`` (B, Tq, H, d) against ONE K/V
+    segment ``k``, ``v`` (B, Tk, H, d), Tk may differ from Tq.
+
+    Returns ``(acc, m, l)``: acc (B, Tq, H, d) f32, the exp-weighted value
+    sum; m, l (B, Tq, H) f32, the row max and denominator.  Partials of
+    different segments merge exactly by the log-sum-exp rule (see
+    ``parallel/sequence.py``); the output is ``acc / l``.  ``causal``
+    masks by local positions, right for the diagonal ring step where both
+    shards share their global offset.  A row that sees no key gives
+    (0, -1e30, 0).  Not differentiable; callers own the backward.  The
+    plain version for CPU tensors, the kernel for CUDA tensors."""
+    _validate_qkv(q, k, v, same_t=False)
+    scale = _default_scale(q, sm_scale)
+    if q.device.type == "cpu":
+        return flash_forward_plain(q, k, v, causal, scale, "partials")
+    _check_kernel_inputs("flash_fwd_partials", q, k, v)
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    _launch("flash_fwd_partials", "dl4j_flash_fwd_partials", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), *_geometry(q, k), scale,
+            int(causal), int(q.dtype == torch.bfloat16))
+    return acc, m, l
 
 
 # ------------------------------------------------------------- K2 / K3
 def _bwd_tile_plain(qf, kb, vb, dof, L, Dr, k0, causal, sm_scale):
     """The shared P-rebuild of both backward passes for one k-block
-    against every query: (p, ds), each (B, H, T, block)."""
+    against every query: (p, ds), each (B, H, Tq, block), causal by local
+    positions."""
     s = (qf @ kb.transpose(-1, -2)) * sm_scale
     p = torch.exp(s - L)
     if causal:
@@ -229,7 +314,7 @@ def _plain_bwd_inputs(q, k, v, dout, L, Drow):
 def flash_dkdv_plain(q, k, v, dout, L, Drow, causal: bool, sm_scale: float,
                      block: int = TILE) -> Tuple[Tensor, Tensor]:
     """Plain twin of K2: per k-block, dV = P^T dO and dK = dS^T Q summed
-    over all queries.  Returns f32 (dk, dv) in (B, T, H, d)."""
+    over all queries.  Returns f32 (dk, dv) in k's (B, Tk, H, d)."""
     qf, kf, vf, dof, Lr, Dr = _plain_bwd_inputs(q, k, v, dout, L, Drow)
     dks, dvs = [], []
     for k0 in range(0, k.shape[1], block):
@@ -245,7 +330,7 @@ def flash_dkdv_plain(q, k, v, dout, L, Drow, causal: bool, sm_scale: float,
 def flash_dq_plain(q, k, v, dout, L, Drow, causal: bool, sm_scale: float,
                    block: int = TILE) -> Tensor:
     """Plain twin of K3: dQ = sum over k-blocks of dS K.  f32
-    (B, T, H, d)."""
+    (B, Tq, H, d)."""
     qf, kf, vf, dof, Lr, Dr = _plain_bwd_inputs(q, k, v, dout, L, Drow)
     dq = torch.zeros_like(qf)
     for k0 in range(0, k.shape[1], block):
@@ -256,59 +341,80 @@ def flash_dq_plain(q, k, v, dout, L, Drow, causal: bool, sm_scale: float,
     return dq.permute(0, 2, 1, 3).contiguous()
 
 
+def _bwd_launch_args(q, k, v, dout, L, Drow):
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            L.data_ptr(), Drow.data_ptr())
+
+
+def _bwd_flags(q, dout, causal, sm_scale):
+    bf16 = q.dtype == torch.bfloat16
+    return (float(sm_scale), int(causal), int(bf16),
+            int(bf16 and dout.dtype == torch.float32))
+
+
 def flash_dkdv(q, k, v, dout, L, Drow, *, causal: bool,
                sm_scale: float) -> Tuple[Tensor, Tensor]:
-    """K2: f32 (dk, dv).  ``dout`` has q's dtype."""
+    """K2: f32 (dk, dv) of the K/V segment ``k``, ``v`` (Tk may differ
+    from Tq).  ``dout`` has q's shape, in q's dtype or float32; ``L`` and
+    ``Drow`` are the (B, Tq, H) logsumexp and rowsum(dO * O)."""
+    _validate_qkv(q, k, v, same_t=False)
     if q.device.type == "cpu":
         return flash_dkdv_plain(q, k, v, dout, L, Drow, causal, sm_scale)
     _check_kernel_inputs("flash_bwd_dkdv", q, k, v, dout)
     _check_row_stats("flash_bwd_dkdv", q, L, Drow)
-    B, T, H, D, sb, st, sh = _geometry(q)
-    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    rc = _lib().dl4j_flash_bwd_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        L.data_ptr(), Drow.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, T, H, D, sb, st, sh, float(sm_scale), int(causal),
-        int(q.dtype == torch.bfloat16), _stream())
-    _check_rc(rc, "flash_bwd_dkdv")
-    LAUNCHES["flash_bwd_dkdv"] += 1
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    _launch("flash_bwd_dkdv", "dl4j_flash_bwd_dkdv", q.device,
+            *_bwd_launch_args(q, k, v, dout, L, Drow), dk.data_ptr(),
+            dv.data_ptr(), *_geometry(q, k),
+            *_bwd_flags(q, dout, causal, sm_scale))
     return dk, dv
 
 
 def flash_dq(q, k, v, dout, L, Drow, *, causal: bool,
              sm_scale: float) -> Tensor:
-    """K3: f32 dq.  ``dout`` has q's dtype."""
+    """K3: f32 dq, this K/V segment's contribution.  Inputs as K2's."""
+    _validate_qkv(q, k, v, same_t=False)
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, dout, L, Drow, causal, sm_scale)
     _check_kernel_inputs("flash_bwd_dq", q, k, v, dout)
     _check_row_stats("flash_bwd_dq", q, L, Drow)
-    B, T, H, D, sb, st, sh = _geometry(q)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    rc = _lib().dl4j_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        L.data_ptr(), Drow.data_ptr(), dq.data_ptr(),
-        B, T, H, D, sb, st, sh, float(sm_scale), int(causal),
-        int(q.dtype == torch.bfloat16), _stream())
-    _check_rc(rc, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _launch("flash_bwd_dq", "dl4j_flash_bwd_dq", q.device,
+            *_bwd_launch_args(q, k, v, dout, L, Drow), dq.data_ptr(),
+            *_geometry(q, k), *_bwd_flags(q, dout, causal, sm_scale))
     return dq
 
 
-def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
-                        L: Tensor, g: Tensor, *, causal: bool,
-                        sm_scale: float) -> Tuple[Tensor, Tensor, Tensor]:
-    """Fused flash backward: f32 (dq, dk, dv) from the forward's ``out``
-    and per-row logsumexp ``L``, via K2 then K3.  D = rowsum(dO * O) is
-    plain torch.  ``g`` is cast to q's dtype (autograd hands it over in
-    that dtype already)."""
-    _validate_qkv(q, k, v)
-    g = g.to(q.dtype).contiguous()
-    Drow = (g.float() * out.float()).sum(dim=-1).contiguous()
+def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor,
+                        out: Optional[Tensor], L: Tensor, g: Tensor, *,
+                        causal: bool, sm_scale: float,
+                        D_row: Optional[Tensor] = None
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Fused flash backward: f32 (dq, dk, dv) from the forward's per-row
+    logsumexp ``L``, via K2 then K3.
+
+    ``k``/``v`` may be one K/V SEGMENT of a longer sequence (Tk != Tq):
+    with the GLOBAL ``L`` and ``D_row`` the results are that segment's
+    exact contribution, and contributions of segments sum, which the ring
+    backward in ``parallel/sequence.py`` is built on.  ``D_row`` =
+    rowsum(dO * out), (B, Tq, H), is computed from ``out`` when not given;
+    segment callers pass the global one and ``out=None``.  The cotangent
+    ``g`` is never rounded: D and the kernels' dO use it in f32 (a bf16
+    ``g`` with bf16 q goes to the kernels as it is; they widen it
+    exactly), as the JAX package's ``g.astype(f32)`` does."""
+    if out is None and D_row is None:
+        raise ValueError("flash_attention_bwd needs `out` (to derive "
+                         "D = rowsum(dO*out)) or an explicit `D_row`")
+    keep = g.dtype == q.dtype == torch.bfloat16
+    dout = (g if keep else g.float()).contiguous()
+    if D_row is None:
+        D_row = (g.float() * out.float()).sum(dim=-1)
+    Drow = D_row.float().contiguous()
     L = L.contiguous()
-    dk, dv = flash_dkdv(q, k, v, g, L, Drow, causal=causal,
+    dk, dv = flash_dkdv(q, k, v, dout, L, Drow, causal=causal,
                         sm_scale=sm_scale)
-    dq = flash_dq(q, k, v, g, L, Drow, causal=causal, sm_scale=sm_scale)
+    dq = flash_dq(q, k, v, dout, L, Drow, causal=causal, sm_scale=sm_scale)
     return dq, dk, dv
 
 
@@ -345,11 +451,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     K3; otherwise K1 in the plain normalized mode.  ``sm_scale`` defaults
     to 1/sqrt(d)."""
     dev = resolve_device(device)
-    _validate_qkv(q, k, v)
+    _validate_qkv(q, k, v, same_t=True)
     for t in (q, k, v):
         same_device(t, dev)
-    scale = (float(sm_scale) if sm_scale is not None
-             else 1.0 / math.sqrt(q.shape[-1]))
+    scale = _default_scale(q, sm_scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -1,26 +1,30 @@
-// Flash attention for Hopper (sm_90a): forward (K1), dK/dV backward (K2)
-// and dQ backward (K3), hand-written CUDA behind a plain C interface.
+// Flash attention for Hopper (sm_90a): forward (K1) and its partials mode
+// (K4), dK/dV backward (K2) and dQ backward (K3), hand-written CUDA behind
+// a plain C interface.
 //
 // Replaces the Pallas TPU kernels of deeplearning4j_tpu/ops/attention.py:
 //   K1 flash_fwd_kernel      <- _make_flash_kernel (modes "normalized" and
 //                               "normalized_lse"), launched by _flash_forward
+//   K4 flash_fwd_kernel      <- the same body in mode "partials", launched
+//                               by flash_attention_partial
 //   K2 flash_bwd_dkdv_kernel <- _make_dkdv_kernel + _bwd_tile, launched by
 //                               flash_attention_bwd
 //   K3 flash_bwd_dq_kernel   <- _make_dq_kernel + _bwd_tile, launched by
 //                               flash_attention_bwd
 //
-// What bounds them on the H100: all three are compute-bound.  At the
+// What bounds them on the H100: all four are compute-bound.  At the
 // training shape (B=2, T=8192, H=4, d=64, causal) K1 does two T x T x d
 // products over the causal half and moves ~34 MB, so its operations take
 // ~7x longer than its bytes even at the bf16 tensor-core peak; K2 does four
-// such products, K3 three.
+// such products, K3 three.  K4 on one ring step of that shape does K1's two
+// products over the whole Tq x Tk block (no causal half off the diagonal).
 //
-// What the design does about it, in this first version: the (T, T) score
-// matrix never reaches device memory.  A thread block owns one 64-row tile
-// of one (batch, head) slice and loops over the other side's 64-row tiles
-// inside the block (the TPU's sequential third grid axis and its VMEM
-// scratch become that loop and registers); causal blocks stop at the
-// diagonal, halving the work.  Tiles are staged in shared memory as f32
+// What the design does about it, in this first version: the (Tq, Tk)
+// score matrix never reaches device memory.  A thread block owns one
+// 64-row tile of one (batch, head) slice and loops over the other side's
+// 64-row tiles inside the block (the TPU's sequential third grid axis and
+// its VMEM scratch become that loop and registers); causal blocks stop at
+// the diagonal, halving the work.  Tiles are staged in shared memory as f32
 // (bf16 inputs are widened with __bfloat162float) and every product is a
 // scalar f32 FMA on a 16x16 thread grid where each thread owns a 4x4
 // micro-tile, so the kernels run on the CUDA cores, far below the tensor
@@ -31,14 +35,22 @@
 // Semantics kept from the TPU kernels: the -1e30 sentinel for masked
 // scores with the `alive` guard (a row with no visible key yet contributes
 // exact zeros), the 1e-30 clamp of the softmax denominator, the per-row
-// logsumexp m + log(l) in the lse mode, the backward mask
-// (k < T) & (q < T) & causal, and f32 gradients.  Ragged T is masked in the
-// kernels (no padding to block multiples), and the (B, T, H, d) strides
-// are read directly (no transposes).
+// logsumexp m + log(l) in the lse mode, the unnormalized f32 acc, m and l
+// in the partials mode (a row that sees no key ends with 0, -1e30, 0), the
+// backward mask (k < Tk) & (q < Tq) & (!causal || q >= k), and f32
+// gradients.  The q side (q, out, dO, dq; Tq rows) and the K/V side (k, v,
+// dk, dv; Tk rows) carry their own length and strides, so one K/V segment
+// of a longer sequence can be attended; causal masking then compares local
+// positions (row i sees column j <= i), which is right on the diagonal
+// step of a ring where both sides share their global offset.  Ragged
+// lengths are masked in the kernels (no padding to block multiples), and
+// the (B, T, H, d) strides are read directly (no transposes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,9 +60,17 @@ constexpr int SUB = 4;          // each thread owns a 4 x 4 micro-tile
 constexpr int PLD = TILE + 1;   // padded row length of a score tile
 constexpr float NEG_INF = -1e30f;
 
+// One side of the attention: its rows and the element strides of its
+// (B, T, H, d) tensors (stride 1 along d).
+struct Side {
+  int T;
+  long long sb, st, sh;
+};
+
 struct Geom {
-  int B, T, H, d;
-  long long sb, st, sh;         // element strides of batch, time, head
+  int B, H, d;
+  Side q;                       // q, out/acc, dO, dq; row statistics (B, Tq, H)
+  Side k;                       // k, v, dk, dv
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -66,31 +86,36 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ long long offset(const Geom& g, int b, int t,
+__device__ __forceinline__ long long offset(const Side& s, int b, int t,
                                             int h) {
-  return (long long)b * g.sb + (long long)t * g.st + (long long)h * g.sh;
+  return (long long)b * s.sb + (long long)t * s.st + (long long)h * s.sh;
 }
 
-// Rows [r0, r0 + TILE) of one (b, h) slice into a [TILE][DM + 1] f32 tile,
-// zero beyond T and beyond d (zero rows and columns are inert in every
-// product below).
+// Rows [r0, r0 + TILE) of one (b, h) slice of a tensor of side `s` into a
+// [TILE][DM + 1] f32 tile, zero beyond s.T and beyond d (zero rows and
+// columns are inert in every product below).
 template <typename T, int DM>
-__device__ void load_tile(float* dst, const T* src, int r0, const Geom& g,
-                          int b, int h) {
+__device__ void load_tile(float* dst, const T* src, int r0, const Side& s,
+                          int d, int b, int h) {
   for (int idx = threadIdx.x; idx < TILE * DM; idx += THREADS) {
     const int r = idx / DM, c = idx % DM, t = r0 + r;
     float val = 0.f;
-    if (t < g.T && c < g.d) val = to_f32(src[offset(g, b, t, h) + c]);
+    if (t < s.T && c < d) val = to_f32(src[offset(s, b, t, h) + c]);
     dst[r * (DM + 1) + c] = val;
   }
 }
 
-// Per-row statistics (B, T, H) f32 for rows [r0, r0 + TILE).
+__device__ __forceinline__ long long row_index(const Geom& g, int b, int t,
+                                               int h) {
+  return ((long long)b * g.q.T + t) * g.H + h;
+}
+
+// Per-row statistics (B, Tq, H) f32 for q rows [r0, r0 + TILE).
 __device__ void load_rows(float* dst, const float* src, int r0,
                           const Geom& g, int b, int h) {
   for (int r = threadIdx.x; r < TILE; r += THREADS) {
     const int t = r0 + r;
-    dst[r] = t < g.T ? src[((long long)b * g.T + t) * g.H + h] : 0.f;
+    dst[r] = t < g.q.T ? src[row_index(g, b, t, h)] : 0.f;
   }
 }
 
@@ -132,14 +157,22 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-// ---------------------------------------------------------------- K1
-// One block per (q-tile, b*h).  LSE selects the "normalized_lse" mode: the
-// same body also writes the per-row logsumexp.
-template <typename T, int DM, bool LSE>
+// ------------------------------------------------------------- K1 / K4
+// The forward's modes, as _make_flash_kernel names them; only the finalize
+// differs.
+enum FwdMode { NORMALIZED = 0, NORMALIZED_LSE = 1, PARTIALS = 2 };
+
+// One block per (q-tile, b*h).  NORMALIZED writes out = acc / l in T;
+// NORMALIZED_LSE also writes the logsumexp m + log(l) to `stat_a`;
+// PARTIALS writes the unnormalized acc to `out` (f32) and m, l to
+// `stat_a`, `stat_b`.
+template <typename T, int DM, int MODE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, Geom g, float scale, int causal) {
+                 const T* __restrict__ v,
+                 std::conditional_t<MODE == PARTIALS, float, T>* __restrict__ out,
+                 float* __restrict__ stat_a, float* __restrict__ stat_b,
+                 Geom g, float scale, int causal) {
   extern __shared__ float smem[];
   constexpr int LD = DM + 1, DC = DM / 16;
   float* Qs = smem;
@@ -150,7 +183,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * TILE;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, DM>(Qs, q, q0, g, b, h);
+  load_tile<T, DM>(Qs, q, q0, g.q, g.d, b, h);
   float m[SUB], l[SUB], acc[SUB][DC];
 #pragma unroll
   for (int i = 0; i < SUB; ++i) {
@@ -159,14 +192,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
-  int nk = (g.T + TILE - 1) / TILE;
+  int nk = (g.k.T + TILE - 1) / TILE;
   if (causal) nk = min(nk, (q0 + TILE - 1) / TILE + 1);  // stop at diagonal
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();                           // previous tile fully read
-    load_tile<T, DM>(Ks, k, k0, g, b, h);
-    load_tile<T, DM>(Vs, v, k0, g, b, h);
+    load_tile<T, DM>(Ks, k, k0, g.k, g.d, b, h);
+    load_tile<T, DM>(Vs, v, k0, g.k, g.d, b, h);
     __syncthreads();
     float s[SUB][SUB];
     product_tile<DM>(Qs, Ks, ty, tx, s);
@@ -177,7 +210,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < SUB; ++j) {
         const int kp = k0 + tx + 16 * j;
-        const bool keep = kp < g.T && (!causal || qp >= kp);
+        const bool keep = kp < g.k.T && (!causal || qp >= kp);
         s[i][j] = keep ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -216,23 +249,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < SUB; ++i) {
     const int qp = q0 + ty + 16 * i;
-    if (qp >= g.T) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    const long long base = offset(g, b, qp, h);
+    if (qp >= g.q.T) continue;                 // ragged q rows: not written
+    const long long base = offset(g.q, b, qp, h);
+    const long long row = row_index(g, b, qp, h);
+    if constexpr (MODE == PARTIALS) {
 #pragma unroll
-    for (int jd = 0; jd < DC; ++jd) {
-      const int c = tx + 16 * jd;
-      if (c < g.d) out[base + c] = from_f32<T>(acc[i][jd] / denom);
+      for (int jd = 0; jd < DC; ++jd) {
+        const int c = tx + 16 * jd;
+        if (c < g.d) out[base + c] = acc[i][jd];
+      }
+      if (tx == 0) {
+        stat_a[row] = m[i];
+        stat_b[row] = l[i];
+      }
+    } else {
+      const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+      for (int jd = 0; jd < DC; ++jd) {
+        const int c = tx + 16 * jd;
+        if (c < g.d) out[base + c] = from_f32<T>(acc[i][jd] / denom);
+      }
+      if (MODE == NORMALIZED_LSE && tx == 0) stat_a[row] = m[i] + logf(denom);
     }
-    if (LSE && tx == 0)
-      lse[((long long)b * g.T + qp) * g.H + h] = m[i] + logf(denom);
   }
 }
 
 // --------------------------------------------------------- K2/K3 tile
 // The shared P-rebuild of both backward kernels (TPU _bwd_tile): for the
 // (q-tile q0, k-tile k0) pair, this thread's 4 x 4 micro-tile of
-// P = exp(S - L) and dS = P * (dO . V^T - D) * scale, masked.
+// P = exp(S - L) and dS = P * (dO . V^T - D) * scale, masked by local
+// positions.
 template <int DM>
 __device__ __forceinline__ void bwd_tile(const float* Qs, const float* Ks,
                                          const float* Vs, const float* dOs,
@@ -251,7 +297,7 @@ __device__ __forceinline__ void bwd_tile(const float* Qs, const float* Ks,
 #pragma unroll
     for (int j = 0; j < SUB; ++j) {
       const int kp = k0 + tx + 16 * j;
-      const bool keep = kp < g.T && qp < g.T && (!causal || qp >= kp);
+      const bool keep = kp < g.k.T && qp < g.q.T && (!causal || qp >= kp);
       const float pij = keep ? expf(s[i][j] * scale - L) : 0.f;
       p[i][j] = pij;
       ds[i][j] = pij * (dp[i][j] - D) * scale;
@@ -262,11 +308,12 @@ __device__ __forceinline__ void bwd_tile(const float* Qs, const float* Ks,
 // ---------------------------------------------------------------- K2
 // One block per (k-tile, b*h): dV += P^T dO and dK += dS^T Q over the
 // q-tiles at or below the diagonal.  Each block owns its dK/dV rows, so
-// there are no atomics.
-template <typename T, int DM>
+// there are no atomics.  TO is dO's type: q's, or f32 when the cotangent
+// arrives in f32 (it is never rounded below that).
+template <typename T, typename TO, int DM>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const T* __restrict__ v, const TO* __restrict__ dout,
                       const float* __restrict__ L,
                       const float* __restrict__ Drow,
                       float* __restrict__ dk, float* __restrict__ dv, Geom g,
@@ -285,21 +332,21 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * TILE;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, DM>(Ks, k, k0, g, b, h);
-  load_tile<T, DM>(Vs, v, k0, g, b, h);
+  load_tile<T, DM>(Ks, k, k0, g.k, g.d, b, h);
+  load_tile<T, DM>(Vs, v, k0, g.k, g.d, b, h);
   float dk_acc[SUB][DC], dv_acc[SUB][DC];
 #pragma unroll
   for (int i = 0; i < SUB; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-  const int nq = (g.T + TILE - 1) / TILE;
+  const int nq = (g.q.T + TILE - 1) / TILE;
   const int qt0 = causal ? k0 / TILE : 0;     // first q-tile on the diagonal
 
   for (int qt = qt0; qt < nq; ++qt) {
     const int q0 = qt * TILE;
     __syncthreads();
-    load_tile<T, DM>(Qs, q, q0, g, b, h);
-    load_tile<T, DM>(dOs, dout, q0, g, b, h);
+    load_tile<T, DM>(Qs, q, q0, g.q, g.d, b, h);
+    load_tile<TO, DM>(dOs, dout, q0, g.q, g.d, b, h);
     load_rows(Ls, L, q0, g, b, h);
     load_rows(Ds, Drow, q0, g, b, h);
     __syncthreads();
@@ -339,8 +386,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < SUB; ++i) {
     const int kp = k0 + ty + 16 * i;
-    if (kp >= g.T) continue;
-    const long long base = offset(g, b, kp, h);
+    if (kp >= g.k.T) continue;
+    const long long base = offset(g.k, b, kp, h);
 #pragma unroll
     for (int jd = 0; jd < DC; ++jd) {
       const int c = tx + 16 * jd;
@@ -355,10 +402,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------- K3
 // One block per (q-tile, b*h): dQ += dS K over the k-tiles up to the
 // diagonal.
-template <typename T, int DM>
+template <typename T, typename TO, int DM>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const T* __restrict__ v, const TO* __restrict__ dout,
                     const float* __restrict__ L,
                     const float* __restrict__ Drow, float* __restrict__ dq,
                     Geom g, float scale, int causal) {
@@ -375,8 +422,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * TILE;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, DM>(Qs, q, q0, g, b, h);
-  load_tile<T, DM>(dOs, dout, q0, g, b, h);
+  load_tile<T, DM>(Qs, q, q0, g.q, g.d, b, h);
+  load_tile<TO, DM>(dOs, dout, q0, g.q, g.d, b, h);
   load_rows(Ls, L, q0, g, b, h);
   load_rows(Ds, Drow, q0, g, b, h);
   float dq_acc[SUB][DC];
@@ -384,14 +431,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < SUB; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dq_acc[i][c] = 0.f;
-  int nk = (g.T + TILE - 1) / TILE;
+  int nk = (g.k.T + TILE - 1) / TILE;
   if (causal) nk = min(nk, (q0 + TILE - 1) / TILE + 1);
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
-    load_tile<T, DM>(Ks, k, k0, g, b, h);
-    load_tile<T, DM>(Vs, v, k0, g, b, h);
+    load_tile<T, DM>(Ks, k, k0, g.k, g.d, b, h);
+    load_tile<T, DM>(Vs, v, k0, g.k, g.d, b, h);
     __syncthreads();
     float p[SUB][SUB], ds[SUB][SUB];
     bwd_tile<DM>(Qs, Ks, Vs, dOs, Ls, Ds, q0, k0, g, scale, causal, ty, tx,
@@ -420,8 +467,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < SUB; ++i) {
     const int qp = q0 + ty + 16 * i;
-    if (qp >= g.T) continue;
-    const long long base = offset(g, b, qp, h);
+    if (qp >= g.q.T) continue;
+    const long long base = offset(g.q, b, qp, h);
 #pragma unroll
     for (int jd = 0; jd < DC; ++jd) {
       const int c = tx + 16 * jd;
@@ -463,86 +510,151 @@ cudaError_t allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+Geom make_geom(int B, int Tq, int Tk, int H, int d, long long qsb,
+               long long qst, long long qsh, long long ksb, long long kst,
+               long long ksh) {
+  return Geom{B, H, d, Side{Tq, qsb, qst, qsh}, Side{Tk, ksb, kst, ksh}};
+}
+
+template <int MODE>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       void* out, void* stat_a, void* stat_b, const Geom& g,
+                       float scale, int causal, int bf16, void* stream) {
+  const dim3 grid((g.q.T + TILE - 1) / TILE, g.B * g.H);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(bf16, g.d, [&](auto cfg) -> cudaError_t {
+    using C = decltype(cfg);
+    using T_ = typename C::type;
+    using O_ = std::conditional_t<MODE == PARTIALS, float, T_>;
+    const size_t smem = 3 * C::tile_bytes + C::score_bytes;
+    auto kern = &flash_fwd_kernel<T_, C::dm, MODE>;
+    cudaError_t e = allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, THREADS, smem, s>>>(
+        static_cast<const T_*>(q), static_cast<const T_*>(k),
+        static_cast<const T_*>(v), static_cast<O_*>(out),
+        static_cast<float*>(stat_a), static_cast<float*>(stat_b), g, scale,
+        causal);
+    return cudaGetLastError();
+  });
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *dout, *L, *Drow;
+  void *dk, *dv, *dq;
+  Geom g;
+  float scale;
+  int causal;
+};
+
+template <typename T, typename TO, int DM>
+cudaError_t launch_dkdv(const BwdArgs& a, cudaStream_t s) {
+  using C = Cfg<T, DM>;
+  const size_t smem =
+      4 * C::tile_bytes + 2 * C::score_bytes + 2 * C::rows_bytes;
+  auto kern = &flash_bwd_dkdv_kernel<T, TO, DM>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.g.k.T + TILE - 1) / TILE, a.g.B * a.g.H);
+  kern<<<grid, THREADS, smem, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const TO*>(a.dout),
+      static_cast<const float*>(a.L), static_cast<const float*>(a.Drow),
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.g, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TO, int DM>
+cudaError_t launch_dq(const BwdArgs& a, cudaStream_t s) {
+  using C = Cfg<T, DM>;
+  const size_t smem = 4 * C::tile_bytes + C::score_bytes + 2 * C::rows_bytes;
+  auto kern = &flash_bwd_dq_kernel<T, TO, DM>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.g.q.T + TILE - 1) / TILE, a.g.B * a.g.H);
+  kern<<<grid, THREADS, smem, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const TO*>(a.dout),
+      static_cast<const float*>(a.L), static_cast<const float*>(a.Drow),
+      static_cast<float*>(a.dq), a.g, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out: (B, T, H, d) with element strides sb, st, sh (stride 1
-// along d); lse: (B, T, H) f32, written when with_lse != 0.  bf16 != 0
-// selects __nv_bfloat16 inputs/outputs, else float.  Returns the CUDA
-// error of the launch (0 on success).
+// Every entry point: q (and out/acc, dO, dq) is (B, Tq, H, d) with element
+// strides qsb, qst, qsh; k and v (and dk, dv) are (B, Tk, H, d) with
+// strides ksb, kst, ksh (stride 1 along d); row statistics are contiguous
+// (B, Tq, H) f32.  bf16 != 0 selects __nv_bfloat16 q/k/v, else float.
+// Each returns the CUDA error of the launch (0 on success).
+
+// K1: out in q's dtype; lse written when with_lse != 0.
 int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int T, int H, int d, long long sb,
-                   long long st, long long sh, float scale, int causal,
-                   int bf16, int with_lse, void* stream) {
-  const Geom g{B, T, H, d, sb, st, sh};
-  const dim3 grid((T + TILE - 1) / TILE, B * H);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)dispatch(bf16, d, [&](auto cfg) -> cudaError_t {
-    using C = decltype(cfg);
-    using T_ = typename C::type;
-    const size_t smem = 3 * C::tile_bytes + C::score_bytes;
-    auto kern = with_lse ? &flash_fwd_kernel<T_, C::dm, true>
-                         : &flash_fwd_kernel<T_, C::dm, false>;
-    cudaError_t e = allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, THREADS, smem, s>>>(
-        static_cast<const T_*>(q), static_cast<const T_*>(k),
-        static_cast<const T_*>(v), static_cast<T_*>(out),
-        static_cast<float*>(lse), g, scale, causal);
-    return cudaGetLastError();
-  });
+                   void* lse, int B, int Tq, int Tk, int H, int d,
+                   long long qsb, long long qst, long long qsh,
+                   long long ksb, long long kst, long long ksh, float scale,
+                   int causal, int bf16, int with_lse, void* stream) {
+  const Geom g = make_geom(B, Tq, Tk, H, d, qsb, qst, qsh, ksb, kst, ksh);
+  return (int)(with_lse
+                   ? launch_fwd<NORMALIZED_LSE>(q, k, v, out, lse, nullptr, g,
+                                                scale, causal, bf16, stream)
+                   : launch_fwd<NORMALIZED>(q, k, v, out, nullptr, nullptr,
+                                            g, scale, causal, bf16, stream));
 }
 
-// dk, dv: (B, T, H, d) f32 with the same strides as q; L, Drow: (B, T, H)
-// f32 (logsumexp and rowsum(dO * O)); dout has q's dtype and strides.
+// K4: acc (B, Tq, H, d) f32, m and l (B, Tq, H) f32.
+int dl4j_flash_fwd_partials(const void* q, const void* k, const void* v,
+                            void* acc, void* m, void* l, int B, int Tq,
+                            int Tk, int H, int d, long long qsb,
+                            long long qst, long long qsh, long long ksb,
+                            long long kst, long long ksh, float scale,
+                            int causal, int bf16, void* stream) {
+  const Geom g = make_geom(B, Tq, Tk, H, d, qsb, qst, qsh, ksb, kst, ksh);
+  return (int)launch_fwd<PARTIALS>(q, k, v, acc, m, l, g, scale, causal,
+                                   bf16, stream);
+}
+
+// K2: dk, dv f32 with k's strides; L, Drow the (global) logsumexp and
+// rowsum(dO * O); dout has q's dtype, or f32 when do_f32 != 0.
 int dl4j_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                         const void* dout, const void* L, const void* Drow,
-                        void* dk, void* dv, int B, int T, int H, int d,
-                        long long sb, long long st, long long sh,
-                        float scale, int causal, int bf16, void* stream) {
-  const Geom g{B, T, H, d, sb, st, sh};
-  const dim3 grid((T + TILE - 1) / TILE, B * H);
+                        void* dk, void* dv, int B, int Tq, int Tk, int H,
+                        int d, long long qsb, long long qst, long long qsh,
+                        long long ksb, long long kst, long long ksh,
+                        float scale, int causal, int bf16, int do_f32,
+                        void* stream) {
+  const BwdArgs a{q, k, v, dout, L, Drow, dk, dv, nullptr,
+                  make_geom(B, Tq, Tk, H, d, qsb, qst, qsh, ksb, kst, ksh),
+                  scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)dispatch(bf16, d, [&](auto cfg) -> cudaError_t {
     using C = decltype(cfg);
     using T_ = typename C::type;
-    const size_t smem =
-        4 * C::tile_bytes + 2 * C::score_bytes + 2 * C::rows_bytes;
-    auto kern = &flash_bwd_dkdv_kernel<T_, C::dm>;
-    cudaError_t e = allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, THREADS, smem, s>>>(
-        static_cast<const T_*>(q), static_cast<const T_*>(k),
-        static_cast<const T_*>(v), static_cast<const T_*>(dout),
-        static_cast<const float*>(L), static_cast<const float*>(Drow),
-        static_cast<float*>(dk), static_cast<float*>(dv), g, scale, causal);
-    return cudaGetLastError();
+    return do_f32 ? launch_dkdv<T_, float, C::dm>(a, s)
+                  : launch_dkdv<T_, T_, C::dm>(a, s);
   });
 }
 
-// dq: (B, T, H, d) f32 with q's strides.
+// K3: dq f32 with q's strides; the rest as K2.
 int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* L, const void* Drow,
-                      void* dq, int B, int T, int H, int d, long long sb,
-                      long long st, long long sh, float scale, int causal,
-                      int bf16, void* stream) {
-  const Geom g{B, T, H, d, sb, st, sh};
-  const dim3 grid((T + TILE - 1) / TILE, B * H);
+                      void* dq, int B, int Tq, int Tk, int H, int d,
+                      long long qsb, long long qst, long long qsh,
+                      long long ksb, long long kst, long long ksh,
+                      float scale, int causal, int bf16, int do_f32,
+                      void* stream) {
+  const BwdArgs a{q, k, v, dout, L, Drow, nullptr, nullptr, dq,
+                  make_geom(B, Tq, Tk, H, d, qsb, qst, qsh, ksb, kst, ksh),
+                  scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)dispatch(bf16, d, [&](auto cfg) -> cudaError_t {
     using C = decltype(cfg);
     using T_ = typename C::type;
-    const size_t smem = 4 * C::tile_bytes + C::score_bytes + 2 * C::rows_bytes;
-    auto kern = &flash_bwd_dq_kernel<T_, C::dm>;
-    cudaError_t e = allow_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, THREADS, smem, s>>>(
-        static_cast<const T_*>(q), static_cast<const T_*>(k),
-        static_cast<const T_*>(v), static_cast<const T_*>(dout),
-        static_cast<const float*>(L), static_cast<const float*>(Drow),
-        static_cast<float*>(dq), g, scale, causal);
-    return cudaGetLastError();
+    return do_f32 ? launch_dq<T_, float, C::dm>(a, s)
+                  : launch_dq<T_, T_, C::dm>(a, s);
   });
 }
 

@@ -1,5 +1,6 @@
-"""The port's flash attention (K1 forward in both modes, K2 dK/dV, K3 dQ,
-and the autograd Function around them) held against the JAX package.
+"""The port's flash attention (K1 forward in both modes, K4 partials, K2
+dK/dV and K3 dQ in full and segment form, and the autograd Function around
+them) held against the JAX package.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the JAX
 side runs the real Pallas kernel bodies in interpret mode, exactly as
@@ -17,9 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from deeplearning4j_tpu.ops.attention import (_flash_forward,
-                                              flash_attention as jax_flash,
-                                              flash_attention_bwd as jax_bwd)
+from deeplearning4j_tpu.ops.attention import (
+    _flash_forward, flash_attention as jax_flash,
+    flash_attention_bwd as jax_bwd,
+    flash_attention_partial as jax_partial)
 from deeplearning4j_tpu.parallel.sequence import _full_attention
 from deeplearning4j_tpu_torch.ops import attention as port
 
@@ -67,7 +69,7 @@ def test_forward_ragged_length(block):
     ref = jax_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
                     block_q=32, block_k=32)
     got = port.flash_forward_plain(*_t(q, k, v), True,
-                                   float(1.0 / np.sqrt(16)), False,
+                                   float(1.0 / np.sqrt(16)), "normalized",
                                    block=block)
     _close(got, ref, F32_FWD)
 
@@ -165,8 +167,8 @@ def test_cpu_path_counts_no_launch():
     port.reset_launches()
     q, k, v = (x.requires_grad_() for x in _t(*_qkv(t=16, d=8)))
     port.flash_attention(q, k, v, causal=True, device="cpu").sum().backward()
-    assert port.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dkdv": 0,
-                             "flash_bwd_dq": 0}
+    assert port.LAUNCHES == {"flash_fwd": 0, "flash_fwd_partials": 0,
+                             "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():
@@ -179,3 +181,132 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
     with pytest.raises(ValueError, match="CUDA"):
         port.flash_dq(q, q, q, q, q[..., 0], q[..., 0], causal=True,
                       sm_scale=0.3)
+
+
+# ------------------------------------------------------------ K4, segments
+def _np(x):
+    return np.array(x, np.float32)
+
+
+@pytest.mark.parametrize("tq,tk", [(32, 16), (50, 24)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_partial_matches_pallas_kernel(causal, tq, tk):
+    """K4's plain version against the Pallas ``partials`` mode: acc, m and
+    l of q against one K/V segment with Tk != Tq (ragged in both)."""
+    rng = np.random.RandomState(3)
+    q = rng.randn(1, tq, 2, 16).astype(np.float32)
+    k, v = (rng.randn(1, tk, 2, 16).astype(np.float32) for _ in range(2))
+    ref = jax_partial(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                      block_q=16, block_k=16)
+    got = port.flash_attention_partial(*_t(q, k, v), causal=causal)
+    for g, want in zip(got, ref):
+        assert g.dtype == torch.float32 and g.shape == want.shape
+        _close(g, want, F32_FWD)
+
+
+def test_partial_merges_to_full():
+    """Partials over two K/V halves merged by log-sum-exp equal full
+    attention (the port's counterpart of the JAX test of that name)."""
+    q, k, v = _qkv(t=32)
+    tq, tk, tv = _t(q, k, v)
+    o1, m1, l1 = port.flash_attention_partial(tq, tk[:, :16], tv[:, :16])
+    o2, m2, l2 = port.flash_attention_partial(tq, tk[:, 16:], tv[:, 16:])
+    m = torch.maximum(m1, m2)
+    a1, a2 = torch.exp(m1 - m), torch.exp(m2 - m)
+    o = o1 * a1[..., None] + o2 * a2[..., None]
+    l = l1 * a1 + l2 * a2
+    ref = _full_attention(*(jnp.asarray(a) for a in (q, k, v)))
+    _close(o / l[..., None], ref, F32_FWD)
+
+
+def _global_stats(tq, tk, tv, tg):
+    """The global logsumexp and D = rowsum(dO * out) from K4's partials
+    over the whole sequence, as the ring forward leaves them."""
+    acc, m, l = port.flash_attention_partial(tq, tk, tv)
+    l_safe = torch.clamp_min(l, 1e-30)
+    out = acc / l_safe[..., None]
+    return m + torch.log(l_safe), (tg * out).sum(-1)
+
+
+def test_segment_contributions_sum():
+    """The segment backward over two K/V halves with the GLOBAL L and D
+    sums to the full backward, and each segment matches the JAX package's
+    segment backward (the port's counterpart of
+    ``test_flash_bwd_segment_contributions_sum``)."""
+    q, k, v = _qkv(t=32)
+    g = np.random.RandomState(9).randn(*q.shape).astype(np.float32)
+    tq, tk, tv, tg = _t(q, k, v, g)
+    L, D = _global_stats(tq, tk, tv, tg)
+    jq, jk, jv, jg, jL, jD = (jnp.asarray(_np(a))
+                              for a in (q, k, v, g, L, D))
+    kw = dict(causal=False, sm_scale=0.25)
+    full = port.flash_attention_bwd(tq, tk, tv, None, L, tg, D_row=D, **kw)
+    segs = [port.flash_attention_bwd(tq, tk[:, s], tv[:, s], None, L, tg,
+                                     D_row=D, **kw)
+            for s in (slice(0, 16), slice(16, 32))]
+    _close(segs[0][0] + segs[1][0], full[0], F32_FWD)
+    for j in (1, 2):
+        _close(torch.cat([segs[0][j], segs[1][j]], dim=1), full[j], F32_FWD)
+    for s, seg in zip((slice(0, 16), slice(16, 32)), segs):
+        ref = jax_bwd(jq, jk[:, s], jv[:, s], None, jL, jg, block_q=16,
+                      block_k=16, D_row=jD, **kw)
+        for got, want in zip(seg, ref):
+            _close(got, want, F32_FWD)
+
+
+@pytest.mark.parametrize("tq,tk", [(32, 16), (24, 40)])
+def test_segment_backward_local_causal(tq, tk):
+    """Causal segment backward with Tk != Tq masks by local positions, as
+    the Pallas ``_bwd_tile`` does."""
+    rng = np.random.RandomState(4)
+    q, g = (rng.randn(1, tq, 2, 8).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(1, tk, 2, 8).astype(np.float32) for _ in range(2))
+    tq_, tk_, tv_, tg_ = _t(q, k, v, g)
+    acc, m, l = port.flash_attention_partial(tq_, tk_, tv_, causal=True)
+    L, D = m + torch.log(l), (tg_ * acc / l[..., None]).sum(-1)
+    got = port.flash_attention_bwd(tq_, tk_, tv_, None, L, tg_,
+                                   causal=True, sm_scale=0.3, D_row=D)
+    ref = jax_bwd(*(jnp.asarray(_np(a)) for a in (q, k, v)), None,
+                  jnp.asarray(_np(L)), jnp.asarray(g), causal=True,
+                  sm_scale=0.3, block_q=8, block_k=8,
+                  D_row=jnp.asarray(_np(D)))
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        _close(a, b, F32_GRAD)
+
+
+def test_backward_keeps_an_f32_cotangent_with_bf16_inputs():
+    """bf16 q/k/v with an f32 cotangent: D and the kernels' dO use g in
+    f32, as the JAX package's ``g.astype(f32)`` does.  Rounding g to bf16
+    first, as an earlier version did, misses 1e-4 by an order of
+    magnitude."""
+    q, k, v = _qkv(t=32, d=8)
+    g = np.random.RandomState(5).randn(*q.shape).astype(np.float32)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    out, lse = _flash_forward(*jb, True, float(8 ** -0.5), 16, 16, True,
+                              None, with_lse=True)
+    ref = jax_bwd(*jb, out, lse, jnp.asarray(g), causal=True,
+                  sm_scale=float(8 ** -0.5), block_q=16, block_k=16)
+    tb = [torch.from_numpy(_np(a)).to(torch.bfloat16) for a in jb]
+    tout = torch.from_numpy(_np(out)).to(torch.bfloat16)
+    got = port.flash_attention_bwd(*tb, tout, torch.from_numpy(_np(lse)),
+                                   torch.from_numpy(g), causal=True,
+                                   sm_scale=float(8 ** -0.5))
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32
+        _close(a, b, F32_GRAD)
+
+
+def test_backward_needs_out_or_d_row():
+    q = torch.zeros(1, 8, 1, 4)
+    with pytest.raises(ValueError, match="D_row"):
+        port.flash_attention_bwd(q, q, q, None, q[..., 0], q, causal=False,
+                                 sm_scale=0.5)
+
+
+def test_partial_rejects_mismatched_segments():
+    q = torch.zeros(1, 8, 2, 4)
+    with pytest.raises(ValueError, match="k/v shapes differ"):
+        port.flash_attention_partial(q, q[:, :4], q)
+    with pytest.raises(ValueError, match="batch/heads/d"):
+        port.flash_attention_partial(q, q[:, :, :1], q[:, :, :1])
