@@ -16,7 +16,10 @@ Phases (each raises on failure; the exit code is non-zero on any):
    version on the same inputs, in bfloat16 and float32, then timed with
    CUDA events against its plain version and against the PyTorch library
    call that computes the same function (``scaled_dot_product_attention``,
-   a yardstick the port never calls);
+   a yardstick the port never calls).  The bf16 K2/K3 run on the tensor
+   cores and round P and dS to bf16 as operands, so they have two
+   references: the plain twin that rounds alike (tight), and the all-f32
+   twin (the gap that rounding costs, bounded and reported);
 4. reference: a small network trains 2 steps on the card (kernels) and on
    the CPU (plain versions) from the same weights, in fp32; scores and
    params must agree;
@@ -31,7 +34,9 @@ Phases (each raises on failure; the exit code is non-zero on any):
    causal=True, impl="ring_flash")`` at batch 2, T=32768, 4 heads,
    d_head 64 (each shard the training slice's shape), forward and
    ``backward(g)``, in float32 and bfloat16, against the one-device
-   ``flash_attention`` (K1-K3) at the same T; one causal fwd+bwd must
+   ``flash_attention`` (K1-K3) at the same T (bf16 gradients against the
+   one-device K2/K3 fed the ring forward's L and D, and the two whole
+   chains within ``RING_CHAIN_REL``); one causal fwd+bwd must
    launch K4, K2 and K3 exactly 10 times each and K1 never; both paths
    are timed in bfloat16.
 
@@ -72,12 +77,35 @@ PEAK_BYTES = 3.35e12
 # within 2^-7 of the value (atol 1e-5 covers the f32 noise near zero).
 F32_RTOL = 1e-4
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+# The bf16 K2/K3 have two references.  Against the plain twin that rounds
+# P and dS to bf16 as the kernels do (operand_dtype=bf16): F32_RTOL, which
+# needs both sides to round the same f32 P.  From continuous random inputs
+# the kernel's S and the twin's, summed in another order, straddle a bf16
+# rounding point now and then and round one ulp apart, which moves a
+# gradient element by up to 2^-7 of one of its terms, far above 1e-4 of
+# max|plain| at small shapes; so the bf16 inputs lie on a grid of 1/8 in
+# [-4, 4] (GRID), where every S and dP is exact in f32 whatever the order.
+# Against the all-f32 twin: TC_F32_GAP of max|plain|.  One round-to-nearest
+# moves each P and dS element by at most 2^-8 of itself, independently, so
+# a gradient element (a sum of such terms against unit-scale operands)
+# moves by about 2^-8/sqrt(3) = 2.3e-3 of its own size; 1e-2 of the
+# largest element leaves a factor of 4 for the tail over all elements.
+GRID = 8
+TC_F32_GAP = 1e-2
 REF_RTOL = 1e-4     # card vs CPU reference network, fp32
 # Ring vs one device, bf16 gradients: element by element, rtol 2^-7 (one
 # bf16 ulp, both sides round f32 sums taken in another order) and an atol
 # of 1e-3 x RMS of the reference for elements near zero, where the f32
-# sums cancel and their order shows.
+# sums cancel and their order shows.  That holds against the one-device
+# K2/K3 fed the ring forward's own L and D.  The ring's L (log-sum-exp
+# merges of K4 partials) and K1's differ in the last f32 bits, and the
+# tensor-core K2/K3 round P and dS to bf16, so across the two whole chains
+# a P or dS element near a rounding midpoint rounds one bf16 ulp apart and
+# moves one term of a gradient sum by up to 2^-7 of itself.  A few such
+# terms per row: the chains are held element by element to rtol 2^-7 with
+# an atol of RING_CHAIN_REL x max|one device| for the elements near zero.
 RING_GRAD_ATOL_RMS = 1e-3
+RING_CHAIN_REL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -107,10 +135,10 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def compare(what: str, got: torch.Tensor, want: torch.Tensor,
-            atol: float = BF16_ATOL) -> dict:
+            atol: float = BF16_ATOL, rel: float = F32_RTOL) -> dict:
     """Hold a kernel's result against its plain version; raises when they
     disagree.  A bf16 result is checked element by element (rtol 2^-7,
-    ``atol``), an f32 one to 1e-4 of max|plain|.  Returns max|err| and
+    ``atol``), an f32 one to ``rel`` of max|plain|.  Returns max|err| and
     max|err| / max|plain|."""
     bf16 = got.dtype == torch.bfloat16
     got, want = got.float(), want.float()
@@ -127,7 +155,7 @@ def compare(what: str, got: torch.Tensor, want: torch.Tensor,
         ok, tol = bad == 0, f"rtol {BF16_RTOL:g}, atol {atol:g}, " \
                             f"element-wise; {bad} elements outside"
     else:
-        ok, tol = err <= F32_RTOL * scale, f"{F32_RTOL:g} of max|plain|"
+        ok, tol = err <= rel * scale, f"{rel:g} of max|plain|"
     log(f"[check] {what}: max_abs_err={err:.3e} rel={err / scale:.3e} "
         f"({tol})")
     if not ok:
@@ -164,14 +192,38 @@ KERNELS = ("flash_fwd", "flash_fwd_partials", "flash_bwd_dkdv",
            "flash_bwd_dq")
 
 
+def randn(shape, gen, dtype) -> torch.Tensor:
+    """Normal values on the card; for bf16 rounded to the exact-sum GRID."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if dtype == torch.bfloat16:
+        x = (x * GRID).round().clamp(-4 * GRID, 4 * GRID) / GRID
+    return x.to(dtype)
+
+
+def bwd_twins(A, args, causal: bool, scale: float):
+    """The plain K2/K3 results ((dk, dv), dq) that the kernels are held to:
+    with P and dS rounded to bf16 for bf16 q and dO (the tensor-core
+    route), else all-f32; and the all-f32 twin for the tensor-core route
+    (None otherwise)."""
+    q, g = args[0], args[3]
+    tensor_core = q.dtype == g.dtype == torch.bfloat16
+    twins = []
+    for operands in ([torch.bfloat16, None] if tensor_core else [None]):
+        twins.append((A.flash_dkdv_plain(*args, causal, scale,
+                                         operand_dtype=operands),
+                      A.flash_dq_plain(*args, causal, scale,
+                                       operand_dtype=operands)))
+    return twins[0], (twins[1] if tensor_core else None)
+
+
 def ring_step_inputs(A, gen, dtype, scale: float):
     """K2/K3's inputs as the ring launches them most often (6 of the 10
     launches of one causal 4-shard ring): a non-causal full SEQ x SEQ
     segment, the queries of the second half of a causal 2 * SEQ sequence
     against the keys of its first half, with that sequence's global L and
     D.  Returns (q, k, v, dO, causal=False, L, D)."""
-    q, k, v, g = (torch.randn((BATCH, 2 * SEQ, HEADS, D_HEAD), generator=gen,
-                              device="cuda").to(dtype) for _ in range(4))
+    q, k, v, g = (randn((BATCH, 2 * SEQ, HEADS, D_HEAD), gen, dtype)
+                  for _ in range(4))
     out, lse = A.flash_forward(q, k, v, causal=True, sm_scale=scale,
                                with_lse=True)
     late = slice(SEQ, 2 * SEQ)
@@ -189,10 +241,10 @@ def phase_kernels(A, seed: int):
     scale = 1.0 / D_HEAD ** 0.5
     half = SEQ // 2
     checks = {name: [] for name in KERNELS}
+    gaps = {"flash_bwd_dkdv": [], "flash_bwd_dq": []}
     inputs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
-                      .to(dtype) for _ in range(4))
+        q, k, v, g = (randn(shape, gen, dtype) for _ in range(4))
         out, lse = A.flash_forward(q, k, v, causal=True, sm_scale=scale,
                                    with_lse=True)
         plain_out, plain_lse = A.flash_forward_plain(q, k, v, True, scale,
@@ -204,17 +256,28 @@ def phase_kernels(A, seed: int):
                               sm_scale=scale)
         dq = A.flash_dq(q, k, v, g, lse, Drow, causal=True, sm_scale=scale)
         torch.cuda.synchronize()
-        pdk, pdv = A.flash_dkdv_plain(q, k, v, g, lse, Drow, True, scale)
-        pdq = A.flash_dq_plain(q, k, v, g, lse, Drow, True, scale)
         items = {
             "flash_fwd": [("out", out, plain_out),
                           ("out_normalized", out_n, plain_out),
                           ("lse", lse, plain_lse)],
-            "flash_bwd_dkdv": [("dk", dk, pdk), ("dv", dv, pdv)],
-            "flash_bwd_dq": [("dq", dq, pdq)],
+            "flash_bwd_dkdv": [], "flash_bwd_dq": [],
             "flash_fwd_partials": [],
         }
-        del dk, dv, dq, pdk, pdv, pdq, plain_out, plain_lse, out_n
+        gap_items = {"flash_bwd_dkdv": [], "flash_bwd_dq": []}
+
+        def hold_bwd(label, got_dkdv, got_dq, args, causal):
+            """K2/K3's results against their twins (see bwd_twins)."""
+            twin, f32_twin = bwd_twins(A, args, causal, scale)
+            for dst, ref in ((items, twin), (gap_items, f32_twin)):
+                if ref is None:
+                    continue
+                (pdk, pdv), pdq = ref
+                dst["flash_bwd_dkdv"] += [(f"{label}dk", got_dkdv[0], pdk),
+                                          (f"{label}dv", got_dkdv[1], pdv)]
+                dst["flash_bwd_dq"] += [(f"{label}dq", got_dq, pdq)]
+
+        hold_bwd("", (dk, dv), dq, (q, k, v, g, lse, Drow), True)
+        del dk, dv, dq, plain_out, plain_lse, out_n
         # K4, causal (the diagonal ring step) and not (every other step)
         for causal in (True, False):
             got = A.flash_attention_partial(q, k, v, causal=causal,
@@ -244,12 +307,8 @@ def phase_kernels(A, seed: int):
                                     sm_scale=scale)
             sdq = A.flash_dq(q_, ks, vs, g_, L_, D_, causal=causal,
                              sm_scale=scale)
-            psdk, psdv = A.flash_dkdv_plain(q_, ks, vs, g_, L_, D_, causal,
-                                            scale)
-            psdq = A.flash_dq_plain(q_, ks, vs, g_, L_, D_, causal, scale)
-            items["flash_bwd_dkdv"] += [(f"segment {label} dk", sdk, psdk),
-                                        (f"segment {label} dv", sdv, psdv)]
-            items["flash_bwd_dq"] += [(f"segment {label} dq", sdq, psdq)]
+            hold_bwd(f"segment {label} ", (sdk, sdv), sdq,
+                     (q_, ks, vs, g_, L_, D_), causal)
         dname = str(dtype).replace("torch.", "")
         for name, results in items.items():
             for result, got, want in results:
@@ -257,9 +316,15 @@ def phase_kernels(A, seed: int):
                     {"result": result, "inputs": dname,
                      **compare(f"{name} {result} ({dname} inputs)", got,
                                want)})
+        for name, results in gap_items.items():
+            for result, got, want in results:
+                gaps[name].append(
+                    {"result": result, "inputs": dname,
+                     **compare(f"{name} {result} ({dname} inputs) vs the "
+                               "all-f32 twin", got, want, rel=TC_F32_GAP)})
         inputs[dtype] = (q, k, v, g, out, lse, Drow, lse_nc, D_nc,
                          ring_step)
-        del items, got, want, sdk, sdv, sdq, psdk, psdv, psdq
+        del items, gap_items, got, want, sdk, sdv, sdq
 
     q, k, v, g, out, lse, Drow, lse_nc, D_nc, ring_step = \
         inputs[torch.bfloat16]
@@ -309,9 +374,11 @@ def phase_kernels(A, seed: int):
         "flash_fwd_partials": time_ms(lambda: A.flash_forward_plain(
             q, k, v, False, scale, "partials"), **plain),
         "flash_bwd_dkdv": time_ms(lambda: A.flash_dkdv_plain(
-            q, k, v, g, lse, Drow, True, scale), **plain),
+            q, k, v, g, lse, Drow, True, scale,
+            operand_dtype=torch.bfloat16), **plain),
         "flash_bwd_dq": time_ms(lambda: A.flash_dq_plain(
-            q, k, v, g, lse, Drow, True, scale), **plain),
+            q, k, v, g, lse, Drow, True, scale,
+            operand_dtype=torch.bfloat16), **plain),
     }
     lib_fwd, lib_bwd = time_ms(sdpa_fwd), time_ms(sdpa_bwd)
     lib_fwd_full = time_ms(lambda: sdpa_fwd(causal=False))
@@ -354,6 +421,7 @@ def phase_kernels(A, seed: int):
               for name in KERNELS}
     timing["flash_fwd"]["ms_normalized"] = t["flash_fwd_normalized"]
     for name, kind in (("flash_bwd_dkdv", "dkdv"), ("flash_bwd_dq", "dq")):
+        timing[name]["f32_twin_gap"] = gaps[name]
         timing[name]["segment_ms"] = t["segment_" + kind]
         timing[name]["segment_bound_ms"] = seg_bounds[name][0]
         timing[name]["ring_step_ms"] = t["ring_step_" + kind]
@@ -471,11 +539,27 @@ def phase_inference(net, ds) -> dict:
     return {"output_ms": ms, "row_sum_err": row_err}
 
 
+def backward_at_ring_stats(A, S, q, k, v, g):
+    """(dq, dk, dv) in q's dtype of one-device K2/K3 over the whole
+    sequence, fed the L and D of the ring forward instead of K1's."""
+    def shards(x):
+        return [c.contiguous() for c in torch.chunk(x, RING_SHARDS, dim=1)]
+
+    outs, lses = S._ring_flash_forward(shards(q), shards(k), shards(v), True,
+                                       D_HEAD ** -0.5)
+    out, L = torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+    D = (g.float() * out.float()).sum(-1)
+    grads = A.flash_attention_bwd(q, k, v, None, L, g, causal=True,
+                                  sm_scale=D_HEAD ** -0.5, D_row=D)
+    return [x.to(q.dtype) for x in grads]
+
+
 def phase_ring(A, S, seed: int) -> dict:
     """The ring flash attention over 4 shards on one card, forward and
     ``backward(g)``, against the one-device flash attention (K1-K3) at the
-    same T, in f32 and bf16; the exact launch counts of one causal
-    fwd+bwd; both paths timed in bf16."""
+    same T, in f32 and bf16 (bf16 gradients also against one-device K2/K3
+    at the ring forward's L and D, see RING_CHAIN_REL); the exact launch
+    counts of one causal fwd+bwd; both paths timed in bf16."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     shape = (BATCH, RING_SEQ, HEADS, D_HEAD)
     sp = S.SequenceParallel(devices=["cuda"] * RING_SHARDS)
@@ -505,12 +589,24 @@ def phase_ring(A, S, seed: int) -> dict:
                                f"{expected}")
         result["launches"] = launches
         ref = fwd_bwd(q, k, v, g, False)
-        for name, got, want in zip(("out", "dq", "dk", "dv"), ring, ref):
+        names = ("out", "dq", "dk", "dv")
+        if dtype == torch.bfloat16:
+            for name, got, want in zip(names[1:], ring[1:], ref[1:]):
+                result["checks"].append(
+                    {"result": name + " whole chain", "inputs": dname,
+                     **compare(f"ring {name} vs one device, whole chains "
+                               f"({dname} inputs)", got, want,
+                               atol=RING_CHAIN_REL
+                               * want.float().abs().max().item())})
+            ref = ref[:1] + backward_at_ring_stats(A, S, q, k, v, g)
+        for name, got, want in zip(names, ring, ref):
             atol = (BF16_ATOL if name == "out" else RING_GRAD_ATOL_RMS
                     * want.float().pow(2).mean().sqrt().item())
+            what = ("one device" if name == "out" or dtype == torch.float32
+                    else "one-device K2/K3 at the ring's L and D")
             result["checks"].append(
                 {"result": name, "inputs": dname,
-                 **compare(f"ring {name} vs one device ({dname} inputs)",
+                 **compare(f"ring {name} vs {what} ({dname} inputs)",
                            got, want, atol=atol)})
         del ring, ref
         if dtype == torch.bfloat16:

@@ -11,17 +11,21 @@ Kernels, hand-written CUDA for Hopper in ``csrc/flash_attention.cu``:
   differ from q's.  Replaces the kernel launched by
   ``flash_attention_partial``; the ring flash attention merges these.
 - K2 ``flash_bwd_dkdv`` and K3 ``flash_bwd_dq``: the fused two-pass
-  backward that rebuilds P from the saved logsumexp, sharing one tile
-  function.  Replace ``_make_dkdv_kernel``/``_make_dq_kernel`` launched by
-  ``flash_attention_bwd``.  K/V may be one segment of a longer sequence
-  (``Tk != Tq``): with the global logsumexp and D the gradients are that
-  segment's exact contribution, and contributions of segments sum.
+  backward that rebuilds P from the saved logsumexp, sharing one
+  elementwise core.  Replace ``_make_dkdv_kernel``/``_make_dq_kernel``
+  launched by ``flash_attention_bwd``.  K/V may be one segment of a longer
+  sequence (``Tk != Tq``): with the global logsumexp and D the gradients
+  are that segment's exact contribution, and contributions of segments
+  sum.  For bf16 q/k/v and dO they run on the tensor cores and round P and
+  dS to bf16 as operands of the gradient products; f32 inputs, or an f32
+  dO with bf16 q, keep an all-f32 scalar body.
 
 Beside each kernel is its plain PyTorch version (``flash_forward_plain``
-in its three modes, ``flash_dkdv_plain``, ``flash_dq_plain``) running the
-same tiled streaming arithmetic.  A wrapper runs the plain version only
-for a tensor on the CPU; for a CUDA tensor it launches the kernel or
-raises.  Each launch adds one to ``LAUNCHES[<kernel>]``.
+in its three modes, ``flash_dkdv_plain``, ``flash_dq_plain``; the last two
+with ``operand_dtype=torch.bfloat16`` for the tensor-core rounding)
+running the same tiled streaming arithmetic.  A wrapper runs the plain
+version only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``.
 
 Layouts are the JAX package's: q, k, v are (batch, T, heads, d); the
 logsumexp and D = rowsum(dO * O) are (batch, Tq, heads) float32; gradients
@@ -290,10 +294,13 @@ def flash_attention_partial(q: Tensor, k: Tensor, v: Tensor, *,
 
 
 # ------------------------------------------------------------- K2 / K3
-def _bwd_tile_plain(qf, kb, vb, dof, L, Dr, k0, causal, sm_scale):
+def _bwd_tile_plain(qf, kb, vb, dof, L, Dr, k0, causal, sm_scale,
+                    operand_dtype=None):
     """The shared P-rebuild of both backward passes for one k-block
     against every query: (p, ds), each (B, H, Tq, block), causal by local
-    positions."""
+    positions.  With ``operand_dtype`` (bf16) both are rounded to it, as
+    the tensor-core kernels round them to operands of the gradient
+    products; ``None`` keeps them f32."""
     s = (qf @ kb.transpose(-1, -2)) * sm_scale
     p = torch.exp(s - L)
     if causal:
@@ -303,6 +310,8 @@ def _bwd_tile_plain(qf, kb, vb, dof, L, Dr, k0, causal, sm_scale):
         p = torch.where(q_pos >= k_pos, p, 0.0)
     dp = dof @ vb.transpose(-1, -2)
     ds = p * (dp - Dr) * sm_scale
+    if operand_dtype is not None:
+        p, ds = p.to(operand_dtype).float(), ds.to(operand_dtype).float()
     return p, ds
 
 
@@ -312,15 +321,18 @@ def _plain_bwd_inputs(q, k, v, dout, L, Drow):
 
 
 def flash_dkdv_plain(q, k, v, dout, L, Drow, causal: bool, sm_scale: float,
-                     block: int = TILE) -> Tuple[Tensor, Tensor]:
+                     block: int = TILE, operand_dtype=None
+                     ) -> Tuple[Tensor, Tensor]:
     """Plain twin of K2: per k-block, dV = P^T dO and dK = dS^T Q summed
-    over all queries.  Returns f32 (dk, dv) in k's (B, Tk, H, d)."""
+    over all queries.  Returns f32 (dk, dv) in k's (B, Tk, H, d).
+    ``operand_dtype=torch.bfloat16`` rounds P and dS as the tensor-core
+    kernel does (bf16 q/k/v and dO); ``None`` is the all-f32 twin."""
     qf, kf, vf, dof, Lr, Dr = _plain_bwd_inputs(q, k, v, dout, L, Drow)
     dks, dvs = [], []
     for k0 in range(0, k.shape[1], block):
         kb, vb = kf[:, :, k0:k0 + block], vf[:, :, k0:k0 + block]
         p, ds = _bwd_tile_plain(qf, kb, vb, dof, Lr, Dr, k0, causal,
-                                sm_scale)
+                                sm_scale, operand_dtype)
         dvs.append(p.transpose(-1, -2) @ dof)
         dks.append(ds.transpose(-1, -2) @ qf)
     back = lambda xs: torch.cat(xs, dim=2).permute(0, 2, 1, 3).contiguous()
@@ -328,15 +340,15 @@ def flash_dkdv_plain(q, k, v, dout, L, Drow, causal: bool, sm_scale: float,
 
 
 def flash_dq_plain(q, k, v, dout, L, Drow, causal: bool, sm_scale: float,
-                   block: int = TILE) -> Tensor:
+                   block: int = TILE, operand_dtype=None) -> Tensor:
     """Plain twin of K3: dQ = sum over k-blocks of dS K.  f32
-    (B, Tq, H, d)."""
+    (B, Tq, H, d); ``operand_dtype`` as in ``flash_dkdv_plain``."""
     qf, kf, vf, dof, Lr, Dr = _plain_bwd_inputs(q, k, v, dout, L, Drow)
     dq = torch.zeros_like(qf)
     for k0 in range(0, k.shape[1], block):
         kb, vb = kf[:, :, k0:k0 + block], vf[:, :, k0:k0 + block]
         _, ds = _bwd_tile_plain(qf, kb, vb, dof, Lr, Dr, k0, causal,
-                                sm_scale)
+                                sm_scale, operand_dtype)
         dq = dq + ds @ kb
     return dq.permute(0, 2, 1, 3).contiguous()
 

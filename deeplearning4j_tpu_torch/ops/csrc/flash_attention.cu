@@ -12,39 +12,58 @@
 //   K3 flash_bwd_dq_kernel   <- _make_dq_kernel + _bwd_tile, launched by
 //                               flash_attention_bwd
 //
-// What bounds them on the H100: all four are compute-bound.  At the
+// What bounds them on the H100: all four are bound by operations.  At the
 // training shape (B=2, T=8192, H=4, d=64, causal) K1 does two T x T x d
 // products over the causal half and moves ~34 MB, so its operations take
 // ~7x longer than its bytes even at the bf16 tensor-core peak; K2 does four
-// such products, K3 three.  K4 on one ring step of that shape does K1's two
-// products over the whole Tq x Tk block (no causal half off the diagonal).
+// such products (0.139 ms at the peak), K3 three (0.104 ms).  K4 on one
+// ring step of that shape does K1's two products over the whole Tq x Tk
+// block (no causal half off the diagonal).
 //
-// What the design does about it, in this first version: the (Tq, Tk)
-// score matrix never reaches device memory.  A thread block owns one
-// 64-row tile of one (batch, head) slice and loops over the other side's
-// 64-row tiles inside the block (the TPU's sequential third grid axis and
-// its VMEM scratch become that loop and registers); causal blocks stop at
-// the diagonal, halving the work.  Tiles are staged in shared memory as f32
-// (bf16 inputs are widened with __bfloat162float) and every product is a
-// scalar f32 FMA on a 16x16 thread grid where each thread owns a 4x4
-// micro-tile, so the kernels run on the CUDA cores, far below the tensor
-// core bound.  Moving the products to wgmma with TMA-fed tiles is the
-// next step.  K2 owns one k-tile per block and loops over q-tiles, so dK
-// and dV need no atomics.
+// What the design does about it.  In all four the (Tq, Tk) score matrix
+// never reaches device memory: a thread block owns one tile of one
+// (batch, head) slice and loops over the other side's tiles inside the
+// block (the TPU's sequential third grid axis and its VMEM scratch become
+// that loop and registers); causal blocks stop at the diagonal, halving
+// the work.  K2 owns one k-tile per block, so dK and dV need no atomics,
+// and dQ has its own kernel (K3): results are deterministic.
+//
+// - K2 and K3 for bf16 q/k/v and dO (what the training path and the ring
+//   give them) run on the tensor cores: mma.sync m16n8k16 bf16 x bf16 with
+//   f32 accumulation, operands from bf16 tiles in shared memory through
+//   ldmatrix.  Each warp owns 16 rows of the block's tile.  The score-side
+//   products leave P and dS in the accumulator fragments, which, packed to
+//   bf16 pairs, are the A operand of the gradient products, so P and dS
+//   never touch shared memory.  The streamed tiles (Q/dO with their L and D
+//   rows in K2, K/V in K3) arrive by 16-byte cp.async copies, double
+//   buffered: the next tile is in flight while the current one is
+//   computed.  Causal blocks start heaviest first (b*h on the fastest grid
+//   axis, K3's q-tiles in reverse), so the longest blocks do not form the
+//   tail.  P and dS are rounded to bf16 as operands, as every GPU flash
+//   backward does; S and dP are bf16 x bf16 products summed in f32.
+// - K1 and K4, and K2/K3 for f32 inputs or an f32 dO with bf16 q (a
+//   cotangent that must not be rounded), keep the scalar body: tiles
+//   staged in shared memory as f32 and every product a scalar f32 FMA on a
+//   16x16 thread grid where each thread owns a 4x4 micro-tile.  For K2/K3
+//   that is the exact-f32 contract of the reference network; K1 and K4 are
+//   the next kernels to move to the tensor cores.  The choice is made at
+//   compile time (if constexpr on the operand types), never at run time.
 //
 // Semantics kept from the TPU kernels: the -1e30 sentinel for masked
 // scores with the `alive` guard (a row with no visible key yet contributes
 // exact zeros), the 1e-30 clamp of the softmax denominator, the per-row
 // logsumexp m + log(l) in the lse mode, the unnormalized f32 acc, m and l
 // in the partials mode (a row that sees no key ends with 0, -1e30, 0), the
-// backward mask (k < Tk) & (q < Tq) & (!causal || q >= k), and f32
-// gradients.  The q side (q, out, dO, dq; Tq rows) and the K/V side (k, v,
-// dk, dv; Tk rows) carry their own length and strides, so one K/V segment
-// of a longer sequence can be attended; causal masking then compares local
-// positions (row i sees column j <= i), which is right on the diagonal
-// step of a ring where both sides share their global offset.  Ragged
-// lengths are masked in the kernels (no padding to block multiples), and
-// the (B, T, H, d) strides are read directly (no transposes).
+// backward's p = exp(s * scale - L) and ds = p * (dp - D) * scale under the
+// mask (k < Tk) & (q < Tq) & (!causal || q >= k) (one device function,
+// bwd_elem, for every backward body), and f32 gradients.  The q side (q,
+// out, dO, dq; Tq rows) and the K/V side (k, v, dk, dv; Tk rows) carry
+// their own length and strides, so one K/V segment of a longer sequence
+// can be attended; causal masking then compares local positions (row i
+// sees column j <= i), which is right on the diagonal step of a ring where
+// both sides share their global offset.  Ragged lengths are masked in the
+// kernels (no padding to block multiples), and the (B, T, H, d) strides
+// are read directly (no transposes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +79,8 @@ constexpr int SUB = 4;          // each thread owns a 4 x 4 micro-tile
 constexpr int PLD = TILE + 1;   // padded row length of a score tile
 constexpr float NEG_INF = -1e30f;
 
+using bf16 = __nv_bfloat16;
+
 // One side of the attention: its rows and the element strides of its
 // (B, T, H, d) tensors (stride 1 along d).
 struct Side {
@@ -74,15 +95,12 @@ struct Geom {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
@@ -274,11 +292,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// --------------------------------------------------------- K2/K3 tile
-// The shared P-rebuild of both backward kernels (TPU _bwd_tile): for the
-// (q-tile q0, k-tile k0) pair, this thread's 4 x 4 micro-tile of
-// P = exp(S - L) and dS = P * (dO . V^T - D) * scale, masked by local
-// positions.
+// ---------------------------------------------------- K2/K3 elementwise
+// The backward's elementwise core (TPU _bwd_tile), one function for every
+// body of K2 and K3: the mask in local positions, then
+// p = exp(s * scale - L), exactly 0 where masked, and
+// ds = p * (dp - D) * scale.  s * scale is rounded before L is taken away
+// (no fused multiply-add), as the plain twin computes it, so that from the
+// same S both round P and dS to bf16 alike.
+__device__ __forceinline__ bool bwd_keep(int qp, int kp, const Geom& g,
+                                         int causal) {
+  return kp < g.k.T && qp < g.q.T && (!causal || qp >= kp);
+}
+__device__ __forceinline__ void bwd_elem(float s, float dp, float L, float D,
+                                         bool keep, float scale, float& p,
+                                         float& ds) {
+  const float pv = keep ? expf(__fmul_rn(s, scale) - L) : 0.f;
+  p = pv;
+  ds = pv * (dp - D) * scale;
+}
+
+// ------------------------------------------------- K2/K3, scalar bodies
+// f32 inputs, or bf16 q/k/v with an f32 dO.  For the (q-tile q0, k-tile
+// k0) pair, this thread's 4 x 4 micro-tile of P and dS.
 template <int DM>
 __device__ __forceinline__ void bwd_tile(const float* Qs, const float* Ks,
                                          const float* Vs, const float* dOs,
@@ -293,32 +328,26 @@ __device__ __forceinline__ void bwd_tile(const float* Qs, const float* Ks,
 #pragma unroll
   for (int i = 0; i < SUB; ++i) {
     const int r = ty + 16 * i, qp = q0 + r;
-    const float L = Ls[r], D = Ds[r];
 #pragma unroll
-    for (int j = 0; j < SUB; ++j) {
-      const int kp = k0 + tx + 16 * j;
-      const bool keep = kp < g.k.T && qp < g.q.T && (!causal || qp >= kp);
-      const float pij = keep ? expf(s[i][j] * scale - L) : 0.f;
-      p[i][j] = pij;
-      ds[i][j] = pij * (dp[i][j] - D) * scale;
-    }
+    for (int j = 0; j < SUB; ++j)
+      bwd_elem(s[i][j], dp[i][j], Ls[r], Ds[r],
+               bwd_keep(qp, k0 + tx + 16 * j, g, causal), scale, p[i][j],
+               ds[i][j]);
   }
 }
 
-// ---------------------------------------------------------------- K2
-// One block per (k-tile, b*h): dV += P^T dO and dK += dS^T Q over the
-// q-tiles at or below the diagonal.  Each block owns its dK/dV rows, so
-// there are no atomics.  TO is dO's type: q's, or f32 when the cotangent
-// arrives in f32 (it is never rounded below that).
+// K2, k-tile kt of slice bh: dV += P^T dO and dK += dS^T Q over the
+// q-tiles at or below the diagonal.  TO is dO's type: q's, or f32 when the
+// cotangent arrives in f32 (it is never rounded below that).
 template <typename T, typename TO, int DM>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const TO* __restrict__ dout,
-                      const float* __restrict__ L,
-                      const float* __restrict__ Drow,
-                      float* __restrict__ dk, float* __restrict__ dv, Geom g,
-                      float scale, int causal) {
-  extern __shared__ float smem[];
+__device__ void dkdv_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const TO* __restrict__ dout,
+                            const float* __restrict__ L,
+                            const float* __restrict__ Drow,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            const Geom& g, float scale, int causal, int bh,
+                            int kt, float* smem) {
   constexpr int LD = DM + 1, DC = DM / 16;
   float* Ks = smem;
   float* Vs = Ks + TILE * LD;
@@ -328,8 +357,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dSs = Ps + TILE * PLD;                // [TILE][PLD]
   float* Ls = dSs + TILE * PLD;
   float* Ds = Ls + TILE;
-  const int b = blockIdx.y / g.H, h = blockIdx.y % g.H;
-  const int k0 = blockIdx.x * TILE;
+  const int b = bh / g.H, h = bh % g.H;
+  const int k0 = kt * TILE;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   load_tile<T, DM>(Ks, k, k0, g.k, g.d, b, h);
@@ -399,17 +428,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- K3
-// One block per (q-tile, b*h): dQ += dS K over the k-tiles up to the
+// K3, q-tile qt of slice bh: dQ += dS K over the k-tiles up to the
 // diagonal.
 template <typename T, typename TO, int DM>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const TO* __restrict__ dout,
-                    const float* __restrict__ L,
-                    const float* __restrict__ Drow, float* __restrict__ dq,
-                    Geom g, float scale, int causal) {
-  extern __shared__ float smem[];
+__device__ void dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const TO* __restrict__ dout,
+                          const float* __restrict__ L,
+                          const float* __restrict__ Drow,
+                          float* __restrict__ dq, const Geom& g, float scale,
+                          int causal, int bh, int qt, float* smem) {
   constexpr int LD = DM + 1, DC = DM / 16;
   float* Qs = smem;
   float* dOs = Qs + TILE * LD;
@@ -418,8 +446,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dSs = Vs + TILE * LD;                 // [TILE][PLD]
   float* Ls = dSs + TILE * PLD;
   float* Ds = Ls + TILE;
-  const int b = blockIdx.y / g.H, h = blockIdx.y % g.H;
-  const int q0 = blockIdx.x * TILE;
+  const int b = bh / g.H, h = bh % g.H;
+  const int q0 = qt * TILE;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   load_tile<T, DM>(Qs, q, q0, g.q, g.d, b, h);
@@ -477,6 +505,503 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------- K2/K3, tensor-core bodies
+// bf16 q/k/v and dO.  A block of TC_THREADS = 4 warps owns TC_ROWS = 64
+// rows (keys in K2, queries in K3), 16 per warp, and streams the other
+// side in tiles of TcCfg::BS rows.
+//
+// Fragments of mma.sync.m16n8k16.row.col, for lane l of the warp with
+// gr = l / 4 and gc = 2 * (l % 4):
+//   A (16 x 16, row-major), 4 regs of 2 bf16:
+//     a0 (row gr, cols gc, gc+1)     a1 (row gr+8, cols gc, gc+1)
+//     a2 (row gr, cols gc+8, gc+9)   a3 (row gr+8, cols gc+8, gc+9)
+//   B (16 x 8, "col"), 2 regs: b0 (k gc, gc+1; n gr), b1 (k gc+8, gc+9; n gr)
+//   C (16 x 8 f32), 4 floats: c0, c1 (row gr, cols gc, gc+1),
+//                             c2, c3 (row gr+8, cols gc, gc+1)
+// So the C fragments of two neighbouring n-tiles, 2m (cols 16m..16m+7) and
+// 2m+1 (cols 16m+8..16m+15), packed pairwise to bf16, ARE the A fragment
+// of k-step m (k = 16m..16m+15) of the next product:
+//   a0 = (C[2m].c0, C[2m].c1)    a1 = (C[2m].c2, C[2m].c3)
+//   a2 = (C[2m+1].c0, C[2m+1].c1) a3 = (C[2m+1].c2, C[2m+1].c3)
+// K2's S^T = K Q^T and dP^T = V dO^T give P^T and dS^T (key rows, query
+// columns) as the A operand of dV += P^T dO and dK += dS^T Q; K3's
+// S = Q K^T and dP = dO V^T give dS as the A operand of dQ += dS K.
+constexpr int TC_THREADS = 128;
+constexpr int TC_ROWS = 64;
+
+template <int DM>
+struct TcCfg {
+  // bf16 row length in shared memory: 16 bytes of pad put the 8 rows that
+  // one ldmatrix phase reads on distinct banks
+  static constexpr int LDS = DM + 8;
+  static constexpr int KD = DM / 16;          // k-steps over d
+  static constexpr int ND = DM / 8;           // n-tiles over d
+  // rows of a streamed tile; the d=128 bucket takes 32 so that K2's two
+  // 16 x 128 f32 accumulators, S and dP fit the registers without spills
+  static constexpr int BS = DM <= 64 ? 64 : 32;
+  // the owned rows' A fragments (K2: K, V; K3: Q, dO) held in registers
+  // for the whole loop, else read again from shared memory per tile
+  static constexpr bool REGS = DM <= 64;
+  static constexpr size_t tiles = sizeof(bf16) * (2 * TC_ROWS + 4 * BS) * LDS;
+  static constexpr size_t dkdv_smem = tiles + sizeof(float) * 4 * BS;
+  static constexpr size_t dq_smem = tiles + sizeof(float) * 2 * TC_ROWS;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async copies of `bytes` (the cp-size, or 0: zero fill) bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + R) of one (b, h) slice of a bf16 tensor of side `s` into
+// a [R][LDS] bf16 tile, zero past s.T and past d: 16-byte cp.async copies
+// when `vec` (d % 8 == 0 and every row 16-byte aligned), else element by
+// element.
+template <int R, int DM>
+__device__ __forceinline__ void stage_tile(bf16* dst,
+                                           const bf16* __restrict__ src,
+                                           int r0, const Side& s, int d,
+                                           int b, int h, int vec) {
+  constexpr int LDS = TcCfg<DM>::LDS;
+  if (vec) {
+    constexpr int CPR = DM / 8;                // 16-byte chunks per row
+    for (int i = threadIdx.x; i < R * CPR; i += TC_THREADS) {
+      const int r = i / CPR, c = (i % CPR) * 8, t = r0 + r;
+      const bool in = t < s.T && c < d;
+      cp_async16(dst + r * LDS + c, in ? src + offset(s, b, t, h) + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * DM; i += TC_THREADS) {
+      const int r = i / DM, c = i % DM, t = r0 + r;
+      dst[r * LDS + c] = (t < s.T && c < d) ? src[offset(s, b, t, h) + c]
+                                            : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Per-row statistics (B, Tq, H) f32 for q rows [r0, r0 + R), zero past Tq.
+template <int R>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int r0, const Geom& g, int b,
+                                           int h) {
+  for (int r = threadIdx.x; r < R; r += TC_THREADS) {
+    const int t = r0 + r;
+    const bool in = t < g.q.T;
+    cp_async4(dst + r, in ? src + row_index(g, b, t, h) : src, in ? 4 : 0);
+  }
+}
+
+// ldmatrix x4: lane l names one 16-byte row, lanes 8i..8i+7 the rows of
+// 8 x 8 matrix i, which lands in r[i] (lane: row l/4, cols 2(l%4), +1; with
+// .trans the transposed element pair).
+__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4_trans(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// The A fragment at (row0, k0) of a row-major [row][k] tile.
+template <int LDS>
+__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* tile,
+                                       int row0, int k0, int lane) {
+  ldsm4(a, tile + (row0 + (lane & 15)) * LDS + k0 + (lane >> 4) * 8);
+}
+// B fragments of the n-tiles n0 and n0 + 8 at k-step k0, from a tile
+// stored [n][k]: {b0, b1} of n0 in r[0], r[1], of n0 + 8 in r[2], r[3].
+template <int LDS>
+__device__ __forceinline__ void frag_b_nk(uint32_t r[4], const bf16* tile,
+                                          int n0, int k0, int lane) {
+  ldsm4(r, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDS + k0 +
+               ((lane >> 3) & 1) * 8);
+}
+// The same from a tile stored [k][n], through ldmatrix.trans.
+template <int LDS>
+__device__ __forceinline__ void frag_b_kn(uint32_t r[4], const bf16* tile,
+                                          int k0, int n0, int lane) {
+  ldsm4_trans(r, tile + (k0 + (lane & 15)) * LDS + n0 + (lane >> 4) * 8);
+}
+
+// c += a . b on the tensor cores, f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to a bf16 pair, `lo` in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// k-step m's A fragment from the accumulators of n-tiles 2m, 2m + 1.
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
+                                         const float c1[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Does the (q0, BQ) x (k0, BK) tile need the mask anywhere: a ragged edge,
+// or a causal tile that reaches above the diagonal.
+__device__ __forceinline__ bool tile_edge(int q0, int bq, int k0, int bk,
+                                          const Geom& g, int causal) {
+  return q0 + bq > g.q.T || k0 + bk > g.k.T || (causal && q0 < k0 + bk - 1);
+}
+
+// K2 on the tensor cores, k-tile kt of slice bh.  Warp w owns key rows
+// 16w..16w+15; per q-tile it forms S^T = K Q^T and dP^T = V dO^T, turns
+// them into P^T and dS^T in place, and accumulates dV += P^T dO and
+// dK += dS^T Q in f32 registers, written once at the end.
+template <int DM>
+__device__ void dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ L,
+                        const float* __restrict__ Drow,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        const Geom& g, float scale, int causal, int vec,
+                        int bh, int kt, unsigned char* smem) {
+  using C = TcCfg<DM>;
+  constexpr int LDS = C::LDS, BQ = C::BS, NQ = BQ / 8;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + TC_ROWS * LDS;
+  bf16* Qs = Vs + TC_ROWS * LDS;               // [2][BQ][LDS]
+  bf16* dOs = Qs + 2 * BQ * LDS;               // [2][BQ][LDS]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * LDS);  // [2][BQ]
+  float* Ds = Ls + 2 * BQ;                     // [2][BQ]
+  const int b = bh / g.H, h = bh % g.H;
+  const int k0 = kt * TC_ROWS;
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
+  const int gr = lane >> 2, gc = 2 * (lane & 3);
+  const int nq = (g.q.T + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;       // first q-tile on the diagonal
+
+  auto stage = [&](int qt, int buf) {
+    stage_tile<BQ, DM>(Qs + buf * BQ * LDS, q, qt * BQ, g.q, g.d, b, h, vec);
+    stage_tile<BQ, DM>(dOs + buf * BQ * LDS, dout, qt * BQ, g.q, g.d, b, h,
+                       vec);
+    stage_rows<BQ>(Ls + buf * BQ, L, qt * BQ, g, b, h);
+    stage_rows<BQ>(Ds + buf * BQ, Drow, qt * BQ, g, b, h);
+  };
+  stage_tile<TC_ROWS, DM>(Ks, k, k0, g.k, g.d, b, h, vec);
+  stage_tile<TC_ROWS, DM>(Vs, v, k0, g.k, g.d, b, h, vec);
+  if (qt0 < nq) stage(qt0, 0);
+  cp_async_commit();
+
+  float dka[C::ND][4] = {}, dva[C::ND][4] = {};
+  uint32_t kf[C::REGS ? C::KD : 1][4], vf[C::REGS ? C::KD : 1][4];
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int buf = (qt - qt0) & 1, q0 = qt * BQ;
+    if (qt + 1 < nq) stage(qt + 1, buf ^ 1);   // next tile in flight
+    cp_async_commit();
+    cp_async_wait<1>();                        // this tile (and K, V) landed
+    __syncthreads();
+    if constexpr (C::REGS) {
+      if (qt == qt0) {
+#pragma unroll
+        for (int kd = 0; kd < C::KD; ++kd) {
+          frag_a<LDS>(kf[kd], Ks, wr, kd * 16, lane);
+          frag_a<LDS>(vf[kd], Vs, wr, kd * 16, lane);
+        }
+      }
+    }
+    const bf16* Qb = Qs + buf * BQ * LDS;
+    const bf16* dOb = dOs + buf * BQ * LDS;
+    const float* Lb = Ls + buf * BQ;
+    const float* Db = Ds + buf * BQ;
+
+    float st[NQ][4] = {}, dpt[NQ][4] = {};     // S^T, dP^T: keys x queries
+#pragma unroll
+    for (int kd = 0; kd < C::KD; ++kd) {
+      uint32_t ak[4], av[4];
+      if constexpr (C::REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ak[i] = kf[kd][i];
+          av[i] = vf[kd][i];
+        }
+      } else {
+        frag_a<LDS>(ak, Ks, wr, kd * 16, lane);
+        frag_a<LDS>(av, Vs, wr, kd * 16, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < NQ; j += 2) {
+        uint32_t bq[4], bo[4];
+        frag_b_nk<LDS>(bq, Qb, j * 8, kd * 16, lane);
+        mma_bf16(st[j], ak, bq[0], bq[1]);
+        mma_bf16(st[j + 1], ak, bq[2], bq[3]);
+        frag_b_nk<LDS>(bo, dOb, j * 8, kd * 16, lane);
+        mma_bf16(dpt[j], av, bo[0], bo[1]);
+        mma_bf16(dpt[j + 1], av, bo[2], bo[3]);
+      }
+    }
+    // P^T and dS^T in place; element c of n-tile j: key row
+    // wr + gr + 8 (c / 2), query column 8 j + gc + c % 2
+    const bool edge = tile_edge(q0, BQ, k0, TC_ROWS, g, causal);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = j * 8 + gc + (c & 1);
+        const bool keep =
+            !edge || bwd_keep(q0 + qi, k0 + wr + gr + 8 * (c >> 1), g, causal);
+        bwd_elem(st[j][c], dpt[j][c], Lb[qi], Db[qi], keep, scale, st[j][c],
+                 dpt[j][c]);
+      }
+    // dV += P^T dO, dK += dS^T Q, 16 queries (one k-step) at a time
+#pragma unroll
+    for (int m = 0; m < BQ / 16; ++m) {
+      uint32_t ap[4], as[4];
+      acc_to_a(ap, st[2 * m], st[2 * m + 1]);
+      acc_to_a(as, dpt[2 * m], dpt[2 * m + 1]);
+#pragma unroll
+      for (int n = 0; n < C::ND; n += 2) {
+        uint32_t bo[4], bq[4];
+        frag_b_kn<LDS>(bo, dOb, m * 16, n * 8, lane);
+        mma_bf16(dva[n], ap, bo[0], bo[1]);
+        mma_bf16(dva[n + 1], ap, bo[2], bo[3]);
+        frag_b_kn<LDS>(bq, Qb, m * 16, n * 8, lane);
+        mma_bf16(dka[n], as, bq[0], bq[1]);
+        mma_bf16(dka[n + 1], as, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();                           // tile read: buf is free
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kp = k0 + wr + gr + 8 * hf;
+    if (kp >= g.k.T) continue;
+    const long long base = offset(g.k, b, kp, h);
+#pragma unroll
+    for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + gc + e;
+        if (col < g.d) {
+          dk[base + col] = dka[n][2 * hf + e];
+          dv[base + col] = dva[n][2 * hf + e];
+        }
+      }
+  }
+}
+
+// K3 on the tensor cores, q-tile qt of slice bh.  Warp w owns query rows
+// 16w..16w+15 (their L and D in registers); per k-tile it forms S = Q K^T
+// and dP = dO V^T, turns dP into dS in place and accumulates dQ += dS K.
+template <int DM>
+__device__ void dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ L,
+                      const float* __restrict__ Drow, float* __restrict__ dq,
+                      const Geom& g, float scale, int causal, int vec, int bh,
+                      int qt, unsigned char* smem) {
+  using C = TcCfg<DM>;
+  constexpr int LDS = C::LDS, BK = C::BS, NK = BK / 8;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + TC_ROWS * LDS;
+  bf16* Ks = dOs + TC_ROWS * LDS;              // [2][BK][LDS]
+  bf16* Vs = Ks + 2 * BK * LDS;                // [2][BK][LDS]
+  float* Ls = reinterpret_cast<float*>(Vs + 2 * BK * LDS);   // [TC_ROWS]
+  float* Ds = Ls + TC_ROWS;                    // [TC_ROWS]
+  const int b = bh / g.H, h = bh % g.H;
+  const int q0 = qt * TC_ROWS;
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
+  const int gr = lane >> 2, gc = 2 * (lane & 3);
+  int nk = (g.k.T + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + TC_ROWS - 1) / BK + 1);   // to the diagonal
+
+  auto stage = [&](int kt, int buf) {
+    stage_tile<BK, DM>(Ks + buf * BK * LDS, k, kt * BK, g.k, g.d, b, h, vec);
+    stage_tile<BK, DM>(Vs + buf * BK * LDS, v, kt * BK, g.k, g.d, b, h, vec);
+  };
+  stage_tile<TC_ROWS, DM>(Qs, q, q0, g.q, g.d, b, h, vec);
+  stage_tile<TC_ROWS, DM>(dOs, dout, q0, g.q, g.d, b, h, vec);
+  stage_rows<TC_ROWS>(Ls, L, q0, g, b, h);
+  stage_rows<TC_ROWS>(Ds, Drow, q0, g, b, h);
+  if (nk > 0) stage(0, 0);
+  cp_async_commit();
+
+  float dqa[C::ND][4] = {};
+  uint32_t qf[C::REGS ? C::KD : 1][4], of[C::REGS ? C::KD : 1][4];
+  float Lr[2], Dr[2];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1, k0 = kt * BK;
+    if (kt + 1 < nk) stage(kt + 1, buf ^ 1);   // next tile in flight
+    cp_async_commit();
+    cp_async_wait<1>();                        // this tile (and Q, dO) landed
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        Lr[hf] = Ls[wr + gr + 8 * hf];
+        Dr[hf] = Ds[wr + gr + 8 * hf];
+      }
+      if constexpr (C::REGS) {
+#pragma unroll
+        for (int kd = 0; kd < C::KD; ++kd) {
+          frag_a<LDS>(qf[kd], Qs, wr, kd * 16, lane);
+          frag_a<LDS>(of[kd], dOs, wr, kd * 16, lane);
+        }
+      }
+    }
+    const bf16* Kb = Ks + buf * BK * LDS;
+    const bf16* Vb = Vs + buf * BK * LDS;
+
+    float s[NK][4] = {}, dp[NK][4] = {};       // S, dP: queries x keys
+#pragma unroll
+    for (int kd = 0; kd < C::KD; ++kd) {
+      uint32_t aq[4], ao[4];
+      if constexpr (C::REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          aq[i] = qf[kd][i];
+          ao[i] = of[kd][i];
+        }
+      } else {
+        frag_a<LDS>(aq, Qs, wr, kd * 16, lane);
+        frag_a<LDS>(ao, dOs, wr, kd * 16, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < NK; j += 2) {
+        uint32_t bk[4], bv[4];
+        frag_b_nk<LDS>(bk, Kb, j * 8, kd * 16, lane);
+        mma_bf16(s[j], aq, bk[0], bk[1]);
+        mma_bf16(s[j + 1], aq, bk[2], bk[3]);
+        frag_b_nk<LDS>(bv, Vb, j * 8, kd * 16, lane);
+        mma_bf16(dp[j], ao, bv[0], bv[1]);
+        mma_bf16(dp[j + 1], ao, bv[2], bv[3]);
+      }
+    }
+    // dS in place of dP; element c of n-tile j: query row
+    // wr + gr + 8 (c / 2), key column 8 j + gc + c % 2
+    const bool edge = tile_edge(q0, TC_ROWS, k0, BK, g, causal);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int hf = c >> 1;
+        const bool keep =
+            !edge || bwd_keep(q0 + wr + gr + 8 * hf, k0 + j * 8 + gc + (c & 1),
+                              g, causal);
+        bwd_elem(s[j][c], dp[j][c], Lr[hf], Dr[hf], keep, scale, s[j][c],
+                 dp[j][c]);
+      }
+    // dQ += dS K, 16 keys (one k-step) at a time
+#pragma unroll
+    for (int m = 0; m < BK / 16; ++m) {
+      uint32_t a[4];
+      acc_to_a(a, dp[2 * m], dp[2 * m + 1]);
+#pragma unroll
+      for (int n = 0; n < C::ND; n += 2) {
+        uint32_t bk[4];
+        frag_b_kn<LDS>(bk, Kb, m * 16, n * 8, lane);
+        mma_bf16(dqa[n], a, bk[0], bk[1]);
+        mma_bf16(dqa[n + 1], a, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();                           // tile read: buf is free
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qp = q0 + wr + gr + 8 * hf;
+    if (qp >= g.q.T) continue;
+    const long long base = offset(g.q, b, qp, h);
+#pragma unroll
+    for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + gc + e;
+        if (col < g.d) dq[base + col] = dqa[n][2 * hf + e];
+      }
+  }
+}
+
+// ---------------------------------------------------------- K2 and K3
+// bf16 q/k/v with a bf16 dO go to the tensor cores, anything else to the
+// scalar body; fixed at compile time.
+template <typename T, typename TO>
+constexpr bool tensor_core_v =
+    std::is_same_v<T, bf16> && std::is_same_v<TO, bf16>;
+
+// One block per (b*h, k-tile), b*h on the fastest grid axis: k-tile 0,
+// which sees every q-tile when causal, starts first for every head.
+template <typename T, typename TO, int DM>
+__global__ void __launch_bounds__(tensor_core_v<T, TO> ? TC_THREADS : THREADS)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const TO* __restrict__ dout,
+                      const float* __restrict__ L,
+                      const float* __restrict__ Drow,
+                      float* __restrict__ dk, float* __restrict__ dv, Geom g,
+                      float scale, int causal, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  if constexpr (tensor_core_v<T, TO>)
+    dkdv_tc<DM>(q, k, v, dout, L, Drow, dk, dv, g, scale, causal, vec,
+                blockIdx.x, blockIdx.y, smem_bwd);
+  else
+    dkdv_scalar<T, TO, DM>(q, k, v, dout, L, Drow, dk, dv, g, scale, causal,
+                           blockIdx.x, blockIdx.y,
+                           reinterpret_cast<float*>(smem_bwd));
+}
+
+// One block per (b*h, q-tile), b*h fastest; causal q-tiles in reverse, so
+// the last, which sees every k-tile, starts first for every head.
+template <typename T, typename TO, int DM>
+__global__ void __launch_bounds__(tensor_core_v<T, TO> ? TC_THREADS : THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const TO* __restrict__ dout,
+                    const float* __restrict__ L,
+                    const float* __restrict__ Drow, float* __restrict__ dq,
+                    Geom g, float scale, int causal, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  if constexpr (tensor_core_v<T, TO>)
+    dq_tc<DM>(q, k, v, dout, L, Drow, dq, g, scale, causal, vec, blockIdx.x,
+              qt, smem_bwd);
+  else
+    dq_scalar<T, TO, DM>(q, k, v, dout, L, Drow, dq, g, scale, causal,
+                         blockIdx.x, qt, reinterpret_cast<float*>(smem_bwd));
+}
+
 // ----------------------------------------------------------- launching
 template <typename T, int DM>
 struct Cfg {
@@ -490,11 +1015,11 @@ struct Cfg {
 // Calls f(Cfg<T, DM>{}) for the input dtype and the smallest head-dim
 // bucket that holds d.  Returns cudaErrorInvalidValue for d > 128.
 template <typename F>
-cudaError_t dispatch(int bf16, int d, F&& f) {
-  if (bf16) {
-    if (d <= 32) return f(Cfg<__nv_bfloat16, 32>{});
-    if (d <= 64) return f(Cfg<__nv_bfloat16, 64>{});
-    if (d <= 128) return f(Cfg<__nv_bfloat16, 128>{});
+cudaError_t dispatch(int bf16_in, int d, F&& f) {
+  if (bf16_in) {
+    if (d <= 32) return f(Cfg<bf16, 32>{});
+    if (d <= 64) return f(Cfg<bf16, 64>{});
+    if (d <= 128) return f(Cfg<bf16, 128>{});
   } else {
     if (d <= 32) return f(Cfg<float, 32>{});
     if (d <= 64) return f(Cfg<float, 64>{});
@@ -519,10 +1044,10 @@ Geom make_geom(int B, int Tq, int Tk, int H, int d, long long qsb,
 template <int MODE>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, void* stat_a, void* stat_b, const Geom& g,
-                       float scale, int causal, int bf16, void* stream) {
+                       float scale, int causal, int bf16_in, void* stream) {
   const dim3 grid((g.q.T + TILE - 1) / TILE, g.B * g.H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(bf16, g.d, [&](auto cfg) -> cudaError_t {
+  return dispatch(bf16_in, g.d, [&](auto cfg) -> cudaError_t {
     using C = decltype(cfg);
     using T_ = typename C::type;
     using O_ = std::conditional_t<MODE == PARTIALS, float, T_>;
@@ -547,37 +1072,58 @@ struct BwdArgs {
   int causal;
 };
 
+// Can the bf16 tiles be staged by 16-byte copies: d a multiple of 8 and
+// every row of q, k, v and dO 16-byte aligned.
+int rows_16b(const BwdArgs& a) {
+  auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const Side& sq = a.g.q;
+  const Side& sk = a.g.k;
+  return a.g.d % 8 == 0 && al(a.q) && al(a.k) && al(a.v) && al(a.dout) &&
+         sq.sb % 8 == 0 && sq.st % 8 == 0 && sq.sh % 8 == 0 &&
+         sk.sb % 8 == 0 && sk.st % 8 == 0 && sk.sh % 8 == 0;
+}
+
 template <typename T, typename TO, int DM>
 cudaError_t launch_dkdv(const BwdArgs& a, cudaStream_t s) {
   using C = Cfg<T, DM>;
+  constexpr bool tc = tensor_core_v<T, TO>;
   const size_t smem =
-      4 * C::tile_bytes + 2 * C::score_bytes + 2 * C::rows_bytes;
+      tc ? TcCfg<DM>::dkdv_smem
+         : 4 * C::tile_bytes + 2 * C::score_bytes + 2 * C::rows_bytes;
   auto kern = &flash_bwd_dkdv_kernel<T, TO, DM>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.g.k.T + TILE - 1) / TILE, a.g.B * a.g.H);
-  kern<<<grid, THREADS, smem, s>>>(
+  const int rows = tc ? TC_ROWS : TILE;
+  const dim3 grid(a.g.B * a.g.H, (a.g.k.T + rows - 1) / rows);
+  kern<<<grid, tc ? TC_THREADS : THREADS, smem, s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const TO*>(a.dout),
       static_cast<const float*>(a.L), static_cast<const float*>(a.Drow),
       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.g, a.scale,
-      a.causal);
+      a.causal, tc ? rows_16b(a) : 0);
   return cudaGetLastError();
 }
 
 template <typename T, typename TO, int DM>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t s) {
   using C = Cfg<T, DM>;
-  const size_t smem = 4 * C::tile_bytes + C::score_bytes + 2 * C::rows_bytes;
+  constexpr bool tc = tensor_core_v<T, TO>;
+  const size_t smem =
+      tc ? TcCfg<DM>::dq_smem
+         : 4 * C::tile_bytes + C::score_bytes + 2 * C::rows_bytes;
   auto kern = &flash_bwd_dq_kernel<T, TO, DM>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.g.q.T + TILE - 1) / TILE, a.g.B * a.g.H);
-  kern<<<grid, THREADS, smem, s>>>(
+  const int rows = tc ? TC_ROWS : TILE;
+  const dim3 grid(a.g.B * a.g.H, (a.g.q.T + rows - 1) / rows);
+  kern<<<grid, tc ? TC_THREADS : THREADS, smem, s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const TO*>(a.dout),
       static_cast<const float*>(a.L), static_cast<const float*>(a.Drow),
-      static_cast<float*>(a.dq), a.g, a.scale, a.causal);
+      static_cast<float*>(a.dq), a.g, a.scale, a.causal,
+      tc ? rows_16b(a) : 0);
   return cudaGetLastError();
 }
 

@@ -10,6 +10,10 @@ f32 gradients (the ones ``tests/test_flash_attention.py`` uses; both
 sides accumulate in f32 in another order), 0.1 for bf16 inputs against
 the f32 oracle, 2e-2 (about two bf16 ulps at |out| < 2) for bf16 against
 the JAX kernel on the same bf16 inputs.
+
+The plain K2/K3 twins also take ``operand_dtype=torch.bfloat16``, which
+rounds P and dS as the tensor-core kernels do; those tests are the port's
+own (the JAX package has no such rounding) and state their tolerances.
 """
 
 import jax
@@ -310,3 +314,118 @@ def test_partial_rejects_mismatched_segments():
         port.flash_attention_partial(q, q[:, :4], q)
     with pytest.raises(ValueError, match="batch/heads/d"):
         port.flash_attention_partial(q, q[:, :, :1], q[:, :, :1])
+
+
+# ------------------------------------------- the twins' bf16 operands
+def _grid(rng, shape):
+    """Normal values on a grid of 1/8 in [-4, 4]: exact in bf16, and every
+    S = Q K^T and dP = dO V^T sum exact in f32 whatever the order."""
+    return (np.clip(np.round(rng.randn(*shape) * 8), -32, 32) / 8
+            ).astype(np.float32)
+
+
+def _twins_before_operand_rounding(q, k, v, g, L, D, causal, scale):
+    """The plain K2/K3 arithmetic as it stood before ``operand_dtype``
+    (64-key blocks, f32 throughout), op for op."""
+    qf, kf, vf, dof = (x.float().permute(0, 2, 1, 3) for x in (q, k, v, g))
+    Lr, Dr = (x.permute(0, 2, 1).unsqueeze(-1) for x in (L, D))
+    dks, dvs, dq = [], [], torch.zeros_like(qf)
+    for k0 in range(0, k.shape[1], 64):
+        kb, vb = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        p = torch.exp((qf @ kb.transpose(-1, -2)) * scale - Lr)
+        if causal:
+            q_pos = torch.arange(qf.shape[2])[:, None]
+            k_pos = torch.arange(k0, k0 + kb.shape[2])[None, :]
+            p = torch.where(q_pos >= k_pos, p, 0.0)
+        ds = p * (dof @ vb.transpose(-1, -2) - Dr) * scale
+        dvs.append(p.transpose(-1, -2) @ dof)
+        dks.append(ds.transpose(-1, -2) @ qf)
+        dq = dq + ds @ kb
+    back = lambda x: x.permute(0, 2, 1, 3).contiguous()
+    return back(torch.cat(dks, dim=2)), back(torch.cat(dvs, dim=2)), back(dq)
+
+
+def _segment_case(tq, tk, causal, seed, dtype=torch.float32, d=16):
+    """Grid-valued q, k, v, dO (B=2, H=2) with the segment's own L and D
+    from K4's plain partials; scale 0.3."""
+    rng = np.random.RandomState(seed)
+    q, g = (_grid(rng, (2, tq, 2, d)) for _ in range(2))
+    k, v = (_grid(rng, (2, tk, 2, d)) for _ in range(2))
+    tq_, tk_, tv_, tg_ = (torch.from_numpy(x).to(dtype) for x in (q, k, v, g))
+    acc, m, l = port.flash_attention_partial(tq_, tk_, tv_, causal=causal,
+                                             sm_scale=0.3)
+    L = m + torch.log(l)
+    D = (tg_.float() * acc / l[..., None]).sum(-1)
+    return tq_, tk_, tv_, tg_, L, D
+
+
+def _plain_twins(q, k, v, g, L, D, causal, scale, operand_dtype):
+    dk, dv = port.flash_dkdv_plain(q, k, v, g, L, D, causal, scale,
+                                   operand_dtype=operand_dtype)
+    dq = port.flash_dq_plain(q, k, v, g, L, D, causal, scale,
+                             operand_dtype=operand_dtype)
+    return dk, dv, dq
+
+
+@pytest.mark.parametrize("tq,tk", [(50, 50), (50, 24), (37, 70)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_twins_default_operands_unchanged(causal, tq, tk):
+    """``operand_dtype=None`` (the default) leaves the f32 twins bit for bit
+    what they were, so the parity tests against the JAX package hold
+    as before."""
+    case = _segment_case(tq, tk, causal, seed=10)
+    got = _plain_twins(*case, causal, 0.3, None)
+    for a, b in zip(got, _twins_before_operand_rounding(*case, causal, 0.3)):
+        assert torch.equal(a, b)
+
+
+def _bf16_midpoint_ulp(x, rel=1e-5):
+    """One bf16 ulp of each float64 element that lies within ``rel`` of a
+    bf16 rounding midpoint, else 0: where a value computed in f32 (off by
+    ~1e-6) may round to the neighbouring bf16."""
+    mant, exp = torch.frexp(x.abs())           # |x| = mant * 2^exp
+    r = mant * 256.0                           # |x| in bf16 ulps, [128, 256)
+    near = (r - r.floor() - 0.5).abs() <= rel * r
+    return torch.where(near & (x != 0), torch.ldexp(torch.ones_like(x),
+                                                    exp - 8), 0.0)
+
+
+def _float64_bwd_bf16_operands(q, k, v, g, L, D, causal, scale):
+    """Dense float64 dK, dV, dQ with P and dS rounded to bf16, and for each
+    the slack that the midpoint elements of P and dS allow (one bf16 ulp
+    times the absolute other operand, summed)."""
+    qd, kd, vd, gd = (x.double().permute(0, 2, 1, 3) for x in (q, k, v, g))
+    Ld, Dd = (x.double().permute(0, 2, 1).unsqueeze(-1) for x in (L, D))
+    p = torch.exp((qd @ kd.transpose(-1, -2)) * scale - Ld)
+    if causal:
+        tq, tk = p.shape[-2:]
+        p = torch.where(torch.arange(tq)[:, None] >= torch.arange(tk)[None, :],
+                        p, 0.0)
+    ds = p * (gd @ vd.transpose(-1, -2) - Dd) * scale
+    pb, dsb = (x.to(torch.bfloat16).double() for x in (p, ds))
+    sp, sds = _bf16_midpoint_ulp(p), _bf16_midpoint_ulp(ds)
+    back = lambda x: x.permute(0, 2, 1, 3)
+    grads = (dsb.transpose(-1, -2) @ qd, pb.transpose(-1, -2) @ gd, dsb @ kd)
+    slack = (sds.transpose(-1, -2) @ qd.abs(), sp.transpose(-1, -2) @ gd.abs(),
+             sds @ kd.abs())
+    return [back(x) for x in grads], [back(x) for x in slack]
+
+
+@pytest.mark.parametrize("tq,tk", [(50, 50), (50, 24), (37, 70)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_twins_bf16_operands_match_float64(causal, tq, tk):
+    """``operand_dtype=torch.bfloat16``: the twins equal dense float64 math
+    with P and dS rounded to bf16, element by element within 1e-6 of
+    max|ref| (f32 sums) plus the midpoint slack, ragged and Tk != Tq.  The
+    f32 twins sit further away (the rounding is real) but within the
+    1e-2 of max|f32 twin| that the tensor-core kernels are held to."""
+    case = _segment_case(tq, tk, causal, seed=12, dtype=torch.bfloat16)
+    got = _plain_twins(*case, causal, 0.3, torch.bfloat16)
+    f32 = _plain_twins(*case, causal, 0.3, None)
+    ref, slack = _float64_bwd_bf16_operands(*case, causal, 0.3)
+    for a, f, want, s in zip(got, f32, ref, slack):
+        bound = 1e-6 * want.abs().max() + s
+        assert ((a.double() - want).abs() <= bound).all()
+        gap = (f.double() - want).abs()
+        assert (gap > bound).any()
+        assert (a - f).abs().max() <= 1e-2 * f.abs().max()

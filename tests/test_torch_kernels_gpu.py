@@ -12,13 +12,37 @@ accumulate in f32, in another order); a bf16 output element by element
 within rtol 2^-7, atol 1e-5 (both sides round nearly the same f32 value,
 so they differ by at most one bf16 ulp); 1e-5 of max|reference| against
 float64 for f32 inputs.
+
+K2/K3 with bf16 q/k/v and dO run on the tensor cores and round P and dS
+to bf16 as operands of the gradient products, so they have two
+references: the plain twin that rounds the same way
+(``operand_dtype=torch.bfloat16``), held at 1e-4 of max|reference| like
+any f32 result, and the all-f32 twin, held at ``TC_F32_GAP``.  One
+round-to-nearest moves each P and dS element by at most 2^-8 of itself,
+independently, so a gradient element (a sum of such terms against
+unit-scale random operands) moves by about 2^-8/sqrt(3) = 2.3e-3 of its
+own size; 1e-2 of the largest element leaves a factor of 4 for the tail
+over all elements.  The 1e-4 against the rounded twin needs both sides to
+round the same f32 P: from continuous random inputs the kernel's S and the
+twin's, summed in another order, straddle a bf16 rounding point now and
+then and round one ulp apart, which moves a gradient element by up to
+2^-7 of one of its terms, far above 1e-4 of max|reference| at these
+shapes.  So bf16 inputs here lie on a grid of 1/8 in [-4, 4], where every
+S and dP is exact in f32 whatever the order.
 """
+
+import re
+import subprocess
+from pathlib import Path
 
 import pytest
 import torch
 
 from deeplearning4j_tpu_torch.ops import attention as A
+from deeplearning4j_tpu_torch.ops import kernel_build
 from deeplearning4j_tpu_torch.parallel.sequence import SequenceParallel
+
+TC_F32_GAP = 1e-2
 
 pytestmark = pytest.mark.gpu
 
@@ -51,10 +75,36 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def _assert_backward_matches_plain(got, q, k, v, g, L, D, causal, s):
+    """K2/K3's (dk, dv, dq) against the plain twins: the twin that rounds
+    P and dS to bf16 when q and dO are bf16 (the tensor-core route), at
+    1e-4, and then the all-f32 twin at ``TC_F32_GAP``; else the f32 twin
+    at 1e-4."""
+    tensor_core = q.dtype == g.dtype == torch.bfloat16
+    twins = [torch.bfloat16, None] if tensor_core else [None]
+    for operands, tol in zip(twins, (1e-4, TC_F32_GAP)):
+        pdk, pdv = A.flash_dkdv_plain(q, k, v, g, L, D, causal, s,
+                                      operand_dtype=operands)
+        pdq = A.flash_dq_plain(q, k, v, g, L, D, causal, s,
+                               operand_dtype=operands)
+        for a, b in zip(got, (pdk, pdv, pdq)):
+            assert a.dtype == torch.float32 and a.shape == b.shape
+            assert a.device == q.device
+            assert _rel(a, b) <= tol
+
+
+def _randn(shape, gen, device, dtype):
+    """Normal values; for bf16 rounded to the exact-sum grid of 1/8 in
+    [-4, 4] (see the module docstring)."""
+    x = torch.randn(shape, generator=gen, device=device)
+    if dtype == torch.bfloat16:
+        x = (x * 8).round().clamp(-32, 32) / 8
+    return x.to(dtype)
+
+
 def _inputs(shape, dtype, device, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn(shape, generator=gen, device=device).to(dtype)
-            for _ in range(4)]
+    return [_randn(shape, gen, device, dtype) for _ in range(4)]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
@@ -81,11 +131,8 @@ def test_kernels_match_plain(cuda, shape, causal, dtype):
     D = (g.float() * out.float()).sum(-1).contiguous()
     dk, dv = A.flash_dkdv(q, k, v, g, lse, D, causal=causal, sm_scale=s)
     dq = A.flash_dq(q, k, v, g, lse, D, causal=causal, sm_scale=s)
-    pdk, pdv = A.flash_dkdv_plain(q, k, v, g, lse, D, causal, s)
-    pdq = A.flash_dq_plain(q, k, v, g, lse, D, causal, s)
-    for got, want in ((dk, pdk), (dv, pdv), (dq, pdq)):
-        assert got.dtype == torch.float32
-        assert _rel(got, want) <= 1e-4
+    _assert_backward_matches_plain((dk, dv, dq), q, k, v, g, lse, D, causal,
+                                   s)
 
 
 @pytest.mark.parametrize("d", [24, 64])
@@ -144,10 +191,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 def _segment_inputs(shape, tk, dtype, device, seed=2):
     gen = torch.Generator(device=device).manual_seed(seed)
     b, tq, h, d = shape
-    q, g = (torch.randn(shape, generator=gen, device=device).to(dtype)
-            for _ in range(2))
-    k, v = (torch.randn((b, tk, h, d), generator=gen, device=device)
-            .to(dtype) for _ in range(2))
+    q, g = (_randn(shape, gen, device, dtype) for _ in range(2))
+    k, v = (_randn((b, tk, h, d), gen, device, dtype) for _ in range(2))
     return q, k, v, g
 
 
@@ -175,21 +220,115 @@ def test_partials_kernel_matches_plain(cuda, shape, tk, causal, dtype):
 def test_segment_backward_matches_plain(cuda, shape, tk, causal, dtype,
                                         do_dtype):
     """K2/K3 with Tk != Tq and the segment's L and D, dO in q's dtype or
-    f32, against the plain versions."""
+    f32, against the plain versions (bf16 dO: the tensor-core route, held
+    to both twins)."""
     q, k, v, g = _segment_inputs(shape, tk, dtype, cuda)
     g = g.to(do_dtype)
     s = shape[-1] ** -0.5
+    L, D = _segment_stats(q, k, v, g, causal, s)
+    dk, dv = A.flash_dkdv(q, k, v, g, L, D, causal=causal, sm_scale=s)
+    dq = A.flash_dq(q, k, v, g, L, D, causal=causal, sm_scale=s)
+    _assert_backward_matches_plain((dk, dv, dq), q, k, v, g, L, D, causal, s)
+
+
+def _segment_stats(q, k, v, g, causal, s):
+    """L and D of q against the K/V segment alone, from K4's partials."""
     acc, m, l = A.flash_attention_partial(q, k, v, causal=causal,
                                           sm_scale=s)
     L = (m + torch.log(l)).contiguous()
     D = (g.float() * acc / l[..., None]).sum(-1).contiguous()
-    dk, dv = A.flash_dkdv(q, k, v, g, L, D, causal=causal, sm_scale=s)
-    dq = A.flash_dq(q, k, v, g, L, D, causal=causal, sm_scale=s)
-    pdk, pdv = A.flash_dkdv_plain(q, k, v, g, L, D, causal, s)
-    pdq = A.flash_dq_plain(q, k, v, g, L, D, causal, s)
-    for got, want in ((dk, pdk), (dv, pdv), (dq, pdq)):
-        assert got.dtype == torch.float32 and got.shape == want.shape
-        assert _rel(got, want) <= 1e-4
+    return L, D
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tk", [1100, 700])
+def test_bf16_backward_long_ragged_causal(cuda, d, tk):
+    """The tensor-core K2/K3 at T = 1100 (a multiple of neither 64 nor
+    128), causal, where the heaviest-first grid order and the ragged last
+    tile both matter; K/V as long as q, or a shorter segment."""
+    q, k, v, g = _segment_inputs((2, 1100, 3, d), tk, torch.bfloat16, cuda,
+                                 seed=5)
+    s = d ** -0.5
+    L, D = _segment_stats(q, k, v, g, True, s)
+    dk, dv = A.flash_dkdv(q, k, v, g, L, D, causal=True, sm_scale=s)
+    dq = A.flash_dq(q, k, v, g, L, D, causal=True, sm_scale=s)
+    _assert_backward_matches_plain((dk, dv, dq), q, k, v, g, L, D, True, s)
+
+
+def _off_16_bytes(x):
+    """A contiguous copy of ``x`` one element into its storage, so that its
+    rows are not 16-byte aligned."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return y.view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("case", ["d=20", "rows off 16-byte boundaries"])
+def test_bf16_backward_stages_element_by_element(cuda, case):
+    """Tiles that 16-byte copies cannot stage (d not a multiple of 8, or
+    rows not 16-byte aligned) are loaded element by element into the same
+    bf16 tiles; the results are the same."""
+    d = 20 if case == "d=20" else 64
+    q, k, v, g = _segment_inputs((2, 150, 2, d), 130, torch.bfloat16, cuda,
+                                 seed=7)
+    if case != "d=20":
+        q, k, v, g = (_off_16_bytes(x) for x in (q, k, v, g))
+        assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    s = d ** -0.5
+    L, D = _segment_stats(q, k, v, g, True, s)
+    dk, dv = A.flash_dkdv(q, k, v, g, L, D, causal=True, sm_scale=s)
+    dq = A.flash_dq(q, k, v, g, L, D, causal=True, sm_scale=s)
+    _assert_backward_matches_plain((dk, dv, dq), q, k, v, g, L, D, True, s)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_backward_is_deterministic(cuda, causal):
+    """Two launches give bit-equal gradients: no atomics, dQ in its own
+    kernel."""
+    q, k, v, g = _segment_inputs((2, 1100, 3, 64), 1100, torch.bfloat16,
+                                 cuda, seed=6)
+    L, D = _segment_stats(q, k, v, g, causal, 0.125)
+    runs = [(*A.flash_dkdv(q, k, v, g, L, D, causal=causal, sm_scale=0.125),
+             A.flash_dq(q, k, v, g, L, D, causal=causal, sm_scale=0.125))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _cuobjdump_by_kernel(library: Path, flag: str, header: str) -> dict:
+    """``cuobjdump <flag>`` of ``library`` cut at each kernel's ``header``
+    (a regex whose group is the mangled name), by demangled name without
+    namespace and parameters, e.g. ``flash_bwd_dq_kernel<float,float,64>``.
+    """
+    bin_dir = Path(kernel_build.nvcc_path()).parent
+    dump = subprocess.run([str(bin_dir / "cuobjdump"), flag, str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    parts = re.split(header, dump)
+    mangled, bodies = parts[1::2], parts[2::2]
+    names = subprocess.run([str(bin_dir / "cu++filt")],
+                           input="\n".join(mangled), capture_output=True,
+                           text=True, check=True).stdout.split("\n")
+    short = [n.replace("(int)", "").split("(")[0].split("::")[-1]
+             for n in names[:len(mangled)]]
+    return {n.replace(" ", ""): body for n, body in zip(short, bodies)}
+
+
+def test_bf16_backward_runs_on_tensor_cores(cuda):
+    """The bf16 instances of K2 and K3 issue HMMA (tensor-core)
+    instructions and spill nothing to local memory; the f32 and f32-dO
+    instances stay scalar: the route is fixed at compile time by the
+    operand types."""
+    library = kernel_build.build(A._SOURCE)
+    sass = _cuobjdump_by_kernel(library, "--dump-sass", r"Function : (\S+)")
+    usage = _cuobjdump_by_kernel(library, "--dump-resource-usage",
+                                 r"Function (\S+):")
+    bf16 = "__nv_bfloat16"
+    for kernel in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
+        for dm in (32, 64, 128):
+            tensor_core = f"{kernel}<{bf16},{bf16},{dm}>"
+            assert "HMMA" in sass[tensor_core]
+            assert re.search(r"\bLOCAL:0\b", usage[tensor_core])
+            for types in ("float,float", f"{bf16},float"):
+                assert "HMMA" not in sass[f"{kernel}<{types},{dm}>"]
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -237,10 +376,7 @@ def test_kernels_on_a_card_that_is_not_current(other_card):
     D = (g.float() * out.float()).sum(-1).contiguous()
     dk, dv = A.flash_dkdv(q, k, v, g, lse, D, causal=True, sm_scale=s)
     dq = A.flash_dq(q, k, v, g, lse, D, causal=True, sm_scale=s)
-    pdk, pdv = A.flash_dkdv_plain(q, k, v, g, lse, D, True, s)
-    pdq = A.flash_dq_plain(q, k, v, g, lse, D, True, s)
-    for got, want in ((dk, pdk), (dv, pdv), (dq, pdq)):
-        assert got.device == other_card and _rel(got, want) <= 1e-4
+    _assert_backward_matches_plain((dk, dv, dq), q, k, v, g, lse, D, True, s)
     assert torch.cuda.current_device() == 0
 
 
