@@ -16,10 +16,11 @@ Phases (each raises on failure; the exit code is non-zero on any):
    version on the same inputs, in bfloat16 and float32, then timed with
    CUDA events against its plain version and against the PyTorch library
    call that computes the same function (``scaled_dot_product_attention``,
-   a yardstick the port never calls).  The bf16 K2/K3 run on the tensor
-   cores and round P and dS to bf16 as operands, so they have two
-   references: the plain twin that rounds alike (tight), and the all-f32
-   twin (the gap that rounding costs, bounded and reported);
+   a yardstick the port never calls).  With bf16 inputs all four run on
+   the tensor cores and round P (K1/K4: the operand of P V) and dS (K2/K3)
+   to bf16, so each has two references: the plain twin that rounds alike
+   (tight), and the all-f32 twin (the gap that rounding costs, bounded
+   and reported on the ``[check]`` lines and as ``f32_twin_gap``);
 4. reference: a small network trains 2 steps on the card (kernels) and on
    the CPU (plain versions) from the same weights, in fp32; scores and
    params must agree;
@@ -27,16 +28,20 @@ Phases (each raises on failure; the exit code is non-zero on any):
    n_heads=4, cache_len=8192) -> RnnOutputLayer(n_out=32, softmax,
    mcxent), n_in=64, adam, the card's default mixed_bf16 policy) takes
    3 fit steps; the score must be finite and every kernel's
-   launch count must rise by exactly one per step;
+   launch count must rise by exactly one per step; then one more step
+   under ``torch.profiler`` splits the step's CUDA time into the port's
+   kernels and everything else (top 5 kernels) and gives its idle share;
 6. inference: ``output()`` of the trained net must be finite
    probabilities of the right shape;
 7. ring: ``SequenceParallel(devices=["cuda"] * 4).attention(...,
    causal=True, impl="ring_flash")`` at batch 2, T=32768, 4 heads,
    d_head 64 (each shard the training slice's shape), forward and
    ``backward(g)``, in float32 and bfloat16, against the one-device
-   ``flash_attention`` (K1-K3) at the same T (bf16 gradients against the
-   one-device K2/K3 fed the ring forward's L and D, and the two whole
-   chains within ``RING_CHAIN_REL``); one causal fwd+bwd must
+   ``flash_attention`` (K1-K3) at the same T (in bf16, on the GRID: the
+   output against the same ring chain built from K4's rounded plain twin,
+   the gradients against the one-device K2/K3 fed the ring forward's L and
+   D, and the two whole chains within ``RING_CHAIN_REL``); one causal
+   fwd+bwd must
    launch K4, K2 and K3 exactly 10 times each and K1 never; both paths
    are timed in bfloat16.
 
@@ -77,33 +82,44 @@ PEAK_BYTES = 3.35e12
 # within 2^-7 of the value (atol 1e-5 covers the f32 noise near zero).
 F32_RTOL = 1e-4
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
-# The bf16 K2/K3 have two references.  Against the plain twin that rounds
-# P and dS to bf16 as the kernels do (operand_dtype=bf16): F32_RTOL, which
-# needs both sides to round the same f32 P.  From continuous random inputs
-# the kernel's S and the twin's, summed in another order, straddle a bf16
-# rounding point now and then and round one ulp apart, which moves a
-# gradient element by up to 2^-7 of one of its terms, far above 1e-4 of
-# max|plain| at small shapes; so the bf16 inputs lie on a grid of 1/8 in
-# [-4, 4] (GRID), where every S and dP is exact in f32 whatever the order.
-# Against the all-f32 twin: TC_F32_GAP of max|plain|.  One round-to-nearest
+# The bf16 kernels have two references, because the tensor-core bodies
+# round P (K1/K4, as the operand of O += P V; the softmax statistics stay
+# f32) and P and dS (K2/K3) to bf16, as the TPU kernel's default precision
+# rounds P for its P V dot.  Against the plain twin that rounds alike
+# (operand_dtype=bf16): the tolerances above (out element by element, f32
+# results at F32_RTOL), which need both sides to round the same f32 P.
+# From continuous random inputs the kernel's S and the twin's, summed in
+# another order, straddle a bf16 rounding point now and then and round one
+# ulp apart, which moves a result by up to 2^-7 of one of its terms, far
+# above 1e-4 of max|plain| at small shapes; so the bf16 inputs lie on a
+# grid of 1/8 in [-4, 4] (GRID), where every S and dP is exact in f32
+# whatever the order.  Against the all-f32 twin: the rounded results (out,
+# acc, the gradients) at TC_F32_GAP of max|plain|, the statistics (lse, m,
+# l: rounding P does not touch them) at F32_RTOL.  One round-to-nearest
 # moves each P and dS element by at most 2^-8 of itself, independently, so
-# a gradient element (a sum of such terms against unit-scale operands)
-# moves by about 2^-8/sqrt(3) = 2.3e-3 of its own size; 1e-2 of the
-# largest element leaves a factor of 4 for the tail over all elements.
+# an output or gradient element (a sum of such terms against unit-scale
+# operands) moves by about 2^-8/sqrt(3) = 2.3e-3 of its own size; 1e-2 of
+# the largest element leaves a factor of 4 for the tail over all elements.
 GRID = 8
 TC_F32_GAP = 1e-2
 REF_RTOL = 1e-4     # card vs CPU reference network, fp32
-# Ring vs one device, bf16 gradients: element by element, rtol 2^-7 (one
-# bf16 ulp, both sides round f32 sums taken in another order) and an atol
-# of 1e-3 x RMS of the reference for elements near zero, where the f32
-# sums cancel and their order shows.  That holds against the one-device
-# K2/K3 fed the ring forward's own L and D.  The ring's L (log-sum-exp
-# merges of K4 partials) and K1's differ in the last f32 bits, and the
-# tensor-core K2/K3 round P and dS to bf16, so across the two whole chains
-# a P or dS element near a rounding midpoint rounds one bf16 ulp apart and
-# moves one term of a gradient sum by up to 2^-7 of itself.  A few such
-# terms per row: the chains are held element by element to rtol 2^-7 with
-# an atol of RING_CHAIN_REL x max|one device| for the elements near zero.
+# Ring vs one device in bf16 (inputs on the GRID).  The ring's output is
+# held element by element (rtol 2^-7, BF16_ATOL) against the same chain
+# built from K4's rounded plain twin: K4 rounds P relative to each
+# segment's own running max, K1 relative to the running max over all
+# earlier keys, so the ring and one device round P apart, and only the
+# chain that rounds as the ring does can be held that tightly.  The
+# gradients are held element by element, rtol 2^-7 (one bf16 ulp, both
+# sides round f32 sums taken in another order) and an atol of 1e-3 x RMS
+# of the reference for elements near zero, where the f32 sums cancel and
+# their order shows, against the one-device K2/K3 fed the ring forward's
+# own L and D.  Across the two whole chains (ring vs one-device K1-K3) a P
+# rounded from another max, or a P or dS element near a rounding midpoint
+# (the ring's L, from log-sum-exp merges, and K1's differ in the last f32
+# bits), moves one term of an output or gradient sum by up to 2^-7 of
+# itself.  A few such terms per row: the chains are held element by
+# element to rtol 2^-7 with an atol of RING_CHAIN_REL x max|one device|
+# for the elements near zero.
 RING_GRAD_ATOL_RMS = 1e-3
 RING_CHAIN_REL = 1e-3
 
@@ -216,6 +232,19 @@ def bwd_twins(A, args, causal: bool, scale: float):
     return twins[0], (twins[1] if tensor_core else None)
 
 
+def fwd_twins(A, q, k, v, causal: bool, scale: float, mode: str):
+    """The plain K1/K4 results in ``mode`` that the kernel is held to: with
+    P rounded to bf16 for bf16 q/k/v (the tensor-core route), else
+    all-f32; and the all-f32 twin for the tensor-core route (None
+    otherwise)."""
+    tensor_core = q.dtype == torch.bfloat16
+    twins = [A.flash_forward_plain(q, k, v, causal, scale, mode,
+                                   operand_dtype=operands)
+             for operands in ([torch.bfloat16, None] if tensor_core
+                              else [None])]
+    return twins[0], (twins[1] if tensor_core else None)
+
+
 def ring_step_inputs(A, gen, dtype, scale: float):
     """K2/K3's inputs as the ring launches them most often (6 of the 10
     launches of one causal 4-shard ring): a non-causal full SEQ x SEQ
@@ -241,14 +270,14 @@ def phase_kernels(A, seed: int):
     scale = 1.0 / D_HEAD ** 0.5
     half = SEQ // 2
     checks = {name: [] for name in KERNELS}
-    gaps = {"flash_bwd_dkdv": [], "flash_bwd_dq": []}
+    gaps = {name: [] for name in KERNELS}
     inputs = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, g = (randn(shape, gen, dtype) for _ in range(4))
         out, lse = A.flash_forward(q, k, v, causal=True, sm_scale=scale,
                                    with_lse=True)
-        plain_out, plain_lse = A.flash_forward_plain(q, k, v, True, scale,
-                                                     "normalized_lse")
+        (plain_out, plain_lse), f32_twin = fwd_twins(
+            A, q, k, v, True, scale, "normalized_lse")
         out_n = A.flash_forward(q, k, v, causal=True, sm_scale=scale,
                                 with_lse=False)
         Drow = (g.float() * out.float()).sum(-1).contiguous()
@@ -263,29 +292,44 @@ def phase_kernels(A, seed: int):
             "flash_bwd_dkdv": [], "flash_bwd_dq": [],
             "flash_fwd_partials": [],
         }
-        gap_items = {"flash_bwd_dkdv": [], "flash_bwd_dq": []}
+        # against the all-f32 twin: (result, got, want, tolerance)
+        gap_items = {name: [] for name in KERNELS}
+        if f32_twin is not None:
+            gap_items["flash_fwd"] += [("out", out, f32_twin[0], TC_F32_GAP),
+                                       ("lse", lse, f32_twin[1], F32_RTOL)]
 
         def hold_bwd(label, got_dkdv, got_dq, args, causal):
             """K2/K3's results against their twins (see bwd_twins)."""
             twin, f32_twin = bwd_twins(A, args, causal, scale)
-            for dst, ref in ((items, twin), (gap_items, f32_twin)):
-                if ref is None:
-                    continue
-                (pdk, pdv), pdq = ref
-                dst["flash_bwd_dkdv"] += [(f"{label}dk", got_dkdv[0], pdk),
-                                          (f"{label}dv", got_dkdv[1], pdv)]
-                dst["flash_bwd_dq"] += [(f"{label}dq", got_dq, pdq)]
+            (pdk, pdv), pdq = twin
+            items["flash_bwd_dkdv"] += [(f"{label}dk", got_dkdv[0], pdk),
+                                        (f"{label}dv", got_dkdv[1], pdv)]
+            items["flash_bwd_dq"] += [(f"{label}dq", got_dq, pdq)]
+            if f32_twin is not None:
+                (pdk, pdv), pdq = f32_twin
+                gap_items["flash_bwd_dkdv"] += [
+                    (f"{label}dk", got_dkdv[0], pdk, TC_F32_GAP),
+                    (f"{label}dv", got_dkdv[1], pdv, TC_F32_GAP)]
+                gap_items["flash_bwd_dq"] += [
+                    (f"{label}dq", got_dq, pdq, TC_F32_GAP)]
 
         hold_bwd("", (dk, dv), dq, (q, k, v, g, lse, Drow), True)
-        del dk, dv, dq, plain_out, plain_lse, out_n
+        del dk, dv, dq, plain_out, plain_lse, out_n, f32_twin
         # K4, causal (the diagonal ring step) and not (every other step)
         for causal in (True, False):
             got = A.flash_attention_partial(q, k, v, causal=causal,
                                             sm_scale=scale)
-            want = A.flash_forward_plain(q, k, v, causal, scale, "partials")
+            want, f32_want = fwd_twins(A, q, k, v, causal, scale,
+                                       "partials")
+            results = ("acc", "m", "l")
             items["flash_fwd_partials"] += [
                 (f"{r} causal={causal}", a, b)
-                for r, a, b in zip(("acc", "m", "l"), got, want)]
+                for r, a, b in zip(results, got, want)]
+            if f32_want is not None:
+                gap_items["flash_fwd_partials"] += [
+                    (f"{r} causal={causal}", a, b,
+                     TC_F32_GAP if r == "acc" else F32_RTOL)
+                    for r, a, b in zip(results, got, f32_want)]
         # K2/K3 in segment form, Tq = SEQ against a K/V half (Tk = SEQ/2)
         # with the global L and D of the whole sequence: the causal first
         # half (local positions are global there) and the non-causal
@@ -317,14 +361,15 @@ def phase_kernels(A, seed: int):
                      **compare(f"{name} {result} ({dname} inputs)", got,
                                want)})
         for name, results in gap_items.items():
-            for result, got, want in results:
+            for result, got, want, rel in results:
                 gaps[name].append(
                     {"result": result, "inputs": dname,
                      **compare(f"{name} {result} ({dname} inputs) vs the "
-                               "all-f32 twin", got, want, rel=TC_F32_GAP)})
+                               "all-f32 twin", got.float(), want.float(),
+                               rel=rel)})
         inputs[dtype] = (q, k, v, g, out, lse, Drow, lse_nc, D_nc,
                          ring_step)
-        del items, gap_items, got, want, sdk, sdv, sdq
+        del items, gap_items, got, want, f32_want, sdk, sdv, sdq
 
     q, k, v, g, out, lse, Drow, lse_nc, D_nc, ring_step = \
         inputs[torch.bfloat16]
@@ -370,9 +415,11 @@ def phase_kernels(A, seed: int):
     }
     plain_t = {
         "flash_fwd": time_ms(lambda: A.flash_forward_plain(
-            q, k, v, True, scale, "normalized_lse"), **plain),
+            q, k, v, True, scale, "normalized_lse",
+            operand_dtype=torch.bfloat16), **plain),
         "flash_fwd_partials": time_ms(lambda: A.flash_forward_plain(
-            q, k, v, False, scale, "partials"), **plain),
+            q, k, v, False, scale, "partials",
+            operand_dtype=torch.bfloat16), **plain),
         "flash_bwd_dkdv": time_ms(lambda: A.flash_dkdv_plain(
             q, k, v, g, lse, Drow, True, scale,
             operand_dtype=torch.bfloat16), **plain),
@@ -420,8 +467,9 @@ def phase_kernels(A, seed: int):
                      "checks": checks[name]}
               for name in KERNELS}
     timing["flash_fwd"]["ms_normalized"] = t["flash_fwd_normalized"]
-    for name, kind in (("flash_bwd_dkdv", "dkdv"), ("flash_bwd_dq", "dq")):
+    for name in KERNELS:
         timing[name]["f32_twin_gap"] = gaps[name]
+    for name, kind in (("flash_bwd_dkdv", "dkdv"), ("flash_bwd_dq", "dq")):
         timing[name]["segment_ms"] = t["segment_" + kind]
         timing[name]["segment_bound_ms"] = seg_bounds[name][0]
         timing[name]["ring_step_ms"] = t["ring_step_" + kind]
@@ -490,6 +538,64 @@ def phase_reference(N, A, seed: int) -> dict:
     return {"steps": 2, "max_rel": worst}
 
 
+PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_dq_kernel")     # K1 and K4 share flash_fwd_kernel
+
+
+def profile_step(net, ds, steady_ms: float) -> dict:
+    """One more steady ``fit`` step under ``torch.profiler``: the CUDA time
+    of the port's kernels by name, of everything else in all and by its 5
+    largest kernels, and the step's idle share: 1 - (the union of the
+    device's busy intervals) / (the host wall time of the profiled step,
+    which includes the profiler's overhead), and against ``steady_ms``,
+    the fastest unprofiled steady step of the same run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        net.score()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e3
+    ours = {k: sum(ms for name, ms in by_name.items() if k in name)
+            for k in PORT_KERNELS}
+    rest = sorted(((ms, name) for name, ms in by_name.items()
+                   if not any(k in name for k in PORT_KERNELS)),
+                  reverse=True)
+    busy_ms, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in device):
+        if end is None or a > end:
+            busy_ms, end = busy_ms + b - a, b
+        elif b > end:
+            busy_ms, end = busy_ms + b - end, b
+    busy_ms /= 1e3
+    result = {"device_events": len(device), "step_ms_profiled": wall_ms,
+              "device_busy_ms": busy_ms,
+              "idle_share": 1.0 - busy_ms / wall_ms,
+              "idle_share_steady": 1.0 - busy_ms / steady_ms,
+              "port_kernels_ms": ours,
+              "other_ms": sum(ms for ms, _ in rest),
+              "other_top5": [{"name": name[:120], "ms": ms}
+                             for ms, name in rest[:5]]}
+    log(f"[profile] one fit step under torch.profiler: host "
+        f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
+        f"{result['idle_share']:.3f}; {result['idle_share_steady']:.3f} of "
+        f"the steady step, {steady_ms:.3f} ms; {len(device)} device "
+        f"events); port "
+        f"kernels {ours}; everything else {result['other_ms']:.3f} ms, "
+        f"top 5: " + "; ".join(f"{d['name'][:60]} {d['ms']:.3f}"
+                               for d in result["other_top5"]))
+    return result
+
+
 def phase_training(N, A, seed: int):
     net = build_net(N, A, seed=seed, n_in=N_IN, hidden=HIDDEN, heads=HEADS,
                     n_out=N_OUT, cache_len=SEQ)
@@ -519,7 +625,8 @@ def phase_training(N, A, seed: int):
         raise RuntimeError(f"launches in {STEPS} steps: {launches}, "
                            f"expected {expected}")
     return net, ds, {"scores": scores, "step_ms": step_ms,
-                     "peak_mem_bytes": peak, "launches": launches}
+                     "peak_mem_bytes": peak, "launches": launches,
+                     "profile": profile_step(net, ds, min(step_ms[1:]))}
 
 
 def phase_inference(net, ds) -> dict:
@@ -554,12 +661,35 @@ def backward_at_ring_stats(A, S, q, k, v, g):
     return [x.to(q.dtype) for x in grads]
 
 
+def ring_forward_twin(A, S, q, k, v):
+    """The causal ring forward's output built from K4's plain twin that
+    rounds P to bf16, merged by the ring's own ``_merge`` in the ring's
+    order (shard i: its own K/V first, causal by local positions, then
+    shards i - 1, ..., 0): what the bf16 ring forward computes, up to the
+    order of f32 sums."""
+    chunks = [torch.chunk(x, RING_SHARDS, dim=1) for x in (q, k, v)]
+    qs, ks, vs = ([c.contiguous() for c in x] for x in chunks)
+    outs = []
+    for i in range(RING_SHARDS):
+        state = S._empty_partials(qs[i])
+        for j in range(i, -1, -1):
+            part = A.flash_forward_plain(qs[i], ks[j], vs[j], j == i,
+                                         D_HEAD ** -0.5, "partials",
+                                         operand_dtype=torch.bfloat16)
+            state = S._merge(*state, *part)
+        o, _, l = state
+        outs.append((o / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def phase_ring(A, S, seed: int) -> dict:
     """The ring flash attention over 4 shards on one card, forward and
     ``backward(g)``, against the one-device flash attention (K1-K3) at the
-    same T, in f32 and bf16 (bf16 gradients also against one-device K2/K3
-    at the ring forward's L and D, see RING_CHAIN_REL); the exact launch
-    counts of one causal fwd+bwd; both paths timed in bf16."""
+    same T, in f32 and bf16 (bf16 on the GRID: the output against the ring
+    chain of K4's rounded twin, the gradients against one-device K2/K3 at
+    the ring forward's L and D, and the whole chains at RING_CHAIN_REL);
+    the exact launch counts of one causal fwd+bwd; both paths timed in
+    bf16."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     shape = (BATCH, RING_SEQ, HEADS, D_HEAD)
     sp = S.SequenceParallel(devices=["cuda"] * RING_SHARDS)
@@ -575,8 +705,7 @@ def phase_ring(A, S, seed: int) -> dict:
 
     result = {"shards": RING_SHARDS, "shape": list(shape), "checks": []}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
-                      .to(dtype) for _ in range(4))
+        q, k, v, g = (randn(shape, gen, dtype) for _ in range(4))
         torch.cuda.synchronize()
         A.reset_launches()        # counts of the ring's run only
         ring = fwd_bwd(q, k, v, g, True)
@@ -591,18 +720,21 @@ def phase_ring(A, S, seed: int) -> dict:
         ref = fwd_bwd(q, k, v, g, False)
         names = ("out", "dq", "dk", "dv")
         if dtype == torch.bfloat16:
-            for name, got, want in zip(names[1:], ring[1:], ref[1:]):
+            for name, got, want in zip(names, ring, ref):
                 result["checks"].append(
                     {"result": name + " whole chain", "inputs": dname,
                      **compare(f"ring {name} vs one device, whole chains "
                                f"({dname} inputs)", got, want,
                                atol=RING_CHAIN_REL
                                * want.float().abs().max().item())})
-            ref = ref[:1] + backward_at_ring_stats(A, S, q, k, v, g)
+            ref = ([ring_forward_twin(A, S, q, k, v)]
+                   + backward_at_ring_stats(A, S, q, k, v, g))
         for name, got, want in zip(names, ring, ref):
             atol = (BF16_ATOL if name == "out" else RING_GRAD_ATOL_RMS
                     * want.float().pow(2).mean().sqrt().item())
-            what = ("one device" if name == "out" or dtype == torch.float32
+            what = ("one device" if dtype == torch.float32
+                    else "the ring chain of K4's rounded twin"
+                    if name == "out"
                     else "one-device K2/K3 at the ring's L and D")
             result["checks"].append(
                 {"result": name, "inputs": dname,

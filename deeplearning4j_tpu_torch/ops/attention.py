@@ -10,6 +10,9 @@ Kernels, hand-written CUDA for Hopper in ``csrc/flash_attention.cu``:
   unnormalized (acc, m, l) of q against one K/V segment whose length may
   differ from q's.  Replaces the kernel launched by
   ``flash_attention_partial``; the ring flash attention merges these.
+  For bf16 q/k/v K1 and K4 run on the tensor cores and round P to bf16 as
+  the operand of P V (the softmax statistics stay f32); f32 inputs keep an
+  all-f32 scalar body.
 - K2 ``flash_bwd_dkdv`` and K3 ``flash_bwd_dq``: the fused two-pass
   backward that rebuilds P from the saved logsumexp, sharing one
   elementwise core.  Replace ``_make_dkdv_kernel``/``_make_dq_kernel``
@@ -21,9 +24,9 @@ Kernels, hand-written CUDA for Hopper in ``csrc/flash_attention.cu``:
   dO with bf16 q, keep an all-f32 scalar body.
 
 Beside each kernel is its plain PyTorch version (``flash_forward_plain``
-in its three modes, ``flash_dkdv_plain``, ``flash_dq_plain``; the last two
-with ``operand_dtype=torch.bfloat16`` for the tensor-core rounding)
-running the same tiled streaming arithmetic.  A wrapper runs the plain
+in its three modes, ``flash_dkdv_plain``, ``flash_dq_plain``; each with
+``operand_dtype=torch.bfloat16`` for the tensor-core rounding) running the
+same tiled streaming arithmetic.  A wrapper runs the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``.
 
@@ -197,7 +200,7 @@ def _rows_back(x: Tensor) -> Tensor:
 # ---------------------------------------------------------------- K1 / K4
 def flash_forward_plain(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                         sm_scale: float, mode: str = "normalized",
-                        block: int = TILE):
+                        block: int = TILE, operand_dtype=None):
     """Plain PyTorch twin of K1 and K4, one body for the three modes of
     ``_make_flash_kernel``: the streaming softmax over k-blocks of
     ``block`` keys with a running max, denominator and f32 accumulator,
@@ -209,6 +212,11 @@ def flash_forward_plain(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     - ``normalized_lse``: ``(out, lse)`` with the (B, Tq, H) f32
       logsumexp m + log(max(l, 1e-30));
     - ``partials``: the f32 ``(acc, m, l)``, unnormalized.
+
+    ``operand_dtype=torch.bfloat16`` rounds p to bf16 as the operand of
+    ``p @ v`` only, as the tensor-core kernel does (bf16 q/k/v): m, l and
+    the correction stay f32, l sums the unrounded p.  ``None`` is the
+    all-f32 twin.
     """
     if mode not in _FWD_MODES:
         raise ValueError(f"unknown kernel mode {mode!r}")
@@ -230,6 +238,8 @@ def flash_forward_plain(q: Tensor, k: Tensor, v: Tensor, causal: bool,
         p = torch.where(alive, torch.exp(s - m_new), 0.0)
         corr = torch.where(alive, torch.exp(m - m_new), 0.0)
         l = l * corr + p.sum(dim=-1, keepdim=True)
+        if operand_dtype is not None:
+            p = p.to(operand_dtype).float()
         acc = acc * corr + p @ vb
         m = m_new
     if mode == "partials":

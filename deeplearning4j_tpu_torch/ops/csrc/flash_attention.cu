@@ -15,10 +15,10 @@
 // What bounds them on the H100: all four are bound by operations.  At the
 // training shape (B=2, T=8192, H=4, d=64, causal) K1 does two T x T x d
 // products over the causal half and moves ~34 MB, so its operations take
-// ~7x longer than its bytes even at the bf16 tensor-core peak; K2 does four
-// such products (0.139 ms at the peak), K3 three (0.104 ms).  K4 on one
-// ring step of that shape does K1's two products over the whole Tq x Tk
-// block (no causal half off the diagonal).
+// ~7x longer than its bytes even at the bf16 tensor-core peak (0.069 ms);
+// K2 does four such products (0.139 ms at the peak), K3 three (0.104 ms).
+// K4 on one ring step of that shape does K1's two products over the whole
+// Tq x Tk block (no causal half off the diagonal; 0.139 ms).
 //
 // What the design does about it.  In all four the (Tq, Tk) score matrix
 // never reaches device memory: a thread block owns one tile of one
@@ -28,26 +28,30 @@
 // the work.  K2 owns one k-tile per block, so dK and dV need no atomics,
 // and dQ has its own kernel (K3): results are deterministic.
 //
-// - K2 and K3 for bf16 q/k/v and dO (what the training path and the ring
-//   give them) run on the tensor cores: mma.sync m16n8k16 bf16 x bf16 with
-//   f32 accumulation, operands from bf16 tiles in shared memory through
-//   ldmatrix.  Each warp owns 16 rows of the block's tile.  The score-side
-//   products leave P and dS in the accumulator fragments, which, packed to
-//   bf16 pairs, are the A operand of the gradient products, so P and dS
-//   never touch shared memory.  The streamed tiles (Q/dO with their L and D
-//   rows in K2, K/V in K3) arrive by 16-byte cp.async copies, double
-//   buffered: the next tile is in flight while the current one is
-//   computed.  Causal blocks start heaviest first (b*h on the fastest grid
-//   axis, K3's q-tiles in reverse), so the longest blocks do not form the
-//   tail.  P and dS are rounded to bf16 as operands, as every GPU flash
-//   backward does; S and dP are bf16 x bf16 products summed in f32.
-// - K1 and K4, and K2/K3 for f32 inputs or an f32 dO with bf16 q (a
-//   cotangent that must not be rounded), keep the scalar body: tiles
-//   staged in shared memory as f32 and every product a scalar f32 FMA on a
-//   16x16 thread grid where each thread owns a 4x4 micro-tile.  For K2/K3
-//   that is the exact-f32 contract of the reference network; K1 and K4 are
-//   the next kernels to move to the tensor cores.  The choice is made at
-//   compile time (if constexpr on the operand types), never at run time.
+// - For bf16 q/k/v (and a bf16 dO in K2/K3), what the training path and
+//   the ring give them, all four run on the tensor cores: mma.sync
+//   m16n8k16 bf16 x bf16 with f32 accumulation, operands from bf16 tiles in
+//   shared memory through ldmatrix.  Each warp owns 16 rows of the block's
+//   tile.  The score-side products leave P (and dS) in the accumulator
+//   fragments, which, packed to bf16 pairs, are the A operand of the next
+//   product (O += P V in K1/K4, the gradient products in K2/K3), so P and
+//   dS never touch shared memory.  The streamed tiles (K/V in K1/K4 and
+//   K3, Q/dO with their L and D rows in K2) arrive by 16-byte cp.async
+//   copies, double buffered: the next tile is in flight while the current
+//   one is computed.  Causal blocks start heaviest first (b*h on the
+//   fastest grid axis, the q-tiles of K1/K4 and K3 in reverse), so the
+//   longest blocks do not form the tail.  P and dS are rounded to bf16 as
+//   operands, as the TPU kernel's default precision rounds P for its P V
+//   dot and every GPU flash kernel does; S and dP are bf16 x bf16 products
+//   summed in f32, and the softmax statistics (m, l, the logsumexp) stay
+//   f32: l sums the unrounded p.
+// - f32 inputs, and K2/K3 with an f32 dO and bf16 q (a cotangent that must
+//   not be rounded), keep the scalar body: tiles staged in shared memory as
+//   f32 and every product a scalar f32 FMA on a 16x16 thread grid where
+//   each thread owns a 4x4 micro-tile.  That is the exact-f32 contract of
+//   the fp32 reference network and of the f32 ring, which a bf16 operand
+//   would break.  The choice is made at compile time (if constexpr on the
+//   operand types), never at run time.
 //
 // Semantics kept from the TPU kernels: the -1e30 sentinel for masked
 // scores with the `alive` guard (a row with no visible key yet contributes
@@ -69,6 +73,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -175,30 +180,31 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-// ------------------------------------------------------------- K1 / K4
+// ------------------------------------------------------ K1 / K4, scalar
 // The forward's modes, as _make_flash_kernel names them; only the finalize
 // differs.
 enum FwdMode { NORMALIZED = 0, NORMALIZED_LSE = 1, PARTIALS = 2 };
 
-// One block per (q-tile, b*h).  NORMALIZED writes out = acc / l in T;
+// f32 q/k/v, q-tile qt of slice bh.  NORMALIZED writes out = acc / l in T;
 // NORMALIZED_LSE also writes the logsumexp m + log(l) to `stat_a`;
 // PARTIALS writes the unnormalized acc to `out` (f32) and m, l to
 // `stat_a`, `stat_b`.
 template <typename T, int DM, int MODE>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v,
-                 std::conditional_t<MODE == PARTIALS, float, T>* __restrict__ out,
-                 float* __restrict__ stat_a, float* __restrict__ stat_b,
-                 Geom g, float scale, int causal) {
-  extern __shared__ float smem[];
+__device__ void fwd_scalar(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           std::conditional_t<MODE == PARTIALS, float, T>*
+                               __restrict__ out,
+                           float* __restrict__ stat_a,
+                           float* __restrict__ stat_b, const Geom& g,
+                           float scale, int causal, int bh, int qt,
+                           float* smem) {
   constexpr int LD = DM + 1, DC = DM / 16;
   float* Qs = smem;
   float* Ks = Qs + TILE * LD;
   float* Vs = Ks + TILE * LD;
   float* Ps = Vs + TILE * LD;                  // [TILE][PLD]
-  const int b = blockIdx.y / g.H, h = blockIdx.y % g.H;
-  const int q0 = blockIdx.x * TILE;
+  const int b = bh / g.H, h = bh % g.H;
+  const int q0 = qt * TILE;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   load_tile<T, DM>(Qs, q, q0, g.q, g.d, b, h);
@@ -505,10 +511,11 @@ __device__ void dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------- K2/K3, tensor-core bodies
-// bf16 q/k/v and dO.  A block of TC_THREADS = 4 warps owns TC_ROWS = 64
-// rows (keys in K2, queries in K3), 16 per warp, and streams the other
-// side in tiles of TcCfg::BS rows.
+// ------------------------------------------------- tensor-core bodies
+// bf16 q/k/v (and dO in K2/K3).  A block of TC_THREADS = 4 warps owns
+// TC_ROWS = 64 rows (queries in K1/K4 and K3, keys in K2), 16 per warp,
+// and streams the other side in tiles of FWD_BK (K1/K4) or TcCfg::BS
+// (K2/K3) rows.
 //
 // Fragments of mma.sync.m16n8k16.row.col, for lane l of the warp with
 // gr = l / 4 and gc = 2 * (l % 4):
@@ -523,11 +530,17 @@ __device__ void dq_scalar(const T* __restrict__ q, const T* __restrict__ k,
 // of k-step m (k = 16m..16m+15) of the next product:
 //   a0 = (C[2m].c0, C[2m].c1)    a1 = (C[2m].c2, C[2m].c3)
 //   a2 = (C[2m+1].c0, C[2m+1].c1) a3 = (C[2m+1].c2, C[2m+1].c3)
-// K2's S^T = K Q^T and dP^T = V dO^T give P^T and dS^T (key rows, query
-// columns) as the A operand of dV += P^T dO and dK += dS^T Q; K3's
-// S = Q K^T and dP = dO V^T give dS as the A operand of dQ += dS K.
+// K1/K4's S = Q K^T gives P as the A operand of O += P V; K2's S^T = K Q^T
+// and dP^T = V dO^T give P^T and dS^T (key rows, query columns) as the A
+// operand of dV += P^T dO and dK += dS^T Q; K3's S = Q K^T and
+// dP = dO V^T give dS as the A operand of dQ += dS K.
 constexpr int TC_THREADS = 128;
 constexpr int TC_ROWS = 64;
+// keys of a K/V tile streamed by K1/K4 at every d: the forward holds no
+// gradient accumulators, so a 16 x 128 f32 O and a 16 x 64 f32 S fit the
+// registers; equal to the plain twin's block, since the running max, and
+// so the rounding of P, depend on where the tiles start
+constexpr int FWD_BK = TILE;
 
 template <int DM>
 struct TcCfg {
@@ -545,6 +558,17 @@ struct TcCfg {
   static constexpr size_t tiles = sizeof(bf16) * (2 * TC_ROWS + 4 * BS) * LDS;
   static constexpr size_t dkdv_smem = tiles + sizeof(float) * 4 * BS;
   static constexpr size_t dq_smem = tiles + sizeof(float) * 2 * TC_ROWS;
+  // K1/K4: compiled for FWD_MINB blocks an SM.  At d <= 64 that is 4: 128
+  // registers a thread and 16 warps an SM to hide the latency of the
+  // max/exp chain between the two products (on an H100 clearly faster
+  // than the 3 blocks that an unbounded build's registers allow), which
+  // leaves no room to hold the Q fragments in registers: they are read
+  // again from shared memory per tile.  d = 128 is held to 2 blocks an SM
+  // by its shared memory anyway.  Shared memory: Q, then K and V
+  // double-buffered.
+  static constexpr int FWD_MINB = DM <= 64 ? 4 : 1;
+  static constexpr size_t fwd_smem =
+      sizeof(bf16) * (TC_ROWS + 4 * FWD_BK) * LDS;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -681,6 +705,168 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
 __device__ __forceinline__ bool tile_edge(int q0, int bq, int k0, int bk,
                                           const Geom& g, int causal) {
   return q0 + bq > g.q.T || k0 + bk > g.k.T || (causal && q0 < k0 + bk - 1);
+}
+
+// K1/K4 on the tensor cores, q-tile qt of slice bh.  Warp w owns query
+// rows 16w..16w+15; per K/V tile it forms S = Q K^T, runs the streaming
+// softmax on the accumulator fragments, packs P to bf16 pairs in
+// registers as soon as it is formed (P never touches shared memory; the
+// f32 S dies early, which keeps the body within 128 registers) and
+// accumulates O += P V.  Lane l holds parts of rows gr and gr + 8
+// (index hf = 0, 1); a row's 64 scores of a tile lie in the 4 lanes of its
+// quad, so the row max is reduced over the quad (xor 1, 2) per tile.  The
+// denominator l is kept per lane, over the lane's own columns (each step
+// rescales every lane of a row by the same correction), and summed over
+// the quad once, at the end.  The mask is (k < Tk) && (!causal || q >= k)
+// in local positions; s * scale is rounded before the max is taken away
+// (no fused multiply-add) and l sums the f32 p, as the plain twin computes
+// them, so that from the same S both round the same P to bf16.  Only the
+// finalize differs between the modes.
+template <int DM, int MODE>
+__device__ void fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       std::conditional_t<MODE == PARTIALS, float, bf16>*
+                           __restrict__ out,
+                       float* __restrict__ stat_a, float* __restrict__ stat_b,
+                       const Geom& g, float scale, int causal, int vec,
+                       int bh, int qt, unsigned char* smem) {
+  using C = TcCfg<DM>;
+  constexpr int LDS = C::LDS, BK = FWD_BK, NK = BK / 8;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + TC_ROWS * LDS;               // [2][BK][LDS]
+  bf16* Vs = Ks + 2 * BK * LDS;                // [2][BK][LDS]
+  const int b = bh / g.H, h = bh % g.H;
+  const int q0 = qt * TC_ROWS;
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16;
+  const int gr = lane >> 2, gc = 2 * (lane & 3);
+  int nk = (g.k.T + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + TC_ROWS - 1) / BK + 1);   // to the diagonal
+
+  auto stage = [&](int kt, int buf) {
+    stage_tile<BK, DM>(Ks + buf * BK * LDS, k, kt * BK, g.k, g.d, b, h, vec);
+    stage_tile<BK, DM>(Vs + buf * BK * LDS, v, kt * BK, g.k, g.d, b, h, vec);
+  };
+  stage_tile<TC_ROWS, DM>(Qs, q, q0, g.q, g.d, b, h, vec);
+  if (nk > 0) stage(0, 0);
+  cp_async_commit();
+
+  float oa[C::ND][4] = {};
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1, k0 = kt * BK;
+    if (kt + 1 < nk) stage(kt + 1, buf ^ 1);   // next tile in flight
+    cp_async_commit();
+    cp_async_wait<1>();                        // this tile (and Q) landed
+    __syncthreads();
+    const bf16* Kb = Ks + buf * BK * LDS;
+    const bf16* Vb = Vs + buf * BK * LDS;
+
+    float s[NK][4] = {};                       // S: queries x keys
+#pragma unroll
+    for (int kd = 0; kd < C::KD; ++kd) {
+      uint32_t aq[4];
+      frag_a<LDS>(aq, Qs, wr, kd * 16, lane);
+#pragma unroll
+      for (int j = 0; j < NK; j += 2) {
+        uint32_t bk[4];
+        frag_b_nk<LDS>(bk, Kb, j * 8, kd * 16, lane);
+        mma_bf16(s[j], aq, bk[0], bk[1]);
+        mma_bf16(s[j + 1], aq, bk[2], bk[3]);
+      }
+    }
+    // scale and mask; element c of n-tile j: query row wr + gr + 8 (c / 2),
+    // key column 8 j + gc + c % 2
+    const bool edge = tile_edge(q0, TC_ROWS, k0, BK, g, causal);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int hf = c >> 1, kp = k0 + j * 8 + gc + (c & 1);
+        const bool keep =
+            !edge || (kp < g.k.T && (!causal || q0 + wr + gr + 8 * hf >= kp));
+        s[j][c] = keep ? __fmul_rn(s[j][c], scale) : NEG_INF;
+        mx[hf] = fmaxf(mx[hf], s[j][c]);
+      }
+    bool alive[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+      const float m_new = fmaxf(m[hf], mx[hf]);
+      alive[hf] = m_new > NEG_INF * 0.5f;
+      const float corr = alive[hf] ? expf(m[hf] - m_new) : 0.f;
+      m[hf] = m_new;
+      l[hf] *= corr;
+#pragma unroll
+      for (int n = 0; n < C::ND; ++n) {
+        oa[n][2 * hf] *= corr;
+        oa[n][2 * hf + 1] *= corr;
+      }
+    }
+    // P = exp(s - m), packed to bf16 pairs as the A operand, then O += P V
+    uint32_t ap[BK / 16][4];
+#pragma unroll
+    for (int mm = 0; mm < BK / 16; ++mm) {
+#pragma unroll
+      for (int j = 2 * mm; j < 2 * mm + 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int hf = c >> 1;
+          s[j][c] = alive[hf] ? expf(s[j][c] - m[hf]) : 0.f;
+          l[hf] += s[j][c];
+        }
+      acc_to_a(ap[mm], s[2 * mm], s[2 * mm + 1]);
+    }
+#pragma unroll
+    for (int mm = 0; mm < BK / 16; ++mm) {
+#pragma unroll
+      for (int n = 0; n < C::ND; n += 2) {
+        uint32_t bv[4];
+        frag_b_kn<LDS>(bv, Vb, mm * 16, n * 8, lane);
+        mma_bf16(oa[n], ap[mm], bv[0], bv[1]);
+        mma_bf16(oa[n + 1], ap[mm], bv[2], bv[3]);
+      }
+    }
+    __syncthreads();                           // tile read: buf is free
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    const int qp = q0 + wr + gr + 8 * hf;
+    if (qp >= g.q.T) continue;                 // ragged q rows: not written
+    const long long base = offset(g.q, b, qp, h);
+    const long long row = row_index(g, b, qp, h);
+    const bool writes_row = (lane & 3) == 0;
+    if constexpr (MODE == PARTIALS) {
+#pragma unroll
+      for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + gc + e;
+          if (col < g.d) out[base + col] = oa[n][2 * hf + e];
+        }
+      if (writes_row) {
+        stat_a[row] = m[hf];
+        stat_b[row] = l[hf];
+      }
+    } else {
+      const float denom = fmaxf(l[hf], 1e-30f);
+#pragma unroll
+      for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + gc + e;
+          if (col < g.d)
+            out[base + col] = __float2bfloat16(oa[n][2 * hf + e] / denom);
+        }
+      if (MODE == NORMALIZED_LSE && writes_row)
+        stat_a[row] = m[hf] + logf(denom);
+    }
+  }
 }
 
 // K2 on the tensor cores, k-tile kt of slice bh.  Warp w owns key rows
@@ -956,12 +1142,33 @@ __device__ void dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------- K2 and K3
-// bf16 q/k/v with a bf16 dO go to the tensor cores, anything else to the
-// scalar body; fixed at compile time.
-template <typename T, typename TO>
+// ------------------------------------------------------------- kernels
+// bf16 q/k/v (with a bf16 dO in K2/K3) go to the tensor cores, anything
+// else to the scalar body; fixed at compile time.
+template <typename T, typename TO = T>
 constexpr bool tensor_core_v =
     std::is_same_v<T, bf16> && std::is_same_v<TO, bf16>;
+
+// K1 and K4: one block per (b*h, q-tile), b*h fastest; causal q-tiles in
+// reverse, so the last, which sees every k-tile, starts first for every
+// head.
+template <typename T, int DM, int MODE>
+__global__ void __launch_bounds__(tensor_core_v<T> ? TC_THREADS : THREADS,
+                                  tensor_core_v<T> ? TcCfg<DM>::FWD_MINB : 1)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v,
+                 std::conditional_t<MODE == PARTIALS, float, T>* __restrict__ out,
+                 float* __restrict__ stat_a, float* __restrict__ stat_b,
+                 Geom g, float scale, int causal, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_fwd[];
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  if constexpr (tensor_core_v<T>)
+    fwd_tc<DM, MODE>(q, k, v, out, stat_a, stat_b, g, scale, causal, vec,
+                     blockIdx.x, qt, smem_fwd);
+  else
+    fwd_scalar<T, DM, MODE>(q, k, v, out, stat_a, stat_b, g, scale, causal,
+                            blockIdx.x, qt, reinterpret_cast<float*>(smem_fwd));
+}
 
 // One block per (b*h, k-tile), b*h on the fastest grid axis: k-tile 0,
 // which sees every q-tile when causal, starts first for every head.
@@ -1041,25 +1248,41 @@ Geom make_geom(int B, int Tq, int Tk, int H, int d, long long qsb,
   return Geom{B, H, d, Side{Tq, qsb, qst, qsh}, Side{Tk, ksb, kst, ksh}};
 }
 
+// Can the bf16 tiles of `ptrs` be staged by 16-byte copies: d a multiple
+// of 8 and every row 16-byte aligned (aligned bases, strides a multiple of
+// 8 elements).
+int rows_16b(const Geom& g, std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return 0;
+  const Side& sq = g.q;
+  const Side& sk = g.k;
+  return g.d % 8 == 0 && sq.sb % 8 == 0 && sq.st % 8 == 0 &&
+         sq.sh % 8 == 0 && sk.sb % 8 == 0 && sk.st % 8 == 0 &&
+         sk.sh % 8 == 0;
+}
+
 template <int MODE>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, void* stat_a, void* stat_b, const Geom& g,
                        float scale, int causal, int bf16_in, void* stream) {
-  const dim3 grid((g.q.T + TILE - 1) / TILE, g.B * g.H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(bf16_in, g.d, [&](auto cfg) -> cudaError_t {
     using C = decltype(cfg);
     using T_ = typename C::type;
     using O_ = std::conditional_t<MODE == PARTIALS, float, T_>;
-    const size_t smem = 3 * C::tile_bytes + C::score_bytes;
+    constexpr bool tc = tensor_core_v<T_>;
+    const size_t smem =
+        tc ? TcCfg<C::dm>::fwd_smem : 3 * C::tile_bytes + C::score_bytes;
     auto kern = &flash_fwd_kernel<T_, C::dm, MODE>;
     cudaError_t e = allow_smem(kern, smem);
     if (e != cudaSuccess) return e;
-    kern<<<grid, THREADS, smem, s>>>(
+    const int rows = tc ? TC_ROWS : TILE;
+    const dim3 grid(g.B * g.H, (g.q.T + rows - 1) / rows);
+    kern<<<grid, tc ? TC_THREADS : THREADS, smem, s>>>(
         static_cast<const T_*>(q), static_cast<const T_*>(k),
         static_cast<const T_*>(v), static_cast<O_*>(out),
         static_cast<float*>(stat_a), static_cast<float*>(stat_b), g, scale,
-        causal);
+        causal, tc ? rows_16b(g, {q, k, v}) : 0);
     return cudaGetLastError();
   });
 }
@@ -1071,19 +1294,6 @@ struct BwdArgs {
   float scale;
   int causal;
 };
-
-// Can the bf16 tiles be staged by 16-byte copies: d a multiple of 8 and
-// every row of q, k, v and dO 16-byte aligned.
-int rows_16b(const BwdArgs& a) {
-  auto al = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const Side& sq = a.g.q;
-  const Side& sk = a.g.k;
-  return a.g.d % 8 == 0 && al(a.q) && al(a.k) && al(a.v) && al(a.dout) &&
-         sq.sb % 8 == 0 && sq.st % 8 == 0 && sq.sh % 8 == 0 &&
-         sk.sb % 8 == 0 && sk.st % 8 == 0 && sk.sh % 8 == 0;
-}
 
 template <typename T, typename TO, int DM>
 cudaError_t launch_dkdv(const BwdArgs& a, cudaStream_t s) {
@@ -1102,7 +1312,7 @@ cudaError_t launch_dkdv(const BwdArgs& a, cudaStream_t s) {
       static_cast<const T*>(a.v), static_cast<const TO*>(a.dout),
       static_cast<const float*>(a.L), static_cast<const float*>(a.Drow),
       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.g, a.scale,
-      a.causal, tc ? rows_16b(a) : 0);
+      a.causal, tc ? rows_16b(a.g, {a.q, a.k, a.v, a.dout}) : 0);
   return cudaGetLastError();
 }
 
@@ -1123,7 +1333,7 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t s) {
       static_cast<const T*>(a.v), static_cast<const TO*>(a.dout),
       static_cast<const float*>(a.L), static_cast<const float*>(a.Drow),
       static_cast<float*>(a.dq), a.g, a.scale, a.causal,
-      tc ? rows_16b(a) : 0);
+      tc ? rows_16b(a.g, {a.q, a.k, a.v, a.dout}) : 0);
   return cudaGetLastError();
 }
 

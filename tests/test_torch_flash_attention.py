@@ -11,9 +11,15 @@ sides accumulate in f32 in another order), 0.1 for bf16 inputs against
 the f32 oracle, 2e-2 (about two bf16 ulps at |out| < 2) for bf16 against
 the JAX kernel on the same bf16 inputs.
 
-The plain K2/K3 twins also take ``operand_dtype=torch.bfloat16``, which
-rounds P and dS as the tensor-core kernels do; those tests are the port's
-own (the JAX package has no such rounding) and state their tolerances.
+The plain twins also take ``operand_dtype=torch.bfloat16``, which rounds P
+(and dS in K2/K3) as the tensor-core kernels do; those tests are the
+port's own and state their tolerances.  Against the JAX package, whose
+interpret-mode kernels run in exact f32, the rounded forward twin is held
+at ``TC_F32_GAP``: one round-to-nearest moves each P element by at most
+2^-8 of itself, independently, so an output element (a sum of such terms)
+moves by about 2^-8/sqrt(3) = 2.3e-3 of its own size, and 1e-2 of the
+largest element leaves a factor of 4 for the tail.  (The TPU kernel itself
+rounds P to bf16 for its P V dot at its default precision on the MXU.)
 """
 
 import jax
@@ -30,6 +36,7 @@ from deeplearning4j_tpu.parallel.sequence import _full_attention
 from deeplearning4j_tpu_torch.ops import attention as port
 
 F32_FWD, F32_GRAD, BF16_ORACLE, BF16_KERNEL = 2e-5, 1e-4, 0.1, 2e-2
+TC_F32_GAP = 1e-2
 
 
 def _qkv(b=1, t=64, h=2, d=16, seed=0):
@@ -429,3 +436,161 @@ def test_plain_twins_bf16_operands_match_float64(causal, tq, tk):
         gap = (f.double() - want).abs()
         assert (gap > bound).any()
         assert (a - f).abs().max() <= 1e-2 * f.abs().max()
+
+
+# ------------------------------------- the forward twin's bf16 operands
+_MODES = ("normalized", "normalized_lse", "partials")
+
+
+def _forward_case(tq, tk, seed, d=16):
+    """q (2, tq, 2, d) and k, v (2, tk, 2, d) float32 on the grid of 1/8
+    in [-4, 4]: exact in bf16, and every S sum exact in f32."""
+    rng = np.random.RandomState(seed)
+    q = _grid(rng, (2, tq, 2, d))
+    k, v = (_grid(rng, (2, tk, 2, d)) for _ in range(2))
+    return [torch.from_numpy(x) for x in (q, k, v)]
+
+
+def _forward_before_operand_rounding(q, k, v, causal, scale, mode):
+    """The plain K1/K4 arithmetic as it stood before ``operand_dtype``
+    (64-key blocks, f32 throughout), op for op."""
+    B, Tq, H, D = q.shape
+    qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    m = torch.full((B, H, Tq, 1), -1e30)
+    l = torch.zeros((B, H, Tq, 1))
+    acc = torch.zeros((B, H, Tq, D))
+    q_pos = torch.arange(Tq)[:, None]
+    for k0 in range(0, k.shape[1], 64):
+        kb, vb = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        s = (qf @ kb.transpose(-1, -2)) * scale
+        if causal:
+            k_pos = torch.arange(k0, k0 + kb.shape[2])[None, :]
+            s = torch.where(q_pos >= k_pos, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alive = m_new > -1e30 / 2
+        p = torch.where(alive, torch.exp(s - m_new), 0.0)
+        corr = torch.where(alive, torch.exp(m - m_new), 0.0)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p @ vb
+        m = m_new
+    rows = lambda x: x[..., 0].permute(0, 2, 1).contiguous()
+    if mode == "partials":
+        return acc.permute(0, 2, 1, 3).contiguous(), rows(m), rows(l)
+    denom = torch.clamp_min(l, 1e-30)
+    out = (acc / denom).to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    return out if mode == "normalized" else (out, rows(m + torch.log(denom)))
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("tq,tk", [(50, 50), (130, 130), (37, 70)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mode", _MODES)
+def test_plain_forward_default_operands_unchanged(mode, causal, tq, tk):
+    """``operand_dtype=None`` (the default) leaves the forward twin bit for
+    bit what it was in all three modes, so the parity tests against the
+    JAX package hold as before."""
+    rng = np.random.RandomState(13)
+    q = torch.from_numpy(rng.randn(2, tq, 2, 16).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(2, tk, 2, 16).astype(np.float32))
+            for _ in range(2))
+    got = port.flash_forward_plain(q, k, v, causal, 0.3, mode)
+    want = _forward_before_operand_rounding(q, k, v, causal, 0.3, mode)
+    for a, b in zip(_as_tuple(got), _as_tuple(want)):
+        assert torch.equal(a, b)
+
+
+def _float64_forward_bf16_operands(q, k, v, causal, scale, block=64):
+    """Float64 streaming softmax over ``block``-key tiles with P rounded to
+    bf16 (from the same running max) as the operand of P V, and the slack
+    that the midpoint elements of P allow in acc (one bf16 ulp times |v|,
+    carried through the same corrections).  (acc, m, l, slack) in the
+    twin's layouts: (B, Tq, H, d) and (B, Tq, H)."""
+    qd, kd, vd = (x.double().permute(0, 2, 1, 3) for x in (q, k, v))
+    B, H, Tq, D = qd.shape
+    m = torch.full((B, H, Tq, 1), -1e30, dtype=torch.float64)
+    l = torch.zeros((B, H, Tq, 1), dtype=torch.float64)
+    acc = torch.zeros((B, H, Tq, D), dtype=torch.float64)
+    slack = torch.zeros_like(acc)
+    for k0 in range(0, kd.shape[2], block):
+        kb, vb = kd[:, :, k0:k0 + block], vd[:, :, k0:k0 + block]
+        s = (qd @ kb.transpose(-1, -2)) * scale
+        if causal:
+            k_pos = torch.arange(k0, k0 + kb.shape[2])[None, :]
+            s = torch.where(torch.arange(Tq)[:, None] >= k_pos, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alive = m_new > -1e30 / 2
+        p = torch.where(alive, torch.exp(s - m_new), 0.0)
+        corr = torch.where(alive, torch.exp(m - m_new), 0.0)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).double() @ vb
+        slack = slack * corr + _bf16_midpoint_ulp(p) @ vb.abs()
+        m = m_new
+    rows = lambda x: x[..., 0].permute(0, 2, 1)
+    return (acc.permute(0, 2, 1, 3), rows(m), rows(l),
+            slack.permute(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("tq,tk", [(50, 50), (130, 130), (37, 70),
+                                   (150, 100)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_forward_bf16_operands_match_float64(causal, tq, tk):
+    """``operand_dtype=torch.bfloat16``: acc, m, l (partials), out and lse
+    (normalized_lse) and out (normalized) equal a float64 streaming
+    softmax that rounds P to bf16 from the same running max, element by
+    element within 1e-6 of max|ref| (f32 sums) plus the slack of P
+    elements within 1e-5 of a bf16 rounding midpoint, ragged and Tk != Tq.
+    The f32 twin sits further away (the rounding is real) but within
+    ``TC_F32_GAP`` of its largest element."""
+    q, k, v = _forward_case(tq, tk, seed=14)
+    acc, m, l, slack = _float64_forward_bf16_operands(q, k, v, causal, 0.25)
+    denom = torch.clamp_min(l, 1e-30)[..., None]
+    out, lse = acc / denom, m + torch.log(denom[..., 0])
+    refs = {"partials": ((acc, slack), (m, 0.0), (l, 0.0)),
+            "normalized_lse": ((out, slack / denom), (lse, 0.0)),
+            "normalized": ((out, slack / denom),)}
+    for mode, ref in refs.items():
+        got = _as_tuple(port.flash_forward_plain(
+            q, k, v, causal, 0.25, mode, operand_dtype=torch.bfloat16))
+        f32 = _as_tuple(port.flash_forward_plain(q, k, v, causal, 0.25,
+                                                 mode))
+        for a, (want, s) in zip(got, ref):
+            assert a.dtype == torch.float32 and a.shape == want.shape
+            bound = 1e-6 * want.abs().max() + s
+            assert ((a.double() - want).abs() <= bound).all(), mode
+        gap = (f32[0].double() - ref[0][0]).abs()
+        assert (gap > 1e-6 * ref[0][0].abs().max() + ref[0][1]).any()
+        assert (got[0] - f32[0]).abs().max() <= \
+            TC_F32_GAP * f32[0].abs().max()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_forward_bf16_operands_within_gap_of_pallas(causal):
+    """The rounded forward twin against the Pallas kernels in interpret
+    mode (exact f32): out and acc within ``TC_F32_GAP`` of max|ref|; lse,
+    m and l, which rounding P does not touch, at the f32 tolerance.  K1 at
+    T=100 (two 64-key tiles on the port's side, four 32-key tiles on the
+    JAX side), K4 against a 70-key segment."""
+    q, k, v = _qkv(t=100, seed=15)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    out, lse = port.flash_forward_plain(*_t(q, k, v), causal, 0.25,
+                                        "normalized_lse",
+                                        operand_dtype=torch.bfloat16)
+    ref_out, ref_lse = _flash_forward(jq, jk, jv, causal, 0.25, 32, 32,
+                                      True, None, with_lse=True)
+    ref_out = np.asarray(ref_out)
+    assert np.abs(out.numpy() - ref_out).max() <= \
+        TC_F32_GAP * np.abs(ref_out).max()
+    _close(lse, ref_lse, F32_FWD)
+    acc, m, l = port.flash_forward_plain(*_t(q, k[:, :70], v[:, :70]),
+                                         causal, 0.25, "partials",
+                                         operand_dtype=torch.bfloat16)
+    r_acc, r_m, r_l = (np.asarray(x) for x in jax_partial(
+        jq, jk[:, :70], jv[:, :70], causal=causal, sm_scale=0.25,
+        block_q=32, block_k=32))
+    assert np.abs(acc.numpy() - r_acc).max() <= \
+        TC_F32_GAP * np.abs(r_acc).max()
+    _close(m, r_m, F32_FWD)
+    _close(l, r_l, F32_FWD)

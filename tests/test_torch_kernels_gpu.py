@@ -13,22 +13,26 @@ within rtol 2^-7, atol 1e-5 (both sides round nearly the same f32 value,
 so they differ by at most one bf16 ulp); 1e-5 of max|reference| against
 float64 for f32 inputs.
 
-K2/K3 with bf16 q/k/v and dO run on the tensor cores and round P and dS
-to bf16 as operands of the gradient products, so they have two
-references: the plain twin that rounds the same way
-(``operand_dtype=torch.bfloat16``), held at 1e-4 of max|reference| like
-any f32 result, and the all-f32 twin, held at ``TC_F32_GAP``.  One
+With bf16 q/k/v all four kernels run on the tensor cores: K1/K4 round P
+to bf16 as the operand of O += P V, K2/K3 (with a bf16 dO) round P and dS
+as operands of the gradient products.  So they have two references: the
+plain twin that rounds the same way (``operand_dtype=torch.bfloat16``),
+held tightly (a bf16 ``out`` element by element as above; f32 results,
+and the softmax statistics lse, m, l, at 1e-4 of max|reference|), and the
+all-f32 twin, where the rounded results (``out``, ``acc``, the gradients)
+are held at ``TC_F32_GAP`` of max|reference| and the statistics, which
+rounding P does not touch (l sums the unrounded p), stay at 1e-4.  One
 round-to-nearest moves each P and dS element by at most 2^-8 of itself,
-independently, so a gradient element (a sum of such terms against
-unit-scale random operands) moves by about 2^-8/sqrt(3) = 2.3e-3 of its
-own size; 1e-2 of the largest element leaves a factor of 4 for the tail
-over all elements.  The 1e-4 against the rounded twin needs both sides to
-round the same f32 P: from continuous random inputs the kernel's S and the
-twin's, summed in another order, straddle a bf16 rounding point now and
-then and round one ulp apart, which moves a gradient element by up to
-2^-7 of one of its terms, far above 1e-4 of max|reference| at these
-shapes.  So bf16 inputs here lie on a grid of 1/8 in [-4, 4], where every
-S and dP is exact in f32 whatever the order.
+independently, so an output or gradient element (a sum of such terms
+against unit-scale random operands) moves by about 2^-8/sqrt(3) = 2.3e-3
+of its own size; 1e-2 of the largest element leaves a factor of 4 for the
+tail over all elements.  The tight hold needs both sides to round the same
+f32 P: from continuous random inputs the kernel's S and the twin's, summed
+in another order, straddle a bf16 rounding point now and then and round
+one ulp apart, which moves a result by up to 2^-7 of one of its terms, far
+above 1e-4 of max|reference| at these shapes.  So bf16 inputs here lie on
+a grid of 1/8 in [-4, 4], where every S and dP is exact in f32 whatever
+the order.
 """
 
 import re
@@ -93,6 +97,31 @@ def _assert_backward_matches_plain(got, q, k, v, g, L, D, causal, s):
             assert _rel(a, b) <= tol
 
 
+def _assert_forward_matches_plain(got, q, k, v, causal, s, mode):
+    """K1/K4's results in ``mode`` (a tensor or tuple as the wrapper gives
+    them) against the plain twins: for bf16 q/k/v (the tensor-core route)
+    the twin that rounds P to bf16, tightly, then the all-f32 twin, with
+    the first result (out or acc) at ``TC_F32_GAP`` and the statistics at
+    1e-4; for f32 inputs the f32 twin, tightly."""
+    got = got if isinstance(got, tuple) else (got,)
+    tensor_core = q.dtype == torch.bfloat16
+    for operands in ([torch.bfloat16, None] if tensor_core else [None]):
+        want = A.flash_forward_plain(q, k, v, causal, s, mode,
+                                     operand_dtype=operands)
+        want = want if isinstance(want, tuple) else (want,)
+        gap = tensor_core and operands is None
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert a.device == q.device
+            if gap and i == 0:
+                assert _rel(a, b) <= TC_F32_GAP
+            elif a.dtype == torch.bfloat16:
+                torch.testing.assert_close(a.float(), b.float(),
+                                           rtol=2.0 ** -7, atol=1e-5)
+            else:
+                assert _rel(a, b) <= 1e-4
+
+
 def _randn(shape, gen, device, dtype):
     """Normal values; for bf16 rounded to the exact-sum grid of 1/8 in
     [-4, 4] (see the module docstring)."""
@@ -118,16 +147,10 @@ def test_kernels_match_plain(cuda, shape, causal, dtype):
                                with_lse=True)
     out_n = A.flash_forward(q, k, v, causal=causal, sm_scale=s,
                             with_lse=False)
-    p_out, p_lse = A.flash_forward_plain(q, k, v, causal, s,
-                                         "normalized_lse")
     assert out.dtype == out_n.dtype == dtype
-    for got in (out, out_n):
-        if dtype == torch.bfloat16:
-            torch.testing.assert_close(got.float(), p_out.float(),
-                                       rtol=2.0 ** -7, atol=1e-5)
-        else:
-            assert _rel(got, p_out) <= 1e-4
-    assert _rel(lse, p_lse) <= 1e-4
+    _assert_forward_matches_plain((out, lse), q, k, v, causal, s,
+                                  "normalized_lse")
+    _assert_forward_matches_plain(out_n, q, k, v, causal, s, "normalized")
     D = (g.float() * out.float()).sum(-1).contiguous()
     dk, dv = A.flash_dkdv(q, k, v, g, lse, D, causal=causal, sm_scale=s)
     dq = A.flash_dq(q, k, v, g, lse, D, causal=causal, sm_scale=s)
@@ -201,14 +224,13 @@ def _segment_inputs(shape, tk, dtype, device, seed=2):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=str)
 def test_partials_kernel_matches_plain(cuda, shape, tk, causal, dtype):
-    """K4: acc, m and l (all f32) against the plain partials mode."""
+    """K4: acc, m and l (all f32) against the plain partials mode (bf16:
+    both twins)."""
     q, k, v, _ = _segment_inputs(shape, tk, dtype, cuda)
     s = shape[-1] ** -0.5
     got = A.flash_attention_partial(q, k, v, causal=causal, sm_scale=s)
-    want = A.flash_forward_plain(q, k, v, causal, s, "partials")
-    for a, b in zip(got, want):
-        assert a.dtype == torch.float32 and a.shape == b.shape
-        assert _rel(a, b) <= 1e-4
+    assert all(a.dtype == torch.float32 for a in got)
+    _assert_forward_matches_plain(got, q, k, v, causal, s, "partials")
 
 
 @pytest.mark.parametrize("shape,tk", SEGMENTS, ids=str)
@@ -294,6 +316,63 @@ def test_bf16_backward_is_deterministic(cuda, causal):
         assert torch.equal(a, b)
 
 
+def _assert_bf16_forward(q, k, v, causal, s):
+    """K1 in both modes (Tk = Tq only) and K4 against their twins."""
+    if k.shape == q.shape:
+        _assert_forward_matches_plain(
+            A.flash_forward(q, k, v, causal=causal, sm_scale=s,
+                            with_lse=True), q, k, v, causal, s,
+            "normalized_lse")
+        _assert_forward_matches_plain(
+            A.flash_forward(q, k, v, causal=causal, sm_scale=s,
+                            with_lse=False), q, k, v, causal, s,
+            "normalized")
+    _assert_forward_matches_plain(
+        A.flash_attention_partial(q, k, v, causal=causal, sm_scale=s),
+        q, k, v, causal, s, "partials")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tk", [1100, 700])
+def test_bf16_forward_long_ragged_causal(cuda, d, tk):
+    """The tensor-core K1/K4 at T = 1100 (not a multiple of 64), causal,
+    where the heaviest-first grid order and the ragged last tile both
+    matter; K/V as long as q (K1 and K4), or a shorter segment (K4)."""
+    q, k, v, _ = _segment_inputs((2, 1100, 3, d), tk, torch.bfloat16, cuda,
+                                 seed=8)
+    _assert_bf16_forward(q, k, v, True, d ** -0.5)
+
+
+@pytest.mark.parametrize("case", ["d=20", "rows off 16-byte boundaries"])
+def test_bf16_forward_stages_element_by_element(cuda, case):
+    """K/V and Q tiles that 16-byte copies cannot stage (d not a multiple
+    of 8, or rows not 16-byte aligned) are loaded element by element into
+    the same bf16 tiles; the results are the same."""
+    d = 20 if case == "d=20" else 64
+    q, k, v, _ = _segment_inputs((2, 150, 2, d), 150, torch.bfloat16, cuda,
+                                 seed=9)
+    if case != "d=20":
+        q, k, v = (_off_16_bytes(x) for x in (q, k, v))
+        assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    for causal in (True, False):
+        _assert_bf16_forward(q, k, v, causal, d ** -0.5)
+        _assert_bf16_forward(q, k[:, :130].contiguous(),
+                             v[:, :130].contiguous(), causal, d ** -0.5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_forward_is_deterministic(cuda, causal):
+    """Two launches of K1 and of K4 give bit-equal results."""
+    q, k, v, _ = _segment_inputs((2, 1100, 3, 64), 1100, torch.bfloat16,
+                                 cuda, seed=10)
+    for run in (lambda: A.flash_forward(q, k, v, causal=causal,
+                                        sm_scale=0.125, with_lse=True),
+                lambda: A.flash_attention_partial(q, k, v, causal=causal,
+                                                  sm_scale=0.125)):
+        for a, b in zip(run(), run()):
+            assert torch.equal(a, b)
+
+
 def _cuobjdump_by_kernel(library: Path, flag: str, header: str) -> dict:
     """``cuobjdump <flag>`` of ``library`` cut at each kernel's ``header``
     (a regex whose group is the mangled name), by demangled name without
@@ -331,6 +410,24 @@ def test_bf16_backward_runs_on_tensor_cores(cuda):
                 assert "HMMA" not in sass[f"{kernel}<{types},{dm}>"]
 
 
+def test_bf16_forward_runs_on_tensor_cores(cuda):
+    """The bf16 instances of K1/K4 (every head-dim bucket and mode) issue
+    HMMA instructions and spill nothing to local memory; the f32 instances
+    stay scalar."""
+    library = kernel_build.build(A._SOURCE)
+    sass = _cuobjdump_by_kernel(library, "--dump-sass", r"Function : (\S+)")
+    usage = _cuobjdump_by_kernel(library, "--dump-resource-usage",
+                                 r"Function (\S+):")
+    for types, tensor_core in (("__nv_bfloat16", True), ("float", False)):
+        names = [n for n in sass
+                 if n.startswith(f"flash_fwd_kernel<{types},")]
+        assert len(names) == 9, sorted(sass)   # 3 buckets x 3 modes
+        for name in names:
+            assert ("HMMA" in sass[name]) == tensor_core, name
+            if tensor_core:
+                assert re.search(r"\bLOCAL:0\b", usage[name]), name
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_ring_on_one_card_matches_float64(cuda, causal):
     """A 4-shard ring flash attention on one card, forward and fused ring
@@ -365,14 +462,11 @@ def test_kernels_on_a_card_that_is_not_current(other_card):
     s = 0.125
     out, lse = A.flash_forward(q, k, v, causal=True, sm_scale=s,
                                with_lse=True)
-    p_out, p_lse = A.flash_forward_plain(q, k, v, True, s, "normalized_lse")
-    torch.testing.assert_close(out.float(), p_out.float(), rtol=2.0 ** -7,
-                               atol=1e-5)
-    assert _rel(lse, p_lse) <= 1e-4
-    for got, want in zip(
-            A.flash_attention_partial(q, k, v, causal=True, sm_scale=s),
-            A.flash_forward_plain(q, k, v, True, s, "partials")):
-        assert got.device == other_card and _rel(got, want) <= 1e-4
+    _assert_forward_matches_plain((out, lse), q, k, v, True, s,
+                                  "normalized_lse")
+    _assert_forward_matches_plain(
+        A.flash_attention_partial(q, k, v, causal=True, sm_scale=s), q, k,
+        v, True, s, "partials")
     D = (g.float() * out.float()).sum(-1).contiguous()
     dk, dv = A.flash_dkdv(q, k, v, g, lse, D, causal=True, sm_scale=s)
     dq = A.flash_dq(q, k, v, g, lse, D, causal=True, sm_scale=s)
