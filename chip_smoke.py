@@ -43,10 +43,25 @@ Phases (each raises on failure; the exit code is non-zero on any):
    D, and the two whole chains within ``RING_CHAIN_REL``); one causal
    fwd+bwd must
    launch K4, K2 and K3 exactly 10 times each and K1 never; both paths
-   are timed in bfloat16.
+   are timed in bfloat16;
+8. serving: the trained net of phase 5 behind
+   ``serving.InferenceEngine(max_batch_size=4, max_latency_ms=5,
+   timestep_buckets=(1024, 8192))``: three client threads send
+   ``predict`` requests of (1, 700), (2, 1024) and (1, 8192) timesteps in
+   rounds, each answer held against ``output()`` of that request alone;
+   then decode sessions through ``predict_session`` after
+   ``warmup_decode``: two concurrent sessions of a 1000-token prefill and
+   40 single tokens (the ring hops 1024 -> 2048), one to the top bucket
+   8192 and a ``SessionError`` past it; then the median ms per decoded
+   token at batch 1
+   and 4, at about 1000 and 8000 tokens held, beside its bytes bound;
+   then the predict rounds, the two sessions and the top bucket again on
+   an fp32 copy of the net, within 1e-5.
+   The serving path launches none of K1-K4 (dense ``kv_ring_attention``,
+   as in the JAX package).
 
-Prints a JSON line of the reference, training, inference and ring
-results, one
+Prints a JSON line of the reference, training, inference, ring and
+serving results, one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -57,6 +72,7 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -122,6 +138,26 @@ REF_RTOL = 1e-4     # card vs CPU reference network, fp32
 # for the elements near zero.
 RING_GRAD_ATOL_RMS = 1e-3
 RING_CHAIN_REL = 1e-3
+# Serving (phase 8).  The served probabilities (32 classes, about 1/32
+# each) are held against output() of the same request alone.  Under
+# mixed_bf16 at 1e-3: predict and the top-bucket token run the same dense
+# forward as output() and agree exactly on an H100; the sessions sum the
+# prefill chunk and the single tokens in another order and batch shape
+# (bf16 activations) and came within 1.5e-5 there, so 1e-3 leaves ~60x
+# for that while staying below the signal, max|p - 1/32|, which each
+# check logs beside its error.  The fp32 copy (predict, the sessions and
+# the top bucket) at 1e-5: f32 sums in another order, over another ring
+# capacity.  Softmax rows sum to 1 within ROW_SUM_ATOL, as in phase 6.
+SERVE_BUCKETS = (1024, SEQ)
+PREDICT_SHAPES = ((1, 700), (2, 1024), (1, SEQ))
+PREDICT_ROUNDS = 3
+PREFILL, TOKENS, HOP_CAP = 1000, 40, 2048    # the ring hops 1024 -> 2048
+TIMED_TOKENS, PROFILED_TOKENS = 64, 8
+# tokens held before the timed steps; the timed and profiled steps stay
+# in the bucket the prefill opened (1024 and 8192)
+TIMED_HELD = (1024 - TIMED_TOKENS - PROFILED_TOKENS, SEQ - 256)
+BF16_PROB_ATOL, F32_PROB_ATOL, ROW_SUM_ATOL = 1e-3, 1e-5, 1e-4
+WAIT_S = 300.0
 
 
 def log(msg: str) -> None:
@@ -542,21 +578,18 @@ PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                 "flash_bwd_dq_kernel")     # K1 and K4 share flash_fwd_kernel
 
 
-def profile_step(net, ds, steady_ms: float) -> dict:
-    """One more steady ``fit`` step under ``torch.profiler``: the CUDA time
-    of the port's kernels by name, of everything else in all and by its 5
-    largest kernels, and the step's idle share: 1 - (the union of the
-    device's busy intervals) / (the host wall time of the profiled step,
-    which includes the profiler's overhead), and against ``steady_ms``,
-    the fastest unprofiled steady step of the same run."""
+def profiled(fn) -> tuple:
+    """Run ``fn`` under ``torch.profiler`` and synchronize: the host wall
+    ms (profiler overhead included), the number of device events, the
+    CUDA ms by kernel name and the union of the device's busy intervals
+    in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        net.fit(ds)
-        net.score()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -564,11 +597,6 @@ def profile_step(net, ds, steady_ms: float) -> dict:
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             (e.time_range.end - e.time_range.start) / 1e3
-    ours = {k: sum(ms for name, ms in by_name.items() if k in name)
-            for k in PORT_KERNELS}
-    rest = sorted(((ms, name) for name, ms in by_name.items()
-                   if not any(k in name for k in PORT_KERNELS)),
-                  reverse=True)
     busy_ms, end = 0.0, None
     for a, b in sorted((e.time_range.start, e.time_range.end)
                        for e in device):
@@ -576,8 +604,27 @@ def profile_step(net, ds, steady_ms: float) -> dict:
             busy_ms, end = busy_ms + b - a, b
         elif b > end:
             busy_ms, end = busy_ms + b - end, b
-    busy_ms /= 1e3
-    result = {"device_events": len(device), "step_ms_profiled": wall_ms,
+    return wall_ms, len(device), by_name, busy_ms / 1e3
+
+
+def profile_step(net, ds, steady_ms: float) -> dict:
+    """One more steady ``fit`` step under ``torch.profiler``: the CUDA time
+    of the port's kernels by name, of everything else in all and by its 5
+    largest kernels, and the step's idle share: 1 - (the union of the
+    device's busy intervals) / (the host wall time of the profiled step,
+    which includes the profiler's overhead), and against ``steady_ms``,
+    the fastest unprofiled steady step of the same run."""
+    def step():
+        net.fit(ds)
+        net.score()
+
+    wall_ms, n_events, by_name, busy_ms = profiled(step)
+    ours = {k: sum(ms for name, ms in by_name.items() if k in name)
+            for k in PORT_KERNELS}
+    rest = sorted(((ms, name) for name, ms in by_name.items()
+                   if not any(k in name for k in PORT_KERNELS)),
+                  reverse=True)
+    result = {"device_events": n_events, "step_ms_profiled": wall_ms,
               "device_busy_ms": busy_ms,
               "idle_share": 1.0 - busy_ms / wall_ms,
               "idle_share_steady": 1.0 - busy_ms / steady_ms,
@@ -588,7 +635,7 @@ def profile_step(net, ds, steady_ms: float) -> dict:
     log(f"[profile] one fit step under torch.profiler: host "
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
         f"{result['idle_share']:.3f}; {result['idle_share_steady']:.3f} of "
-        f"the steady step, {steady_ms:.3f} ms; {len(device)} device "
+        f"the steady step, {steady_ms:.3f} ms; {n_events} device "
         f"events); port "
         f"kernels {ours}; everything else {result['other_ms']:.3f} ms, "
         f"top 5: " + "; ".join(f"{d['name'][:60]} {d['ms']:.3f}"
@@ -752,6 +799,274 @@ def phase_ring(A, S, seed: int) -> dict:
     return result
 
 
+def run_threads(targets, errors) -> None:
+    """Run each target on a thread of its own; raise the first error one
+    of them recorded, or if one is still running after WAIT_S."""
+    threads = [threading.Thread(target=t, daemon=True) for t in targets]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(WAIT_S)
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("a serving client did not finish")
+    if errors:
+        raise errors[0]
+
+
+def hold_probs(what: str, got: np.ndarray, want: np.ndarray,
+               atol: float) -> tuple:
+    """Probabilities of the served path against the reference: the same
+    shape, finite, rows summing to 1, within ``atol``.  Returns the error
+    and the signal, max|want - 1/classes|: how far the reference is from
+    the uniform output, which the limit must sit below to mean
+    anything."""
+    if not isinstance(got, np.ndarray) or got.shape != want.shape:
+        raise RuntimeError(f"{what}: got {type(got).__name__} "
+                           f"{getattr(got, 'shape', None)}, want "
+                           f"{want.shape}")
+    if not np.isfinite(got).all():
+        raise RuntimeError(f"{what}: non-finite values")
+    row_err = float(np.abs(got.sum(-1) - 1.0).max())
+    err = float(np.abs(got - want).max())
+    signal = float(np.abs(want - 1.0 / want.shape[-1]).max())
+    log(f"[serving] {what}: max_abs_err={err:.3e} (atol {atol:g}), signal "
+        f"max|p - 1/{want.shape[-1]}|={signal:.3e}, row-sum err "
+        f"{row_err:.2e}")
+    if err > atol or row_err > ROW_SUM_ATOL:
+        raise RuntimeError(f"{what}: disagrees with output()")
+    return err, signal
+
+
+def worst(checks) -> dict:
+    """The largest error and the smallest signal of several checks."""
+    checks = list(checks)
+    return {"max_abs_err": max(e for e, _ in checks),
+            "min_signal": min(s for _, s in checks)}
+
+
+def serve_predict(engine, net, rng, reg, atol: float) -> dict:
+    """Three client threads, PREDICT_ROUNDS rounds: the two requests that
+    share the 1024 bucket start together and the 8192 one 2 ms later, so
+    the batcher can coalesce the first two."""
+    xs = [rng.randn(b, t, N_IN).astype(np.float32) for b, t in
+          PREDICT_SHAPES]
+    refs = [net.output(x).cpu().numpy() for x in xs]
+    outs, errors = {i: [] for i in range(len(xs))}, []
+    barrier = threading.Barrier(len(xs))
+    batches0 = reg.counter("serving_batches_total").value(
+        engine=engine.name)
+
+    def client(i):
+        try:
+            for _ in range(PREDICT_ROUNDS):
+                barrier.wait(WAIT_S)
+                if PREDICT_SHAPES[i][1] == SEQ:
+                    time.sleep(0.002)
+                outs[i].append(engine.predict(xs[i], timeout=WAIT_S))
+        except Exception as e:     # raised by run_threads
+            errors.append(e)
+            barrier.abort()
+
+    run_threads([lambda i=i: client(i) for i in range(len(xs))], errors)
+    held = worst(hold_probs(f"{engine.name} predict {xs[i].shape} round "
+                            f"{r}", got, refs[i], atol)
+                 for i in outs for r, got in enumerate(outs[i]))
+    requests = len(xs) * PREDICT_ROUNDS
+    batches = reg.counter("serving_batches_total").value(
+        engine=engine.name) - batches0
+    if not batches < requests:
+        raise RuntimeError(f"{requests} requests in {batches} batches: no "
+                           "two were coalesced")
+    lat = reg.histogram("serving_request_latency_ms").stats(
+        model=engine.name)
+    # output() of the longest request alone, warm (its reference above
+    # was the first call at this shape)
+    out_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.output(xs[-1])
+        torch.cuda.synchronize()
+        out_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[serving] {engine.name} predict: {requests} requests in "
+        f"{batches:g} batches; "
+        f"latency p50 {lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms; "
+        f"output() of {xs[-1].shape} alone {out_ms} ms")
+    return {"requests": requests, "batches": batches, **held,
+            "latency_ms": {k: lat[k] for k in ("count", "p50", "p99",
+                                               "max")},
+            "output_ms_longest": out_ms}
+
+
+def two_sessions(engine, net, rng, tag: str, atol: float) -> dict:
+    """Two concurrent decode sessions: a PREFILL-token chunk, then TOKENS
+    single tokens (the ring hops from 1024 to 2048), against ``output()``
+    of each whole sequence."""
+    xs = [rng.randn(1, PREFILL + TOKENS, N_IN).astype(np.float32)
+          for _ in range(2)]
+    outs, errors = {}, []
+
+    def session(j):
+        try:
+            sid = f"{tag}-{j}"
+            chunk = engine.predict_session(sid, xs[j][:, :PREFILL])
+            steps = [engine.predict_session(sid, xs[j][:, t])[:, None]
+                     for t in range(PREFILL, PREFILL + TOKENS)]
+            outs[j] = np.concatenate([chunk] + steps, axis=1)
+        except Exception as e:     # raised by run_threads
+            errors.append(e)
+
+    run_threads([lambda j=j: session(j) for j in range(2)], errors)
+    caps = [engine.sessions.session_capacity(f"{tag}-{j}") for j in range(2)]
+    if caps != [HOP_CAP, HOP_CAP]:
+        raise RuntimeError(f"{tag} sessions hold rings of {caps}, not "
+                           f"{HOP_CAP}")
+    held = worst(hold_probs(f"{tag} session {j}", outs[j],
+                            net.output(xs[j]).cpu().numpy(), atol)
+                 for j in range(2))
+    for j in range(2):
+        engine.sessions.clear(f"{tag}-{j}")
+    return {**held, "capacity": caps[0]}
+
+
+def top_bucket(engine, net, rng, session_error, atol: float) -> dict:
+    """A session prefilled to SEQ - 1 tokens, then one token (the top
+    bucket SEQ); one more must raise ``SessionError``."""
+    x = rng.randn(1, SEQ + 1, N_IN).astype(np.float32)
+    engine.predict_session("top", x[:, :SEQ - 1])
+    last = engine.predict_session("top", x[:, SEQ - 1])
+    cap = engine.sessions.session_capacity("top")
+    if cap != SEQ:
+        raise RuntimeError(f"the top session holds a ring of {cap}")
+    held = worst([hold_probs(f"{engine.name} top-bucket token", last,
+                             net.output(x[:, :SEQ]).cpu().numpy()[:, -1],
+                             atol)])
+    refused = False
+    try:
+        engine.predict_session("top", x[:, SEQ])
+    except session_error as e:
+        refused = True
+        log(f"[serving] token {SEQ + 1} refused: {e}")
+    if not refused:
+        raise RuntimeError(f"a session decoded past cache_len {SEQ}")
+    engine.sessions.clear("top")
+    return {**held, "capacity": cap, "refused_past_top": True}
+
+
+def decode_timing(engine, net, rng, batch: int, held: int) -> dict:
+    """Median host ms per decoded token (one session step of ``batch``
+    rows) over TIMED_TOKENS steps from ``held`` tokens, with
+    ``torch.cuda.synchronize()`` around each step; beside it the bytes
+    bound of the hand model of ``bench.py`` (``bench_decode``): the
+    weights read once and the K/V ring read once, at the dtypes the port
+    keeps them in, over the card's memory rate.  Then PROFILED_TOKENS
+    more steps under ``torch.profiler``: device events and busy ms a
+    step, the idle share, the largest kernels."""
+    x = rng.randn(batch, held + TIMED_TOKENS + PROFILED_TOKENS,
+                  N_IN).astype(np.float32)
+    sid = f"timed-{batch}-{held}"
+    engine.predict_session(sid, x[:, :held])
+    ms = []
+    for t in range(held, held + TIMED_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict_session(sid, x[:, t])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    median = float(np.median(ms))
+
+    def more_steps():
+        for t in range(held + TIMED_TOKENS,
+                       held + TIMED_TOKENS + PROFILED_TOKENS):
+            engine.predict_session(sid, x[:, t])
+
+    wall_ms, n_events, by_name, busy_ms = profiled(more_steps)
+    top = sorted(((v, k) for k, v in by_name.items()), reverse=True)[:5]
+    profile = {"steps": PROFILED_TOKENS,
+               "device_events_per_step": n_events / PROFILED_TOKENS,
+               "step_ms_profiled": wall_ms / PROFILED_TOKENS,
+               "device_busy_ms_per_step": busy_ms / PROFILED_TOKENS,
+               "idle_share": 1.0 - busy_ms / wall_ms,
+               "idle_share_steady": 1.0 - busy_ms / PROFILED_TOKENS / median,
+               "top5_ms_per_step": [{"name": k[:120],
+                                     "ms": v / PROFILED_TOKENS}
+                                    for v, k in top]}
+    cap = engine.sessions.session_capacity(sid)
+    ring = engine.sessions.get_carries(sid)[0][0]
+    engine.sessions.clear(sid)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for tree in net.params for p in tree.values())
+    # K and V of the tokens held at the middle timed step
+    ring_bytes = (2 * batch * HEADS * (held + TIMED_TOKENS // 2) * D_HEAD
+                  * ring.element_size())
+    bound = (weight_bytes + ring_bytes) / PEAK_BYTES * 1e3
+    log(f"[serving] decode batch {batch} at {held} tokens (ring {cap}): "
+        f"median {median:.4f} ms/token step, {batch * 1e3 / median:.1f} "
+        f"tokens/s; bytes bound {bound:.6f} ms; profiled: "
+        f"{profile['device_events_per_step']:g} device events and "
+        f"{profile['device_busy_ms_per_step']:.4f} ms busy a step, idle "
+        f"share {profile['idle_share_steady']:.3f} of the median step; "
+        "top: " + "; ".join(f"{d['name'][:50]} {d['ms']:.4f}"
+                            for d in profile["top5_ms_per_step"]))
+    return {"batch": batch, "held": held, "capacity": cap,
+            "median_ms": median, "min_ms": float(min(ms)),
+            "max_ms": float(max(ms)), "tokens_per_s": batch * 1e3 / median,
+            "weight_bytes": weight_bytes, "ring_bytes": ring_bytes,
+            "bound_ms": bound, "bound_by": "bytes", "profile": profile}
+
+
+def phase_serving(N, A, net, seed: int) -> dict:
+    """The serving path at full width: ``predict`` through the engine's
+    buckets, decode sessions over the KV ring, decode timing; none of
+    K1-K4 may launch."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  SessionError)
+    rng = np.random.RandomState(seed + 3)
+    reg = monitor.registry()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()            # counts of the serving path only
+    result = {}
+    with InferenceEngine(net, max_batch_size=4, max_latency_ms=5,
+                         timestep_buckets=SERVE_BUCKETS,
+                         name="smoke") as engine:
+        result["buckets"] = engine.warmup((SEQ, N_IN))
+        result["predict"] = serve_predict(engine, net, rng, reg,
+                                          BF16_PROB_ATOL)
+        result["decode_warmed"] = engine.warmup_decode((N_IN,))
+        if engine.warmup_decode((N_IN,)) != 0:
+            raise RuntimeError("a second warmup_decode ran new shapes")
+        result["sessions_bf16"] = two_sessions(engine, net, rng, "bf16",
+                                               BF16_PROB_ATOL)
+        result["top_bucket"] = top_bucket(engine, net, rng, SessionError,
+                                          BF16_PROB_ATOL)
+        result["timing"] = [decode_timing(engine, net, rng, batch, held)
+                            for held in TIMED_HELD
+                            for batch in (1, 4)]
+    net32 = build_net(N, A, seed=seed, n_in=N_IN, hidden=HIDDEN,
+                      heads=HEADS, n_out=N_OUT, cache_len=SEQ,
+                      compute_dtype="float32")
+    net32.set_flat_params(net.get_flat_params())
+    with InferenceEngine(net32, max_batch_size=4, max_latency_ms=5,
+                         timestep_buckets=SERVE_BUCKETS,
+                         name="smoke-f32") as engine:
+        engine.warmup((SEQ, N_IN))
+        result["predict_f32"] = serve_predict(engine, net32, rng, reg,
+                                              F32_PROB_ATOL)
+        result["sessions_f32"] = two_sessions(engine, net32, rng, "f32",
+                                              F32_PROB_ATOL)
+        result["top_bucket_f32"] = top_bucket(engine, net32, rng,
+                                              SessionError, F32_PROB_ATOL)
+    torch.cuda.synchronize()
+    result["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    result["launches"] = dict(A.LAUNCHES)
+    log(f"[serving] launches {result['launches']}")
+    if any(result["launches"].values()):
+        raise RuntimeError("the serving path launched a flash kernel")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -778,16 +1093,19 @@ def main(argv=None) -> int:
     reference = phase_reference(N, A, args.seed)
     net, ds, training = phase_training(N, A, args.seed)
     inference = phase_inference(net, ds)
-    del net
+    del ds
     torch.cuda.empty_cache()
     ring = phase_ring(A, S, args.seed)
+    torch.cuda.empty_cache()
+    serving = phase_serving(N, A, net, args.seed)
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
                "flash_bwd_dkdv": "deeplearning4j_tpu/ops/attention.py:479",
                "flash_bwd_dq": "deeplearning4j_tpu/ops/attention.py:502"}
     # the main paths, each run with the counts set to 0 just before it
-    paths = {"training": training["launches"], "ring": ring["launches"]}
+    paths = {"training": training["launches"], "ring": ring["launches"],
+             "serving": serving["launches"]}
     kernels = [dict(name=name, route="cuda",
                     source="deeplearning4j_tpu_torch/ops/csrc/"
                            "flash_attention.cu",
@@ -799,7 +1117,7 @@ def main(argv=None) -> int:
                for name in sources]
     print(json.dumps({"build_s": build_s, "reference": reference,
                       "training": training, "inference": inference,
-                      "ring": ring}))
+                      "ring": ring, "serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,12 @@ Two forward tiers, as in the JAX package:
 
 Params: Wq/Wk/Wv (n_in, n_out), Wo (n_out, n_out), b (n_out,), used as
 ``x @ W``; the output projection applies the layer activation (default
-identity).  Decode sessions and the serving engine over the ring are not
-ported yet.
+identity).
+
+The ring is the layer's carry under the ``BaseRecurrentLayer`` contract,
+so ``MultiLayerNetwork.decode_step``, ``serving.SessionCache`` and the
+``serving.InferenceEngine`` session route decode over it; ``grow_carry``
+pads a ring up to the next bucket of the serving cache-len ladder.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ...ops.attention import (flash_attention, kv_ring_attention,
                               kv_ring_update)
@@ -40,7 +45,9 @@ class CausalSelfAttention(BaseRecurrentLayer):
     ``n_heads`` must divide ``n_out``; ``cache_len`` is the ring capacity
     of the inference state (training is not bounded by it).  Carry:
     ``(k_cache, v_cache, cursor)`` with K/V (batch, n_heads, cache_len,
-    head_dim) and an integer cursor = tokens already written."""
+    head_dim) and an integer cursor = tokens already written.  The cursor
+    is a host ``int``: a device scalar would cost a sync on every token,
+    and the session layer tracks the position on the host anyway."""
 
     HAS_KV_RING = True
 
@@ -79,6 +86,20 @@ class CausalSelfAttention(BaseRecurrentLayer):
         shape = (batch, self.n_heads, cap, self._head_dim())
         return (torch.zeros(shape, dtype=dtype, device=device),
                 torch.zeros(shape, dtype=dtype, device=device), 0)
+
+    def grow_carry(self, carry, cache_len: int):
+        """Zero-pad the ring's cache axis up to ``cache_len``, cursor
+        unchanged: the serving bucket hop.  Slots past the cursor are
+        masked to exact zeros, so growth never changes a result."""
+        k_cache, v_cache, cursor = carry
+        cap = k_cache.shape[2]
+        if cache_len < cap:
+            raise ValueError(
+                f"cannot shrink KV ring from {cap} to {cache_len}")
+        if cache_len == cap:
+            return carry
+        pad = (0, 0, 0, cache_len - cap)
+        return (F.pad(k_cache, pad), F.pad(v_cache, pad), cursor)
 
     # ------------------------------------------------------------ forward
     def _project(self, params: ParamTree, x: Tensor):

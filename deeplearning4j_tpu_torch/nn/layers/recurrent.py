@@ -25,7 +25,9 @@ InputType = _inputs.InputType
 @dataclasses.dataclass
 class BaseRecurrentLayer(BaseLayerConfig):
     """Layers consuming (batch, time, features) activations and optionally
-    carrying state across calls."""
+    carrying state across calls (``rnn_time_step``, ``decode_step``,
+    ``serving.SessionCache``).  ``SUPPORTS_CARRY`` is False for a layer
+    whose pass needs the whole sequence."""
 
     INPUT_KIND = "rnn"
     SUPPORTS_CARRY = True
@@ -51,7 +53,8 @@ class BaseRecurrentLayer(BaseLayerConfig):
 
     def forward_seq(self, params: ParamTree, x: Tensor, carry, *,
                     train: bool, rng=None, mask: Optional[Tensor] = None):
-        """(out, new_carry)."""
+        """(out, new_carry); the carry threads streaming state from one
+        chunk of timesteps to the next."""
         raise NotImplementedError
 
     def forward(self, params: ParamTree, state: StateTree, x: Tensor, *,

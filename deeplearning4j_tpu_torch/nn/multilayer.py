@@ -13,9 +13,16 @@ card, fp32 on the CPU; see :mod:`.precision`), with the fp32-logits
 contract: the output head's logits are cast to fp32 before the
 softmax/loss, and every output the network returns is fp32.
 
+Streaming inference over explicit carries: ``rnn_time_step`` (the
+model's own state slot), ``rnn_stateless_step`` and ``decode_step`` (state
+with the caller, the KV rings of ``CausalSelfAttention`` included),
+``grow_decode_carries`` (the serving cache-len bucket hop) and
+``compile_output`` (one inference callable per bucket shape, what
+``serving.InferenceEngine`` warms).
+
 Not ported yet: the fused multi-step scans, the device-cached ingest,
-tBPTT, streaming/decode steps, health telemetry, listeners, solvers,
-pretraining and checkpointing.
+tBPTT, health telemetry, listeners, solvers, pretraining and
+checkpointing.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..device import DeviceLike, resolve_device
 from . import precision as _precision
 from . import updaters as _updaters
 from .conf.neural_net_configuration import MultiLayerConfiguration
+from .layers.recurrent import BaseRecurrentLayer
 
 Tensor = torch.Tensor
 
@@ -51,6 +59,8 @@ class MultiLayerNetwork:
         self._score: Optional[Tensor] = None
         self._rng: Optional[torch.Generator] = None
         self._policy: Optional[_precision.PrecisionPolicy] = None
+        self._rnn_carries = None
+        self._rnn_carry_batch = -1
 
     def _pol(self) -> _precision.PrecisionPolicy:
         if self._policy is None:
@@ -84,11 +94,14 @@ class MultiLayerNetwork:
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, net_state, x: Tensor, *, train: bool,
-                 rng: Optional[torch.Generator], mask=None,
+                 rng: Optional[torch.Generator], mask=None, carries=None,
                  preoutput_last: bool = False):
-        """Compose the layers.  Returns (out, new_state).  With
-        ``preoutput_last`` the output layer contributes its
-        pre-activation, so the loss can fuse softmax stably."""
+        """Compose the layers.  Returns (out, new_state, new_carries).
+        ``carries`` is a per-layer list of recurrent carries (``()`` for a
+        stateless layer) threaded through ``forward_seq``; None runs every
+        recurrent layer from zero state.  With ``preoutput_last`` the
+        output layer contributes its pre-activation, so the loss can fuse
+        softmax stably."""
         pol = self._pol()
         if x.is_floating_point():
             x = x.to(pol.compute_dtype)
@@ -96,6 +109,8 @@ class MultiLayerNetwork:
             params = [{k: p.to(pol.compute_dtype) if p.is_floating_point()
                        else p for k, p in tree.items()} for tree in params]
         new_state = list(net_state)
+        new_carries = (list(carries) if carries is not None
+                       else [() for _ in self.layers])
         n = len(self.layers)
         for i, layer in enumerate(self.layers):
             last = i == n - 1
@@ -105,16 +120,24 @@ class MultiLayerNetwork:
             elif last and pol.downcasts_output and hasattr(
                     layer, "pre_output"):
                 # fp32 logits contract: the head's logits go to fp32
-                # BEFORE the softmax, so probabilities are not bf16-rounded
+                # BEFORE the softmax, so probabilities are not bf16-rounded.
+                # Checked before the carries branch, so a carried step
+                # honours it too (else N decode steps drift from output());
+                # the only recurrent head, RnnOutputLayer, carries ()
                 x = layer.apply_dropout(x, train, rng)
                 x = layer._activate(layer.pre_output(params[i], x).float())
+            elif carries is not None and isinstance(layer,
+                                                    BaseRecurrentLayer):
+                x, new_carries[i] = layer.forward_seq(
+                    params[i], x, carries[i], train=train, rng=rng,
+                    mask=mask)
             else:
                 x, new_state[i] = layer.forward(
                     params[i], net_state[i], x, train=train, rng=rng,
                     mask=mask)
         if pol.downcasts_output:
             x = x.float()
-        return x, new_state
+        return x, new_state, new_carries
 
     # ----------------------------------------------------------------- loss
     def _loss_fn(self, params, net_state, features, labels, features_mask,
@@ -125,7 +148,7 @@ class MultiLayerNetwork:
         if not hasattr(out_layer, "compute_score"):
             raise ValueError("Last layer must be an output/loss layer to "
                              "fit()")
-        preout, new_state = self._forward(
+        preout, new_state, _ = self._forward(
             params, net_state, features, train=train, rng=rng,
             mask=features_mask, preoutput_last=True)
         lmask = labels_mask
@@ -218,11 +241,187 @@ class MultiLayerNetwork:
         network's device, fp32 under the mixed policy."""
         self.init()
         with torch.no_grad():
-            out, _ = self._forward(
+            out, _, _ = self._forward(
                 self.params, self.net_state, self._tensor(features),
                 train=train, rng=self._rng if train else None,
                 mask=self._tensor(features_mask, torch.float32))
         return out
+
+    def compile_output(self, feature_shape, mask_shape=None, params=None,
+                       net_state=None):
+        """The inference forward for ONE input shape: the serving bucket
+        primitive (``serving.InferenceEngine`` makes one per (batch
+        bucket, timestep bucket) at ``warmup``).  Eager PyTorch compiles
+        nothing ahead of time; the callable checks its inputs against the
+        bucket and runs under ``torch.inference_mode()``.
+
+        Call it as ``fn(params, net_state, features, features_mask)``
+        with arrays of exactly ``feature_shape`` (and ``mask_shape``;
+        ``None`` for the mask iff ``mask_shape`` was ``None``); it returns
+        the output tensor on the device of ``params``.  ``params``/
+        ``net_state`` here only fix that device (default: the network's);
+        each call passes its own, so one callable serves any copy of the
+        weights on that device."""
+        self.init()
+        shape = tuple(int(d) for d in feature_shape)
+        mshape = (None if mask_shape is None
+                  else tuple(int(d) for d in mask_shape))
+        ref = next((p for tree in (params if params is not None
+                                   else self.params) for p in tree.values()),
+                   None)
+        device = ref.device if ref is not None else self.device
+
+        def run(params, net_state, features, features_mask=None):
+            if tuple(features.shape) != shape:
+                raise ValueError(f"features of shape {tuple(features.shape)}"
+                                 f" for the bucket {shape}")
+            got = (None if features_mask is None
+                   else tuple(features_mask.shape))
+            if got != mshape:
+                raise ValueError(f"mask of shape {got} for the bucket "
+                                 f"{mshape}")
+            with torch.inference_mode():
+                x = torch.as_tensor(features, device=device)
+                m = (None if features_mask is None
+                     else torch.as_tensor(features_mask, device=device))
+                out, _, _ = self._forward(params, net_state, x, train=False,
+                                          rng=None, mask=m)
+            return out
+
+        return run
+
+    # --------------------------------------------- rnn streaming state API
+    def _require_carry_support(self, what: str) -> None:
+        """A layer whose pass needs the whole sequence cannot carry state
+        across chunks of it."""
+        for i, layer in enumerate(self.layers):
+            if (isinstance(layer, BaseRecurrentLayer)
+                    and not layer.SUPPORTS_CARRY):
+                raise ValueError(
+                    f"Layer {i} ({type(layer).__name__}) does not support "
+                    f"{what}: its backward pass needs the full sequence")
+
+    def _init_carries(self, batch: int, cache_len: Optional[int] = None):
+        """Zero carries, one entry per layer (``()`` if stateless), in the
+        compute dtype on the network's device.  ``cache_len`` overrides
+        the KV-ring capacities (the serving cache-len ladder)."""
+        dtype = self._pol().compute_dtype
+        out = []
+        for layer in self.layers:
+            if not isinstance(layer, BaseRecurrentLayer):
+                out.append(())
+            elif cache_len is not None and getattr(layer, "HAS_KV_RING",
+                                                   False):
+                out.append(layer.init_carry(batch, dtype, self.device,
+                                            cache_len=cache_len))
+            else:
+                out.append(layer.init_carry(batch, dtype, self.device))
+        return out
+
+    def has_kv_ring(self) -> bool:
+        """Whether any layer carries a KV-cache ring (the decode state)."""
+        return any(getattr(layer, "HAS_KV_RING", False)
+                   for layer in self.layers)
+
+    def max_cache_len(self) -> int:
+        """Largest KV-ring capacity across layers (0 without rings): the
+        top of the serving cache-len ladder."""
+        return max((int(layer.cache_len) for layer in self.layers
+                    if getattr(layer, "HAS_KV_RING", False)), default=0)
+
+    def _carried_step(self, params, net_state, carries, x):
+        with torch.inference_mode():
+            out, _, new_carries = self._forward(
+                params, net_state, self._tensor(x), train=False, rng=None,
+                carries=carries)
+        return out, new_carries
+
+    def rnn_time_step(self, features) -> Tensor:
+        """Stateful streaming inference (reference ``rnnTimeStep``): feeds
+        one or more timesteps, carrying state between calls in the
+        network's own slot.  2-D input (batch, features) is one timestep
+        and returns (batch, n_out); 3-D input returns (batch, time,
+        n_out)."""
+        self.init()
+        self._require_carry_support("rnn_time_step")
+        x = self._tensor(features)
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[:, None, :]
+        if self._rnn_carries is None:
+            self._rnn_carries = self._init_carries(x.shape[0])
+            self._rnn_carry_batch = x.shape[0]
+        elif self._rnn_carry_batch != x.shape[0]:
+            raise ValueError(
+                f"rnn_time_step batch size {x.shape[0]} != stored state "
+                f"batch size {self._rnn_carry_batch}; call "
+                "rnn_clear_previous_state() between unrelated sequences")
+        out, self._rnn_carries = self._carried_step(
+            self.params, self.net_state, self._rnn_carries, x)
+        return out[:, -1] if squeeze else out
+
+    def rnn_stateless_step(self, carries, features, params=None,
+                           net_state=None):
+        """Explicit-carry streaming step: advance ``carries`` by the input
+        timesteps and return ``(out, new_carries)`` without touching the
+        network's own state slot, so sessions can share one network.
+        ``carries=None`` starts from zero state; the carries passed in are
+        never written.  3-D ``(batch, time, n_in)`` features only.
+        ``params``/``net_state`` override the weights (a session pinned
+        to a weight version)."""
+        self.init()
+        self._require_carry_support("rnn_stateless_step")
+        return self._explicit_step("rnn_stateless_step", carries, features,
+                                   params, net_state)
+
+    def decode_step(self, carries, features, params=None, net_state=None):
+        """Autoregressive decode step: :meth:`rnn_stateless_step` over any
+        per-layer state, KV-cache rings included.  Returns ``(out,
+        new_carries)``; N single-token calls match one full-sequence
+        ``output()`` (the fp32-logits contract included).
+        ``carries=None`` starts a fresh state (ring capacity from the
+        layers' ``cache_len``).  3-D features only."""
+        self.init()
+        self._require_carry_support("decode_step")
+        return self._explicit_step("decode_step", carries, features,
+                                   params, net_state)
+
+    def _explicit_step(self, what, carries, features, params, net_state):
+        x = self._tensor(features)
+        if x.dim() != 3:
+            raise ValueError(f"{what} expects (batch, time, features), got "
+                             f"shape {tuple(x.shape)}")
+        if carries is None:
+            carries = self._init_carries(int(x.shape[0]))
+        return self._carried_step(
+            self.params if params is None else params,
+            self.net_state if net_state is None else net_state, carries, x)
+
+    def grow_decode_carries(self, carries, cache_len: int):
+        """Pad every KV ring in ``carries`` up to ``cache_len`` slots
+        (other carries pass through): the serving cache-len bucket hop.
+        Slots past the cursor are masked to exact zeros, so growth never
+        changes results."""
+        self.init()
+        with torch.inference_mode():
+            return [layer.grow_carry(carries[i], int(cache_len))
+                    if getattr(layer, "HAS_KV_RING", False) else carries[i]
+                    for i, layer in enumerate(self.layers)]
+
+    def rnn_clear_previous_state(self) -> None:
+        """Reference ``rnnClearPreviousState()``."""
+        self._rnn_carries = None
+        self._rnn_carry_batch = -1
+
+    def rnn_get_previous_state(self, layer: int):
+        """Carry of one layer (reference ``rnnGetPreviousState``)."""
+        return (None if self._rnn_carries is None
+                else self._rnn_carries[layer])
+
+    def rnn_set_previous_state(self, layer: int, state) -> None:
+        if self._rnn_carries is None:
+            raise ValueError("No rnn state yet; call rnn_time_step first")
+        self._rnn_carries[layer] = state
 
     def score(self, dataset: Optional[DataSet] = None) -> float:
         """Mean loss (+ regularization) on ``dataset``; without one, the

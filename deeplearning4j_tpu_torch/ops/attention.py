@@ -489,17 +489,20 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
 def kv_ring_update(k_cache: Tensor, v_cache: Tensor, cursor: int,
                    k_new: Tensor, v_new: Tensor):
     """Write (batch, heads, T, d) keys/values into the ring at ``cursor``.
-    Updates the caches IN PLACE (no second ring in memory) and returns
-    them.  Raises when ``cursor + T`` exceeds the capacity, where the JAX
-    package's ``dynamic_update_slice`` would clamp."""
+    Returns new cache tensors, copies of the ring with the chunk written
+    at the cursor, and never writes into its arguments: a caller that
+    keeps the old carry (a session whose step failed, a decode that
+    branches from one prefix) still holds the old ring, as with the JAX
+    package's ``dynamic_update_slice``.  Raises when ``cursor + T``
+    exceeds the capacity, where ``dynamic_update_slice`` would clamp."""
     cursor = int(cursor)
     t, cap = k_new.shape[2], k_cache.shape[2]
     if cursor < 0 or cursor + t > cap:
         raise ValueError(f"write of {t} slots at cursor {cursor} exceeds "
                          f"the ring capacity {cap}")
-    k_cache[:, :, cursor:cursor + t] = k_new.to(k_cache.dtype)
-    v_cache[:, :, cursor:cursor + t] = v_new.to(v_cache.dtype)
-    return k_cache, v_cache
+    return tuple(torch.slice_scatter(cache, new.to(cache.dtype), dim=2,
+                                     start=cursor, end=cursor + t)
+                 for cache, new in ((k_cache, k_new), (v_cache, v_new)))
 
 
 def kv_ring_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,

@@ -491,3 +491,66 @@ def test_ring_on_other_cards_matches_float64(other_card, layout, causal):
     out.backward(g)
     _assert_float64_agrees(out, qs, g, causal)
     assert torch.cuda.current_device() == 0
+
+
+# ---- decode and serving on the card ---------------------------------------
+# The serving path rides dense ``kv_ring_attention`` (no flash kernel, as
+# in the JAX package).  fp32 on both sides: 1e-5 on probabilities, f32
+# sums in another order on the card and on the CPU.
+
+def _decode_nets(cuda):
+    """The same small fp32 decode network on the card and on the CPU."""
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        CausalSelfAttention
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    def build(device):
+        conf = (NeuralNetConfiguration.builder().seed(5)
+                .compute_dtype("float32").list()
+                .layer(CausalSelfAttention(n_out=16, n_heads=4,
+                                           cache_len=32))
+                .layer(RnnOutputLayer(n_out=4, activation="softmax",
+                                      loss="mcxent"))
+                .set_input_type(inputs.recurrent(8, 16)).build())
+        return MultiLayerNetwork(conf, device=device).init()
+
+    card, cpu = build(cuda), build("cpu")
+    cpu.set_flat_params(card.get_flat_params())
+    return card, cpu
+
+
+def test_decode_session_on_the_card_matches_the_cpu(cuda):
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving import SessionCache
+    card, cpu = _decode_nets(cuda)
+    xs = np.random.RandomState(0).randn(2, 16, 8).astype(np.float32)
+    A.reset_launches()
+    outs = []
+    for net in (card, cpu):
+        cache = SessionCache(net, name=f"gpu-dec-{net.device.type}")
+        steps = [cache.step("s", xs[:, :10])]
+        steps += [cache.step("s", xs[:, t])[:, None] for t in range(10, 16)]
+        outs.append(np.concatenate(steps, 1))
+        assert cache.session_capacity("s") == 16
+        assert cache.get_carries("s")[0][0].device.type == net.device.type
+    assert not any(A.LAUNCHES.values())
+    np.testing.assert_allclose(outs[0], outs[1], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(outs[1], cpu.output(xs).numpy(), rtol=0,
+                               atol=1e-6)
+
+
+def test_engine_predict_on_the_card_returns_host_rows(cuda):
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    card, cpu = _decode_nets(cuda)
+    xs = np.random.RandomState(1).randn(3, 12, 8).astype(np.float32)
+    with InferenceEngine(card, max_batch_size=4, timestep_buckets=(16,),
+                         name="gpu-engine") as eng:
+        got = eng.predict(xs, timeout=120.0)
+    assert isinstance(got, np.ndarray) and got.shape == (3, 12, 4)
+    np.testing.assert_allclose(got, cpu.output(xs).numpy(), rtol=0,
+                               atol=1e-5)
