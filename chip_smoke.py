@@ -58,10 +58,27 @@ Phases (each raises on failure; the exit code is non-zero on any):
    then the predict rounds, the two sessions and the top bucket again on
    an fp32 copy of the net, within 1e-5.
    The serving path launches none of K1-K4 (dense ``kv_ring_attention``,
-   as in the JAX package).
+   as in the JAX package);
+9. feed-forward and convolutional (no hand kernel: cuDNN/cuBLAS through
+   torch, as XLA lowerings in the JAX package): the ``mlp_sgd`` and
+   ``cnn_adam`` regression goldens restored from
+   ``tests/fixtures/regression/`` onto the card, under the card's default
+   ``mixed_bf16`` policy (probabilities within ``GOLDEN_BF16_ATOL``) and as
+   an fp32 copy built from the zip's configuration with
+   ``compute_dtype="float32"`` (within ``GOLDEN_F32_ATOL``), each net then
+   one ``fit`` step; a small CNN with every ported family (conv stride 2
+   SAME, max and avg SAME pooling, BatchNormalization, LRN,
+   GlobalPooling) on the card and on the CPU from the same weights in
+   fp32, forward and two ``fit`` steps within ``REF_RTOL``; LeNet-5 at full
+   width (``models/lenet.py``, batch 256, 28x28x1, 10 classes, the card's
+   default policy) trains ``LENET_STEPS`` steps on seeded inputs whose
+   labels are the argmax of a fixed random linear map, the score falling;
+   the median ms per step over steps 2 to ``LENET_STEPS``, samples/s and
+   peak memory, then one more step under ``torch.profiler`` (top 5 CUDA
+   ops, idle share).  K1-K4 launch 0 times on this path.
 
-Prints a JSON line of the reference, training, inference, ring and
-serving results, one
+Prints a JSON line of the reference, training, inference, ring, serving
+and feed-forward/convolutional results, one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -69,11 +86,13 @@ its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -158,6 +177,18 @@ TIMED_TOKENS, PROFILED_TOKENS = 64, 8
 TIMED_HELD = (1024 - TIMED_TOKENS - PROFILED_TOKENS, SEQ - 256)
 BF16_PROB_ATOL, F32_PROB_ATOL, ROW_SUM_ATOL = 1e-3, 1e-5, 1e-4
 WAIT_S = 300.0
+# Phase 9.  The goldens' probabilities: the fp32 copy within 1e-5 (f32
+# sums in another order than the CPU that wrote them); the bf16 default
+# within 5e-3: one bf16 rounding per operand and activation moves them by
+# under 1e-3 under the mixed policy on the CPU (the same restore as
+# tests/test_torch_model_serializer.py::
+# test_an_fp32_zip_restores_under_the_mixed_policy), and their signal,
+# max|p - 1/classes|, is 0.14 or more.
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / \
+    "regression"
+GOLDENS = ("mlp_sgd", "cnn_adam")
+GOLDEN_F32_ATOL, GOLDEN_BF16_ATOL = 1e-5, 5e-3
+LENET_BATCH, LENET_STEPS, LENET_BATCHES = 256, 30, 8
 
 
 def log(msg: str) -> None:
@@ -1067,6 +1098,189 @@ def phase_serving(N, A, net, seed: int) -> dict:
     return result
 
 
+def fp32_copy(net, device="cuda"):
+    """``net`` rebuilt on ``device`` from its configuration with
+    ``compute_dtype="float32"``, with its params, updater state and
+    iteration."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = copy.deepcopy(net.conf)
+    conf.conf.compute_dtype = "float32"
+    out = MultiLayerNetwork(conf, device=device).init()
+    out.set_flat_params(net.get_flat_params())
+    out.set_flat_updater_state(net.get_flat_updater_state())
+    out.iteration = net.iteration
+    return out
+
+
+def hold_golden(what: str, net, golden, atol: float) -> dict:
+    """A restored net's probabilities on the golden's input against the
+    stored prediction; then one ``fit`` step (the labels of
+    ``tests/test_regression_goldens.py``) must give a finite score and
+    advance the iteration."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    want = golden["prediction"]
+    got = net.output(golden["input"]).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    signal = float(np.abs(want - 1.0 / want.shape[-1]).max())
+    log(f"[ffcnn] {what}: max_abs_err={err:.3e} (atol {atol:g}), signal "
+        f"max|p - 1/{want.shape[-1]}|={signal:.3e}")
+    if got.shape != want.shape or not err <= atol:
+        raise RuntimeError(f"{what}: disagrees with its golden")
+    rng = np.random.RandomState(3)
+    y = np.eye(want.shape[-1], dtype=np.float32)[
+        rng.randint(0, want.shape[-1], want.shape[0])]
+    it = net.iteration
+    net.fit(DataSet(golden["input"], y))
+    score = net.score()
+    if not (np.isfinite(score) and net.iteration == it + 1):
+        raise RuntimeError(f"{what}: the resumed step gave score {score}, "
+                           f"iteration {net.iteration}")
+    return {"max_abs_err": err, "signal": signal, "resumed_score": score,
+            "iteration": net.iteration}
+
+
+def phase_goldens(ms) -> dict:
+    out = {}
+    for name in GOLDENS:
+        path = FIXTURES / f"{name}.zip"
+        golden = dict(np.load(FIXTURES / f"{name}_golden.npz"))
+        net = ms.restore_multi_layer_network(path)
+        if net._pol().name != "mixed_bf16":
+            raise RuntimeError(f"{name} restored under {net._pol().name}")
+        net32 = fp32_copy(ms.restore_multi_layer_network(path, device="cpu"))
+        out[name] = {
+            "bf16": hold_golden(f"{name} mixed_bf16", net, golden,
+                                GOLDEN_BF16_ATOL),
+            "f32": hold_golden(f"{name} fp32 copy", net32, golden,
+                               GOLDEN_F32_ATOL)}
+    return out
+
+
+def all_families_cnn(N, device):
+    """conv stride 2 SAME -> BN -> max SAME -> LRN -> conv SAME -> avg SAME
+    -> global avg -> softmax, fp32, on ``device``."""
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.layers.convolution import (
+        ConvolutionLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.normalization import (
+        BatchNormalization, LocalResponseNormalization)
+    from deeplearning4j_tpu_torch.nn.layers.pooling import GlobalPoolingLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (N.NeuralNetConfiguration.builder().seed(5).updater("adam")
+            .learning_rate(1e-2).activation("relu").compute_dtype("float32")
+            .list()
+            .layer(ConvolutionLayer(n_out=16, kernel_size=(3, 3),
+                                    stride=(2, 2), convolution_mode="same"))
+            .layer(BatchNormalization())
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                    stride=(2, 2), convolution_mode="same"))
+            .layer(LocalResponseNormalization(n=5, alpha=1e-2))
+            .layer(ConvolutionLayer(n_out=32, kernel_size=(3, 3),
+                                    convolution_mode="same"))
+            .layer(SubsamplingLayer(pooling_type="avg", kernel_size=(3, 3),
+                                    stride=(2, 2), convolution_mode="same"))
+            .layer(GlobalPoolingLayer(pooling_type="avg"))
+            .layer(OutputLayer(n_out=10))
+            .set_input_type(inputs.convolutional(29, 27, 3)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def phase_cnn_reference(N) -> dict:
+    """The all-families CNN on the card and on the CPU from the same
+    weights in fp32: forward and two fit steps within REF_RTOL."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    card, cpu = all_families_cnn(N, "cuda"), all_families_cnn(N, "cpu")
+    cpu.set_flat_params(card.get_flat_params())
+    rng = np.random.RandomState(7)
+    x = rng.randn(16, 29, 27, 3).astype(np.float32)
+    ds = DataSet(x, np.eye(10, dtype=np.float32)[rng.randint(0, 10, 16)])
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    worst = rel(card.output(x).cpu().numpy(), cpu.output(x).numpy())
+    log(f"[ffcnn] CNN forward card vs CPU rel={worst:.2e}")
+    for step in range(2):
+        card.fit(ds)
+        cpu.fit(ds)
+        s_rel = abs(card.score() - cpu.score()) / abs(cpu.score())
+        p_rel = rel(card.get_flat_params(), cpu.get_flat_params())
+        st_rel = max(rel(card.net_state[1][k].cpu().numpy(),
+                         cpu.net_state[1][k].numpy()) for k in ("mean", "var"))
+        log(f"[ffcnn] CNN step {step}: score card={card.score():.7f} "
+            f"cpu={cpu.score():.7f} rel={s_rel:.2e}; params rel={p_rel:.2e}; "
+            f"BN state rel={st_rel:.2e} (tol {REF_RTOL:g})")
+        worst = max(worst, s_rel, p_rel, st_rel)
+    if not worst <= REF_RTOL:
+        raise RuntimeError("the CNN disagrees between card and CPU")
+    return {"steps": 2, "max_rel": worst}
+
+
+def lenet_data(seed: int):
+    """LENET_BATCHES batches of seeded 28x28 images in [0, 1), labelled by
+    the argmax of a fixed random linear map (a learnable labelling).  The
+    map is constant over 4x4 pixel blocks, a feature LeNet's convolutions
+    and pooling pick up within 30 steps; a map of independent pixels
+    hardly moves the score in that time."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.RandomState(seed)
+    x = rng.rand(LENET_BATCHES * LENET_BATCH, 784).astype(np.float32)
+    w = np.kron(rng.randn(7, 7, 10), np.ones((4, 4, 1))).reshape(784, 10)
+    y = np.eye(10, dtype=np.float32)[np.argmax((x - 0.5) @ w, axis=1)]
+    return [DataSet(x[i:i + LENET_BATCH], y[i:i + LENET_BATCH])
+            for i in range(0, len(x), LENET_BATCH)]
+
+
+def phase_lenet(seed: int) -> dict:
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    net = MultiLayerNetwork(lenet()).init()
+    if net._pol().name != "mixed_bf16":
+        raise RuntimeError(f"LeNet runs under {net._pol().name}")
+    batches = lenet_data(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # LeNet's params and state, and
+    scores, step_ms = [], []               # what earlier phases still hold
+    for step in range(LENET_STEPS):
+        t0 = time.perf_counter()
+        net.fit(batches[step % LENET_BATCHES])
+        s = net.score()           # a host read: waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        scores.append(s)
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(step_ms[1:]))
+    log(f"[ffcnn] LeNet-5 batch {LENET_BATCH}: score {scores[0]:.4f} -> "
+        f"{scores[-1]:.4f}; first step {step_ms[0]:.1f} ms, median of steps "
+        f"2-{LENET_STEPS} {median:.4f} ms ({LENET_BATCH * 1e3 / median:.0f} "
+        f"samples/s); peak memory {peak / 2**20:.1f} MiB, "
+        f"{held / 2**20:.1f} MiB held before the first step")
+    if not (all(np.isfinite(scores)) and scores[-1] < scores[0]):
+        raise RuntimeError(f"LeNet did not train: {scores}")
+    return {"batch": LENET_BATCH, "params": net.num_params(),
+            "scores": scores, "step_ms": step_ms, "median_step_ms": median,
+            "samples_per_s": LENET_BATCH * 1e3 / median,
+            "peak_mem_bytes": peak, "mem_before_bytes": held,
+            "profile": profile_step(net, batches[0], min(step_ms[1:]))}
+
+
+def phase_ffcnn(N, A, seed: int) -> dict:
+    """Phase 9: the goldens, the card-vs-CPU CNN, LeNet-5; none of K1-K4
+    may launch."""
+    from deeplearning4j_tpu_torch.utils import model_serializer as ms
+    torch.cuda.synchronize()
+    A.reset_launches()            # counts of this path only
+    result = {"goldens": phase_goldens(ms), "cnn_reference":
+              phase_cnn_reference(N), "lenet": phase_lenet(seed)}
+    result["launches"] = dict(A.LAUNCHES)
+    log(f"[ffcnn] launches {result['launches']}")
+    if any(result["launches"].values()):
+        raise RuntimeError("the feed-forward/CNN path launched a flash "
+                           "kernel")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1098,6 +1312,9 @@ def main(argv=None) -> int:
     ring = phase_ring(A, S, args.seed)
     torch.cuda.empty_cache()
     serving = phase_serving(N, A, net, args.seed)
+    del net
+    torch.cuda.empty_cache()
+    ffcnn = phase_ffcnn(N, A, args.seed)
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -1105,7 +1322,8 @@ def main(argv=None) -> int:
                "flash_bwd_dq": "deeplearning4j_tpu/ops/attention.py:502"}
     # the main paths, each run with the counts set to 0 just before it
     paths = {"training": training["launches"], "ring": ring["launches"],
-             "serving": serving["launches"]}
+             "serving": serving["launches"],
+             "feedforward_cnn": ffcnn["launches"]}
     kernels = [dict(name=name, route="cuda",
                     source="deeplearning4j_tpu_torch/ops/csrc/"
                            "flash_attention.cu",
@@ -1117,7 +1335,8 @@ def main(argv=None) -> int:
                for name in sources]
     print(json.dumps({"build_s": build_s, "reference": reference,
                       "training": training, "inference": inference,
-                      "ring": ring, "serving": serving}))
+                      "ring": ring, "serving": serving,
+                      "feedforward_cnn": ffcnn}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,106 @@
+"""Numerical-vs-analytic gradient checking (port of
+``check_gradients`` from ``deeplearning4j_tpu/gradientcheck.py``).
+
+The analytic gradient comes from autograd over the network's total loss
+(data loss plus regularization, inference mode, as the JAX package
+checks it); the numerical one from central differences on the flat
+parameter vector, one parameter at a time.  The network must compute in
+float64 on the CPU (``.dtype("float64")``, ``device="cpu"``): in float32
+the differences drown in rounding.  ``check_gradients_graph`` and
+``check_pretrain_gradients`` wait for the ComputationGraph (ROADMAP A5)
+and the pretraining layers (A6).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+DEFAULT_EPS = 1e-6
+DEFAULT_MAX_REL_ERROR = 1e-3
+DEFAULT_MIN_ABS_ERROR = 1e-8
+
+
+def _compare(analytic: np.ndarray, numeric: np.ndarray, idxs: np.ndarray,
+             max_rel_error: float, min_abs_error: float,
+             print_results: bool, label: str) -> bool:
+    """A parameter fails when both its relative error exceeds
+    ``max_rel_error`` and its absolute error ``min_abs_error``."""
+    a = analytic[idxs]
+    denom = np.abs(a) + np.abs(numeric)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        rel = np.where(denom == 0, 0.0, np.abs(a - numeric) / denom)
+    fails = (rel > max_rel_error) & (np.abs(a - numeric) > min_abs_error)
+    n_fail = int(fails.sum())
+    max_err = float(rel.max()) if rel.size else 0.0
+    if print_results:
+        for pos in np.nonzero(fails)[0][:50]:
+            print(f"param {idxs[pos]}: analytic={a[pos]:.8g} "
+                  f"numeric={numeric[pos]:.8g} rel={rel[pos]:.4g} FAIL")
+        print(f"GradientCheck({label}): {idxs.size - n_fail} passed, "
+              f"{n_fail} failed (maxRelError={max_err:.4g})")
+    return n_fail == 0
+
+
+def _subset(n: int, subset: Optional[int], seed: int) -> np.ndarray:
+    idxs = np.arange(n)
+    if subset is not None and subset < n:
+        idxs = np.sort(np.random.RandomState(seed).choice(
+            n, subset, replace=False))
+    return idxs
+
+
+def check_gradients(net, dataset, eps: float = DEFAULT_EPS,
+                    max_rel_error: float = DEFAULT_MAX_REL_ERROR,
+                    min_abs_error: float = DEFAULT_MIN_ABS_ERROR,
+                    print_results: bool = False,
+                    subset: Optional[int] = None,
+                    seed: int = 0) -> bool:
+    """True when every checked parameter's analytic gradient agrees with
+    its central difference (``subset`` checks that many, drawn with
+    ``seed``)."""
+    net.init()
+    pol = net._pol()
+    if net.device.type != "cpu" or pol.compute_dtype != torch.float64 \
+            or pol.param_dtype != torch.float64:
+        raise ValueError("gradient checks run on the CPU in float64: build "
+                         "the network with .dtype('float64') and "
+                         "device='cpu'")
+    features, labels, fmask, lmask = net._batch(dataset)
+    entries = [(i, name) for i, layer in enumerate(net.layers)
+               for name in layer.param_order()]
+
+    def total_loss(params):
+        data_loss, _ = net._loss_fn(params, net.net_state, features, labels,
+                                    fmask, lmask, None, False)
+        return data_loss + net._reg_score(params)
+
+    leaves = [{k: p.detach().clone().requires_grad_() for k, p in
+               tree.items()} for tree in net.params]
+    flat_leaves = [leaves[i][name] for i, name in entries]
+    grads = torch.autograd.grad(total_loss(leaves), flat_leaves,
+                                allow_unused=True)
+    analytic = np.concatenate(
+        [np.zeros(p.numel()) if g is None else g.reshape(-1).numpy()
+         for p, g in zip(flat_leaves, grads)] + [np.zeros((0,))])
+    starts = np.cumsum([0] + [p.numel() for p in flat_leaves])
+    idxs = _subset(int(starts[-1]), subset, seed)
+    params = [{k: p.detach().clone() for k, p in tree.items()}
+              for tree in net.params]
+    numeric = np.empty(idxs.size, np.float64)
+    with torch.no_grad():
+        for pos, j in enumerate(idxs):
+            e = int(np.searchsorted(starts, j, side="right") - 1)
+            i, name = entries[e]
+            view, k = params[i][name].view(-1), int(j - starts[e])
+            orig = view[k].item()
+            view[k] = orig + eps
+            f_plus = float(total_loss(params))
+            view[k] = orig - eps
+            f_minus = float(total_loss(params))
+            view[k] = orig
+            numeric[pos] = (f_plus - f_minus) / (2.0 * eps)
+    return _compare(analytic, numeric, idxs, max_rel_error, min_abs_error,
+                    print_results, "MLN")

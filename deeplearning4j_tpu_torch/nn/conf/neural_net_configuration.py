@@ -4,9 +4,10 @@ multi-layer configuration with JSON round-trip (port of
 
 The dataclasses and serde type names are the JAX package's, so
 ``MultiLayerConfiguration.from_json`` reads the JSON its ``to_json``
-writes.  Shape inference covers the layer families ported so far:
-a preprocessor between families (ff <-> rnn <-> cnn) is not ported yet and
-raises.
+writes, and ``to_json`` writes the same bytes.  Shape inference sets each
+layer's ``n_in`` and auto-inserts the preprocessor at each family boundary
+(ff <-> rnn <-> cnn), as the JAX package does.  A layer type that is not
+ported yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,9 +21,26 @@ from ..layers.base import BaseLayerConfig
 from ..updaters import UpdaterConfig
 from ..weights import Distribution
 from . import inputs as _inputs
+from . import preprocessors as _pp
 from . import serde
 
 InputType = _inputs.InputType
+
+# serde type names of the JAX package that the port does not read yet, and
+# the ROADMAP item that ports each
+_NOT_PORTED = {
+    "graves_lstm": "A3", "graves_bidirectional_lstm": "A3",
+    "computation_graph_conf": "A5",
+    "autoencoder": "A6", "rbm": "A6", "variational_autoencoder": "A6",
+    "center_loss_output": "A6",
+}
+
+
+def not_ported(kind) -> NotImplementedError:
+    """The error for a serde type the port cannot build yet."""
+    item = _NOT_PORTED.get(kind)
+    where = f" (ROADMAP {item})" if item else ""
+    return NotImplementedError(f"{kind!r} is not ported yet{where}")
 
 
 @serde.register("global_conf")
@@ -94,15 +112,15 @@ class MultiLayerConfiguration:
     def from_dict(d: dict) -> "MultiLayerConfiguration":
         out = serde.from_dict(d)
         if not isinstance(out, MultiLayerConfiguration):
+            if isinstance(d, dict) and d.get("type") in _NOT_PORTED:
+                raise not_ported(d["type"])
             raise ValueError("not a multi_layer_conf document")
         for i, layer in enumerate(out.layers):
             if not isinstance(layer, BaseLayerConfig):
-                kind = layer.get("type") if isinstance(layer, dict) else layer
-                raise NotImplementedError(
-                    f"layer {i} of type {kind!r} is not ported yet")
-        if out.input_preprocessors:
-            raise NotImplementedError(
-                "input preprocessors are not ported yet")
+                raise not_ported(layer.get("type")
+                                 if isinstance(layer, dict) else layer)
+        out.input_preprocessors = {
+            int(k): v for k, v in out.input_preprocessors.items()}
         return out
 
     @staticmethod
@@ -257,6 +275,10 @@ class ListBuilder:
             self._mlc.layers[idx] = layer
         return self
 
+    def input_preprocessor(self, index: int, pp) -> "ListBuilder":
+        self._mlc.input_preprocessors[int(index)] = pp
+        return self
+
     def backprop(self, flag: bool) -> "ListBuilder":
         self._mlc.backprop = flag
         return self
@@ -281,16 +303,47 @@ class ListBuilder:
 
 
 def _infer_shapes(mlc: MultiLayerConfiguration) -> None:
-    """Set each layer's n_in from the declared input type, walking the
-    list.  A family boundary that needs a preprocessor raises."""
+    """Walk the layer list, auto-inserting preprocessors at family
+    boundaries and setting each layer's n_in."""
     current = mlc.input_type
     for i, layer in enumerate(mlc.layers):
-        want = getattr(layer, "INPUT_KIND", "ff")
-        kind = current.kind
-        if not (want == "any" or kind == want
-                or (kind, want) in (("recurrent", "rnn"), ("cnn_flat", "ff"))):
-            raise NotImplementedError(
-                f"layer {i}: the {kind} -> {want} preprocessor is not "
-                "ported yet")
+        if i not in mlc.input_preprocessors:
+            pp = _preprocessor_for(current, getattr(layer, "INPUT_KIND", "ff"))
+            if pp is not None:
+                mlc.input_preprocessors[i] = pp
+        if i in mlc.input_preprocessors:
+            current = mlc.input_preprocessors[i].output_type(current)
         layer.set_n_in(current)
         current = layer.output_type(current)
+
+
+def _preprocessor_for(input_type: InputType, want: str):
+    """The adapter between an incoming InputType and a layer family (ff,
+    cnn, rnn or any), or None."""
+    kind = input_type.kind
+    if want == "any" or kind == want or (kind, want) == ("recurrent", "rnn"):
+        return None
+    if kind == "cnn_flat":
+        if want == "cnn":
+            return _pp.FlatToCnnPreProcessor(
+                input_type.height, input_type.width, input_type.channels)
+        if want == "ff":
+            return None  # already flat rows
+    if kind == "cnn" and want == "ff":
+        return _pp.CnnToFeedForwardPreProcessor(
+            input_type.height, input_type.width, input_type.channels)
+    if kind == "ff" and want == "cnn":
+        raise ValueError(
+            "Cannot infer H/W/C for ff->cnn; add FeedForwardToCnnPreProcessor "
+            "explicitly via input_preprocessor()")
+    if kind == "recurrent" and want == "ff":
+        return _pp.RnnToFeedForwardPreProcessor()
+    if kind == "ff" and want == "rnn":
+        return _pp.FeedForwardToRnnPreProcessor()
+    if kind == "cnn" and want == "rnn":
+        return _pp.CnnToRnnPreProcessor()
+    if kind == "recurrent" and want == "cnn":
+        raise ValueError(
+            "Cannot infer H/W/C for rnn->cnn; add RnnToCnnPreProcessor "
+            "explicitly")
+    raise ValueError(f"No preprocessor from {kind} to {want}")

@@ -16,9 +16,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import activations as _activations
+from .. import lossfunctions as _losses
 from ..conf import inputs as _inputs
 from ..updaters import UpdaterConfig
-from ..weights import Distribution
+from ..weights import Distribution, init_weights
 
 Tensor = torch.Tensor
 ParamTree = Dict[str, Tensor]
@@ -107,3 +108,56 @@ class BaseLayerConfig:
         keep = 1.0 - self.dropout
         mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def dense_params(layer: BaseLayerConfig, gen: torch.Generator,
+                 dtype: torch.dtype, device: torch.device) -> ParamTree:
+    """``W`` (n_in, n_out) by the layer's weight init, ``b`` (n_out,) at
+    its bias init."""
+    return {
+        "W": init_weights(gen, (layer.n_in, layer.n_out),
+                          layer.weight_init or "xavier", layer.dist, dtype,
+                          device),
+        "b": torch.full((layer.n_out,), float(layer.bias_init or 0.0),
+                        dtype=dtype, device=device),
+    }
+
+
+class ScoredHead:
+    """``compute_score``/``compute_score_examples`` of a loss head (its
+    ``loss`` and ``activation``) over its pre-activation."""
+
+    def compute_score(self, labels: Tensor, preout: Tensor,
+                      mask: Optional[Tensor] = None,
+                      average: bool = True) -> Tensor:
+        return _losses.score(self.loss, labels, preout, self.activation,
+                             mask, average)
+
+    def compute_score_examples(self, labels: Tensor, preout: Tensor,
+                               mask: Optional[Tensor] = None) -> Tensor:
+        """Per-example scores, shape (batch,)."""
+        return _losses.score_examples(self.loss, labels, preout,
+                                      self.activation, mask)
+
+
+@dataclasses.dataclass
+class FeedForwardLayerConfig(BaseLayerConfig):
+    """Base for layers with an explicit n_in/n_out and a dense ``W``
+    ``(n_in, n_out)``, ``b`` ``(n_out,)``."""
+
+    n_in: int = 0
+    n_out: int = 0
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return _inputs.feed_forward(self.n_out)
+
+    def set_n_in(self, input_type: InputType) -> None:
+        if self.n_in <= 0:
+            self.n_in = input_type.flat_size()
+
+    def param_order(self) -> tuple[str, ...]:
+        return ("W", "b")
+
+    def init_params(self, gen: torch.Generator, dtype: torch.dtype,
+                    device: torch.device) -> ParamTree:
+        return dense_params(self, gen, dtype, device)

@@ -13,11 +13,10 @@ from typing import Optional
 
 import torch
 
-from .. import lossfunctions as _losses
 from ..conf import inputs as _inputs
 from ..conf import serde
-from ..weights import init_weights
-from .base import BaseLayerConfig, ParamTree, StateTree, Tensor
+from .base import (BaseLayerConfig, ParamTree, ScoredHead, StateTree,
+                   Tensor, dense_params)
 
 InputType = _inputs.InputType
 
@@ -67,7 +66,7 @@ class BaseRecurrentLayer(BaseLayerConfig):
 
 @serde.register("rnn_output")
 @dataclasses.dataclass
-class RnnOutputLayer(BaseRecurrentLayer):
+class RnnOutputLayer(ScoredHead, BaseRecurrentLayer):
     """Time-distributed dense + loss head: the same W/b at every timestep,
     scored against (batch, time, classes) labels with an optional
     (batch, time) mask."""
@@ -79,13 +78,7 @@ class RnnOutputLayer(BaseRecurrentLayer):
         return ("W", "b")
 
     def init_params(self, gen, dtype, device) -> ParamTree:
-        return {
-            "W": init_weights(gen, (self.n_in, self.n_out),
-                              self.weight_init or "xavier", self.dist,
-                              dtype, device),
-            "b": torch.full((self.n_out,), float(self.bias_init or 0.0),
-                            dtype=dtype, device=device),
-        }
+        return dense_params(self, gen, dtype, device)
 
     def init_carry(self, batch, dtype, device):
         return ()
@@ -96,14 +89,3 @@ class RnnOutputLayer(BaseRecurrentLayer):
 
     def pre_output(self, params: ParamTree, x: Tensor) -> Tensor:
         return x @ params["W"] + params["b"]
-
-    def compute_score(self, labels: Tensor, preout: Tensor,
-                      mask: Optional[Tensor] = None,
-                      average: bool = True) -> Tensor:
-        return _losses.score(self.loss, labels, preout, self.activation,
-                             mask, average)
-
-    def compute_score_examples(self, labels: Tensor, preout: Tensor,
-                               mask: Optional[Tensor] = None) -> Tensor:
-        return _losses.score_examples(self.loss, labels, preout,
-                                      self.activation, mask)

@@ -20,6 +20,12 @@ with the caller, the KV rings of ``CausalSelfAttention`` included),
 ``compile_output`` (one inference callable per bucket shape, what
 ``serving.InferenceEngine`` warms).
 
+Layer state (batch-norm running statistics) lives in ``net_state``: a
+``fit`` step updates it, ``output()`` reads it in inference mode.  The
+input preprocessors of the configuration run before their layers.  The
+updater state crosses to the ModelSerializer as one flat vector in the
+JAX package's leaf order (``get_flat_updater_state``).
+
 Not ported yet: the fused multi-step scans, the device-cached ingest,
 tBPTT, health telemetry, listeners, solvers, pretraining and
 checkpointing.
@@ -112,8 +118,11 @@ class MultiLayerNetwork:
         new_carries = (list(carries) if carries is not None
                        else [() for _ in self.layers])
         n = len(self.layers)
+        preprocessors = self.conf.input_preprocessors
         for i, layer in enumerate(self.layers):
             last = i == n - 1
+            if i in preprocessors:
+                x = preprocessors[i](x)
             if last and preoutput_last and hasattr(layer, "pre_output"):
                 x = layer.apply_dropout(x, train, rng)
                 x = layer.pre_output(params[i], x)
@@ -177,8 +186,10 @@ class MultiLayerNetwork:
         return t
 
     def _batch(self, ds: DataSet):
-        return (self._tensor(ds.features), self._tensor(ds.labels,
-                                                        torch.float32),
+        # labels in f32, or in f64 for a network that computes in f64
+        ldt = (torch.float64 if self._pol().compute_dtype == torch.float64
+               else torch.float32)
+        return (self._tensor(ds.features), self._tensor(ds.labels, ldt),
                 self._tensor(ds.features_mask, torch.float32),
                 self._tensor(ds.labels_mask, torch.float32))
 
@@ -466,10 +477,13 @@ class MultiLayerNetwork:
         return sum(p.numel() for tree in self.params for p in tree.values())
 
     def get_flat_params(self) -> np.ndarray:
-        """All params as one float32 vector, in layer/param order (the
-        JAX package's ``get_flat_params`` order)."""
+        """All params as one vector, in layer/param order (the JAX
+        package's ``get_flat_params`` order): float64 for a float64
+        network, else float32."""
         self.init()
-        chunks = [self.params[i][name].detach().reshape(-1).float().cpu()
+        dtype = (torch.float64 if self._pol().param_dtype == torch.float64
+                 else torch.float32)
+        chunks = [self.params[i][name].detach().reshape(-1).to(dtype).cpu()
                   for i, name in self._ordered()]
         if not chunks:
             return np.zeros((0,), np.float32)
@@ -477,9 +491,12 @@ class MultiLayerNetwork:
 
     def set_flat_params(self, flat) -> None:
         """Assign every param from one vector in ``get_flat_params`` order
-        (cast to each param's dtype); fp32 masters are re-derived."""
+        (cast to each param's dtype; a float64 vector keeps its precision
+        up to that cast); fp32 masters are re-derived."""
         self.init()
-        flat = torch.as_tensor(np.asarray(flat, dtype=np.float32))
+        flat = np.asarray(flat)
+        flat = torch.as_tensor(flat if flat.dtype == np.float64
+                               else flat.astype(np.float32))
         offset = 0
         for i, name in self._ordered():
             p = self.params[i][name]
@@ -503,3 +520,68 @@ class MultiLayerNetwork:
             if masters is not None:
                 state[_updaters.MASTER_KEY] = {
                     k: self.params[i][k].float().clone() for k in masters}
+
+    def get_flat_updater_state(self) -> np.ndarray:
+        """The updater state as one float32 vector, leaves in the order of
+        the JAX package's ``jax.tree_util.tree_leaves`` (dict keys sorted
+        at every level, so ``_master`` comes before ``m`` and ``v``, and
+        ``W`` before ``b``): the ``updaterState.bin`` payload."""
+        self.init()
+        leaves = [leaf.detach().reshape(-1).float().cpu()
+                  for tree in self.updater_state
+                  for leaf in _sorted_leaves(tree)]
+        if not leaves:
+            return np.zeros((0,), np.float32)
+        return torch.cat(leaves).numpy()
+
+    def set_flat_updater_state(self, flat) -> None:
+        """Inverse of :meth:`get_flat_updater_state`.  A vector without the
+        fp32 masters (one written under a policy without them) also
+        loads into a network that keeps masters: the masters then stay
+        as ``set_flat_params`` derived them."""
+        self.init()
+        flat = torch.as_tensor(np.asarray(flat, dtype=np.float32))
+        with_masters = sum(leaf.numel() for tree in self.updater_state
+                           for leaf in _sorted_leaves(tree))
+        skip = () if flat.numel() == with_masters else \
+            (_updaters.MASTER_KEY,)
+        offset = 0
+
+        def take(leaf):
+            nonlocal offset
+            size = leaf.numel()
+            if offset + size > flat.numel():
+                raise ValueError(f"updater state of {flat.numel()} values "
+                                 "is too short for the network")
+            out = flat[offset:offset + size].reshape(leaf.shape).to(
+                device=leaf.device, dtype=leaf.dtype)
+            offset += size
+            return out
+
+        self.updater_state = [_map_sorted_leaves(tree, take, skip)
+                              for tree in self.updater_state]
+        if offset != flat.numel():
+            raise ValueError(f"updater state size mismatch: the network "
+                             f"holds {with_masters} values, the vector "
+                             f"{flat.numel()}")
+
+
+def _sorted_leaves(tree):
+    """Tensor leaves of nested dicts in ``jax.tree_util`` order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _sorted_leaves(tree[key])
+    elif isinstance(tree, Tensor):
+        yield tree
+
+
+def _map_sorted_leaves(tree, fn, skip=()):
+    """``tree`` with each leaf replaced by ``fn(leaf)``, called in
+    ``_sorted_leaves`` order; top-level keys in ``skip`` are kept as
+    they are."""
+    if isinstance(tree, Tensor):
+        return fn(tree)
+    out = {key: (tree[key] if key in skip
+                 else _map_sorted_leaves(tree[key], fn))
+           for key in sorted(tree)}
+    return {key: out[key] for key in tree}

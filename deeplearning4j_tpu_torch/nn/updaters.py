@@ -286,16 +286,19 @@ def regularize(grads: ParamTree, params: ParamTree,
 
 def regularization_score(params: ParamTree, l1_by_param: Dict[str, float],
                          l2_by_param: Dict[str, float]):
-    """0.5*l2*||w||^2 + l1*||w||_1 over the layer's params, in fp32; the
-    float 0.0 when the layer has no regularization."""
+    """0.5*l2*||w||^2 + l1*||w||_1 over the layer's params, in fp32 (fp64
+    for fp64 params); the float 0.0 when the layer has no
+    regularization."""
     terms = []
     for k, p in params.items():
         l1 = l1_by_param.get(k, 0.0)
         l2 = l2_by_param.get(k, 0.0)
+        if l1 or l2:
+            p = p if p.dtype == torch.float64 else p.float()
         if l2:
-            terms.append(0.5 * l2 * torch.sum(torch.square(p.float())))
+            terms.append(0.5 * l2 * torch.sum(torch.square(p)))
         if l1:
-            terms.append(l1 * torch.sum(torch.abs(p.float())))
+            terms.append(l1 * torch.sum(torch.abs(p)))
     return sum(terms) if terms else 0.0
 
 

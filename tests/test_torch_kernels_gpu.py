@@ -554,3 +554,94 @@ def test_engine_predict_on_the_card_returns_host_rows(cuda):
     assert isinstance(got, np.ndarray) and got.shape == (3, 12, 4)
     np.testing.assert_allclose(got, cpu.output(xs).numpy(), rtol=0,
                                atol=1e-5)
+
+
+# ---- feed-forward and convolutional families on the card ------------------
+# No hand kernel on this path (cuDNN/cuBLAS through torch, as XLA lowerings
+# in the JAX package).  fp32 on both sides, the card's convs in IEEE f32
+# (TF32 off): 1e-5 of max|CPU|, f32 sums in another order.  The golden's
+# bf16 default at 5e-3 on probabilities: one bf16 rounding per operand and
+# activation moves them by under 1e-3 under the mixed policy on the CPU
+# (test_torch_model_serializer.py), and the golden's signal
+# max|p - 1/classes| is 0.14.
+
+def _card_vs_cpu(cuda, fn, *arrays):
+    """``fn`` on the card and on the CPU from the same f32 inputs: the
+    outputs and the input gradients against a fixed random cotangent."""
+    import numpy as np
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        xs = [torch.tensor(a, device=device, requires_grad=True)
+              for a in arrays]
+        out = fn(*xs)
+        out = out[0] if isinstance(out, tuple) else out
+        g = torch.as_tensor(np.random.RandomState(9).randn(*out.shape)
+                            .astype(np.float32), device=device)
+        grads = torch.autograd.grad(out, xs, g)
+        results.append([t.detach().cpu() for t in (out,) + grads])
+    for got, want in zip(*results):
+        assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["conv same s2", "conv truncate dilated",
+                                  "max same", "avg same", "pnorm",
+                                  "batch norm", "lrn"])
+def test_conv_pool_bn_on_the_card_match_the_cpu(cuda, case):
+    import numpy as np
+    from deeplearning4j_tpu_torch.ops import convolution as C
+    rng = np.random.RandomState(0)
+    x = rng.randn(4, 29, 27, 8).astype(np.float32)
+    k = rng.randn(3, 3, 8, 16).astype(np.float32)
+    g, b = rng.rand(8).astype(np.float32) + 0.5, rng.randn(8).astype(
+        np.float32)
+    fn, args = {
+        "conv same s2": (lambda a, w: C.conv2d(a, w, (2, 2), (0, 0), "same"),
+                         (x, k)),
+        "conv truncate dilated": (lambda a, w: C.conv2d(
+            a, w, (1, 1), (1, 1), "truncate", (2, 2)), (x, k)),
+        "max same": (lambda a: C.pool2d(a, "max", (3, 3), (2, 2), (0, 0),
+                                        "same"), (x,)),
+        "avg same": (lambda a: C.pool2d(a, "avg", (3, 3), (2, 2), (0, 0),
+                                        "same"), (x,)),
+        "pnorm": (lambda a: C.pool2d(a, "pnorm", (2, 2), (2, 2)), (x,)),
+        "batch norm": (lambda a, ga, be: C.batch_norm_train(
+            a, ga, be, (0, 1, 2), 1e-5), (x, g, b)),
+        "lrn": (lambda a: C.local_response_normalization(a, 2.0, 5, 1e-2,
+                                                         0.75), (x,)),
+    }[case]
+    _card_vs_cpu(cuda, fn, *args)
+
+
+def test_cnn_adam_restores_on_the_card(cuda):
+    """The golden under the card's default policy, and an fp32 copy built
+    from the zip's configuration with ``compute_dtype="float32"``."""
+    import copy
+    from pathlib import Path
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils import model_serializer as ms
+    fixtures = Path(__file__).resolve().parent / "fixtures" / "regression"
+    golden = np.load(fixtures / "cnn_adam_golden.npz")
+    x = golden["input"]
+    net = ms.restore_multi_layer_network(fixtures / "cnn_adam.zip")
+    assert net.device.type == "cuda" and net._pol().name == "mixed_bf16"
+    np.testing.assert_allclose(net.output(x).cpu().numpy(),
+                               golden["prediction"], rtol=0, atol=5e-3)
+    cpu = ms.restore_multi_layer_network(fixtures / "cnn_adam.zip",
+                                         device="cpu")
+    conf = copy.deepcopy(cpu.conf)
+    conf.conf.compute_dtype = "float32"
+    net32 = MultiLayerNetwork(conf, device=cuda).init()
+    net32.set_flat_params(cpu.get_flat_params())
+    net32.set_flat_updater_state(cpu.get_flat_updater_state())
+    net32.iteration = cpu.iteration
+    assert net32.params[0]["W"].dtype == torch.float32
+    np.testing.assert_allclose(net32.output(x).cpu().numpy(),
+                               golden["prediction"], rtol=1e-5, atol=1e-7)
+    y = np.eye(2, dtype=np.float32)[[0, 1, 0]]
+    for n in (net, net32, cpu):
+        n.fit(DataSet(x, y))
+    assert net.iteration == 2 and np.isfinite(net.score())
+    assert _rel(torch.as_tensor(net32.get_flat_params()),
+                torch.as_tensor(cpu.get_flat_params())) <= 1e-5
