@@ -75,10 +75,29 @@ Phases (each raises on failure; the exit code is non-zero on any):
    labels are the argmax of a fixed random linear map, the score falling;
    the median ms per step over steps 2 to ``LENET_STEPS``, samples/s and
    peak memory, then one more step under ``torch.profiler`` (top 5 CUDA
-   ops, idle share).  K1-K4 launch 0 times on this path.
+   ops, idle share).  K1-K4 launch 0 times on this path;
+10. recurrent (no hand kernel: cuBLAS and elementwise kernels through
+   torch, where the JAX package has XLA's lowering of ``lax.scan``): the
+   ``lstm_rmsprop_tbptt`` golden restored onto the card as in phase 9,
+   each copy then one resumed tBPTT ``fit`` (iteration 2 -> 4); a
+   2 x GravesLSTM(16) net under tBPTT 8 / back 5 and a
+   GravesBidirectionalLSTM(16) -> masked global pooling net, card vs CPU
+   in fp32 on ragged masked sequences of 21 steps, forward and two fits
+   within ``REF_RTOL``; the char-RNN of BASELINE.md config #3
+   (GravesLSTM(84 -> 256) -> GravesLSTM(256) -> RnnOutputLayer(84),
+   rmsprop 0.1, the card's default policy) on a seeded Markov text, batch
+   32, ``CHAR_FITS`` fits of ``CHAR_SEQ`` steps in tBPTT windows of 64,
+   the score falling: ms per window (median of windows 2 to 32), chars/s,
+   peak memory, one more window under ``torch.profiler``; ``rnn_time_step``
+   over 64 single characters and two concurrent ``predict_session``s (a
+   64-step prefill, then 32 single steps) against ``output()``, in bf16
+   (``RNN_BF16_ATOL``) and on an fp32 copy (``RNN_F32_ATOL``); then
+   ``ring_lstm_scan`` over 4 shards of one card at T=1024 against the
+   one-device ``lstm_scan``, outputs, final carry and gradients within
+   ``RING_LSTM_RTOL``, both timed.  K1-K4 launch 0 times on this path.
 
-Prints a JSON line of the reference, training, inference, ring, serving
-and feed-forward/convolutional results, one
+Prints a JSON line of the reference, training, inference, ring, serving,
+feed-forward/convolutional and recurrent results, one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -189,6 +208,23 @@ FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / \
 GOLDENS = ("mlp_sgd", "cnn_adam")
 GOLDEN_F32_ATOL, GOLDEN_BF16_ATOL = 1e-5, 5e-3
 LENET_BATCH, LENET_STEPS, LENET_BATCHES = 256, 30, 8
+# Phase 10.  The char-RNN of BASELINE.md config #3 in the shape of
+# bench.py:383 (bench_lstm): GravesLSTM(84 -> 256) -> GravesLSTM(256) ->
+# RnnOutputLayer(84), rmsprop 0.1, seed 12, batch 32, tBPTT windows of the
+# bench's 64 steps; each fit takes CHAR_SEQ steps, so 4 windows.  The text
+# is a first-order Markov chain whose symbols have CHAR_FANOUT successors
+# each, so the score can fall.  Sampling (rnn_time_step) and sessions
+# carry h and c from step to step where output() runs one scan: under
+# mixed_bf16 both carry bf16 over 64-96 steps but round the input
+# projection of another shape, within 5e-3 on the probabilities (the
+# issue's limit; the measured error is logged beside it); the fp32 copy
+# within 1e-5.  The ring LSTM against the one-device scan in fp32: 1e-5 of
+# max|one device| (f32 sums of the projection in another order).
+CHAR_VOCAB, CHAR_HIDDEN, CHAR_BATCH = 84, 256, 32
+CHAR_SEQ, CHAR_WINDOW, CHAR_FITS, CHAR_FANOUT = 256, 64, 8, 4
+SAMPLE_STEPS, SESSION_PREFILL, SESSION_STEPS = 64, 64, 32
+RNN_BF16_ATOL, RNN_F32_ATOL = 5e-3, 1e-5
+RING_LSTM_SHARDS, RING_LSTM_T, RING_LSTM_RTOL = 4, 1024, 1e-5
 
 
 def log(msg: str) -> None:
@@ -845,7 +881,7 @@ def run_threads(targets, errors) -> None:
 
 
 def hold_probs(what: str, got: np.ndarray, want: np.ndarray,
-               atol: float) -> tuple:
+               atol: float, tag: str = "serving") -> tuple:
     """Probabilities of the served path against the reference: the same
     shape, finite, rows summing to 1, within ``atol``.  Returns the error
     and the signal, max|want - 1/classes|: how far the reference is from
@@ -860,7 +896,7 @@ def hold_probs(what: str, got: np.ndarray, want: np.ndarray,
     row_err = float(np.abs(got.sum(-1) - 1.0).max())
     err = float(np.abs(got - want).max())
     signal = float(np.abs(want - 1.0 / want.shape[-1]).max())
-    log(f"[serving] {what}: max_abs_err={err:.3e} (atol {atol:g}), signal "
+    log(f"[{tag}] {what}: max_abs_err={err:.3e} (atol {atol:g}), signal "
         f"max|p - 1/{want.shape[-1]}|={signal:.3e}, row-sum err "
         f"{row_err:.2e}")
     if err > atol or row_err > ROW_SUM_ATOL:
@@ -1100,48 +1136,62 @@ def phase_serving(N, A, net, seed: int) -> dict:
 
 def fp32_copy(net, device="cuda"):
     """``net`` rebuilt on ``device`` from its configuration with
-    ``compute_dtype="float32"``, with its params, updater state and
-    iteration."""
+    ``compute_dtype="float32"``, with its params and iteration, and its
+    updater state when ``net`` keeps no fp32 masters (an fp32 net holds
+    none to read them into)."""
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     conf = copy.deepcopy(net.conf)
     conf.conf.compute_dtype = "float32"
     out = MultiLayerNetwork(conf, device=device).init()
     out.set_flat_params(net.get_flat_params())
-    out.set_flat_updater_state(net.get_flat_updater_state())
+    if not net._pol().master_weights:
+        out.set_flat_updater_state(net.get_flat_updater_state())
     out.iteration = net.iteration
     return out
 
 
-def hold_golden(what: str, net, golden, atol: float) -> dict:
+def fit_updates(net, shape) -> int:
+    """Updates one ``fit`` of a batch of ``shape`` makes: one, or one per
+    window under truncated BPTT."""
+    if net.conf.backprop_type != "tbptt":
+        return 1
+    return -(-shape[1] // net.conf.tbptt_fwd_length)
+
+
+def hold_golden(what: str, net, golden, atol: float,
+                tag: str = "ffcnn") -> dict:
     """A restored net's probabilities on the golden's input against the
-    stored prediction; then one ``fit`` step (the labels of
-    ``tests/test_regression_goldens.py``) must give a finite score and
-    advance the iteration."""
+    stored prediction; then one ``fit`` (the labels of
+    ``tests/test_regression_goldens.py``: a class per example, or per
+    timestep) must give a finite score and advance the iteration by one
+    update (one per window under tBPTT)."""
     from deeplearning4j_tpu_torch.datasets import DataSet
     want = golden["prediction"]
     got = net.output(golden["input"]).cpu().numpy()
     err = float(np.abs(got - want).max())
     signal = float(np.abs(want - 1.0 / want.shape[-1]).max())
-    log(f"[ffcnn] {what}: max_abs_err={err:.3e} (atol {atol:g}), signal "
+    log(f"[{tag}] {what}: max_abs_err={err:.3e} (atol {atol:g}), signal "
         f"max|p - 1/{want.shape[-1]}|={signal:.3e}")
     if got.shape != want.shape or not err <= atol:
         raise RuntimeError(f"{what}: disagrees with its golden")
     rng = np.random.RandomState(3)
     y = np.eye(want.shape[-1], dtype=np.float32)[
-        rng.randint(0, want.shape[-1], want.shape[0])]
+        rng.randint(0, want.shape[-1], want.shape[:-1])]
     it = net.iteration
     net.fit(DataSet(golden["input"], y))
     score = net.score()
-    if not (np.isfinite(score) and net.iteration == it + 1):
-        raise RuntimeError(f"{what}: the resumed step gave score {score}, "
-                           f"iteration {net.iteration}")
+    updates = fit_updates(net, golden["input"].shape)
+    if not (np.isfinite(score) and net.iteration == it + updates):
+        raise RuntimeError(f"{what}: the resumed fit gave score {score}, "
+                           f"iteration {it} -> {net.iteration}, not "
+                           f"+{updates}")
     return {"max_abs_err": err, "signal": signal, "resumed_score": score,
             "iteration": net.iteration}
 
 
-def phase_goldens(ms) -> dict:
+def phase_goldens(ms, names=GOLDENS, tag: str = "ffcnn") -> dict:
     out = {}
-    for name in GOLDENS:
+    for name in names:
         path = FIXTURES / f"{name}.zip"
         golden = dict(np.load(FIXTURES / f"{name}_golden.npz"))
         net = ms.restore_multi_layer_network(path)
@@ -1150,9 +1200,9 @@ def phase_goldens(ms) -> dict:
         net32 = fp32_copy(ms.restore_multi_layer_network(path, device="cpu"))
         out[name] = {
             "bf16": hold_golden(f"{name} mixed_bf16", net, golden,
-                                GOLDEN_BF16_ATOL),
+                                GOLDEN_BF16_ATOL, tag),
             "f32": hold_golden(f"{name} fp32 copy", net32, golden,
-                               GOLDEN_F32_ATOL)}
+                               GOLDEN_F32_ATOL, tag)}
     return out
 
 
@@ -1281,6 +1331,315 @@ def phase_ffcnn(N, A, seed: int) -> dict:
     return result
 
 
+# ------------------------------------------------------------ phase 10
+def small_recurrent(N, device, bidirectional: bool):
+    """fp32 on ``device``: 2 x GravesLSTM(16) -> RnnOutputLayer(6) under
+    tBPTT 8 / back 5, or GravesBidirectionalLSTM(16) -> masked global avg
+    pooling -> OutputLayer(6) under standard backprop; 10 inputs."""
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.pooling import GlobalPoolingLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        GravesBidirectionalLSTM, GravesLSTM, RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    b = (N.NeuralNetConfiguration.builder().seed(5).updater("rmsprop")
+         .learning_rate(1e-2).activation("tanh").compute_dtype("float32")
+         .list())
+    if bidirectional:
+        b = (b.layer(GravesBidirectionalLSTM(n_out=16))
+             .layer(GlobalPoolingLayer(pooling_type="avg"))
+             .layer(OutputLayer(n_out=6)))
+    else:
+        b = (b.layer(GravesLSTM(n_out=16)).layer(GravesLSTM(n_out=16))
+             .layer(RnnOutputLayer(n_out=6)).backprop_type("tbptt")
+             .t_bptt_forward_length(8).t_bptt_backward_length(5))
+    conf = b.set_input_type(inputs.recurrent(10, 21)).build()
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def phase_rnn_reference(N) -> dict:
+    """The two small recurrent nets on the card and on the CPU from the
+    same weights in fp32, on ragged right-padded masked sequences of 21
+    steps: forward and two fits within REF_RTOL."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.RandomState(11)
+    x = rng.randn(6, 21, 10).astype(np.float32)
+    lengths = np.array([21, 8, 13, 21, 17, 11])
+    fm = (np.arange(21)[None, :] < lengths[:, None]).astype(np.float32)
+    y_seq = np.eye(6, dtype=np.float32)[rng.randint(0, 6, (6, 21))]
+    y_one = np.eye(6, dtype=np.float32)[rng.randint(0, 6, 6)]
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    out = {}
+    for name, bidirectional, ds in (
+            ("lstm_tbptt", False, DataSet(x, y_seq, features_mask=fm,
+                                          labels_mask=fm)),
+            ("bidirectional_pooled", True, DataSet(x, y_one,
+                                                   features_mask=fm))):
+        card = small_recurrent(N, "cuda", bidirectional)
+        cpu = small_recurrent(N, "cpu", bidirectional)
+        cpu.set_flat_params(card.get_flat_params())
+        worst = rel(card.output(x, features_mask=fm).cpu().numpy(),
+                    cpu.output(x, features_mask=fm).numpy())
+        log(f"[recurrent] {name} forward card vs CPU rel={worst:.2e}")
+        for step in range(2):
+            card.fit(ds)
+            cpu.fit(ds)
+            s_rel = abs(card.score() - cpu.score()) / abs(cpu.score())
+            p_rel = rel(card.get_flat_params(), cpu.get_flat_params())
+            log(f"[recurrent] {name} fit {step}: score card="
+                f"{card.score():.7f} cpu={cpu.score():.7f} rel={s_rel:.2e}; "
+                f"params rel={p_rel:.2e} (tol {REF_RTOL:g}); iteration "
+                f"{card.iteration}")
+            worst = max(worst, s_rel, p_rel)
+        if not worst <= REF_RTOL or card.iteration != cpu.iteration:
+            raise RuntimeError(f"{name} disagrees between card and CPU")
+        out[name] = {"fits": 2, "iteration": card.iteration,
+                     "max_rel": worst}
+    return out
+
+
+def markov_ids(seed: int, rows: int, steps: int) -> np.ndarray:
+    """Symbol ids of ``rows`` first-order Markov chains over CHAR_VOCAB
+    symbols: each symbol has CHAR_FANOUT successors, weighted by a seeded
+    Dirichlet draw."""
+    rng = np.random.RandomState(seed)
+    succ = np.stack([rng.choice(CHAR_VOCAB, CHAR_FANOUT, replace=False)
+                     for _ in range(CHAR_VOCAB)])
+    cum = np.cumsum(rng.dirichlet(np.ones(CHAR_FANOUT), CHAR_VOCAB), 1)
+    ids = np.empty((rows, steps), np.int64)
+    ids[:, 0] = rng.randint(0, CHAR_VOCAB, rows)
+    u = rng.rand(rows, steps)
+    for t in range(1, steps):
+        prev = ids[:, t - 1]
+        k = np.minimum((u[:, t, None] > cum[prev]).sum(1), CHAR_FANOUT - 1)
+        ids[:, t] = succ[prev, k]
+    return ids
+
+
+def char_rnn(N):
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (GravesLSTM,
+                                                               RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    V, H = CHAR_VOCAB, CHAR_HIDDEN
+    conf = (N.NeuralNetConfiguration.builder().seed(12).updater("rmsprop")
+            .learning_rate(0.1).weight_init("xavier").list()
+            .layer(GravesLSTM(n_in=V, n_out=H, activation="tanh"))
+            .layer(GravesLSTM(n_in=H, n_out=H, activation="tanh"))
+            .layer(RnnOutputLayer(n_in=H, n_out=V, activation="softmax",
+                                  loss="mcxent"))
+            .backprop_type("tbptt").t_bptt_forward_length(CHAR_WINDOW)
+            .t_bptt_backward_length(CHAR_WINDOW).build())
+    return MultiLayerNetwork(conf).init()
+
+
+def phase_char_rnn(N, seed: int):
+    """CHAR_FITS fits of the char-RNN under the card's default policy,
+    each a CHAR_SEQ-step batch in tBPTT windows, the score falling.  Each
+    window is timed on the host clock from the end of the previous one to
+    its own end after ``torch.cuda.synchronize()`` (the first window of a
+    fit includes the batch upload); then one more window under
+    ``torch.profiler``."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    net = char_rnn(N)
+    if net._pol().name != "mixed_bf16":
+        raise RuntimeError(f"the char-RNN runs under {net._pol().name}")
+    ids = markov_ids(seed, CHAR_BATCH, CHAR_FITS * CHAR_SEQ + 1)
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    batches = [DataSet(eye[ids[:, i:i + CHAR_SEQ]],
+                       eye[ids[:, i + 1:i + CHAR_SEQ + 1]])
+               for i in range(0, CHAR_FITS * CHAR_SEQ, CHAR_SEQ)]
+    stamps, update = [], net._update
+
+    def timed_update(loss_fn):
+        carries = update(loss_fn)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return carries
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    net._update = timed_update
+    scores, t0 = [], time.perf_counter()
+    for ds in batches:
+        net.fit(ds)
+        scores.append(net.score())
+    del net._update
+    peak = torch.cuda.max_memory_allocated()
+    window_ms = list(np.diff([t0] + stamps) * 1e3)
+    windows = CHAR_FITS * CHAR_SEQ // CHAR_WINDOW
+    median = float(np.median(window_ms[1:]))
+    chars = CHAR_BATCH * CHAR_WINDOW
+    log(f"[recurrent] char-RNN: {len(window_ms)} windows of {CHAR_BATCH} x "
+        f"{CHAR_WINDOW}; scores per fit {[round(s, 3) for s in scores]} "
+        f"(uniform: {CHAR_WINDOW * np.log(CHAR_VOCAB):.3f}); first window "
+        f"{window_ms[0]:.1f} ms, median of windows 2-{windows} "
+        f"{median:.3f} ms ({chars * 1e3 / median:.0f} chars/s); peak memory "
+        f"{peak / 2**20:.1f} MiB, {held / 2**20:.1f} MiB held before")
+    if not (len(window_ms) == windows == net.iteration
+            and all(np.isfinite(scores)) and scores[-1] < scores[0]):
+        raise RuntimeError(f"the char-RNN did not train: {scores}, "
+                           f"{net.iteration} windows")
+    one_window = DataSet(batches[0].features[:, :CHAR_WINDOW],
+                         batches[0].labels[:, :CHAR_WINDOW])
+    return net, {"params": net.num_params(), "windows": windows,
+                 "scores": scores, "window_ms": window_ms,
+                 "median_window_ms": median,
+                 "chars_per_s": chars * 1e3 / median,
+                 "peak_mem_bytes": peak, "mem_before_bytes": held,
+                 "profile": profile_step(net, one_window, median)}
+
+
+def hold_sampling(net, x, atol: float, label: str) -> dict:
+    """``rnn_time_step`` over each single step of ``x`` against
+    ``output()`` of the whole of it."""
+    full = net.output(x).cpu().numpy()
+    net.rnn_clear_previous_state()
+    stepped = np.stack([net.rnn_time_step(x[:, t]).cpu().numpy()
+                        for t in range(x.shape[1])], 1)
+    net.rnn_clear_previous_state()
+    what = f"{label} rnn_time_step x {x.shape[1]}"
+    return dict(zip(("max_abs_err", "signal"),
+                    hold_probs(what, stepped, full, atol, "recurrent")))
+
+
+def rnn_sessions(net, xs, atol: float, name: str) -> dict:
+    """Two concurrent ``predict_session``s through ``InferenceEngine``: a
+    SESSION_PREFILL-step chunk, then SESSION_STEPS single steps, against
+    ``output()`` of each whole sequence."""
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    outs, errors = {}, []
+    with InferenceEngine(net, name=name) as engine:
+        def session(j):
+            try:
+                x = xs[j:j + 1]
+                chunk = engine.predict_session(f"s{j}",
+                                               x[:, :SESSION_PREFILL])
+                steps = [engine.predict_session(f"s{j}", x[:, t])[:, None]
+                         for t in range(SESSION_PREFILL, x.shape[1])]
+                outs[j] = np.concatenate([chunk] + steps, axis=1)
+            except Exception as e:     # raised by run_threads
+                errors.append(e)
+
+        run_threads([lambda j=j: session(j) for j in range(2)], errors)
+        positions = [engine.sessions.session_position(f"s{j}")
+                     for j in range(2)]
+    if positions != [xs.shape[1]] * 2:
+        raise RuntimeError(f"{name} sessions hold {positions} steps")
+    return worst(hold_probs(f"{name} session {j}", outs[j],
+                            net.output(xs[j:j + 1]).cpu().numpy(), atol,
+                            "recurrent")
+                 for j in range(2))
+
+
+def phase_ring_lstm(S, seed: int) -> dict:
+    """``ring_lstm_scan`` over RING_LSTM_SHARDS shards of one card against
+    the one-device ``lstm_scan`` at T=RING_LSTM_T, batch 32, 84 inputs,
+    H 256, fp32: outputs, the final (h, c) and the gradients of W, RW and
+    b against a random cotangent; both timed (host clock, synchronized,
+    fwd+bwd, in turns one device, ring, ring, one device) with the peak
+    memory of each, then profiled once each."""
+    from deeplearning4j_tpu_torch.nn import activations as act
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import lstm_scan
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    B, T, NI, H = CHAR_BATCH, RING_LSTM_T, CHAR_VOCAB, CHAR_HIDDEN
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    params = [randn(NI, 4 * H, scale=(2 / (NI + 4 * H)) ** 0.5),
+              randn(H, 4 * H + 3, scale=(2 / (5 * H + 3)) ** 0.5),
+              randn(4 * H, scale=0.1)]
+    params = [p.requires_grad_() for p in params]
+    x = randn(B, T, NI)
+    carry = (torch.zeros(B, H, device="cuda"),) * 2
+    fns = dict(afn=act.get("tanh"), gate_fn=act.get("sigmoid"))
+    g = randn(B, T, H)
+
+    def one():
+        out, fin = lstm_scan(*params, x, carry, **fns)
+        return out, fin
+
+    def ring():
+        outs, finals = S.ring_lstm_scan(
+            *params, list(x.chunk(RING_LSTM_SHARDS, 1)), carry, **fns)
+        if len(finals) != RING_LSTM_SHARDS:
+            raise RuntimeError("the final carry is not on every shard")
+        return torch.cat(outs, 1), finals[-1]
+
+    def run(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out, (h, c) = fn()
+        grads = torch.autograd.grad((out * g).sum(), params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        return [t.detach() for t in (out, h, c, *grads)], ms, peak
+
+    ref, ms_one, peak_one = run(one)
+    got, ms_ring, peak_ring = run(ring)
+    errs = []
+    for name, a, b in zip(("out", "h", "c", "dW", "dRW", "db"), got, ref):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        log(f"[recurrent] ring LSTM {name}: rel={rel:.3e} (tol "
+            f"{RING_LSTM_RTOL:g})")
+        errs.append(rel)
+    if not max(errs) <= RING_LSTM_RTOL:
+        raise RuntimeError("the ring LSTM disagrees with the one-device "
+                           "scan")
+    ms_ring2, ms_one2 = run(ring)[1], run(one)[1]
+    # one more fwd+bwd of each under torch.profiler: its device events
+    # and busy ms (the recompute's share of the ring's time)
+    events = {name: profiled(lambda fn=fn: run(fn))[1::2]
+              for name, fn in (("one_device", one), ("ring", ring))}
+    log(f"[recurrent] ring LSTM T={T}, {RING_LSTM_SHARDS} shards fwd+bwd "
+        f"{ms_ring:.1f}, {ms_ring2:.1f} ms (peak {peak_ring / 2**20:.1f} "
+        f"MiB); one device {ms_one:.1f}, {ms_one2:.1f} ms (peak "
+        f"{peak_one / 2**20:.1f} MiB); device events, busy ms: {events}")
+    return {"T": T, "shards": RING_LSTM_SHARDS, "max_rel": max(errs),
+            "ring_ms": [ms_ring, ms_ring2], "one_device_ms": [ms_one, ms_one2],
+            "ring_peak_bytes": peak_ring, "one_device_peak_bytes": peak_one,
+            "device_events_busy_ms": events}
+
+
+def phase_recurrent(N, A, S, seed: int) -> dict:
+    """Phase 10: the LSTM golden, the card-vs-CPU recurrent nets, the
+    char-RNN, sampling and sessions, the ring LSTM; none of K1-K4 may
+    launch."""
+    from deeplearning4j_tpu_torch.utils import model_serializer as ms
+    torch.cuda.synchronize()
+    A.reset_launches()            # counts of this path only
+    result = {"goldens": phase_goldens(ms, ("lstm_rmsprop_tbptt",),
+                                       "recurrent"),
+              "rnn_reference": phase_rnn_reference(N)}
+    net, result["char_rnn"] = phase_char_rnn(N, seed)
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    text = eye[markov_ids(seed + 5, 4, SESSION_PREFILL + SESSION_STEPS)]
+    net32 = fp32_copy(net)
+    result["sampling_bf16"] = hold_sampling(net, text[:, :SAMPLE_STEPS],
+                                            RNN_BF16_ATOL, "mixed_bf16")
+    result["sampling_f32"] = hold_sampling(net32, text[:, :SAMPLE_STEPS],
+                                           RNN_F32_ATOL, "fp32 copy")
+    result["sessions_bf16"] = rnn_sessions(net, text, RNN_BF16_ATOL,
+                                           "char-rnn")
+    result["sessions_f32"] = rnn_sessions(net32, text, RNN_F32_ATOL,
+                                          "char-rnn-f32")
+    del net, net32
+    torch.cuda.empty_cache()
+    result["ring_lstm"] = phase_ring_lstm(S, seed)
+    result["launches"] = dict(A.LAUNCHES)
+    log(f"[recurrent] launches {result['launches']}")
+    if any(result["launches"].values()):
+        raise RuntimeError("the recurrent path launched a flash kernel")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1315,6 +1674,8 @@ def main(argv=None) -> int:
     del net
     torch.cuda.empty_cache()
     ffcnn = phase_ffcnn(N, A, args.seed)
+    torch.cuda.empty_cache()
+    recurrent = phase_recurrent(N, A, S, args.seed)
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -1323,7 +1684,8 @@ def main(argv=None) -> int:
     # the main paths, each run with the counts set to 0 just before it
     paths = {"training": training["launches"], "ring": ring["launches"],
              "serving": serving["launches"],
-             "feedforward_cnn": ffcnn["launches"]}
+             "feedforward_cnn": ffcnn["launches"],
+             "recurrent": recurrent["launches"]}
     kernels = [dict(name=name, route="cuda",
                     source="deeplearning4j_tpu_torch/ops/csrc/"
                            "flash_attention.cu",
@@ -1336,7 +1698,7 @@ def main(argv=None) -> int:
     print(json.dumps({"build_s": build_s, "reference": reference,
                       "training": training, "inference": inference,
                       "ring": ring, "serving": serving,
-                      "feedforward_cnn": ffcnn}))
+                      "feedforward_cnn": ffcnn, "recurrent": recurrent}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

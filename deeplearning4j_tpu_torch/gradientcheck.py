@@ -73,8 +73,8 @@ def check_gradients(net, dataset, eps: float = DEFAULT_EPS,
                for name in layer.param_order()]
 
     def total_loss(params):
-        data_loss, _ = net._loss_fn(params, net.net_state, features, labels,
-                                    fmask, lmask, None, False)
+        data_loss, _, _ = net._loss_fn(params, net.net_state, features,
+                                       labels, fmask, lmask, None, False)
         return data_loss + net._reg_score(params)
 
     leaves = [{k: p.detach().clone().requires_grad_() for k, p in

@@ -29,7 +29,6 @@ InputType = _inputs.InputType
 # serde type names of the JAX package that the port does not read yet, and
 # the ROADMAP item that ports each
 _NOT_PORTED = {
-    "graves_lstm": "A3", "graves_bidirectional_lstm": "A3",
     "computation_graph_conf": "A5",
     "autoencoder": "A6", "rbm": "A6", "variational_autoencoder": "A6",
     "center_loss_output": "A6",
@@ -281,6 +280,20 @@ class ListBuilder:
 
     def backprop(self, flag: bool) -> "ListBuilder":
         self._mlc.backprop = flag
+        return self
+
+    def backprop_type(self, kind: str) -> "ListBuilder":
+        """``"standard"`` or ``"tbptt"`` (truncated BPTT)."""
+        self._mlc.backprop_type = kind.lower()
+        return self
+
+    def t_bptt_forward_length(self, n: int) -> "ListBuilder":
+        self._mlc.tbptt_fwd_length = int(n)
+        return self
+
+    def t_bptt_backward_length(self, n: int) -> "ListBuilder":
+        """0 means the forward length."""
+        self._mlc.tbptt_back_length = int(n)
         return self
 
     def set_input_type(self, input_type: InputType) -> "ListBuilder":

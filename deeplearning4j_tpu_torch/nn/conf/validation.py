@@ -55,4 +55,9 @@ def validate_multi_layer_configuration(mlc) -> None:
             not in _KNOWN_GRAD_NORM:
         raise ValueError(f"unknown gradient_normalization {gn!r}")
     if mlc.backprop_type == "tbptt":
-        raise NotImplementedError("truncated BPTT is not ported yet")
+        if mlc.tbptt_fwd_length is not None and mlc.tbptt_fwd_length <= 0:
+            raise ValueError("tbptt_fwd_length must be positive under "
+                             "tbptt backprop")
+        if mlc.tbptt_back_length is not None and mlc.tbptt_back_length < 0:
+            raise ValueError("tbptt_back_length must be >= 0 (0 = same "
+                             "as forward)")

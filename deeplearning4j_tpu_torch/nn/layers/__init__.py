@@ -5,8 +5,8 @@ serde registry, so JSON written by the JAX package reads back here.
 Ported so far: the core feed-forward layers (Dense, Output, Loss,
 Activation, Dropout, Embedding), Convolution, Subsampling, ZeroPadding,
 GlobalPooling, BatchNormalization, LocalResponseNormalization,
-CausalSelfAttention and RnnOutputLayer (and the base and recurrent
-contracts they stand on).
+CausalSelfAttention, GravesLSTM, GravesBidirectionalLSTM and
+RnnOutputLayer (and the base and recurrent contracts they stand on).
 """
 
 from . import attention  # noqa: F401

@@ -2,10 +2,13 @@
 ``deeplearning4j_tpu/nn/multilayer.py``).
 
 Eager PyTorch: ``fit`` runs one forward, one autograd backward and one
-DL4J-order updater step per batch.  Params are a list of per-layer dicts
-of tensors in the JAX package's layouts and order, so the flat parameter
-vector (``get_flat_params``/``set_flat_params``) maps one to one between
-the packages.
+DL4J-order updater step per batch, or per window under truncated BPTT
+(``backprop_type("tbptt")``: windows of ``tbptt_fwd_length`` steps, the
+recurrent carries detached at each window boundary, the gradient of the
+recurrent trunk cut to the last ``tbptt_back_length`` steps).  Params
+are a list of per-layer dicts of tensors in the JAX package's layouts
+and order, so the flat parameter vector (``get_flat_params``/
+``set_flat_params``) maps one to one between the packages.
 
 The network lives on one device: the card unless ``device="cpu"`` is
 passed.  Its precision policy follows that device (``mixed_bf16`` on the
@@ -27,8 +30,7 @@ updater state crosses to the ModelSerializer as one flat vector in the
 JAX package's leaf order (``get_flat_updater_state``).
 
 Not ported yet: the fused multi-step scans, the device-cached ingest,
-tBPTT, health telemetry, listeners, solvers, pretraining and
-checkpointing.
+health telemetry, listeners, solvers, pretraining and checkpointing.
 """
 
 from __future__ import annotations
@@ -101,13 +103,15 @@ class MultiLayerNetwork:
     # --------------------------------------------------------------- forward
     def _forward(self, params, net_state, x: Tensor, *, train: bool,
                  rng: Optional[torch.Generator], mask=None, carries=None,
+                 to_layer: Optional[int] = None, from_layer: int = 0,
                  preoutput_last: bool = False):
-        """Compose the layers.  Returns (out, new_state, new_carries).
-        ``carries`` is a per-layer list of recurrent carries (``()`` for a
-        stateless layer) threaded through ``forward_seq``; None runs every
-        recurrent layer from zero state.  With ``preoutput_last`` the
-        output layer contributes its pre-activation, so the loss can fuse
-        softmax stably."""
+        """Compose the layers ``from_layer`` to ``to_layer`` (default: all)
+        with ``x`` as the input of ``from_layer``.  Returns (out,
+        new_state, new_carries).  ``carries`` is a per-layer list of
+        recurrent carries (``()`` for a stateless layer) threaded through
+        ``forward_seq``; None runs every recurrent layer from zero state.
+        With ``preoutput_last`` the last layer composed contributes its
+        pre-activation, so the loss can fuse softmax stably."""
         pol = self._pol()
         if x.is_floating_point():
             x = x.to(pol.compute_dtype)
@@ -117,17 +121,18 @@ class MultiLayerNetwork:
         new_state = list(net_state)
         new_carries = (list(carries) if carries is not None
                        else [() for _ in self.layers])
-        n = len(self.layers)
+        n = len(self.layers) if to_layer is None else to_layer + 1
         preprocessors = self.conf.input_preprocessors
-        for i, layer in enumerate(self.layers):
-            last = i == n - 1
+        for i in range(from_layer, n):
+            layer = self.layers[i]
             if i in preprocessors:
                 x = preprocessors[i](x)
-            if last and preoutput_last and hasattr(layer, "pre_output"):
+            if preoutput_last and i == n - 1 and hasattr(layer,
+                                                         "pre_output"):
                 x = layer.apply_dropout(x, train, rng)
                 x = layer.pre_output(params[i], x)
-            elif last and pol.downcasts_output and hasattr(
-                    layer, "pre_output"):
+            elif (pol.downcasts_output and i == len(self.layers) - 1
+                  and hasattr(layer, "pre_output")):
                 # fp32 logits contract: the head's logits go to fp32
                 # BEFORE the softmax, so probabilities are not bf16-rounded.
                 # Checked before the carries branch, so a carried step
@@ -150,25 +155,29 @@ class MultiLayerNetwork:
 
     # ----------------------------------------------------------------- loss
     def _loss_fn(self, params, net_state, features, labels, features_mask,
-                 labels_mask, rng, train: bool, per_example: bool = False):
-        """Data loss (regularization is added to the reported score only,
-        and to the gradient by the updater, in DL4J order)."""
+                 labels_mask, rng, train: bool, carries=None,
+                 from_layer: int = 0, per_example: bool = False):
+        """Data loss, new layer state and new carries.  Regularization is
+        added to the reported score only, and to the gradient by the
+        updater, in DL4J order.  ``from_layer`` scores a mid-stack
+        activation through the remaining layers (the tBPTT suffix)."""
         out_layer = self.layers[-1]
         if not hasattr(out_layer, "compute_score"):
             raise ValueError("Last layer must be an output/loss layer to "
                              "fit()")
-        preout, new_state, _ = self._forward(
+        preout, new_state, new_carries = self._forward(
             params, net_state, features, train=train, rng=rng,
-            mask=features_mask, preoutput_last=True)
+            mask=features_mask, carries=carries, from_layer=from_layer,
+            preoutput_last=True)
         lmask = labels_mask
         if lmask is None and features_mask is not None and preout.dim() == 3:
             lmask = features_mask   # per-timestep output: features mask
         if per_example:
-            return out_layer.compute_score_examples(labels, preout,
-                                                    lmask), new_state
-        return out_layer.compute_score(
-            labels, preout, lmask,
-            average=self.conf.conf.mini_batch), new_state
+            loss = out_layer.compute_score_examples(labels, preout, lmask)
+        else:
+            loss = out_layer.compute_score(labels, preout, lmask,
+                                           average=self.conf.conf.mini_batch)
+        return loss, new_state, new_carries
 
     def _reg_score(self, params):
         return sum(_updaters.regularization_score(
@@ -194,24 +203,117 @@ class MultiLayerNetwork:
                 self._tensor(ds.labels_mask, torch.float32))
 
     def _fit_batch(self, ds: DataSet) -> None:
-        """One forward, one backward and one update per iteration."""
+        """One forward, one backward and one update per iteration (per
+        window under tBPTT)."""
         features, labels, fmask, lmask = self._batch(ds)
         self.last_batch_size = ds.num_examples()
         for _ in range(self.conf.conf.num_iterations):
-            leaves = [{k: p.detach().requires_grad_(p.is_floating_point())
-                       for k, p in tree.items()} for tree in self.params]
-            data_loss, new_state = self._loss_fn(
-                leaves, self.net_state, features, labels, fmask, lmask,
-                self._rng, True)
-            flat = [p for tree in leaves for p in tree.values()]
-            grads = torch.autograd.grad(data_loss, flat, allow_unused=True)
-            with torch.no_grad():
-                score = data_loss.detach() + self._reg_score(self.params)
-                self._apply_updates(flat, grads)
-            self.net_state = [{k: v.detach() for k, v in s.items()}
-                              for s in new_state]
-            self._score = score
-            self.iteration += 1
+            if self.conf.backprop_type == "tbptt":
+                self._fit_tbptt(features, labels, fmask, lmask)
+            else:
+                self._update(lambda p: self._loss_fn(
+                    p, self.net_state, features, labels, fmask, lmask,
+                    self._rng, True))
+
+    def _update(self, loss_fn):
+        """One autograd step: ``loss_fn(params) -> (loss, new_state,
+        new_carries)`` on fresh leaves of the params, then the updater.
+        Returns the new carries."""
+        leaves = [{k: p.detach().requires_grad_(p.is_floating_point())
+                   for k, p in tree.items()} for tree in self.params]
+        data_loss, new_state, new_carries = loss_fn(leaves)
+        flat = [p for tree in leaves for p in tree.values()]
+        grads = torch.autograd.grad(data_loss, flat, allow_unused=True)
+        with torch.no_grad():
+            score = data_loss.detach() + self._reg_score(self.params)
+            self._apply_updates(flat, grads)
+        self.net_state = [{k: v.detach() for k, v in s.items()}
+                          for s in new_state]
+        self._score = score
+        self.iteration += 1
+        return new_carries
+
+    # ---------------------------------------------------------------- tBPTT
+    @staticmethod
+    def _last_stateful_recurrent(carries) -> int:
+        """Index of the deepest layer whose carry is not ``()`` (-1 if
+        none): the tBPTT split point.  A time-distributed head such as
+        RnnOutputLayer carries ``()`` and sits in the suffix."""
+        return max((i for i, c in enumerate(carries) if len(c)), default=-1)
+
+    def _tbptt_window_loss(self, adv: int, carries):
+        """Loss closure for ONE truncated-BPTT window with ``carries`` in
+        (detached at the window boundary): ``loss(p, ns, f, l, fm, lm, r)
+        -> (loss, new_state, new_carries)``.
+
+        ``adv`` > 0 is ``tbptt_back_length`` < the window: the leading
+        ``adv`` steps run through the recurrent trunk without gradient,
+        and the layers above the trunk still score them, so those layers
+        learn from ALL window steps while the trunk sees only the trailing
+        ``back`` steps (the reference's per-layer truncation)."""
+        carries = _detached(carries)
+        last_rec = self._last_stateful_recurrent(carries)
+
+        def loss(p, ns, f, l, fm, lm, r):
+            if adv == 0:
+                return self._loss_fn(p, ns, f, l, fm, lm, r, True,
+                                     carries=carries)
+            fm_a = None if fm is None else fm[:, :adv]
+            fm_b = None if fm is None else fm[:, adv:]
+            lm_a = None if lm is None else lm[:, :adv]
+            lm_b = None if lm is None else lm[:, adv:]
+            with torch.no_grad():   # leading steps: trunk, no gradient
+                trunk, _, mid = self._forward(
+                    p, ns, f[:, :adv], train=True, rng=r, mask=fm_a,
+                    carries=carries, to_layer=last_rec)
+            loss_a, _, _ = self._loss_fn(p, ns, trunk, l[:, :adv], fm_a,
+                                         lm_a, r, True,
+                                         from_layer=last_rec + 1)
+            loss_b, new_state, new_carries = self._loss_fn(
+                p, ns, f[:, adv:], l[:, adv:], fm_b, lm_b, r, True,
+                carries=mid)
+            # a masked score averages over its segment's own mask count;
+            # recombine so that the window averages over ALL its active
+            # steps, as the adv == 0 path does
+            eff_a = lm_a if lm_a is not None else fm_a
+            eff_b = lm_b if lm_b is not None else fm_b
+            if (self.conf.conf.mini_batch and eff_a is not None
+                    and eff_b is not None):
+                ca, cb = eff_a.sum(), eff_b.sum()
+                total = (loss_a * ca + loss_b * cb) / torch.clamp_min(
+                    ca + cb, 1.0)
+                return total, new_state, new_carries
+            return loss_a + loss_b, new_state, new_carries
+
+        return loss
+
+    def _fit_tbptt(self, features, labels, fmask, lmask) -> None:
+        """Slice the time axis into ``tbptt_fwd_length`` windows, one
+        update per window, carrying the recurrent state forward across
+        windows (detached at each boundary).  The carries start from zero
+        for each new minibatch; the score is the last window's."""
+        self._require_carry_support("truncated BPTT")
+        if labels.dim() < 3:
+            raise ValueError(
+                "Truncated BPTT needs per-timestep labels (batch, time, "
+                f"...); got shape {tuple(labels.shape)}. Use standard "
+                "backprop for sequence-level labels.")
+        window = self.conf.tbptt_fwd_length
+        back = self.conf.tbptt_back_length or window
+        if back > window:
+            raise ValueError(
+                f"tbptt_back_length ({back}) > tbptt_fwd_length "
+                f"({window}) is not meaningful")
+        carries = self._init_carries(features.shape[0])
+        for start in range(0, features.shape[1], window):
+            sl = slice(start, start + window)
+            f, l = features[:, sl], labels[:, sl]
+            fm = None if fmask is None else fmask[:, sl]
+            lm = None if lmask is None else lmask[:, sl]
+            loss = self._tbptt_window_loss(max(0, f.shape[1] - back),
+                                           carries)
+            carries = self._update(lambda p: loss(
+                p, self.net_state, f, l, fm, lm, self._rng))
 
     def _apply_updates(self, flat_leaves, flat_grads) -> None:
         grads_iter = iter(flat_grads)
@@ -443,8 +545,9 @@ class MultiLayerNetwork:
         self.init()
         features, labels, fmask, lmask = self._batch(dataset)
         with torch.no_grad():
-            loss, _ = self._loss_fn(self.params, self.net_state, features,
-                                    labels, fmask, lmask, None, False)
+            loss, _, _ = self._loss_fn(self.params, self.net_state,
+                                       features, labels, fmask, lmask, None,
+                                       False)
             return float(loss + self._reg_score(self.params))
 
     def score_examples(self, data: DataSet,
@@ -453,9 +556,9 @@ class MultiLayerNetwork:
         self.init()
         features, labels, fmask, lmask = self._batch(data)
         with torch.no_grad():
-            per, _ = self._loss_fn(self.params, self.net_state, features,
-                                   labels, fmask, lmask, None, False,
-                                   per_example=True)
+            per, _, _ = self._loss_fn(self.params, self.net_state,
+                                      features, labels, fmask, lmask, None,
+                                      False, per_example=True)
             if add_regularization_terms:
                 per = per + self._reg_score(self.params)
         return per
@@ -564,6 +667,14 @@ class MultiLayerNetwork:
             raise ValueError(f"updater state size mismatch: the network "
                              f"holds {with_masters} values, the vector "
                              f"{flat.numel()}")
+
+
+def _detached(tree):
+    """A carry tree (nested lists and tuples) with every tensor detached;
+    other leaves (a ring cursor) pass through."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_detached(t) for t in tree)
+    return tree.detach() if isinstance(tree, Tensor) else tree
 
 
 def _sorted_leaves(tree):

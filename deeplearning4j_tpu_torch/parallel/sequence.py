@@ -22,11 +22,13 @@ run one, as the JAX tests run theirs on 8 virtual CPU devices.
   form.  Memory stays O(T/n · d) per shard both ways.
 - :func:`ulysses_attention`: all-to-all from time shards to head shards,
   dense attention over the whole sequence per head group, and back.
+- :func:`ring_lstm_scan`: the sequence-parallel peephole LSTM, each
+  shard's chain run from the carry handed in by its left neighbour and
+  recomputed in the backward pass, so each shard keeps O(T/n) residuals.
 - :class:`SequenceParallel`: full-shape (batch, T, heads, d) in and out;
   autograd flows through the split, the ``.to`` copies and the gather.
 
-Not ported yet: a multi-process ring over ``torch.distributed`` (NCCL),
-and ``ring_lstm_scan`` (it waits for GravesLSTM).
+Not ported yet: a multi-process ring over ``torch.distributed`` (NCCL).
 """
 
 from __future__ import annotations
@@ -34,8 +36,10 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..nn.layers.recurrent import lstm_input_projection, lstm_scan_preact
 from ..ops.attention import (_NEG_INF, _default_scale as _scale,
                              flash_attention, flash_attention_bwd,
                              flash_attention_partial)
@@ -290,6 +294,51 @@ def ulysses_attention(qs: Shards, ks: Shards, vs: Shards, *,
             for qh, kh, vh in zip(to_headshard(qs), to_headshard(ks),
                                   to_headshard(vs))]
     return to_timeshard(outs)
+
+
+# --------------------------------------------------------- sequence-par LSTM
+def ring_lstm_scan(W: Tensor, RW: Tensor, b: Tensor, xs: Shards, carry,
+                   masks: Optional[Shards] = None, *, afn, gate_fn):
+    """Sequence-parallel peephole-LSTM scan, the sharded twin of
+    ``nn/layers/recurrent.lstm_scan``.
+
+    ``xs``: one (batch, t_local, n_in) time shard per ring position, in
+    ring order, each on its own device; ``masks``: their (batch, t_local)
+    masks, or None; ``carry``: the (h, c) entering the whole sequence.
+    Returns the (batch, t_local, H) output shards, each on its shard's
+    device, and the final (h, c) of the whole sequence on every shard's
+    device (a list, one pair per shard).
+
+    Each shard projects its inputs once (``x @ W + b`` over t_local
+    steps), then runs its recurrent chain from the carry its left
+    neighbour hands over (``.to`` its device).  The chain is recomputed in
+    the backward pass (``torch.utils.checkpoint``), so a shard keeps its
+    (batch, t_local, 4H) projection and no per-step residuals: O(T/n) per
+    shard.  The JAX package runs every shard in every round in lockstep
+    and commits only the owner's output; one process runs each shard
+    once, in ring order, with the same outputs and carries."""
+    if masks is not None and len(masks) != len(xs):
+        raise ValueError(f"need one mask per shard: {len(xs)} shards, "
+                         f"{len(masks)} masks")
+    outs = []
+    state = tuple(carry)
+    for i, x in enumerate(xs):
+        dev = x.device
+        rw = RW.to(dev)
+        xw = lstm_input_projection(W.to(dev), b.to(dev), x)
+        mask = None if masks is None else masks[i]
+
+        def chain(rw, xw, h, c, mask=mask):
+            out, (h, c) = lstm_scan_preact(rw, xw, (h, c), afn=afn,
+                                           gate_fn=gate_fn, mask=mask)
+            return out, h, c
+
+        out, h, c = checkpoint(chain, rw, xw, *(a.to(dev) for a in state),
+                               use_reentrant=False)
+        outs.append(out)
+        state = (h, c)
+    finals = [tuple(a.to(x.device) for a in state) for x in xs]
+    return outs, finals
 
 
 # ----------------------------------------------------------------- wrapper

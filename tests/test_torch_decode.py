@@ -28,6 +28,7 @@ from deeplearning4j_tpu.nn.conf.neural_net_configuration import \
     NeuralNetConfiguration as JaxConf
 from deeplearning4j_tpu.nn.layers.attention import \
     CausalSelfAttention as JaxAttention
+from deeplearning4j_tpu.nn.layers import recurrent as jrec
 from deeplearning4j_tpu.nn.layers.recurrent import \
     RnnOutputLayer as JaxRnnOutput
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxNet
@@ -41,7 +42,8 @@ from deeplearning4j_tpu_torch.nn.jax_weights import load_jax_params
 from deeplearning4j_tpu_torch.nn.layers.attention import CausalSelfAttention
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops.attention import kv_ring_update
-from deeplearning4j_tpu_torch.serving import (SessionCache, SessionError,
+from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                              SessionCache, SessionError,
                                               SessionStateError,
                                               batch_ladder)
 
@@ -426,3 +428,73 @@ def test_layer_refuses_overflow_and_shrink():
     with pytest.raises(ValueError, match="capacity"):
         net.decode_step(net._init_carries(1, cache_len=4),
                         np.zeros((1, 8, N_IN)))
+
+
+# ---- LSTM sessions (the rnn_stateless_step route) ------------------------
+
+def _lstm_pair(bidirectional=False):
+    first = (jrec.GravesBidirectionalLSTM if bidirectional
+             else jrec.GravesLSTM)(n_out=HIDDEN, activation="tanh")
+    conf = (JaxConf.builder().seed(5).dtype("float64").list()
+            .layer(first)
+            .layer(jrec.GravesLSTM(n_out=8, activation="tanh"))
+            .layer(JaxRnnOutput(n_out=N_OUT, activation="softmax",
+                                loss="mcxent"))
+            .set_input_type(jax_inputs.recurrent(N_IN, T)).build())
+    jnet = JaxNet(conf).init()
+    pnet = _port(conf)
+    load_jax_params(pnet, np.asarray(jnet.get_flat_params()))
+    return jnet, pnet
+
+
+def test_lstm_sessions_match_jax_leaf_paths_and_state_bytes():
+    """The (h, c) leaves walk as ``jax.tree_util`` walks them: the same
+    outputs, state bytes and offending leaf paths as the JAX package."""
+    jnet, pnet = _lstm_pair()
+    jcache, pcache = JaxCache(jnet, name="jax-lstm"), SessionCache(
+        pnet, name="port-lstm")
+    xs = _x(2, 5, 11)
+    for chunk in (xs, xs[:, 0]):
+        _close(pcache.step("s", chunk), jcache.step("s", chunk), JAX_TOL)
+    _close(pcache.step("r", xs[:1, :3]), jcache.step("r", xs[:1, :3]),
+           JAX_TOL)
+    assert pcache.state_bytes() == jcache.state_bytes() == \
+        (2 + 1) * 2 * (HIDDEN + 8) * 8
+    assert pcache.session_capacity("s") == jcache.session_capacity("s") == 0
+    errors = []
+    for cache, err in ((jcache, JaxStateError), (pcache, SessionStateError)):
+        with pytest.raises(err) as ei:
+            cache.step("s", _x(3, 1, 12)[:, 0])
+        errors.append(ei.value.leaf_path)
+        with cache._lock:
+            sess = cache._sessions["r"]
+            sess.carries = [sess.carries[0][:1]] + list(sess.carries[1:])
+        with pytest.raises(err) as ei:
+            cache.step("r", xs[:1, 0])
+        errors.append(ei.value.leaf_path)
+    assert errors[:2] == errors[2:]
+    assert errors[0] == "[0][0]"
+
+
+def test_lstm_session_single_steps_match_output():
+    """Two concurrent sessions through ``predict_session``: a 6-step
+    prefill, then single steps, against ``output()`` of the whole
+    sequence."""
+    _, pnet = _lstm_pair()
+    xs = _x(2, T, 13)
+    full = pnet.output(xs).numpy()
+    with InferenceEngine(pnet, name="lstm-sess") as eng:
+        for row in range(2):
+            sid, x = f"s{row}", xs[row:row + 1]
+            outs = [eng.predict_session(sid, x[:, :6])]
+            outs += [eng.predict_session(sid, x[:, t])[:, None]
+                     for t in range(6, T)]
+            _close(np.concatenate(outs, 1), full[row:row + 1], JAX_TOL)
+        assert eng.sessions.session_position("s0") == T
+
+
+def test_bidirectional_lstm_is_refused_by_sessions():
+    jnet, pnet = _lstm_pair(bidirectional=True)
+    for cache, net in ((JaxCache, jnet), (SessionCache, pnet)):
+        with pytest.raises(ValueError, match="SessionCache"):
+            cache(net)

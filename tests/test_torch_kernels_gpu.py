@@ -645,3 +645,85 @@ def test_cnn_adam_restores_on_the_card(cuda):
     assert net.iteration == 2 and np.isfinite(net.score())
     assert _rel(torch.as_tensor(net32.get_flat_params()),
                 torch.as_tensor(cpu.get_flat_params())) <= 1e-5
+
+
+# ---- the recurrent slice --------------------------------------------------
+# No hand kernel on this path (cuBLAS and elementwise kernels through
+# torch, where the JAX package has XLA's lowering of lax.scan).  fp32 on
+# both sides (IEEE f32 matmuls): 1e-5 of max|CPU| for outputs and params
+# and 1e-5 relative for scores, f32 sums in another order; SGD, so that
+# the step does not amplify differences in small gradients.  The LSTM
+# golden as the cnn_adam one above; its fit is 2 tBPTT windows.
+
+def _lstm_net(device):
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        GravesLSTM, RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.builder().seed(3).updater("sgd")
+            .learning_rate(0.1).activation("tanh").compute_dtype("float32")
+            .list()
+            .layer(GravesLSTM(n_out=16)).layer(GravesLSTM(n_out=12))
+            .layer(RnnOutputLayer(n_out=5))
+            .set_input_type(inputs.recurrent(7, 19))
+            .backprop_type("tbptt").t_bptt_forward_length(8)
+            .t_bptt_backward_length(5).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def test_lstm_tbptt_on_the_card_matches_the_cpu(cuda):
+    """Forward and one tBPTT fit (windows of 8, back 5: the leading steps
+    of each full window run without gradient) on ragged masked rows."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    card, cpu = _lstm_net(cuda), _lstm_net("cpu")
+    cpu.set_flat_params(card.get_flat_params())
+    rng = np.random.RandomState(4)
+    x = rng.randn(5, 19, 7).astype(np.float32)
+    fm = (np.arange(19)[None, :] < np.array([19, 6, 12, 19, 15])[:, None]
+          ).astype(np.float32)
+    y = np.eye(5, dtype=np.float32)[rng.randint(0, 5, (5, 19))]
+    outs = [net.output(x, features_mask=fm).cpu() for net in (card, cpu)]
+    assert _rel(*outs) <= 1e-5
+    for net in (card, cpu):
+        net.fit(DataSet(x, y, features_mask=fm, labels_mask=fm))
+    assert card.iteration == cpu.iteration == 3
+    assert abs(card.score() - cpu.score()) <= 1e-5 * abs(cpu.score())
+    assert _rel(torch.as_tensor(card.get_flat_params()),
+                torch.as_tensor(cpu.get_flat_params())) <= 1e-5
+
+
+def test_lstm_golden_restores_on_the_card(cuda):
+    import copy
+    from pathlib import Path
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils import model_serializer as ms
+    fixtures = Path(__file__).resolve().parent / "fixtures" / "regression"
+    golden = np.load(fixtures / "lstm_rmsprop_tbptt_golden.npz")
+    x = golden["input"]
+    zip_path = fixtures / "lstm_rmsprop_tbptt.zip"
+    net = ms.restore_multi_layer_network(zip_path)
+    assert net.device.type == "cuda" and net._pol().name == "mixed_bf16"
+    np.testing.assert_allclose(net.output(x).cpu().numpy(),
+                               golden["prediction"], rtol=0, atol=5e-3)
+    cpu = ms.restore_multi_layer_network(zip_path, device="cpu")
+    conf = copy.deepcopy(cpu.conf)
+    conf.conf.compute_dtype = "float32"
+    net32 = MultiLayerNetwork(conf, device=cuda).init()
+    net32.set_flat_params(cpu.get_flat_params())
+    net32.set_flat_updater_state(cpu.get_flat_updater_state())
+    net32.iteration = cpu.iteration
+    np.testing.assert_allclose(net32.output(x).cpu().numpy(),
+                               golden["prediction"], rtol=1e-5, atol=1e-7)
+    y = np.eye(5, dtype=np.float32)[
+        np.random.RandomState(3).randint(0, 5, (2, 6))]
+    for n in (net, net32, cpu):
+        n.fit(DataSet(x, y))
+    assert net.iteration == net32.iteration == 4
+    assert np.isfinite(net.score())
+    assert _rel(torch.as_tensor(net32.get_flat_params()),
+                torch.as_tensor(cpu.get_flat_params())) <= 1e-5

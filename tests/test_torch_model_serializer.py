@@ -3,7 +3,8 @@ JAX package's: the regression goldens restore and predict in the port, a
 zip crosses between the packages in both directions with the same bytes,
 every malformed zip raises ``ModelSerializationError`` in both, and a zip
 of a family that is not ported yet raises ``NotImplementedError`` naming
-its ROADMAP item.
+its ROADMAP item.  The LSTM golden was saved after a tBPTT fit of 6 steps
+in windows of 4, so it holds iteration 2 and a resumed fit adds 2.
 
 Tolerances: goldens at the JAX package's own rtol 1e-6, atol 1e-7
 (``tests/test_regression_goldens.py``); the resumed step against the JAX
@@ -28,6 +29,7 @@ from deeplearning4j_tpu.nn.conf.neural_net_configuration import \
 from deeplearning4j_tpu.nn.layers import convolution as jconvl
 from deeplearning4j_tpu.nn.layers import core as jcore
 from deeplearning4j_tpu.nn.layers import normalization as jnorm
+from deeplearning4j_tpu.nn.layers import recurrent as jrec
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxNet
 from deeplearning4j_tpu.utils import model_serializer as jms
 from deeplearning4j_tpu_torch.datasets import DataSet
@@ -45,13 +47,19 @@ def _fixture(name):
 
 
 def _labels_for(out, seed=3):
-    """The labels ``tests/test_regression_goldens.py`` trains with."""
+    """The labels ``tests/test_regression_goldens.py`` trains with: one
+    class per example, or per timestep for a sequence output."""
     rng = np.random.RandomState(seed)
     return np.eye(out.shape[-1])[rng.randint(0, out.shape[-1],
-                                             out.shape[0])].astype(np.float32)
+                                             out.shape[:-1])].astype(
+        np.float32)
 
 
-@pytest.mark.parametrize("name", ["mlp_sgd", "cnn_adam"])
+# windows a fit takes on each golden's input: one, or T=6 / tBPTT 4
+GOLDENS = {"mlp_sgd": 1, "cnn_adam": 1, "lstm_rmsprop_tbptt": 2}
+
+
+@pytest.mark.parametrize("name", list(GOLDENS))
 def test_golden_restores_and_predicts_identically(name):
     golden = np.load(_fixture(f"{name}_golden.npz"))
     net = ms.restore_multi_layer_network(_fixture(f"{name}.zip"),
@@ -62,7 +70,7 @@ def test_golden_restores_and_predicts_identically(name):
                                rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("name", ["mlp_sgd", "cnn_adam"])
+@pytest.mark.parametrize("name", list(GOLDENS))
 def test_golden_resumes_training_like_jax(name):
     golden = np.load(_fixture(f"{name}_golden.npz"))
     x = golden["input"].astype(np.float32)
@@ -74,9 +82,10 @@ def test_golden_resumes_training_like_jax(name):
     y = _labels_for(golden["prediction"])
     net.fit(DataSet(x, y))
     jnet.fit(JaxDataSet(x, y))
-    assert net.iteration == int(golden["iteration"]) + 1
+    assert net.iteration == jnet.iteration == \
+        int(golden["iteration"]) + GOLDENS[name]
     assert np.isfinite(net.score())
-    if name == "cnn_adam":   # mlp_sgd trains with dropout: other masks
+    if name != "mlp_sgd":   # mlp_sgd trains with dropout: other masks
         a, b = np.asarray(jnet.get_flat_params()), net.get_flat_params()
         np.testing.assert_allclose(b, a, rtol=0, atol=1e-5 * np.abs(a).max())
         np.testing.assert_allclose(net.score(), float(jnet.score()),
@@ -92,6 +101,14 @@ def _conf(kind):
                 .layer(jcore.DenseLayer(n_out=6, l2=1e-4))
                 .layer(jcore.OutputLayer(n_out=3))
                 .set_input_type(jin.feed_forward(4)).build())
+    if kind == "lstm":
+        return (JaxConf.builder().seed(9).updater("rmsprop")
+                .learning_rate(0.05).list()
+                .layer(jrec.GravesLSTM(n_out=6, activation="tanh"))
+                .layer(jrec.GravesBidirectionalLSTM(n_out=4,
+                                                    activation="tanh"))
+                .layer(jrec.RnnOutputLayer(n_out=3))
+                .set_input_type(jin.recurrent(4, 5)).build())
     if kind == "cnn":
         return (b.layer(jconvl.ConvolutionLayer(n_out=3, kernel_size=(3, 3),
                                                 stride=(2, 2),
@@ -110,9 +127,11 @@ def _conf(kind):
 
 def _data(kind):
     rng = np.random.RandomState(11)
-    shape = {"mlp": (5, 4), "cnn": (5, 7, 7, 2), "bn": (5, 6, 6, 1)}[kind]
+    shape = {"mlp": (5, 4), "cnn": (5, 7, 7, 2), "bn": (5, 6, 6, 1),
+             "lstm": (5, 5, 4)}[kind]
     x = rng.randn(*shape).astype(np.float32)
-    return x, np.eye(3, dtype=np.float32)[rng.randint(0, 3, 5)]
+    return x, np.eye(3, dtype=np.float32)[rng.randint(
+        0, 3, shape[:2] if kind == "lstm" else 5)]
 
 
 def _entries(data: bytes) -> dict:
@@ -126,7 +145,7 @@ def _zip_bytes(writer, net) -> bytes:
     return buf.getvalue()
 
 
-@pytest.mark.parametrize("kind", ["mlp", "cnn", "bn"])
+@pytest.mark.parametrize("kind", ["mlp", "cnn", "bn", "lstm"])
 def test_jax_zip_restores_in_the_port_and_writes_back_the_same_bytes(kind):
     jnet = JaxNet(_conf(kind)).init()
     x, y = _data(kind)
@@ -148,7 +167,7 @@ def test_jax_zip_restores_in_the_port_and_writes_back_the_same_bytes(kind):
         assert pa[key] == ja[key], key
 
 
-@pytest.mark.parametrize("kind", ["mlp", "cnn", "bn"])
+@pytest.mark.parametrize("kind", ["mlp", "cnn", "bn", "lstm"])
 def test_port_zip_restores_in_jax_and_writes_back_the_same_bytes(kind,
                                                                  tmp_path):
     conf = _conf(kind)
@@ -272,8 +291,7 @@ def test_an_old_zip_without_digests_still_restores():
     assert manifest["entries"]["coefficients.bin"]["sha256"] == digest
 
 
-@pytest.mark.parametrize("name,item", [("lstm_rmsprop_tbptt", "A3"),
-                                       ("graph_merge_nesterovs", "A5")])
+@pytest.mark.parametrize("name,item", [("graph_merge_nesterovs", "A5")])
 def test_unported_families_raise_not_implemented(name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ms.restore_multi_layer_network(_fixture(f"{name}.zip"),
@@ -305,7 +323,8 @@ def test_every_jax_serde_type_is_ported_or_named():
             "embedding", "convolution", "subsampling", "zero_padding",
             "global_pooling", "batch_norm", "lrn", "cnn_to_ff", "ff_to_cnn",
             "rnn_to_ff", "ff_to_rnn", "cnn_to_rnn", "rnn_to_cnn", "reshape",
-            "flat_to_cnn"} <= ported
+            "flat_to_cnn", "graves_lstm", "graves_bidirectional_lstm",
+            "rnn_output"} <= ported
 
 
 def test_atomic_write_replaces_whole_or_not_at_all(tmp_path):
