@@ -94,10 +94,36 @@ Phases (each raises on failure; the exit code is non-zero on any):
    (``RNN_BF16_ATOL``) and on an fp32 copy (``RNN_F32_ATOL``); then
    ``ring_lstm_scan`` over 4 shards of one card at T=1024 against the
    one-device ``lstm_scan``, outputs, final carry and gradients within
-   ``RING_LSTM_RTOL``, both timed.  K1-K4 launch 0 times on this path.
+   ``RING_LSTM_RTOL``, both timed.  K1-K4 launch 0 times on this path;
+11. the training harness (no hand kernel: host numpy for the data,
+   metrics, listeners and early stopping, torch ops for the forward, the
+   argmax and the solvers' loss, gradient and line search, as XLA
+   lowerings in the JAX package), as a user of ``examples/lenet_mnist.py``
+   and ``examples/mlp_iris.py`` drives it: (a) LeNet-5 at full width under
+   the card's default ``mixed_bf16`` trains on
+   ``AsyncDataSetIterator(MnistDataSetIterator(128, 6400))`` (the
+   procedural MNIST) for 2 epochs with ``ScoreIterationListener``,
+   ``PerformanceListener`` and ``CollectScoresIterationListener``, then
+   ``evaluate(MnistDataSetIterator(500, 2000, train=False))`` must exceed
+   ``MNIST_MIN_ACCURACY`` and move 8,000 bytes (int32 indices); fit and
+   evaluate samples/s, peak memory, the seconds spent generating the data,
+   and one more epoch of 10 batches under ``torch.profiler`` (idle share);
+   (b) an fp32 copy of the trained net on the card and one on the CPU give
+   the same confusion matrix, and the predictions of the bf16 net that
+   differ from the fp32 copy's are counted; (c) ``EarlyStoppingTrainer``
+   (``MaxEpochsTerminationCondition(3)``,
+   ``ScoreImprovementEpochTerminationCondition(1)``, a
+   ``DataSetLossCalculator`` over the test iterator, a
+   ``LocalFileModelSaver`` in a temporary directory): the restored best
+   model scores its recorded best score within ``ES_RESTORE_RTOL``; (d)
+   the iris MLP with ``optimization_algo("lbfgs")`` and then
+   ``"conjugate_gradient"``, fp32, ``SOLVER_FITS`` full-batch fits on the
+   card and on the CPU from the same weights: params within ``REF_RTOL``,
+   the score falling, ms and host reads per solver iteration.  K1-K4
+   launch 0 times on this path.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
-feed-forward/convolutional and recurrent results, one
+feed-forward/convolutional, recurrent and harness results, one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -225,6 +251,15 @@ CHAR_SEQ, CHAR_WINDOW, CHAR_FITS, CHAR_FANOUT = 256, 64, 8, 4
 SAMPLE_STEPS, SESSION_PREFILL, SESSION_STEPS = 64, 64, 32
 RNN_BF16_ATOL, RNN_F32_ATOL = 5e-3, 1e-5
 RING_LSTM_SHARDS, RING_LSTM_T, RING_LSTM_RTOL = 4, 1024, 1e-5
+# Phase 11.  The recipe of examples/lenet_mnist.py on the procedural MNIST,
+# whose designed Bayes floor is about 2.5 %: 0.94 is the bar the verify
+# recipe sets for 2 epochs of 6,400 examples (the example asserts 0.95).
+# The restored early-stopping model runs the same bf16 forward on the same
+# params as the run that recorded its score: 1e-5 relative.
+MNIST_BATCH, MNIST_TRAIN, MNIST_EPOCHS = 128, 6400, 2
+MNIST_TEST_BATCH, MNIST_TEST, MNIST_MIN_ACCURACY = 500, 2000, 0.94
+PROFILED_BATCHES, ES_MAX_EPOCHS, ES_RESTORE_RTOL = 10, 3, 1e-5
+SOLVER_ALGOS, SOLVER_FITS = ("lbfgs", "conjugate_gradient"), 10
 
 
 def log(msg: str) -> None:
@@ -1640,6 +1675,254 @@ def phase_recurrent(N, A, S, seed: int) -> dict:
     return result
 
 
+# ------------------------------------------------------------ phase 11
+def harness_lenet(ffcnn_samples_per_s: float) -> tuple:
+    """(a): LeNet-5 trained through the iterator, the listeners and
+    ``evaluate``, as examples/lenet_mnist.py does it."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        AsyncDataSetIterator, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.listeners.listeners import (
+        CollectScoresIterationListener, PerformanceListener,
+        ScoreIterationListener)
+    t0 = time.perf_counter()
+    train = MnistDataSetIterator(MNIST_BATCH, MNIST_TRAIN)
+    test = MnistDataSetIterator(MNIST_TEST_BATCH, MNIST_TEST, train=False)
+    gen_s = time.perf_counter() - t0
+    net = MultiLayerNetwork(lenet()).init()
+    if net._pol().name != "mixed_bf16":
+        raise RuntimeError(f"LeNet runs under {net._pol().name}")
+    perf, scores = PerformanceListener(1), CollectScoresIterationListener(1)
+    net.set_listeners(ScoreIterationListener(25, out=sys.stderr), perf,
+                      scores)
+    it = AsyncDataSetIterator(train)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=MNIST_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    it.close()
+    t0 = time.perf_counter()
+    ev = net.evaluate(test)
+    eval_s = time.perf_counter() - t0
+    moved = monitor.registry().get("eval_bytes_transferred").value(
+        path="indices")
+    peak = torch.cuda.max_memory_allocated()
+    steps = MNIST_EPOCHS * MNIST_TRAIN // MNIST_BATCH
+    first = float(np.mean([s for _, s in scores.scores[:10]]))
+    last = float(np.mean([s for _, s in scores.scores[-10:]]))
+    fit_rate = steps * MNIST_BATCH / fit_s
+    step_rate = perf.average_samples_per_sec(skip=1)
+    # the same batch size without the iterator and the listeners: a clone
+    # takes one epoch of pre-gathered batches, timed over the window
+    bare = net.clone()
+    src = train._ds
+    pre = [DataSet(src.features[i:i + MNIST_BATCH],
+                   src.labels[i:i + MNIST_BATCH])
+           for i in range(0, MNIST_TRAIN, MNIST_BATCH)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ds in pre:
+        bare.fit(ds)
+    torch.cuda.synchronize()
+    bare_rate = MNIST_TRAIN / (time.perf_counter() - t0)
+    del bare
+    log(f"[harness] LeNet-5 on MNIST: generated {MNIST_TRAIN} + "
+        f"{MNIST_TEST} images in {gen_s:.2f} s; fit {steps} steps in "
+        f"{fit_s:.3f} s = {fit_rate:.1f} samples/s over the window "
+        f"(PerformanceListener's mean of per-step rates {step_rate:.1f}); "
+        f"the same batch {MNIST_BATCH} from a list, no iterator or "
+        f"listeners: {bare_rate:.1f} samples/s over one epoch (phase 9's "
+        f"median step: {ffcnn_samples_per_s:.1f} at batch {LENET_BATCH}); "
+        f"score {first:.4f} -> {last:.4f} (mean of "
+        f"the first and last 10); evaluate {MNIST_TEST} in {eval_s:.3f} s "
+        f"({MNIST_TEST / eval_s:.1f} samples/s), accuracy "
+        f"{ev.accuracy():.4f} (> {MNIST_MIN_ACCURACY}), "
+        f"eval_bytes_transferred {moved:.0f}; peak memory "
+        f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before)")
+    if not (len(scores.scores) == steps and net.iteration == steps
+            and np.isfinite(last) and last < first):
+        raise RuntimeError(f"LeNet did not train through the iterator: "
+                           f"{len(scores.scores)} scores, {first} -> {last}")
+    if not ev.accuracy() > MNIST_MIN_ACCURACY:
+        raise RuntimeError(f"LeNet reached {ev.accuracy()} on MNIST")
+    if moved != MNIST_TEST * 4:
+        raise RuntimeError(f"evaluate moved {moved} bytes, not "
+                           f"{MNIST_TEST * 4}")
+    # one more epoch of PROFILED_BATCHES batches through the same path
+    n = PROFILED_BATCHES * MNIST_BATCH
+    small = AsyncDataSetIterator(ListDataSetIterator(
+        DataSet(src.features[:n], src.labels[:n]), MNIST_BATCH,
+        shuffle=True))
+    wall_ms, n_events, by_name, busy_ms = profiled(lambda: net.fit(small))
+    small.close()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    profile = {"batches": PROFILED_BATCHES, "wall_ms": wall_ms,
+               "device_events": n_events, "device_busy_ms": busy_ms,
+               "idle_share": 1.0 - busy_ms / wall_ms,
+               "top5": [{"name": k[:120], "ms": v} for k, v in top]}
+    log(f"[harness] one epoch of {PROFILED_BATCHES} batches under "
+        f"torch.profiler: host {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, idle share {profile['idle_share']:.3f}, "
+        f"{n_events} device events; top 5: " + "; ".join(
+            f"{k[:50]} {v:.3f}" for k, v in top))
+    result = {"generate_s": gen_s, "fit_s": fit_s, "steps": steps,
+              "fit_samples_per_s": fit_rate,
+              "listener_mean_step_samples_per_s": step_rate,
+              "list_samples_per_s": bare_rate,
+              "score_first10": first, "score_last10": last,
+              "evaluate_s": eval_s, "evaluate_samples_per_s":
+              MNIST_TEST / eval_s, "accuracy": ev.accuracy(),
+              "eval_bytes_transferred": moved, "peak_mem_bytes": peak,
+              "mem_before_bytes": held, "profile": profile}
+    return net, train, test, result
+
+
+def harness_card_vs_cpu(net, test) -> dict:
+    """(b): fp32 copies of the trained net on the card and on the CPU give
+    the same confusion matrix; the bf16 net's predictions that differ from
+    the fp32 copy's are counted."""
+    card, cpu = fp32_copy(net), fp32_copy(net, device="cpu")
+    ev_card, ev_cpu = card.evaluate(test), cpu.evaluate(test)
+    x = test._ds.features
+    with torch.no_grad():
+        p16 = net.output(x).argmax(-1).cpu().numpy()
+        p32 = card.output(x).argmax(-1).cpu().numpy()
+    differ = int((p16 != p32).sum())
+    same = bool(np.array_equal(ev_card.confusion.matrix,
+                               ev_cpu.confusion.matrix))
+    log(f"[harness] fp32 card vs CPU confusion matrices identical: {same} "
+        f"(accuracy {ev_card.accuracy():.4f} / {ev_cpu.accuracy():.4f}); "
+        f"bf16 net vs its fp32 copy: {differ} of {len(p16)} predictions "
+        "differ")
+    if not same:
+        raise RuntimeError("the fp32 confusion matrices of the card and "
+                           "the CPU differ")
+    return {"identical": same, "accuracy_f32": ev_card.accuracy(),
+            "bf16_vs_f32_differ": differ}
+
+
+def harness_early_stopping(train, test) -> dict:
+    """(c): early stopping with a file saver; the best model, restored
+    from its zip, scores its recorded best."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    net = MultiLayerNetwork(lenet(seed=7)).init()
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = (es.EarlyStoppingConfiguration.builder()
+                .epoch_termination_conditions(
+                    es.MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+                    es.ScoreImprovementEpochTerminationCondition(1))
+                .score_calculator(es.DataSetLossCalculator(test))
+                .model_saver(es.LocalFileModelSaver(tmp)).build())
+        t0 = time.perf_counter()
+        result = es.EarlyStoppingTrainer(conf, net, train).fit()
+        es_s = time.perf_counter() - t0
+        best = result.best_model
+        again = es.DataSetLossCalculator(test).calculate_score(best)
+    rel = abs(again - result.best_model_score) / abs(result.best_model_score)
+    log(f"[harness] early stopping: {result.termination_reason} "
+        f"({result.termination_details}) after {result.total_epochs} "
+        f"epochs in {es_s:.2f} s, scores {result.score_vs_epoch}, best "
+        f"epoch {result.best_model_epoch} at {result.best_model_score:.6f};"
+        f" restored best scores {again:.6f} (rel {rel:.2e}, tol "
+        f"{ES_RESTORE_RTOL:g}) on {best.device}")
+    if not (best is not net and best.device.type == "cuda"
+            and rel <= ES_RESTORE_RTOL):
+        raise RuntimeError("the restored best model does not score its "
+                           "recorded best")
+    return {"termination_reason": result.termination_reason,
+            "termination_details": result.termination_details,
+            "score_vs_epoch": result.score_vs_epoch,
+            "best_epoch": result.best_model_epoch,
+            "best_score": result.best_model_score, "restored_score": again,
+            "rel": rel, "seconds": es_s}
+
+
+def iris_mlp(N, algo: str, device):
+    """examples/mlp_iris.py's network with ``optimization_algo(algo)``,
+    fp32."""
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.layers.core import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (N.NeuralNetConfiguration.builder()
+            .seed(42).updater("adam").learning_rate(0.02)
+            .activation("tanh").weight_init("xavier")
+            .optimization_algo(algo).compute_dtype("float32").list()
+            .layer(DenseLayer(n_out=16))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(inputs.feed_forward(4)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def harness_solvers(N) -> dict:
+    """(d): each line-search solver on the card and on the CPU from the
+    same weights: params within REF_RTOL after SOLVER_FITS fits."""
+    from deeplearning4j_tpu_torch.datasets.iris import iris_dataset
+    ds = iris_dataset()
+    out = {}
+    for algo in SOLVER_ALGOS:
+        card, cpu = iris_mlp(N, algo, "cuda"), iris_mlp(N, algo, "cpu")
+        cpu.set_flat_params(card.get_flat_params())
+        s0 = card.score(ds)
+        fit_ms = []
+        for _ in range(SOLVER_FITS):
+            t0 = time.perf_counter()
+            card.fit(ds)          # returns after the score's host read
+            fit_ms.append((time.perf_counter() - t0) * 1e3)
+            cpu.fit(ds)
+        s1 = card.score(ds)
+        got, want = card.get_flat_params(), cpu.get_flat_params()
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        s_rel = abs(card.score() - cpu.score()) / abs(cpu.score())
+        solver = card._solver
+        syncs = solver.host_syncs / solver.iterations
+        median = float(np.median(fit_ms[1:]))
+        log(f"[harness] {algo}: score {s0:.6f} -> {s1:.6f}; card vs CPU "
+            f"params rel={rel:.2e}, last pre-step score rel={s_rel:.2e} "
+            f"(tol {REF_RTOL:g}); {median:.3f} ms a solver iteration "
+            f"(median of fits 2-{SOLVER_FITS}, first {fit_ms[0]:.3f}), "
+            f"{syncs:.2f} host reads an iteration")
+        if not (rel <= REF_RTOL and s_rel <= REF_RTOL and s1 < s0):
+            raise RuntimeError(f"the {algo} solver disagrees between card "
+                               "and CPU or does not descend")
+        out[algo] = {"score_before": s0, "score_after": s1,
+                     "params_rel": rel, "score_rel": s_rel,
+                     "iteration_ms": fit_ms, "median_iteration_ms": median,
+                     "host_syncs_per_iteration": syncs}
+    return out
+
+
+def phase_harness(N, A, ffcnn_samples_per_s: float) -> dict:
+    """Phase 11: LeNet-5 on MNIST through the iterator, listeners,
+    evaluation and early stopping; the line-search solvers card vs CPU;
+    none of K1-K4 may launch."""
+    torch.cuda.synchronize()
+    A.reset_launches()            # counts of this path only
+    net, train, test, lenet_result = harness_lenet(ffcnn_samples_per_s)
+    result = {"lenet_mnist": lenet_result,
+              "card_vs_cpu": harness_card_vs_cpu(net, test)}
+    del net
+    torch.cuda.empty_cache()
+    result["early_stopping"] = harness_early_stopping(train, test)
+    result["solvers"] = harness_solvers(N)
+    result["launches"] = dict(A.LAUNCHES)
+    log(f"[harness] launches {result['launches']}")
+    if any(result["launches"].values()):
+        raise RuntimeError("the harness path launched a flash kernel")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1676,6 +1959,8 @@ def main(argv=None) -> int:
     ffcnn = phase_ffcnn(N, A, args.seed)
     torch.cuda.empty_cache()
     recurrent = phase_recurrent(N, A, S, args.seed)
+    torch.cuda.empty_cache()
+    harness = phase_harness(N, A, ffcnn["lenet"]["samples_per_s"])
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -1685,7 +1970,8 @@ def main(argv=None) -> int:
     paths = {"training": training["launches"], "ring": ring["launches"],
              "serving": serving["launches"],
              "feedforward_cnn": ffcnn["launches"],
-             "recurrent": recurrent["launches"]}
+             "recurrent": recurrent["launches"],
+             "harness": harness["launches"]}
     kernels = [dict(name=name, route="cuda",
                     source="deeplearning4j_tpu_torch/ops/csrc/"
                            "flash_attention.cu",
@@ -1698,7 +1984,8 @@ def main(argv=None) -> int:
     print(json.dumps({"build_s": build_s, "reference": reference,
                       "training": training, "inference": inference,
                       "ring": ring, "serving": serving,
-                      "feedforward_cnn": ffcnn, "recurrent": recurrent}))
+                      "feedforward_cnn": ffcnn, "recurrent": recurrent,
+                      "harness": harness}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""DataSet batch container (port of ``DataSet`` from
+"""DataSet / MultiDataSet batch containers (port of
 ``deeplearning4j_tpu/datasets/dataset.py``).
 
 One minibatch: features (batch, ...), one-hot or regression labels
@@ -9,7 +9,7 @@ numpy arrays or torch tensors; the network moves them to its device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,3 +51,18 @@ class DataSet:
             sl = slice(start, min(start + batch_size, n))
             yield DataSet(*[None if a is None else a[sl]
                             for a in self.as_tuple()])
+
+
+@dataclasses.dataclass
+class MultiDataSet:
+    """Multi-input/multi-output batch (the container the ComputationGraph,
+    ROADMAP A5, will consume)."""
+
+    features: Sequence[ArrayLike]
+    labels: Sequence[ArrayLike]
+    features_masks: Optional[Sequence[Optional[ArrayLike]]] = None
+    labels_masks: Optional[Sequence[Optional[ArrayLike]]] = None
+
+    def num_examples(self) -> int:
+        arrs = self.features if len(self.features) else self.labels
+        return int(arrs[0].shape[0])

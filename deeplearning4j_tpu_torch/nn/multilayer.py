@@ -29,19 +29,39 @@ input preprocessors of the configuration run before their layers.  The
 updater state crosses to the ModelSerializer as one flat vector in the
 JAX package's leaf order (``get_flat_updater_state``).
 
-Not ported yet: the fused multi-step scans, the device-cached ingest,
-health telemetry, listeners, solvers, pretraining and checkpointing.
+The training harness: ``fit`` takes a DataSet, an array pair or an
+iterator (``datasets.iterators``), fires the listeners of
+``set_listeners``/``add_listener`` after every update and at each epoch's
+start and end (``optimize.listeners``), and routes the line-search
+``optimization_algo`` values (``lbfgs``, ``conjugate_gradient``,
+``line_gradient_descent``) to ``optimize.solvers.Solver`` in place of the
+updater.  ``do_evaluation``/``evaluate``/``evaluate_roc``/
+``evaluate_roc_multi_class``/``evaluate_regression``/``f1_score`` feed the
+``eval`` metrics; ``clone`` copies the whole training state.
+
+Not ported yet: the fused multi-step scans and the device-cached and
+windowed ingest (``fit(ingest="cache"|"window")``, ROADMAP A7; ``"auto"``
+takes the per-batch path until then), health telemetry,
+checkpoint/resume (A7) and pretraining (A6).
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
 from ..datasets.dataset import DataSet
 from ..device import DeviceLike, resolve_device
+from ..eval.evaluation import Evaluation
+from ..eval.regression import RegressionEvaluation
+from ..eval.roc import ROC, ROCMultiClass
+from ..optimize import solvers as _solvers
+from ..optimize.listeners.listeners import finalize_listeners
 from . import precision as _precision
 from . import updaters as _updaters
 from .conf.neural_net_configuration import MultiLayerConfiguration
@@ -63,6 +83,7 @@ class MultiLayerNetwork:
         self.updater_state: List[Dict[str, Any]] = []
         self.iteration = 0
         self.epoch = 0
+        self.listeners: List[Any] = []
         self._init_done = False
         self._score: Optional[Tensor] = None
         self._rng: Optional[torch.Generator] = None
@@ -75,6 +96,20 @@ class MultiLayerNetwork:
             self._policy = _precision.resolve_policy(self.conf.conf,
                                                      self.device)
         return self._policy
+
+    @functools.cached_property
+    def _solver(self):
+        """The line-search solver when ``optimization_algo`` names one
+        (reference ``Solver.java``); None for the updater path.  An unknown
+        algorithm raises rather than training with SGD."""
+        algo = (self.conf.conf.optimization_algo or _solvers.SGD).lower()
+        if algo == _solvers.SGD:
+            return None
+        if self.conf.backprop_type == "tbptt":
+            raise ValueError(
+                f"optimization_algo {algo!r} is incompatible with tBPTT; "
+                "use stochastic_gradient_descent")
+        return _solvers.Solver(self, algo)
 
     # ------------------------------------------------------------------ init
     def init(self) -> "MultiLayerNetwork":
@@ -204,10 +239,16 @@ class MultiLayerNetwork:
 
     def _fit_batch(self, ds: DataSet) -> None:
         """One forward, one backward and one update per iteration (per
-        window under tBPTT)."""
+        window under tBPTT), or one solver iteration."""
         features, labels, fmask, lmask = self._batch(ds)
         self.last_batch_size = ds.num_examples()
+        solver = self._solver
         for _ in range(self.conf.conf.num_iterations):
+            if solver is not None:
+                self._score = solver.optimize(features, labels, fmask, lmask)
+                self.iteration += 1
+                self._fire_listeners()
+                continue
             if self.conf.backprop_type == "tbptt":
                 self._fit_tbptt(features, labels, fmask, lmask)
             else:
@@ -231,7 +272,12 @@ class MultiLayerNetwork:
                           for s in new_state]
         self._score = score
         self.iteration += 1
+        self._fire_listeners()
         return new_carries
+
+    def _fire_listeners(self) -> None:
+        for listener in self.listeners:
+            listener.iteration_done(self, self.iteration)
 
     # ---------------------------------------------------------------- tBPTT
     @staticmethod
@@ -330,21 +376,53 @@ class MultiLayerNetwork:
                     self._updater_conf(i), layer, self.params[i],
                     self.updater_state[i], g, self.iteration)
 
-    def fit(self, data, labels=None, epochs: int = 1) -> "MultiLayerNetwork":
-        """Train on a :class:`DataSet`, an iterable of DataSets, or a
-        features array with ``labels``: one update per batch."""
+    def fit(self, data, labels=None, epochs: int = 1, ingest: str = "auto",
+            window: int = 16, checkpoint=None,
+            resume_from=None) -> "MultiLayerNetwork":
+        """Train on a :class:`DataSet`, a features array with ``labels``,
+        or an iterator of DataSets (reset at each epoch): one update per
+        batch, listeners fired after each.
+
+        ``ingest`` takes the JAX package's values.  ``"batch"`` is the
+        per-batch path; ``"auto"`` takes it too until the fused ingest
+        is ported (the JAX package's ``"auto"`` trains a cacheable
+        iterator from a device-resident copy in an on-device permutation,
+        so its batch order is not the iterator's).  ``"cache"`` and
+        ``"window"``, ``checkpoint`` and ``resume_from`` wait for ROADMAP
+        A7 and raise ``NotImplementedError``.  The ``window`` keyword
+        sizes ``"window"`` only, so the other modes ignore it."""
+        if ingest not in ("auto", "cache", "window", "batch"):
+            raise ValueError(
+                f"unknown ingest mode {ingest!r}; expected 'auto', "
+                "'cache', 'window', or 'batch'")
+        if ingest in ("cache", "window"):
+            raise NotImplementedError(
+                f"fit(ingest={ingest!r}) is not ported yet (ROADMAP A7)")
+        if checkpoint is not None or resume_from is not None:
+            raise NotImplementedError(
+                "fit(checkpoint=, resume_from=) is not ported yet "
+                "(ROADMAP A7)")
         self.init()
         if not self.conf.backprop:
             return self
         if labels is not None:
             data = DataSet(data, labels)
         batches = [data] if isinstance(data, DataSet) else data
-        for _ in range(epochs):
-            if hasattr(batches, "reset"):
-                batches.reset()
-            for ds in batches:
-                self._fit_batch(ds)
-            self.epoch += 1
+        try:
+            for _ in range(epochs):
+                for listener in self.listeners:
+                    if hasattr(listener, "on_epoch_start"):
+                        listener.on_epoch_start(self)
+                if hasattr(batches, "reset"):
+                    batches.reset()
+                for ds in batches:
+                    self._fit_batch(ds)
+                for listener in self.listeners:
+                    if hasattr(listener, "on_epoch_end"):
+                        listener.on_epoch_end(self)
+                self.epoch += 1
+        finally:
+            finalize_listeners(self.listeners)
         return self
 
     # ------------------------------------------------------------ inference
@@ -563,6 +641,85 @@ class MultiLayerNetwork:
                 per = per + self._reg_score(self.params)
         return per
 
+    # ----------------------------------------------------------- evaluation
+    def do_evaluation(self, iterator, *evaluators):
+        """One forward pass per batch feeding every evaluator (reference
+        ``doEvaluation``); a time-series output goes through the masked
+        ``eval_time_series`` route.  Returns the evaluators.
+
+        When every evaluator is a top-1 ``Evaluation``, the argmax runs on
+        the device after the forward and only int32 class indices cross to
+        the host; the labels' argmax and the mask filter stay on the host.
+        The ``eval_bytes_transferred`` gauge holds the bytes the last call
+        moved from the device."""
+        self.init()
+        if isinstance(iterator, DataSet):
+            iterator = [iterator]
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        fast = bool(evaluators) and all(
+            type(ev) is Evaluation and ev.top_n == 1 for ev in evaluators)
+        bytes_moved = 0
+        for ds in iterator:
+            labels = _host(ds.labels)
+            mask = (ds.labels_mask if ds.labels_mask is not None
+                    else ds.features_mask)
+            mask = None if mask is None else _host(mask)
+            if fast:
+                with torch.no_grad():
+                    out, _, _ = self._forward(
+                        self.params, self.net_state,
+                        self._tensor(ds.features), train=False, rng=None,
+                        mask=self._tensor(ds.features_mask, torch.float32))
+                    guess = out.argmax(-1).to(torch.int32).cpu().numpy()
+                bytes_moved += guess.nbytes
+                actual = labels.argmax(-1)
+                if labels.ndim == 3:
+                    actual, guess = actual.reshape(-1), guess.reshape(-1)
+                    if mask is not None:
+                        keep = mask.reshape(-1) > 0
+                        actual, guess = actual[keep], guess[keep]
+                for ev in evaluators:
+                    ev.eval_class_indices(actual, guess, labels.shape[-1])
+                continue
+            out = self.output(ds.features, features_mask=ds.features_mask)
+            bytes_moved += out.numel() * out.element_size()
+            out = out.cpu().numpy()
+            for ev in evaluators:
+                if out.ndim == 3:
+                    ev.eval_time_series(labels, out, mask)
+                else:
+                    ev.eval(labels, out)
+        _monitor.gauge(
+            "eval_bytes_transferred",
+            "device->host bytes moved by the most recent do_evaluation",
+        ).set(bytes_moved, path="indices" if fast else "logits")
+        return evaluators
+
+    def evaluate(self, iterator):
+        """Classification evaluation over an iterator (reference
+        ``evaluate``)."""
+        return self.do_evaluation(iterator, Evaluation())[0]
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 30):
+        """Binary ROC over an iterator (reference ``evaluateROC``)."""
+        return self.do_evaluation(iterator, ROC(threshold_steps))[0]
+
+    def evaluate_roc_multi_class(self, iterator,
+                                 threshold_steps: int = 30):
+        """One-vs-all ROC (reference ``evaluateROCMultiClass``)."""
+        return self.do_evaluation(iterator,
+                                  ROCMultiClass(threshold_steps))[0]
+
+    def evaluate_regression(self, iterator):
+        """Per-column regression statistics (reference
+        ``evaluateRegression``)."""
+        return self.do_evaluation(iterator, RegressionEvaluation())[0]
+
+    def f1_score(self, data) -> float:
+        """Macro F1 on a DataSet or an iterator (reference ``f1Score``)."""
+        return self.evaluate(data).f1()
+
     # ------------------------------------------------ flat-param invariant
     def _ordered(self):
         for i, layer in enumerate(self.layers):
@@ -667,6 +824,41 @@ class MultiLayerNetwork:
             raise ValueError(f"updater state size mismatch: the network "
                              f"holds {with_masters} values, the vector "
                              f"{flat.numel()}")
+
+    # -------------------------------------------------------------- misc API
+    def set_listeners(self, *listeners) -> None:
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A copy on the same device (reference ``clone()``): the
+        configuration, params, layer state, updater state with the fp32
+        masters, and the iteration; listeners are not copied."""
+        self.init()
+        other = MultiLayerNetwork(copy.deepcopy(self.conf),
+                                  device=self.device).init()
+        other.params = _cloned(self.params)
+        other.net_state = _cloned(self.net_state)
+        other.updater_state = _cloned(self.updater_state)
+        other.iteration = self.iteration
+        return other
+
+
+def _host(a) -> np.ndarray:
+    """``a`` (numpy or a tensor on any device) as host numpy."""
+    return a.detach().cpu().numpy() if isinstance(a, Tensor) else \
+        np.asarray(a)
+
+
+def _cloned(tree):
+    """Nested lists and dicts with every tensor cloned."""
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cloned(v) for v in tree]
+    return tree.clone() if isinstance(tree, Tensor) else copy.deepcopy(tree)
 
 
 def _detached(tree):

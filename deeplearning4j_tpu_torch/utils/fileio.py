@@ -1,5 +1,5 @@
 """Crash-safe file writes (port of ``deeplearning4j_tpu/utils/fileio.py``,
-its ``atomic_write``).
+its ``atomic_write`` and ``atomic_write_bytes``).
 
 After a crash at any point, the destination holds either the complete old
 content or the complete new content, never a torn mix:
@@ -64,3 +64,9 @@ def atomic_write(path: str, mode: str = "wb",
                 os.remove(tmp)
             except OSError:
                 pass
+
+
+def atomic_write_bytes(path: str, data: bytes) -> None:
+    """Atomically replace ``path`` with ``data``."""
+    with atomic_write(path, "wb") as fh:
+        fh.write(data)

@@ -727,3 +727,56 @@ def test_lstm_golden_restores_on_the_card(cuda):
     assert np.isfinite(net.score())
     assert _rel(torch.as_tensor(net32.get_flat_params()),
                 torch.as_tensor(cpu.get_flat_params())) <= 1e-5
+
+
+# ---- the training harness -------------------------------------------------
+# evaluate() on the card against the CPU port: a small LeNet in fp32 from
+# the same weights gives the same confusion matrix, and the top-1 route
+# moves 4 bytes a row (int32 class indices).  The data are seeded images
+# labelled by a fixed linear map (the procedural MNIST is held in
+# tests/test_torch_datasets.py).
+
+def _small_lenet(device):
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.convolution import (
+        ConvolutionLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.layers.core import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.builder().seed(123).updater("adam")
+            .learning_rate(1e-3).weight_init("xavier")
+            .activation("identity").compute_dtype("float32").list()
+            .layer(ConvolutionLayer(n_out=4, kernel_size=(5, 5)))
+            .layer(SubsamplingLayer(pooling_type="max"))
+            .layer(ConvolutionLayer(n_out=8, kernel_size=(5, 5)))
+            .layer(SubsamplingLayer(pooling_type="max"))
+            .layer(DenseLayer(n_out=32, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(inputs.convolutional_flat(28, 28, 1)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def test_evaluate_on_the_card_matches_the_cpu(cuda):
+    import numpy as np
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    card, cpu = _small_lenet(cuda), _small_lenet("cpu")
+    cpu.set_flat_params(card.get_flat_params())
+    rng = np.random.RandomState(5)
+    x = rng.rand(300, 784).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[np.argmax(
+        (x - 0.5) @ rng.randn(784, 10), axis=1)]
+    evs = []
+    for net in (card, cpu):
+        evs.append(net.evaluate(ListDataSetIterator(DataSet(x, y), 64)))
+        moved = monitor.registry().get("eval_bytes_transferred").value(
+            path="indices")
+        assert moved == 300 * 4
+    np.testing.assert_array_equal(evs[0].confusion.matrix,
+                                  evs[1].confusion.matrix)
+    assert evs[0].stats() == evs[1].stats()
