@@ -120,10 +120,34 @@ Phases (each raises on failure; the exit code is non-zero on any):
    ``"conjugate_gradient"``, fp32, ``SOLVER_FITS`` full-batch fits on the
    card and on the CPU from the same weights: params within ``REF_RTOL``,
    the score falling, ms and host reads per solver iteration.  K1-K4
-   launch 0 times on this path.
+   launch 0 times on this path;
+12. the ComputationGraph ([graph] lines): (a) the ``graph_merge_nesterovs``
+   golden restored onto the card as in phase 9; (b) a graph with two
+   inputs, two outputs and every vertex type, card vs CPU in fp32 from
+   the same weights, both outputs and ``GRAPH_REF_FITS`` fit steps within
+   ``GRAPH_REF_RTOL``; (c) ResNet-50 at full width (``models/resnet.py``:
+   224x224x3, 1000 classes, nesterovs 0.1, l2 1e-4, the card's
+   ``mixed_bf16``; BASELINE.md config #2 as ``bench.py:336-356`` runs it)
+   on one staged batch of ``RESNET_BATCH`` seeded images: ``RESNET_STEPS``
+   fit steps (the median ms over steps 3 to ``RESNET_STEPS``, samples/s,
+   peak memory, the data loss and the l2 term of each score), untimed
+   steps until the score falls below the first (at most
+   ``RESNET_MAX_STEPS`` in all), one more step under ``torch.profiler``
+   (device events, busy ms, idle share, top 5 CUDA ops), the FLOPs of a
+   step from the conv and dense shapes (three forwards) and their bound
+   at the bf16 peak, ``output()`` ms at the same batch; (d) phase 5's
+   network built with ``graph_builder()`` on its MultiLayerNetwork
+   twin's weights, 2 fit steps each: the graph's params and scores equal
+   the twin's, and K1, K2 and K3 launch once a step each on the graph's
+   run (the ``graph`` path of the kernels line); (e) that graph behind
+   ``InferenceEngine`` as phase 8 serves the list (``predict`` from three
+   clients, two decode sessions through the graph's ``SessionCache``,
+   against ``output()`` at ``BF16_PROB_ATOL``; no K1-K4 launch), and a
+   trained graph with a GravesLSTM vertex whose session steps equal
+   ``rnn_time_step`` over the same split.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
-feed-forward/convolutional, recurrent and harness results, one
+feed-forward/convolutional, recurrent, harness and graph results, one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -260,6 +284,20 @@ MNIST_BATCH, MNIST_TRAIN, MNIST_EPOCHS = 128, 6400, 2
 MNIST_TEST_BATCH, MNIST_TEST, MNIST_MIN_ACCURACY = 500, 2000, 0.94
 PROFILED_BATCHES, ES_MAX_EPOCHS, ES_RESTORE_RTOL = 10, 3, 1e-5
 SOLVER_ALGOS, SOLVER_FITS = ("lbfgs", "conjugate_gradient"), 10
+# Phase 12.  The graph golden at phase 9's limits.  The all-vertex graph
+# card vs CPU in fp32 within 1e-5 of max|CPU| (f32 sums in another order;
+# nesterovs, which passes differences on without normalizing them as Adam
+# would).  ResNet-50 as bench.py:336-356 runs it (BASELINE.md config #2):
+# batch 128, 224x224x3, 1000 classes, 12 fit steps on one staged batch.
+# The attention graph against its MultiLayerNetwork twin as phase 5
+# trains it, 2 steps; graph serving at phase 8's limits; the LSTM graph's
+# session against rnn_time_step, the same bf16 operations on the same
+# shapes, at 1e-6.
+GRAPH_GOLDEN = "graph_merge_nesterovs"
+GRAPH_REF_T, GRAPH_REF_FITS, GRAPH_REF_RTOL = 9, 3, 1e-5
+RESNET_BATCH, RESNET_STEPS, RESNET_MAX_STEPS = 128, 12, 80
+GRAPH_ATTN_STEPS = 2
+LSTM_GRAPH_FITS, LSTM_SESSION_ATOL = 5, 1e-6
 
 
 def log(msg: str) -> None:
@@ -1170,14 +1208,13 @@ def phase_serving(N, A, net, seed: int) -> dict:
 
 
 def fp32_copy(net, device="cuda"):
-    """``net`` rebuilt on ``device`` from its configuration with
-    ``compute_dtype="float32"``, with its params and iteration, and its
-    updater state when ``net`` keeps no fp32 masters (an fp32 net holds
-    none to read them into)."""
-    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    """``net`` (a MultiLayerNetwork or a ComputationGraph) rebuilt on
+    ``device`` from its configuration with ``compute_dtype="float32"``,
+    with its params and iteration, and its updater state when ``net``
+    keeps no fp32 masters (an fp32 net holds none to read them into)."""
     conf = copy.deepcopy(net.conf)
     conf.conf.compute_dtype = "float32"
-    out = MultiLayerNetwork(conf, device=device).init()
+    out = type(net)(conf, device=device).init()
     out.set_flat_params(net.get_flat_params())
     if not net._pol().master_weights:
         out.set_flat_updater_state(net.get_flat_updater_state())
@@ -1229,10 +1266,12 @@ def phase_goldens(ms, names=GOLDENS, tag: str = "ffcnn") -> dict:
     for name in names:
         path = FIXTURES / f"{name}.zip"
         golden = dict(np.load(FIXTURES / f"{name}_golden.npz"))
-        net = ms.restore_multi_layer_network(path)
+        restore = (ms.restore_computation_graph if name.startswith("graph")
+                   else ms.restore_multi_layer_network)
+        net = restore(path)
         if net._pol().name != "mixed_bf16":
             raise RuntimeError(f"{name} restored under {net._pol().name}")
-        net32 = fp32_copy(ms.restore_multi_layer_network(path, device="cpu"))
+        net32 = fp32_copy(restore(path, device="cpu"))
         out[name] = {
             "bf16": hold_golden(f"{name} mixed_bf16", net, golden,
                                 GOLDEN_BF16_ATOL, tag),
@@ -1923,6 +1962,372 @@ def phase_harness(N, A, ffcnn_samples_per_s: float) -> dict:
     return result
 
 
+# ------------------------------------------------------------ phase 12
+def all_vertex_graph(N, device):
+    """Two inputs (a masked sequence and a vector), two outputs, every
+    vertex type (tests/test_torch_computation_graph.py's graph), fp32,
+    nesterovs, on ``device``."""
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import computation_graph as cg
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.conf.preprocessors import \
+        FeedForwardToCnnPreProcessor
+    from deeplearning4j_tpu_torch.nn.layers.core import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        GravesLSTM, RnnOutputLayer)
+    g = (N.NeuralNetConfiguration.builder().seed(3).updater("nesterovs")
+         .learning_rate(0.0625).activation("tanh").weight_init("xavier")
+         .l2(1e-3).compute_dtype("float32").graph_builder()
+         .add_inputs("seq", "vec")
+         .add_layer("lstm", GravesLSTM(n_out=6), "seq")
+         .add_vertex("last", cg.LastTimeStepVertex(mask_input="seq"), "lstm")
+         .add_layer("dv", DenseLayer(n_out=6), "vec"))
+    for op in ("add", "subtract", "product", "average", "max"):
+        g.add_vertex(op, cg.ElementWiseVertex(op=op), "last", "dv")
+    conf = (g.add_vertex("merge", cg.MergeVertex(), "add", "subtract",
+                         "product", "average", "max")
+            .add_vertex("subset", cg.SubsetVertex(from_index=2, to_index=13),
+                        "merge")
+            .add_vertex("scale", cg.ScaleVertex(scale_factor=0.5), "subset")
+            .add_vertex("shift", cg.ShiftVertex(shift_factor=0.1), "scale")
+            .add_vertex("l2n", cg.L2NormalizeVertex(), "shift")
+            .add_vertex("stack", cg.StackVertex(), "l2n", "shift")
+            .add_layer("shared", DenseLayer(n_out=5), "stack")
+            .add_vertex("u0", cg.UnstackVertex(from_index=0, stack_size=2),
+                        "shared")
+            .add_vertex("u1", cg.UnstackVertex(from_index=1, stack_size=2),
+                        "shared")
+            .add_vertex("l2", cg.L2Vertex(), "u0", "u1")
+            .add_vertex("img", cg.PreprocessorVertex(
+                preprocessor=FeedForwardToCnnPreProcessor(2, 2, 3)), "shift")
+            .add_layer("flat", DenseLayer(n_out=4), "img")
+            .add_vertex("head_in", cg.MergeVertex(), "l2", "u1", "flat")
+            .add_layer("ffout", OutputLayer(n_out=2), "head_in")
+            .add_vertex("dup", cg.DuplicateToTimeSeriesVertex(
+                reference_input="seq"), "flat")
+            .add_vertex("seqm", cg.MergeVertex(), "lstm", "dup")
+            .add_layer("rnnout", RnnOutputLayer(n_out=3), "seqm")
+            .set_outputs("rnnout", "ffout")
+            .set_input_types(inputs.recurrent(3, GRAPH_REF_T),
+                             inputs.feed_forward(4))
+            .build())
+    return ComputationGraph(conf, device=device).init()
+
+
+def graph_reference(N) -> dict:
+    """(b): the all-vertex graph on the card and on the CPU from the same
+    weights in fp32: both outputs and GRAPH_REF_FITS fit steps' params
+    within GRAPH_REF_RTOL."""
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    card, cpu = all_vertex_graph(N, "cuda"), all_vertex_graph(N, "cpu")
+    cpu.set_flat_params(card.get_flat_params())
+    rng = np.random.RandomState(13)
+    b, t = 16, GRAPH_REF_T
+    x1 = rng.randn(b, t, 3).astype(np.float32)
+    x2 = rng.randn(b, 4).astype(np.float32)
+    fm = (np.arange(t)[None] < rng.randint(1, t + 1, b)[:, None]).astype(
+        np.float32)
+    y1 = np.eye(3, dtype=np.float32)[rng.randint(0, 3, (b, t))]
+    y2 = np.eye(2, dtype=np.float32)[rng.randint(0, 2, b)]
+    mds = MultiDataSet([x1, x2], [y1, y2], [fm, None], [fm, None])
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def outputs():
+        return max(rel(o.cpu().numpy(), p.numpy()) for o, p in zip(
+            card.output(x1, x2, features_masks=[fm, None]),
+            cpu.output(x1, x2, features_masks=[fm, None])))
+
+    worst = outputs()
+    log(f"[graph] all-vertex graph outputs card vs CPU rel={worst:.2e}")
+    for step in range(GRAPH_REF_FITS):
+        card.fit(mds)
+        cpu.fit(mds)
+        s_rel = abs(card.score() - cpu.score()) / abs(cpu.score())
+        p_rel = rel(card.get_flat_params(), cpu.get_flat_params())
+        log(f"[graph] all-vertex step {step}: score card={card.score():.7f}"
+            f" cpu={cpu.score():.7f} rel={s_rel:.2e}; params rel={p_rel:.2e}"
+            f" (tol {GRAPH_REF_RTOL:g})")
+        worst = max(worst, s_rel, p_rel)
+    worst = max(worst, outputs())
+    if not worst <= GRAPH_REF_RTOL:
+        raise RuntimeError("the all-vertex graph disagrees between card and "
+                           "CPU")
+    return {"steps": GRAPH_REF_FITS, "max_rel": worst,
+            "vertices": len(card.topo)}
+
+
+def resnet_flops(net, batch: int) -> float:
+    """Multiply-adds x 2 of one forward, from the shapes of every
+    convolution and dense layer (the inferred output types of the
+    configuration); a training step is taken as three forwards."""
+    types = net.conf._inferred_types
+    flops = 0.0
+    for name, layer in net._slots():
+        out, kind = types[name], type(layer).__name__
+        if kind == "ConvolutionLayer":
+            kh, kw = layer.kernel_size
+            flops += (2.0 * batch * out.height * out.width * kh * kw
+                      * layer.n_in * layer.n_out)
+        elif kind in ("DenseLayer", "OutputLayer"):
+            flops += 2.0 * batch * layer.n_in * layer.n_out
+    return flops
+
+
+def graph_resnet(seed: int) -> dict:
+    """(c): ResNet-50 at full width (224x224x3, 1000 classes, nesterovs
+    0.1, l2 1e-4, the card's mixed_bf16) on one batch of RESNET_BATCH
+    RandomState(0) images with one-hot labels, staged on the card once as
+    bench.py stages it: RESNET_STEPS fit steps, the median over steps 3 to
+    RESNET_STEPS, a profiled step, output() at the same batch."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.resnet import resnet50
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    net = ComputationGraph(resnet50()).init()
+    if net._pol().name != "mixed_bf16":
+        raise RuntimeError(f"ResNet-50 runs under {net._pol().name}")
+    rng = np.random.RandomState(0)
+    f = rng.rand(RESNET_BATCH, 224, 224, 3).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.randint(0, 1000, RESNET_BATCH)]
+    ds = DataSet(torch.as_tensor(f, device=net.device),
+                 torch.as_tensor(y, device=net.device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    scores, l2, step_ms = [], [], []
+    for _ in range(RESNET_STEPS):
+        with torch.no_grad():     # the score's l2 term, outside the timing
+            l2.append(float(net._reg_score(net.params)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ds)
+        s = net.score()           # a host read: waits for the step
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        scores.append(s)
+    data_loss = [s - r for s, r in zip(scores, l2)]
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(step_ms[2:]))
+    flops = 3.0 * resnet_flops(net, RESNET_BATCH)
+    bound = flops / PEAK_BF16_FLOPS * 1e3
+    log(f"[graph] ResNet-50 batch {RESNET_BATCH}, 224x224, "
+        f"{net.num_params()} params: score {scores[0]:.4f} -> "
+        f"{scores[-1]:.4f}; first step {step_ms[0]:.1f} ms, median of steps "
+        f"3-{RESNET_STEPS} {median:.3f} ms "
+        f"({RESNET_BATCH * 1e3 / median:.1f} samples/s); {flops:.4e} FLOP a"
+        f" step, bound {bound:.4f} ms at the bf16 peak ({bound / median:.3f}"
+        f" of the median step); peak memory {peak / 2**30:.3f} GiB "
+        f"({held / 2**30:.3f} GiB held before); data loss "
+        f"{data_loss[0]:.4f} -> {data_loss[-1]:.4f}, l2 term {l2[0]:.4f} "
+        f"-> {l2[-1]:.4f}")
+    # From scratch at nesterovs 0.1, with no warm-up, the data loss first
+    # rises (from ~8 to ~16 over steps 2-4 on the card, as the JAX
+    # package's own run reports a score of 15.98 after its first 10
+    # steps, examples/sustained_training.py), then falls: the one batch is
+    # memorized, so more steps, untimed, must bring the score below the
+    # first within RESNET_MAX_STEPS
+    more = []
+    while scores[-1] >= scores[0] and len(scores) + len(more) < \
+            RESNET_MAX_STEPS and all(np.isfinite(scores + more)):
+        net.fit(ds)
+        more.append(net.score())
+        if more[-1] < scores[0]:
+            break
+    log(f"[graph] ResNet-50 scores {scores}; then {len(more)} more steps "
+        f"to fall below the first: {more}")
+    if not (all(np.isfinite(scores + more))
+            and (scores + more)[-1] < scores[0]):
+        raise RuntimeError(f"ResNet-50 did not train: scores {scores}, "
+                           f"{more}, l2 terms {l2}")
+    profile = profile_step(net, ds, min(step_ms[2:]))
+    out_ms = []
+    x = ds.features
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net.output(x)
+        torch.cuda.synchronize()
+        out_ms.append((time.perf_counter() - t0) * 1e3)
+    row_err = float((out.sum(-1) - 1).abs().max())
+    log(f"[graph] ResNet-50 output() at batch {RESNET_BATCH}: {out_ms} ms "
+        f"(the first cold), row-sum err {row_err:.2e}")
+    if tuple(out.shape) != (RESNET_BATCH, 1000) or not \
+            torch.isfinite(out).all() or row_err > ROW_SUM_ATOL:
+        raise RuntimeError("ResNet-50 output() is not finite probabilities")
+    return {"batch": RESNET_BATCH, "params": net.num_params(),
+            "scores": scores, "l2_terms": l2, "data_loss": data_loss,
+            "scores_after": more,
+            "step_ms": step_ms, "median_step_ms": median,
+            "samples_per_s": RESNET_BATCH * 1e3 / median,
+            "flop_per_step": flops, "bound_ms": bound,
+            "bound_by": "operations", "peak_mem_bytes": peak,
+            "mem_before_bytes": held, "profile": profile,
+            "output_ms": out_ms, "output_median_warm_ms":
+            float(np.median(out_ms[1:]))}
+
+
+def graph_attention(N, A, seed: int):
+    """(d): the network of phase 5 built with graph_builder(), on the
+    weights of a MultiLayerNetwork twin: 2 fit steps each on one batch;
+    the graph's params and score must equal the twin's (bf16 params,
+    element-wise within rtol 2^-7), and K1, K2, K3 must launch once a
+    step each on the graph's run (the twin's run is not counted)."""
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        CausalSelfAttention
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+    twin = build_net(N, A, seed=seed, n_in=N_IN, hidden=HIDDEN, heads=HEADS,
+                     n_out=N_OUT, cache_len=SEQ)
+    conf = (N.NeuralNetConfiguration.builder().seed(seed).updater("adam")
+            .learning_rate(1e-3).graph_builder().add_inputs("in")
+            .add_layer("attn", CausalSelfAttention(
+                n_out=HIDDEN, n_heads=HEADS, cache_len=SEQ), "in")
+            .add_layer("out", RnnOutputLayer(
+                n_out=N_OUT, activation="softmax", loss="mcxent"), "attn")
+            .set_outputs("out")
+            .set_input_types(inputs.recurrent(N_IN, SEQ)).build())
+    net = ComputationGraph(conf).init()
+    net.set_flat_params(twin.get_flat_params())
+    ds = make_batch(seed, BATCH, SEQ, N_IN, N_OUT)
+    twin_scores = []
+    for _ in range(GRAPH_ATTN_STEPS):
+        twin.fit(ds)
+        twin_scores.append(twin.score())
+    torch.cuda.synchronize()
+    A.reset_launches()            # counts of the graph's run only
+    scores, step_ms = [], []
+    for _ in range(GRAPH_ATTN_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        scores.append(net.score())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(A.LAUNCHES)
+    expected = {name: GRAPH_ATTN_STEPS for name in KERNELS}
+    expected["flash_fwd_partials"] = 0
+    check = compare("graph vs MultiLayerNetwork params after "
+                    f"{GRAPH_ATTN_STEPS} steps",
+                    torch.as_tensor(net.get_flat_params()).bfloat16(),
+                    torch.as_tensor(twin.get_flat_params()))
+    log(f"[graph] attention graph at batch {BATCH}, T={SEQ}: scores "
+        f"{scores} (twin {twin_scores}); step ms {step_ms}; launches "
+        f"{launches}")
+    if launches != expected:
+        raise RuntimeError(f"graph launches in {GRAPH_ATTN_STEPS} steps: "
+                           f"{launches}, expected {expected}")
+    if not np.allclose(scores, twin_scores, rtol=BF16_RTOL, atol=0):
+        raise RuntimeError("the graph's scores differ from its twin's")
+    del twin
+    return net, {"scores": scores, "twin_scores": twin_scores,
+                 "step_ms": step_ms, "launches": launches,
+                 "params_vs_twin": check}
+
+
+def lstm_graph_session(N, seed: int) -> dict:
+    """(e, second half): a graph with a GravesLSTM vertex (84 -> 256 ->
+    RnnOutputLayer(84), the card's mixed_bf16), trained LSTM_GRAPH_FITS
+    fits on a Markov text, behind InferenceEngine: a session's chunk of
+    SESSION_PREFILL steps and SESSION_STEPS single steps against
+    rnn_time_step over the same split (the same operations on the same
+    shapes)."""
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        GravesLSTM, RnnOutputLayer)
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    conf = (N.NeuralNetConfiguration.builder().seed(seed).updater("rmsprop")
+            .learning_rate(0.1).graph_builder().add_inputs("chars")
+            .add_layer("lstm", GravesLSTM(n_out=CHAR_HIDDEN,
+                                          activation="tanh"), "chars")
+            .add_layer("out", RnnOutputLayer(
+                n_out=CHAR_VOCAB, activation="softmax", loss="mcxent"),
+                "lstm")
+            .set_outputs("out")
+            .set_input_types(inputs.recurrent(CHAR_VOCAB)).build())
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    net = ComputationGraph(conf).init()
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    text = eye[markov_ids(seed + 9, 8, SESSION_PREFILL + SESSION_STEPS + 1)]
+    for _ in range(LSTM_GRAPH_FITS):   # away from uniform outputs
+        net.fit(DataSet(text[:, :-1], text[:, 1:]))
+    x = text[:1, :-1]
+    net.rnn_clear_previous_state()
+    want = [net.rnn_time_step(x[:, :SESSION_PREFILL]).cpu().numpy()] + [
+        net.rnn_time_step(x[:, t]).cpu().numpy()[:, None]
+        for t in range(SESSION_PREFILL, x.shape[1])]
+    with InferenceEngine(net, name="graph-lstm") as engine:
+        got = [engine.predict_session("s", x[:, :SESSION_PREFILL])] + [
+            engine.predict_session("s", x[:, t])[:, None]
+            for t in range(SESSION_PREFILL, x.shape[1])]
+        carry_paths = sorted(engine.sessions.get_carries("s"))
+    err, signal = hold_probs("LSTM graph session vs rnn_time_step",
+                             np.concatenate(got, 1),
+                             np.concatenate(want, 1), LSTM_SESSION_ATOL,
+                             "graph")
+    if carry_paths != ["lstm", "out"]:
+        raise RuntimeError(f"the session's carries are keyed {carry_paths}")
+    return {"max_abs_err": err, "signal": signal,
+            "steps": int(x.shape[1])}
+
+
+def graph_serving(A, net, seed: int) -> dict:
+    """(e): the attention graph of (d) behind InferenceEngine as phase 8
+    serves the MultiLayerNetwork: predict from three clients and two
+    decode sessions through the graph's SessionCache against output();
+    none of K1-K4 may launch on it."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    rng = np.random.RandomState(seed + 11)
+    torch.cuda.synchronize()
+    A.reset_launches()
+    result = {}
+    with InferenceEngine(net, max_batch_size=4, max_latency_ms=5,
+                         timestep_buckets=SERVE_BUCKETS,
+                         name="graph-smoke") as engine:
+        result["buckets"] = engine.warmup((SEQ, N_IN))
+        result["predict"] = serve_predict(engine, net, rng,
+                                          monitor.registry(), BF16_PROB_ATOL)
+        result["decode_warmed"] = engine.warmup_decode((N_IN,))
+        result["sessions"] = two_sessions(engine, net, rng, "graph",
+                                          BF16_PROB_ATOL)
+    result["launches"] = dict(A.LAUNCHES)
+    if any(result["launches"].values()):
+        raise RuntimeError("graph serving launched a flash kernel")
+    return result
+
+
+def phase_graph(N, A, seed: int) -> dict:
+    """Phase 12: the ComputationGraph: the graph golden, the all-vertex
+    graph card vs CPU, ResNet-50 at full width, the attention network as
+    a graph (the ``graph`` path of the kernels line: K1-K3 once a step)
+    and graph serving."""
+    from deeplearning4j_tpu_torch.utils import model_serializer as ms
+    torch.cuda.synchronize()
+    A.reset_launches()
+    result = {"golden": phase_goldens(ms, (GRAPH_GOLDEN,), "graph"),
+              "reference": graph_reference(N)}
+    torch.cuda.empty_cache()
+    result["resnet50"] = graph_resnet(seed)
+    torch.cuda.empty_cache()
+    if any(A.LAUNCHES.values()):
+        raise RuntimeError(f"the graph golden, the all-vertex graph or "
+                           f"ResNet-50 launched a flash kernel: {A.LAUNCHES}")
+    net, result["attention"] = graph_attention(N, A, seed)
+    result["launches"] = result["attention"]["launches"]
+    result["serving"] = graph_serving(A, net, seed)
+    del net
+    torch.cuda.empty_cache()
+    result["lstm_session"] = lstm_graph_session(N, seed)
+    log(f"[graph] launches {result['launches']}")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1961,6 +2366,8 @@ def main(argv=None) -> int:
     recurrent = phase_recurrent(N, A, S, args.seed)
     torch.cuda.empty_cache()
     harness = phase_harness(N, A, ffcnn["lenet"]["samples_per_s"])
+    torch.cuda.empty_cache()
+    graph = phase_graph(N, A, args.seed)
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -1971,7 +2378,7 @@ def main(argv=None) -> int:
              "serving": serving["launches"],
              "feedforward_cnn": ffcnn["launches"],
              "recurrent": recurrent["launches"],
-             "harness": harness["launches"]}
+             "harness": harness["launches"], "graph": graph["launches"]}
     kernels = [dict(name=name, route="cuda",
                     source="deeplearning4j_tpu_torch/ops/csrc/"
                            "flash_attention.cu",
@@ -1985,7 +2392,7 @@ def main(argv=None) -> int:
                       "training": training, "inference": inference,
                       "ring": ring, "serving": serving,
                       "feedforward_cnn": ffcnn, "recurrent": recurrent,
-                      "harness": harness}))
+                      "harness": harness, "graph": graph}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -55,8 +55,9 @@ class DataSet:
 
 @dataclasses.dataclass
 class MultiDataSet:
-    """Multi-input/multi-output batch (the container the ComputationGraph,
-    ROADMAP A5, will consume)."""
+    """Multi-input/multi-output batch (what a ComputationGraph consumes:
+    one array per network input and per output, in the configuration's
+    ``network_inputs``/``network_outputs`` order)."""
 
     features: Sequence[ArrayLike]
     labels: Sequence[ArrayLike]

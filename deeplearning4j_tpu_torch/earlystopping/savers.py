@@ -33,8 +33,9 @@ class InMemoryModelSaver:
 class LocalFileModelSaver:
     """Reference ``saver/LocalFileModelSaver``: ``bestModel.bin`` and
     ``latestModel.bin`` model zips in a directory, written atomically by
-    the port's serializer (the JAX package restores them too).  Restored
-    models land on ``device``; by default on the device of the last
+    the port's serializer (the JAX package restores them too); a
+    MultiLayerNetwork's or a ComputationGraph's.  Restored models land on
+    ``device``; by default on the device of the last
     saved net, else the card."""
 
     def __init__(self, directory: str, device: DeviceLike = None):
@@ -57,8 +58,9 @@ class LocalFileModelSaver:
         try:
             return restore_multi_layer_network(path, device=self.device)
         except Exception:
-            # not a MultiLayerNetwork zip: the graph restore raises,
-            # naming ROADMAP A5, with this error chained
+            # not a MultiLayerNetwork zip: a ComputationGraph's, or a
+            # malformed zip that the graph restore rejects too, with this
+            # error chained
             return restore_computation_graph(path, device=self.device)
 
     def save_best_model(self, net, score: float) -> None:

@@ -1,14 +1,13 @@
-"""Numerical-vs-analytic gradient checking (port of
-``check_gradients`` from ``deeplearning4j_tpu/gradientcheck.py``).
+"""Numerical-vs-analytic gradient checking (port of ``check_gradients``
+and ``check_gradients_graph`` from ``deeplearning4j_tpu/gradientcheck.py``).
 
 The analytic gradient comes from autograd over the network's total loss
 (data loss plus regularization, inference mode, as the JAX package
 checks it); the numerical one from central differences on the flat
 parameter vector, one parameter at a time.  The network must compute in
 float64 on the CPU (``.dtype("float64")``, ``device="cpu"``): in float32
-the differences drown in rounding.  ``check_gradients_graph`` and
-``check_pretrain_gradients`` wait for the ComputationGraph (ROADMAP A5)
-and the pretraining layers (A6).
+the differences drown in rounding.  ``check_pretrain_gradients`` waits
+for the pretraining layers (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -61,6 +60,24 @@ def check_gradients(net, dataset, eps: float = DEFAULT_EPS,
     """True when every checked parameter's analytic gradient agrees with
     its central difference (``subset`` checks that many, drawn with
     ``seed``)."""
+    return _check(net, dataset, eps, max_rel_error, min_abs_error,
+                  print_results, subset, seed, "MLN")
+
+
+def check_gradients_graph(net, mds, eps: float = DEFAULT_EPS,
+                          max_rel_error: float = DEFAULT_MAX_REL_ERROR,
+                          min_abs_error: float = DEFAULT_MIN_ABS_ERROR,
+                          print_results: bool = False,
+                          subset: Optional[int] = None,
+                          seed: int = 0) -> bool:
+    """The ComputationGraph check over a MultiDataSet (or a DataSet):
+    the flat vector in topological order of the layer vertices."""
+    return _check(net, mds, eps, max_rel_error, min_abs_error,
+                  print_results, subset, seed, "graph")
+
+
+def _check(net, data, eps, max_rel_error, min_abs_error, print_results,
+           subset, seed, label) -> bool:
     net.init()
     pol = net._pol()
     if net.device.type != "cpu" or pol.compute_dtype != torch.float64 \
@@ -68,18 +85,22 @@ def check_gradients(net, dataset, eps: float = DEFAULT_EPS,
         raise ValueError("gradient checks run on the CPU in float64: build "
                          "the network with .dtype('float64') and "
                          "device='cpu'")
-    features, labels, fmask, lmask = net._batch(dataset)
-    entries = [(i, name) for i, layer in enumerate(net.layers)
-               for name in layer.param_order()]
+    batch = net._batch(data)
+    entries = list(net._ordered())
 
     def total_loss(params):
-        data_loss, _, _ = net._loss_fn(params, net.net_state, features,
-                                       labels, fmask, lmask, None, False)
+        data_loss, _, _ = net._loss_fn(params, net.net_state, *batch, None,
+                                       False)
         return data_loss + net._reg_score(params)
 
-    leaves = [{k: p.detach().clone().requires_grad_() for k, p in
-               tree.items()} for tree in net.params]
-    flat_leaves = [leaves[i][name] for i, name in entries]
+    def copied(grad: bool):
+        return net._trees(
+            [(key, {k: p.detach().clone().requires_grad_(grad)
+                    for k, p in tree.items()})
+             for key, tree in net._items(net.params)])
+
+    leaves = copied(True)
+    flat_leaves = [leaves[key][name] for key, name in entries]
     grads = torch.autograd.grad(total_loss(leaves), flat_leaves,
                                 allow_unused=True)
     analytic = np.concatenate(
@@ -87,14 +108,13 @@ def check_gradients(net, dataset, eps: float = DEFAULT_EPS,
          for p, g in zip(flat_leaves, grads)] + [np.zeros((0,))])
     starts = np.cumsum([0] + [p.numel() for p in flat_leaves])
     idxs = _subset(int(starts[-1]), subset, seed)
-    params = [{k: p.detach().clone() for k, p in tree.items()}
-              for tree in net.params]
+    params = copied(False)
     numeric = np.empty(idxs.size, np.float64)
     with torch.no_grad():
         for pos, j in enumerate(idxs):
             e = int(np.searchsorted(starts, j, side="right") - 1)
-            i, name = entries[e]
-            view, k = params[i][name].view(-1), int(j - starts[e])
+            key, name = entries[e]
+            view, k = params[key][name].view(-1), int(j - starts[e])
             orig = view[k].item()
             view[k] = orig + eps
             f_plus = float(total_loss(params))
@@ -103,4 +123,4 @@ def check_gradients(net, dataset, eps: float = DEFAULT_EPS,
             view[k] = orig
             numeric[pos] = (f_plus - f_minus) / (2.0 * eps)
     return _compare(analytic, numeric, idxs, max_rel_error, min_abs_error,
-                    print_results, "MLN")
+                    print_results, label)

@@ -6,8 +6,10 @@ The dataclasses and serde type names are the JAX package's, so
 ``MultiLayerConfiguration.from_json`` reads the JSON its ``to_json``
 writes, and ``to_json`` writes the same bytes.  Shape inference sets each
 layer's ``n_in`` and auto-inserts the preprocessor at each family boundary
-(ff <-> rnn <-> cnn), as the JAX package does.  A layer type that is not
-ported yet raises ``NotImplementedError`` naming its ROADMAP item.
+(ff <-> rnn <-> cnn), as the JAX package does.  ``graph_builder()``
+starts a ComputationGraph configuration (:mod:`.computation_graph`).  A
+layer type that is not ported yet raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ InputType = _inputs.InputType
 # serde type names of the JAX package that the port does not read yet, and
 # the ROADMAP item that ports each
 _NOT_PORTED = {
-    "computation_graph_conf": "A5",
     "autoencoder": "A6", "rbm": "A6", "variational_autoencoder": "A6",
     "center_loss_output": "A6",
 }
@@ -252,6 +253,11 @@ class Builder:
     def list(self) -> "ListBuilder":
         return ListBuilder(self._g)
 
+    def graph_builder(self):
+        """Start a ComputationGraph configuration."""
+        from .computation_graph import GraphBuilder
+        return GraphBuilder(self._g)
+
     def build_global(self) -> GlobalConfig:
         return self._g
 
@@ -360,3 +366,7 @@ def _preprocessor_for(input_type: InputType, want: str):
             "Cannot infer H/W/C for rnn->cnn; add RnnToCnnPreProcessor "
             "explicitly")
     raise ValueError(f"No preprocessor from {kind} to {want}")
+
+
+# registers the vertex and graph serde types with the configuration
+from . import computation_graph as _computation_graph  # noqa: E402,F401

@@ -1,4 +1,4 @@
-"""Layer/config validation (port of the list-configuration part of
+"""Layer/config validation (port of
 ``deeplearning4j_tpu/nn/conf/validation.py``).  Hard inconsistencies
 raise; suspicious but legal combinations log a warning."""
 
@@ -16,8 +16,10 @@ _KNOWN_GRAD_NORM = {"none", "renormalizel2perlayer",
 
 
 def validate_layer(layer, index: Optional[int] = None,
+                   name: Optional[str] = None,
                    require_shapes: bool = True) -> None:
-    where = f"layer {index}" if index is not None else type(layer).__name__
+    where = name or (f"layer {index}" if index is not None
+                     else type(layer).__name__)
     n_in = getattr(layer, "n_in", None)
     n_out = getattr(layer, "n_out", None)
     if require_shapes and n_out is not None and n_out <= 0:
@@ -46,14 +48,18 @@ def validate_layer(layer, index: Optional[int] = None,
                        "likely a keep-prob/drop-prob mixup", where, dropout)
 
 
+def validate_global(conf) -> None:
+    gn = getattr(conf, "gradient_normalization", None)
+    if isinstance(gn, str) and gn.lower().replace("_", "") \
+            not in _KNOWN_GRAD_NORM:
+        raise ValueError(f"unknown gradient_normalization {gn!r}")
+
+
 def validate_multi_layer_configuration(mlc) -> None:
     shapes_known = mlc.input_type is not None
     for i, layer in enumerate(mlc.layers):
         validate_layer(layer, index=i, require_shapes=shapes_known)
-    gn = getattr(mlc.conf, "gradient_normalization", None)
-    if isinstance(gn, str) and gn.lower().replace("_", "") \
-            not in _KNOWN_GRAD_NORM:
-        raise ValueError(f"unknown gradient_normalization {gn!r}")
+    validate_global(mlc.conf)
     if mlc.backprop_type == "tbptt":
         if mlc.tbptt_fwd_length is not None and mlc.tbptt_fwd_length <= 0:
             raise ValueError("tbptt_fwd_length must be positive under "
@@ -61,3 +67,14 @@ def validate_multi_layer_configuration(mlc) -> None:
         if mlc.tbptt_back_length is not None and mlc.tbptt_back_length < 0:
             raise ValueError("tbptt_back_length must be >= 0 (0 = same "
                              "as forward)")
+
+
+def validate_computation_graph_configuration(cgc) -> None:
+    """The list checks for every layer vertex, and the global ones."""
+    shapes_known = cgc.input_types is not None
+    for name, v in cgc.vertices.items():
+        layer = getattr(v, "layer", None)
+        if layer is not None:
+            validate_layer(layer, name=f"vertex {name!r}",
+                           require_shapes=shapes_known)
+    validate_global(cgc.conf)

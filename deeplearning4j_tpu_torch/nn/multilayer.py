@@ -37,7 +37,10 @@ start and end (``optimize.listeners``), and routes the line-search
 ``line_gradient_descent``) to ``optimize.solvers.Solver`` in place of the
 updater.  ``do_evaluation``/``evaluate``/``evaluate_roc``/
 ``evaluate_roc_multi_class``/``evaluate_regression``/``f1_score`` feed the
-``eval`` metrics; ``clone`` copies the whole training state.
+``eval`` metrics; ``clone`` copies the whole training state.  That
+machinery lives in ``_Network``, which ``computation_graph.
+ComputationGraph`` shares: the two containers differ only in how they
+name, order and compose their layers.
 
 Not ported yet: the fused multi-step scans and the device-cached and
 windowed ingest (``fit(ingest="cache"|"window")``, ROADMAP A7; ``"auto"``
@@ -55,7 +58,7 @@ import numpy as np
 import torch
 
 from .. import monitor as _monitor
-from ..datasets.dataset import DataSet
+from ..datasets.dataset import DataSet, MultiDataSet
 from ..device import DeviceLike, resolve_device
 from ..eval.evaluation import Evaluation
 from ..eval.regression import RegressionEvaluation
@@ -70,17 +73,21 @@ from .layers.recurrent import BaseRecurrentLayer
 Tensor = torch.Tensor
 
 
-class MultiLayerNetwork:
-    """Sequential model: list of layer configs -> train/inference."""
+class _Network:
+    """What the two containers share (``MultiLayerNetwork`` and
+    ``computation_graph.ComputationGraph``): init, the autograd step and
+    the updater, the fit loop with its listeners and epoch hooks, the
+    solver route, the flat parameter and updater-state vectors, carry
+    support and ``clone``.
 
-    def __init__(self, conf: MultiLayerConfiguration,
-                 device: DeviceLike = None):
+    A container names its layers by a *key* (the layer index, or the
+    vertex name) and lists them in flat-parameter order in ``_slots()``;
+    ``params``, ``net_state`` and ``updater_state`` hold one tree per
+    key, in ``_trees`` form (a list, or a dict keyed by name)."""
+
+    def __init__(self, conf, device: DeviceLike = None):
         self.conf = conf
-        self.layers = conf.layers
         self.device = resolve_device(device)
-        self.params: List[Dict[str, Tensor]] = []
-        self.net_state: List[Dict[str, Tensor]] = []
-        self.updater_state: List[Dict[str, Any]] = []
         self.iteration = 0
         self.epoch = 0
         self.listeners: List[Any] = []
@@ -90,6 +97,23 @@ class MultiLayerNetwork:
         self._policy: Optional[_precision.PrecisionPolicy] = None
         self._rnn_carries = None
         self._rnn_carry_batch = -1
+
+    # ---- the container's layout ------------------------------------------
+    def _slots(self):
+        """``(key, layer)`` of every layer, in flat-parameter order."""
+        raise NotImplementedError
+
+    def _trees(self, pairs):
+        """The container of per-layer trees built from ``(key, tree)``
+        pairs in ``_slots()`` order."""
+        raise NotImplementedError
+
+    def _items(self, trees):
+        """``(key, tree)`` pairs of a container of per-layer trees."""
+        raise NotImplementedError
+
+    def _layer_at(self, key):
+        raise NotImplementedError
 
     def _pol(self) -> _precision.PrecisionPolicy:
         if self._policy is None:
@@ -112,28 +136,432 @@ class MultiLayerNetwork:
         return _solvers.Solver(self, algo)
 
     # ------------------------------------------------------------------ init
-    def init(self) -> "MultiLayerNetwork":
+    def init(self):
         """Initialize params, layer state and updater state from the conf
-        seed (CPU draws, then moved to the device)."""
+        seed (CPU draws in ``_slots()`` order, then moved to the device)."""
         if self._init_done:
             return self
         pol = self._pol()
         seed = int(self.conf.conf.seed)
         gen = torch.Generator().manual_seed(seed)
-        self.params = [layer.init_params(gen, pol.param_dtype, self.device)
-                       for layer in self.layers]
-        self.net_state = [layer.init_state(pol.param_dtype, self.device)
-                          for layer in self.layers]
-        self.updater_state = [
-            _updaters.init_state(self._updater_conf(i), self.params[i],
-                                 policy=pol)
-            for i in range(len(self.layers))]
+        slots = self._slots()
+        self.params = self._trees(
+            [(key, layer.init_params(gen, pol.param_dtype, self.device))
+             for key, layer in slots])
+        self.net_state = self._trees(
+            [(key, layer.init_state(pol.param_dtype, self.device))
+             for key, layer in slots])
+        self.updater_state = self._trees(
+            [(key, _updaters.init_state(self._updater_conf(key),
+                                        self.params[key], policy=pol))
+             for key, _ in slots])
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self._init_done = True
         return self
 
-    def _updater_conf(self, i: int) -> _updaters.UpdaterConfig:
-        return self.layers[i].updater or self.conf.conf.updater
+    def _updater_conf(self, key) -> _updaters.UpdaterConfig:
+        return self._layer_at(key).updater or self.conf.conf.updater
+
+    def _reg_score(self, params):
+        return sum(_updaters.regularization_score(
+            params[key], layer.l1_by_param(), layer.l2_by_param())
+            for key, layer in self._slots())
+
+    def _tensor(self, a, dtype: Optional[torch.dtype] = None
+                ) -> Optional[Tensor]:
+        if a is None:
+            return None
+        t = torch.as_tensor(a, device=self.device)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t
+
+    def _label_dtype(self) -> torch.dtype:
+        """Labels in f32, or in f64 for a network that computes in f64."""
+        return (torch.float64 if self._pol().compute_dtype == torch.float64
+                else torch.float32)
+
+    # ------------------------------------------------------------- training
+    def _update(self, loss_fn):
+        """One autograd step: ``loss_fn(params) -> (loss, new_state,
+        new_carries)`` on fresh leaves of the params, then the updater.
+        Returns the new carries."""
+        leaves = self._trees(
+            [(key, {k: p.detach().requires_grad_(p.is_floating_point())
+                    for k, p in tree.items()})
+             for key, tree in self._items(self.params)])
+        data_loss, new_state, new_carries = loss_fn(leaves)
+        flat = [p for _, tree in self._items(leaves) for p in tree.values()]
+        grads = torch.autograd.grad(data_loss, flat, allow_unused=True)
+        with torch.no_grad():
+            score = data_loss.detach() + self._reg_score(self.params)
+            self._apply_updates(flat, grads)
+        self.net_state = self._stored_state(new_state)
+        self._score = score
+        self.iteration += 1
+        self._fire_listeners()
+        return new_carries
+
+    def _stored_state(self, new_state):
+        """The layer state a step returned, detached, as the network keeps
+        it."""
+        return self._trees([(key, {k: v.detach() for k, v in s.items()})
+                            for key, s in self._items(new_state)])
+
+    def _apply_updates(self, flat_leaves, flat_grads) -> None:
+        grads_iter = iter(flat_grads)
+        leaves_iter = iter(flat_leaves)
+        for key, layer in self._slots():
+            g = {}
+            for name in self.params[key]:
+                grad, leaf = next(grads_iter), next(leaves_iter)
+                g[name] = torch.zeros_like(leaf) if grad is None else grad
+            if not g:
+                continue
+            self.params[key], self.updater_state[key] = \
+                _updaters.apply_layer_updates(
+                    self._updater_conf(key), layer, self.params[key],
+                    self.updater_state[key], g, self.iteration)
+
+    def _fit_batch(self, ds) -> None:
+        """One forward, one backward and one update per iteration (per
+        window under tBPTT), or one solver iteration."""
+        batch = self._batch(ds)
+        self.last_batch_size = ds.num_examples()
+        solver = self._solver
+        for _ in range(self.conf.conf.num_iterations):
+            if solver is not None:
+                self._score = solver.optimize(*batch)
+                self.iteration += 1
+                self._fire_listeners()
+                continue
+            if self.conf.backprop_type == "tbptt":
+                self._fit_tbptt(*batch)
+            else:
+                self._update(lambda p: self._loss_fn(
+                    p, self.net_state, *batch, self._rng, True))
+
+    def _fire_listeners(self) -> None:
+        for listener in self.listeners:
+            listener.iteration_done(self, self.iteration)
+
+    def _batches(self, data, labels):
+        """``fit``'s data as a list of batches or an iterator."""
+        raise NotImplementedError
+
+    def fit(self, data, labels=None, epochs: int = 1, ingest: str = "auto",
+            window: int = 16, checkpoint=None, resume_from=None):
+        """Train on a batch, a features array with ``labels``, or an
+        iterator of batches (reset at each epoch): one update per batch,
+        listeners fired after each.
+
+        ``ingest`` takes the JAX package's values.  ``"batch"`` is the
+        per-batch path; ``"auto"`` takes it too until the fused ingest
+        is ported (the JAX package's ``"auto"`` trains a cacheable
+        iterator from a device-resident copy in an on-device permutation,
+        so its batch order is not the iterator's).  ``"cache"`` and
+        ``"window"``, ``checkpoint`` and ``resume_from`` wait for ROADMAP
+        A7 and raise ``NotImplementedError``.  The ``window`` keyword
+        sizes ``"window"`` only, so the other modes ignore it."""
+        if ingest not in ("auto", "cache", "window", "batch"):
+            raise ValueError(
+                f"unknown ingest mode {ingest!r}; expected 'auto', "
+                "'cache', 'window', or 'batch'")
+        if ingest in ("cache", "window"):
+            raise NotImplementedError(
+                f"fit(ingest={ingest!r}) is not ported yet (ROADMAP A7)")
+        if checkpoint is not None or resume_from is not None:
+            raise NotImplementedError(
+                "fit(checkpoint=, resume_from=) is not ported yet "
+                "(ROADMAP A7)")
+        self.init()
+        if not self.conf.backprop:
+            return self
+        batches = self._batches(data, labels)
+        try:
+            for _ in range(epochs):
+                for listener in self.listeners:
+                    if hasattr(listener, "on_epoch_start"):
+                        listener.on_epoch_start(self)
+                if hasattr(batches, "reset"):
+                    batches.reset()
+                for ds in batches:
+                    self._fit_batch(ds)
+                for listener in self.listeners:
+                    if hasattr(listener, "on_epoch_end"):
+                        listener.on_epoch_end(self)
+                self.epoch += 1
+        finally:
+            finalize_listeners(self.listeners)
+        return self
+
+    # --------------------------------------------------------------- carries
+    def _require_carry_support(self, what: str) -> None:
+        """A layer whose pass needs the whole sequence cannot carry state
+        across chunks of it."""
+        for key, layer in self._slots():
+            if (isinstance(layer, BaseRecurrentLayer)
+                    and not layer.SUPPORTS_CARRY):
+                raise ValueError(
+                    f"{self._describe(key)} ({type(layer).__name__}) does "
+                    f"not support {what}: its backward pass needs the full "
+                    "sequence")
+
+    def _describe(self, key) -> str:
+        raise NotImplementedError
+
+    def has_kv_ring(self) -> bool:
+        """Whether any layer carries a KV-cache ring (the decode state)."""
+        return any(getattr(layer, "HAS_KV_RING", False)
+                   for _, layer in self._slots())
+
+    def max_cache_len(self) -> int:
+        """Largest KV-ring capacity across layers (0 without rings): the
+        top of the serving cache-len ladder."""
+        return max((int(layer.cache_len) for _, layer in self._slots()
+                    if getattr(layer, "HAS_KV_RING", False)), default=0)
+
+    def _carry_of(self, layer, batch: int, cache_len: Optional[int]):
+        """Zero carry of one recurrent layer in the compute dtype;
+        ``cache_len`` overrides a KV ring's capacity."""
+        dtype = self._pol().compute_dtype
+        if cache_len is not None and getattr(layer, "HAS_KV_RING", False):
+            return layer.init_carry(batch, dtype, self.device,
+                                    cache_len=cache_len)
+        return layer.init_carry(batch, dtype, self.device)
+
+    def rnn_clear_previous_state(self) -> None:
+        """Reference ``rnnClearPreviousState()``."""
+        self._rnn_carries = None
+        self._rnn_carry_batch = -1
+
+    def _check_carry_batch(self, batch: int) -> None:
+        """Start the stored state at ``batch`` rows, or check it holds
+        that many."""
+        if self._rnn_carries is None:
+            self._rnn_carries = self._init_carries(batch)
+            self._rnn_carry_batch = batch
+        elif self._rnn_carry_batch != batch:
+            raise ValueError(
+                f"rnn_time_step batch size {batch} != stored state "
+                f"batch size {self._rnn_carry_batch}; call "
+                "rnn_clear_previous_state() between unrelated sequences")
+
+    # ----------------------------------------------------------- evaluation
+    def evaluate(self, iterator):
+        """Classification evaluation over an iterator (reference
+        ``evaluate``)."""
+        return self.do_evaluation(iterator, Evaluation())[0]
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 30):
+        """Binary ROC over an iterator (reference ``evaluateROC``)."""
+        return self.do_evaluation(iterator, ROC(threshold_steps))[0]
+
+    def evaluate_roc_multi_class(self, iterator,
+                                 threshold_steps: int = 30):
+        """One-vs-all ROC (reference ``evaluateROCMultiClass``)."""
+        return self.do_evaluation(iterator,
+                                  ROCMultiClass(threshold_steps))[0]
+
+    def evaluate_regression(self, iterator):
+        """Per-column regression statistics (reference
+        ``evaluateRegression``)."""
+        return self.do_evaluation(iterator, RegressionEvaluation())[0]
+
+    def _eval_batches(self, iterator):
+        if isinstance(iterator, (DataSet, MultiDataSet)):
+            iterator = [iterator]
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        return iterator
+
+    def _feed_evaluators(self, evaluators, fast: bool, labels, mask,
+                         guess=None, out=None) -> None:
+        """One batch into every evaluator: top-1 class indices (``fast``)
+        or the host output."""
+        if fast:
+            actual = labels.argmax(-1)
+            if labels.ndim == 3:
+                actual, guess = actual.reshape(-1), guess.reshape(-1)
+                if mask is not None:
+                    keep = mask.reshape(-1) > 0
+                    actual, guess = actual[keep], guess[keep]
+            for ev in evaluators:
+                ev.eval_class_indices(actual, guess, labels.shape[-1])
+            return
+        for ev in evaluators:
+            if out.ndim == 3:
+                ev.eval_time_series(labels, out, mask)
+            else:
+                ev.eval(labels, out)
+
+    @staticmethod
+    def _fast_eval(evaluators) -> bool:
+        return bool(evaluators) and all(
+            type(ev) is Evaluation and ev.top_n == 1 for ev in evaluators)
+
+    @staticmethod
+    def _publish_eval_bytes(bytes_moved: int, fast: bool) -> None:
+        _monitor.gauge(
+            "eval_bytes_transferred",
+            "device->host bytes moved by the most recent do_evaluation",
+        ).set(bytes_moved, path="indices" if fast else "logits")
+
+    # ------------------------------------------------ flat-param invariant
+    def _ordered(self):
+        for key, layer in self._slots():
+            for name in layer.param_order():
+                yield key, name
+
+    def param_table(self) -> Dict[str, np.ndarray]:
+        """Named params ``{"0_Wq": ..., "1_b": ...}`` (a graph names them
+        by vertex: ``{"dense_W": ...}``) as float32 numpy."""
+        self.init()
+        return {f"{key}_{name}": self.params[key][name].detach().float()
+                .cpu().numpy() for key, name in self._ordered()}
+
+    def num_params(self) -> int:
+        self.init()
+        return sum(p.numel() for _, tree in self._items(self.params)
+                   for p in tree.values())
+
+    def get_flat_params(self) -> np.ndarray:
+        """All params as one vector, in layer/param order (the JAX
+        package's ``get_flat_params`` order): float64 for a float64
+        network, else float32."""
+        self.init()
+        dtype = (torch.float64 if self._pol().param_dtype == torch.float64
+                 else torch.float32)
+        chunks = [self.params[key][name].detach().reshape(-1).to(dtype)
+                  .cpu() for key, name in self._ordered()]
+        if not chunks:
+            return np.zeros((0,), np.float32)
+        return torch.cat(chunks).numpy()
+
+    def set_flat_params(self, flat) -> None:
+        """Assign every param from one vector in ``get_flat_params`` order
+        (cast to each param's dtype; a float64 vector keeps its precision
+        up to that cast); fp32 masters are re-derived."""
+        self.init()
+        flat = np.asarray(flat)
+        flat = torch.as_tensor(flat if flat.dtype == np.float64
+                               else flat.astype(np.float32))
+        offset = 0
+        for key, name in self._ordered():
+            p = self.params[key][name]
+            size = p.numel()
+            if offset + size > flat.numel():
+                raise ValueError(f"Flat param size mismatch: vector of "
+                                 f"{flat.numel()} is too short")
+            self.params[key][name] = flat[offset:offset + size].reshape(
+                p.shape).to(device=self.device, dtype=p.dtype)
+            offset += size
+        if offset != flat.numel():
+            raise ValueError(f"Flat param size mismatch: expected {offset}, "
+                             f"got {flat.numel()}")
+        self._sync_masters_from_params()
+
+    def _sync_masters_from_params(self) -> None:
+        """Re-derive the fp32 masters from freshly assigned params, so that
+        params == cast(masters) holds after a direct write."""
+        for key, state in self._items(self.updater_state):
+            masters = state.get(_updaters.MASTER_KEY)
+            if masters is not None:
+                state[_updaters.MASTER_KEY] = {
+                    k: self.params[key][k].float().clone() for k in masters}
+
+    def get_flat_updater_state(self) -> np.ndarray:
+        """The updater state as one float32 vector, leaves in the order of
+        the JAX package's ``jax.tree_util.tree_leaves`` (dict keys sorted
+        at every level, so ``_master`` comes before ``m`` and ``v``, and
+        ``W`` before ``b``): the ``updaterState.bin`` payload."""
+        self.init()
+        leaves = [leaf.detach().reshape(-1).float().cpu()
+                  for _, tree in self._items(self.updater_state)
+                  for leaf in _sorted_leaves(tree)]
+        if not leaves:
+            return np.zeros((0,), np.float32)
+        return torch.cat(leaves).numpy()
+
+    def set_flat_updater_state(self, flat) -> None:
+        """Inverse of :meth:`get_flat_updater_state`.  A vector without the
+        fp32 masters (one written under a policy without them) also
+        loads into a network that keeps masters: the masters then stay
+        as ``set_flat_params`` derived them."""
+        self.init()
+        flat = torch.as_tensor(np.asarray(flat, dtype=np.float32))
+        with_masters = sum(leaf.numel()
+                           for _, tree in self._items(self.updater_state)
+                           for leaf in _sorted_leaves(tree))
+        skip = () if flat.numel() == with_masters else \
+            (_updaters.MASTER_KEY,)
+        offset = 0
+
+        def take(leaf):
+            nonlocal offset
+            size = leaf.numel()
+            if offset + size > flat.numel():
+                raise ValueError(f"updater state of {flat.numel()} values "
+                                 "is too short for the network")
+            out = flat[offset:offset + size].reshape(leaf.shape).to(
+                device=leaf.device, dtype=leaf.dtype)
+            offset += size
+            return out
+
+        self.updater_state = self._trees(
+            [(key, _map_sorted_leaves(tree, take, skip))
+             for key, tree in self._items(self.updater_state)])
+        if offset != flat.numel():
+            raise ValueError(f"updater state size mismatch: the network "
+                             f"holds {with_masters} values, the vector "
+                             f"{flat.numel()}")
+
+    # -------------------------------------------------------------- misc API
+    def set_listeners(self, *listeners) -> None:
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    def clone(self):
+        """A copy on the same device (reference ``clone()``): the
+        configuration, params, layer state, updater state with the fp32
+        masters, and the iteration; listeners are not copied."""
+        self.init()
+        other = type(self)(copy.deepcopy(self.conf), device=self.device)
+        other.init()
+        other.params = _cloned(self.params)
+        other.net_state = _cloned(self.net_state)
+        other.updater_state = _cloned(self.updater_state)
+        other.iteration = self.iteration
+        return other
+
+
+class MultiLayerNetwork(_Network):
+    """Sequential model: list of layer configs -> train/inference."""
+
+    def __init__(self, conf: MultiLayerConfiguration,
+                 device: DeviceLike = None):
+        super().__init__(conf, device)
+        self.layers = conf.layers
+        self.params: List[Dict[str, Tensor]] = []
+        self.net_state: List[Dict[str, Tensor]] = []
+        self.updater_state: List[Dict[str, Any]] = []
+
+    def _slots(self):
+        return list(enumerate(self.layers))
+
+    def _trees(self, pairs):
+        return [tree for _, tree in pairs]
+
+    def _items(self, trees):
+        return list(enumerate(trees))
+
+    def _layer_at(self, key):
+        return self.layers[key]
+
+    def _describe(self, key) -> str:
+        return f"Layer {key}"
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, net_state, x: Tensor, *, train: bool,
@@ -214,70 +642,17 @@ class MultiLayerNetwork:
                                            average=self.conf.conf.mini_batch)
         return loss, new_state, new_carries
 
-    def _reg_score(self, params):
-        return sum(_updaters.regularization_score(
-            params[i], layer.l1_by_param(), layer.l2_by_param())
-            for i, layer in enumerate(self.layers))
-
     # ------------------------------------------------------------- training
-    def _tensor(self, a, dtype: Optional[torch.dtype] = None
-                ) -> Optional[Tensor]:
-        if a is None:
-            return None
-        t = torch.as_tensor(a, device=self.device)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t
-
     def _batch(self, ds: DataSet):
-        # labels in f32, or in f64 for a network that computes in f64
-        ldt = (torch.float64 if self._pol().compute_dtype == torch.float64
-               else torch.float32)
-        return (self._tensor(ds.features), self._tensor(ds.labels, ldt),
+        return (self._tensor(ds.features),
+                self._tensor(ds.labels, self._label_dtype()),
                 self._tensor(ds.features_mask, torch.float32),
                 self._tensor(ds.labels_mask, torch.float32))
 
-    def _fit_batch(self, ds: DataSet) -> None:
-        """One forward, one backward and one update per iteration (per
-        window under tBPTT), or one solver iteration."""
-        features, labels, fmask, lmask = self._batch(ds)
-        self.last_batch_size = ds.num_examples()
-        solver = self._solver
-        for _ in range(self.conf.conf.num_iterations):
-            if solver is not None:
-                self._score = solver.optimize(features, labels, fmask, lmask)
-                self.iteration += 1
-                self._fire_listeners()
-                continue
-            if self.conf.backprop_type == "tbptt":
-                self._fit_tbptt(features, labels, fmask, lmask)
-            else:
-                self._update(lambda p: self._loss_fn(
-                    p, self.net_state, features, labels, fmask, lmask,
-                    self._rng, True))
-
-    def _update(self, loss_fn):
-        """One autograd step: ``loss_fn(params) -> (loss, new_state,
-        new_carries)`` on fresh leaves of the params, then the updater.
-        Returns the new carries."""
-        leaves = [{k: p.detach().requires_grad_(p.is_floating_point())
-                   for k, p in tree.items()} for tree in self.params]
-        data_loss, new_state, new_carries = loss_fn(leaves)
-        flat = [p for tree in leaves for p in tree.values()]
-        grads = torch.autograd.grad(data_loss, flat, allow_unused=True)
-        with torch.no_grad():
-            score = data_loss.detach() + self._reg_score(self.params)
-            self._apply_updates(flat, grads)
-        self.net_state = [{k: v.detach() for k, v in s.items()}
-                          for s in new_state]
-        self._score = score
-        self.iteration += 1
-        self._fire_listeners()
-        return new_carries
-
-    def _fire_listeners(self) -> None:
-        for listener in self.listeners:
-            listener.iteration_done(self, self.iteration)
+    def _batches(self, data, labels):
+        if labels is not None:
+            data = DataSet(data, labels)
+        return [data] if isinstance(data, DataSet) else data
 
     # ---------------------------------------------------------------- tBPTT
     @staticmethod
@@ -361,70 +736,6 @@ class MultiLayerNetwork:
             carries = self._update(lambda p: loss(
                 p, self.net_state, f, l, fm, lm, self._rng))
 
-    def _apply_updates(self, flat_leaves, flat_grads) -> None:
-        grads_iter = iter(flat_grads)
-        leaves_iter = iter(flat_leaves)
-        for i, layer in enumerate(self.layers):
-            g = {}
-            for name in self.params[i]:
-                grad, leaf = next(grads_iter), next(leaves_iter)
-                g[name] = torch.zeros_like(leaf) if grad is None else grad
-            if not g:
-                continue
-            self.params[i], self.updater_state[i] = \
-                _updaters.apply_layer_updates(
-                    self._updater_conf(i), layer, self.params[i],
-                    self.updater_state[i], g, self.iteration)
-
-    def fit(self, data, labels=None, epochs: int = 1, ingest: str = "auto",
-            window: int = 16, checkpoint=None,
-            resume_from=None) -> "MultiLayerNetwork":
-        """Train on a :class:`DataSet`, a features array with ``labels``,
-        or an iterator of DataSets (reset at each epoch): one update per
-        batch, listeners fired after each.
-
-        ``ingest`` takes the JAX package's values.  ``"batch"`` is the
-        per-batch path; ``"auto"`` takes it too until the fused ingest
-        is ported (the JAX package's ``"auto"`` trains a cacheable
-        iterator from a device-resident copy in an on-device permutation,
-        so its batch order is not the iterator's).  ``"cache"`` and
-        ``"window"``, ``checkpoint`` and ``resume_from`` wait for ROADMAP
-        A7 and raise ``NotImplementedError``.  The ``window`` keyword
-        sizes ``"window"`` only, so the other modes ignore it."""
-        if ingest not in ("auto", "cache", "window", "batch"):
-            raise ValueError(
-                f"unknown ingest mode {ingest!r}; expected 'auto', "
-                "'cache', 'window', or 'batch'")
-        if ingest in ("cache", "window"):
-            raise NotImplementedError(
-                f"fit(ingest={ingest!r}) is not ported yet (ROADMAP A7)")
-        if checkpoint is not None or resume_from is not None:
-            raise NotImplementedError(
-                "fit(checkpoint=, resume_from=) is not ported yet "
-                "(ROADMAP A7)")
-        self.init()
-        if not self.conf.backprop:
-            return self
-        if labels is not None:
-            data = DataSet(data, labels)
-        batches = [data] if isinstance(data, DataSet) else data
-        try:
-            for _ in range(epochs):
-                for listener in self.listeners:
-                    if hasattr(listener, "on_epoch_start"):
-                        listener.on_epoch_start(self)
-                if hasattr(batches, "reset"):
-                    batches.reset()
-                for ds in batches:
-                    self._fit_batch(ds)
-                for listener in self.listeners:
-                    if hasattr(listener, "on_epoch_end"):
-                        listener.on_epoch_end(self)
-                self.epoch += 1
-        finally:
-            finalize_listeners(self.listeners)
-        return self
-
     # ------------------------------------------------------------ inference
     def output(self, features, train: bool = False,
                features_mask=None) -> Tensor:
@@ -482,43 +793,13 @@ class MultiLayerNetwork:
         return run
 
     # --------------------------------------------- rnn streaming state API
-    def _require_carry_support(self, what: str) -> None:
-        """A layer whose pass needs the whole sequence cannot carry state
-        across chunks of it."""
-        for i, layer in enumerate(self.layers):
-            if (isinstance(layer, BaseRecurrentLayer)
-                    and not layer.SUPPORTS_CARRY):
-                raise ValueError(
-                    f"Layer {i} ({type(layer).__name__}) does not support "
-                    f"{what}: its backward pass needs the full sequence")
-
     def _init_carries(self, batch: int, cache_len: Optional[int] = None):
         """Zero carries, one entry per layer (``()`` if stateless), in the
         compute dtype on the network's device.  ``cache_len`` overrides
         the KV-ring capacities (the serving cache-len ladder)."""
-        dtype = self._pol().compute_dtype
-        out = []
-        for layer in self.layers:
-            if not isinstance(layer, BaseRecurrentLayer):
-                out.append(())
-            elif cache_len is not None and getattr(layer, "HAS_KV_RING",
-                                                   False):
-                out.append(layer.init_carry(batch, dtype, self.device,
-                                            cache_len=cache_len))
-            else:
-                out.append(layer.init_carry(batch, dtype, self.device))
-        return out
-
-    def has_kv_ring(self) -> bool:
-        """Whether any layer carries a KV-cache ring (the decode state)."""
-        return any(getattr(layer, "HAS_KV_RING", False)
-                   for layer in self.layers)
-
-    def max_cache_len(self) -> int:
-        """Largest KV-ring capacity across layers (0 without rings): the
-        top of the serving cache-len ladder."""
-        return max((int(layer.cache_len) for layer in self.layers
-                    if getattr(layer, "HAS_KV_RING", False)), default=0)
+        return [self._carry_of(layer, batch, cache_len)
+                if isinstance(layer, BaseRecurrentLayer) else ()
+                for layer in self.layers]
 
     def _carried_step(self, params, net_state, carries, x):
         with torch.inference_mode():
@@ -539,14 +820,7 @@ class MultiLayerNetwork:
         squeeze = x.dim() == 2
         if squeeze:
             x = x[:, None, :]
-        if self._rnn_carries is None:
-            self._rnn_carries = self._init_carries(x.shape[0])
-            self._rnn_carry_batch = x.shape[0]
-        elif self._rnn_carry_batch != x.shape[0]:
-            raise ValueError(
-                f"rnn_time_step batch size {x.shape[0]} != stored state "
-                f"batch size {self._rnn_carry_batch}; call "
-                "rnn_clear_previous_state() between unrelated sequences")
+        self._check_carry_batch(x.shape[0])
         out, self._rnn_carries = self._carried_step(
             self.params, self.net_state, self._rnn_carries, x)
         return out[:, -1] if squeeze else out
@@ -599,11 +873,6 @@ class MultiLayerNetwork:
                     if getattr(layer, "HAS_KV_RING", False) else carries[i]
                     for i, layer in enumerate(self.layers)]
 
-    def rnn_clear_previous_state(self) -> None:
-        """Reference ``rnnClearPreviousState()``."""
-        self._rnn_carries = None
-        self._rnn_carry_batch = -1
-
     def rnn_get_previous_state(self, layer: int):
         """Carry of one layer (reference ``rnnGetPreviousState``)."""
         return (None if self._rnn_carries is None
@@ -653,14 +922,9 @@ class MultiLayerNetwork:
         The ``eval_bytes_transferred`` gauge holds the bytes the last call
         moved from the device."""
         self.init()
-        if isinstance(iterator, DataSet):
-            iterator = [iterator]
-        if hasattr(iterator, "reset"):
-            iterator.reset()
-        fast = bool(evaluators) and all(
-            type(ev) is Evaluation and ev.top_n == 1 for ev in evaluators)
+        fast = self._fast_eval(evaluators)
         bytes_moved = 0
-        for ds in iterator:
+        for ds in self._eval_batches(iterator):
             labels = _host(ds.labels)
             mask = (ds.labels_mask if ds.labels_mask is not None
                     else ds.features_mask)
@@ -673,177 +937,19 @@ class MultiLayerNetwork:
                         mask=self._tensor(ds.features_mask, torch.float32))
                     guess = out.argmax(-1).to(torch.int32).cpu().numpy()
                 bytes_moved += guess.nbytes
-                actual = labels.argmax(-1)
-                if labels.ndim == 3:
-                    actual, guess = actual.reshape(-1), guess.reshape(-1)
-                    if mask is not None:
-                        keep = mask.reshape(-1) > 0
-                        actual, guess = actual[keep], guess[keep]
-                for ev in evaluators:
-                    ev.eval_class_indices(actual, guess, labels.shape[-1])
+                self._feed_evaluators(evaluators, True, labels, mask,
+                                      guess=guess)
                 continue
             out = self.output(ds.features, features_mask=ds.features_mask)
             bytes_moved += out.numel() * out.element_size()
-            out = out.cpu().numpy()
-            for ev in evaluators:
-                if out.ndim == 3:
-                    ev.eval_time_series(labels, out, mask)
-                else:
-                    ev.eval(labels, out)
-        _monitor.gauge(
-            "eval_bytes_transferred",
-            "device->host bytes moved by the most recent do_evaluation",
-        ).set(bytes_moved, path="indices" if fast else "logits")
+            self._feed_evaluators(evaluators, False, labels, mask,
+                                  out=out.cpu().numpy())
+        self._publish_eval_bytes(bytes_moved, fast)
         return evaluators
-
-    def evaluate(self, iterator):
-        """Classification evaluation over an iterator (reference
-        ``evaluate``)."""
-        return self.do_evaluation(iterator, Evaluation())[0]
-
-    def evaluate_roc(self, iterator, threshold_steps: int = 30):
-        """Binary ROC over an iterator (reference ``evaluateROC``)."""
-        return self.do_evaluation(iterator, ROC(threshold_steps))[0]
-
-    def evaluate_roc_multi_class(self, iterator,
-                                 threshold_steps: int = 30):
-        """One-vs-all ROC (reference ``evaluateROCMultiClass``)."""
-        return self.do_evaluation(iterator,
-                                  ROCMultiClass(threshold_steps))[0]
-
-    def evaluate_regression(self, iterator):
-        """Per-column regression statistics (reference
-        ``evaluateRegression``)."""
-        return self.do_evaluation(iterator, RegressionEvaluation())[0]
 
     def f1_score(self, data) -> float:
         """Macro F1 on a DataSet or an iterator (reference ``f1Score``)."""
         return self.evaluate(data).f1()
-
-    # ------------------------------------------------ flat-param invariant
-    def _ordered(self):
-        for i, layer in enumerate(self.layers):
-            for name in layer.param_order():
-                yield i, name
-
-    def param_table(self) -> Dict[str, np.ndarray]:
-        """Named params ``{"0_Wq": ..., "1_b": ...}`` as float32 numpy."""
-        self.init()
-        return {f"{i}_{name}": self.params[i][name].detach().float().cpu()
-                .numpy() for i, name in self._ordered()}
-
-    def num_params(self) -> int:
-        self.init()
-        return sum(p.numel() for tree in self.params for p in tree.values())
-
-    def get_flat_params(self) -> np.ndarray:
-        """All params as one vector, in layer/param order (the JAX
-        package's ``get_flat_params`` order): float64 for a float64
-        network, else float32."""
-        self.init()
-        dtype = (torch.float64 if self._pol().param_dtype == torch.float64
-                 else torch.float32)
-        chunks = [self.params[i][name].detach().reshape(-1).to(dtype).cpu()
-                  for i, name in self._ordered()]
-        if not chunks:
-            return np.zeros((0,), np.float32)
-        return torch.cat(chunks).numpy()
-
-    def set_flat_params(self, flat) -> None:
-        """Assign every param from one vector in ``get_flat_params`` order
-        (cast to each param's dtype; a float64 vector keeps its precision
-        up to that cast); fp32 masters are re-derived."""
-        self.init()
-        flat = np.asarray(flat)
-        flat = torch.as_tensor(flat if flat.dtype == np.float64
-                               else flat.astype(np.float32))
-        offset = 0
-        for i, name in self._ordered():
-            p = self.params[i][name]
-            size = p.numel()
-            if offset + size > flat.numel():
-                raise ValueError(f"Flat param size mismatch: vector of "
-                                 f"{flat.numel()} is too short")
-            self.params[i][name] = flat[offset:offset + size].reshape(
-                p.shape).to(device=self.device, dtype=p.dtype)
-            offset += size
-        if offset != flat.numel():
-            raise ValueError(f"Flat param size mismatch: expected {offset}, "
-                             f"got {flat.numel()}")
-        self._sync_masters_from_params()
-
-    def _sync_masters_from_params(self) -> None:
-        """Re-derive the fp32 masters from freshly assigned params, so that
-        params == cast(masters) holds after a direct write."""
-        for i, state in enumerate(self.updater_state):
-            masters = state.get(_updaters.MASTER_KEY)
-            if masters is not None:
-                state[_updaters.MASTER_KEY] = {
-                    k: self.params[i][k].float().clone() for k in masters}
-
-    def get_flat_updater_state(self) -> np.ndarray:
-        """The updater state as one float32 vector, leaves in the order of
-        the JAX package's ``jax.tree_util.tree_leaves`` (dict keys sorted
-        at every level, so ``_master`` comes before ``m`` and ``v``, and
-        ``W`` before ``b``): the ``updaterState.bin`` payload."""
-        self.init()
-        leaves = [leaf.detach().reshape(-1).float().cpu()
-                  for tree in self.updater_state
-                  for leaf in _sorted_leaves(tree)]
-        if not leaves:
-            return np.zeros((0,), np.float32)
-        return torch.cat(leaves).numpy()
-
-    def set_flat_updater_state(self, flat) -> None:
-        """Inverse of :meth:`get_flat_updater_state`.  A vector without the
-        fp32 masters (one written under a policy without them) also
-        loads into a network that keeps masters: the masters then stay
-        as ``set_flat_params`` derived them."""
-        self.init()
-        flat = torch.as_tensor(np.asarray(flat, dtype=np.float32))
-        with_masters = sum(leaf.numel() for tree in self.updater_state
-                           for leaf in _sorted_leaves(tree))
-        skip = () if flat.numel() == with_masters else \
-            (_updaters.MASTER_KEY,)
-        offset = 0
-
-        def take(leaf):
-            nonlocal offset
-            size = leaf.numel()
-            if offset + size > flat.numel():
-                raise ValueError(f"updater state of {flat.numel()} values "
-                                 "is too short for the network")
-            out = flat[offset:offset + size].reshape(leaf.shape).to(
-                device=leaf.device, dtype=leaf.dtype)
-            offset += size
-            return out
-
-        self.updater_state = [_map_sorted_leaves(tree, take, skip)
-                              for tree in self.updater_state]
-        if offset != flat.numel():
-            raise ValueError(f"updater state size mismatch: the network "
-                             f"holds {with_masters} values, the vector "
-                             f"{flat.numel()}")
-
-    # -------------------------------------------------------------- misc API
-    def set_listeners(self, *listeners) -> None:
-        self.listeners = list(listeners)
-
-    def add_listener(self, listener) -> None:
-        self.listeners.append(listener)
-
-    def clone(self) -> "MultiLayerNetwork":
-        """A copy on the same device (reference ``clone()``): the
-        configuration, params, layer state, updater state with the fp32
-        masters, and the iteration; listeners are not copied."""
-        self.init()
-        other = MultiLayerNetwork(copy.deepcopy(self.conf),
-                                  device=self.device).init()
-        other.params = _cloned(self.params)
-        other.net_state = _cloned(self.net_state)
-        other.updater_state = _cloned(self.updater_state)
-        other.iteration = self.iteration
-        return other
 
 
 def _host(a) -> np.ndarray:
@@ -862,8 +968,10 @@ def _cloned(tree):
 
 
 def _detached(tree):
-    """A carry tree (nested lists and tuples) with every tensor detached;
-    other leaves (a ring cursor) pass through."""
+    """A carry tree (nested lists, tuples and dicts) with every tensor
+    detached; other leaves (a ring cursor) pass through."""
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_detached(t) for t in tree)
     return tree.detach() if isinstance(tree, Tensor) else tree

@@ -9,9 +9,11 @@ Equivalents of the reference's ``optimize/Solver.java`` and
 ``BackTrackLineSearch`` (Armijo, c1 1e-4, halving).
 
 The solver works on the flat parameter vector in the JAX package's
-``ravel_pytree`` order: layer by layer, each layer's params by sorted
-name, in their storage dtype.  The JAX package runs a whole iteration as
-one compiled program with the backtracking in a ``lax.while_loop``; here
+``ravel_pytree`` order: layer by layer (a ComputationGraph's layer
+vertices by sorted name, not in topological order), each layer's params
+by sorted name, in their storage dtype.  The JAX package runs a whole
+iteration as one compiled program with the backtracking in a
+``lax.while_loop``; here
 the backtracking is a Python loop that stops at the first accepted trial,
 with one host read per trial.  Both accept the same step.  The host reads
 of one iteration (``Solver.host_syncs`` counts them): one for the sign of
@@ -183,35 +185,45 @@ class Solver:
         self.iterations = 0
 
     # ------------------------------------------------ flat parameter view
+    def _keys(self, params):
+        """The per-layer trees in ``ravel_pytree`` order: by layer index,
+        or by sorted vertex name for a graph's dict."""
+        return sorted(params) if isinstance(params, dict) else \
+            range(len(params))
+
     def _leaves(self, params):
         from ..nn.multilayer import _sorted_leaves
-        return [list(_sorted_leaves(tree)) for tree in params]
+        return [list(_sorted_leaves(params[key]))
+                for key in self._keys(params)]
 
     def _ravel(self, params) -> Tensor:
         return torch.cat([p.reshape(-1) for leaves in self._leaves(params)
                           for p in leaves])
 
     def _unravel(self, flat: Tensor):
-        """Per-layer dicts of views into ``flat``, shaped as the net's
-        params (autograd flows through them)."""
-        out, offset = [], 0
-        for tree in self.net.params:
-            layer = {}
-            for key in sorted(tree):
-                p = tree[key]
-                layer[key] = flat[offset:offset + p.numel()].view(p.shape)
+        """Per-layer dicts of views into ``flat``, in the container and
+        key order of the net's params (autograd flows through them)."""
+        params = self.net.params
+        out, offset = {}, 0
+        for key in self._keys(params):
+            tree, layer = params[key], {}
+            for name in sorted(tree):
+                p = tree[name]
+                layer[name] = flat[offset:offset + p.numel()].view(p.shape)
                 offset += p.numel()
-            out.append({k: layer[k] for k in tree})
-        return out
+            out[key] = {k: layer[k] for k in tree}
+        return self.net._trees([(key, out[key])
+                                for key, _ in self.net._items(params)])
 
     def _trainable_mask(self, flat: Tensor) -> Tensor:
         """1 for each trainable param, 0 for a param of a frozen layer."""
         net = self.net
         chunks = [torch.full((p.numel(),),
-                             0.0 if getattr(layer, "frozen", False) else 1.0,
+                             0.0 if getattr(net._layer_at(key), "frozen",
+                                            False) else 1.0,
                              dtype=flat.dtype, device=flat.device)
-                  for layer, leaves in zip(net.layers,
-                                           self._leaves(net.params))
+                  for key, leaves in zip(self._keys(net.params),
+                                         self._leaves(net.params))
                   for p in leaves]
         return torch.cat(chunks)
 
@@ -278,14 +290,13 @@ class Solver:
         keep state (batch-norm running statistics); skipped when none
         does."""
         net = self.net
-        if not any(len(s) for s in net.net_state):
+        if not any(len(s) for _, s in net._items(net.net_state)):
             return
         with torch.no_grad():
             _, new_state, _ = net._loss_fn(self._unravel(flat_w),
                                            net.net_state, features, labels,
                                            fmask, lmask, net._rng, True)
-        net.net_state = [{k: v.detach() for k, v in s.items()}
-                         for s in new_state]
+        net.net_state = net._stored_state(new_state)
 
     def optimize(self, features, labels, fmask, lmask,
                  iterations: int = 1) -> float:
@@ -304,8 +315,9 @@ class Solver:
                                        lmask)
             self._refresh_state(flat_w, features, labels, fmask, lmask)
             self.iterations += 1
-        net.params = [{k: v.clone() for k, v in tree.items()}
-                      for tree in self._unravel(flat_w.detach())]
+        net.params = net._trees(
+            [(key, {k: v.clone() for k, v in tree.items()})
+             for key, tree in net._items(self._unravel(flat_w.detach()))])
         net._sync_masters_from_params()
         self.host_syncs += 1
         return float("nan") if score is None else float(score)

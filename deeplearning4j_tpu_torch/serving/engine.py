@@ -35,6 +35,12 @@ Metrics (``monitor`` registry): ``serving_queue_depth``,
 ``serving_request_latency_ms`` (p50/p95/p99/p999 per model),
 ``serving_bucket_compiles_total`` and ``serving_bucket_executables``.
 
+A ``ComputationGraph`` serves as well: a request is a list or tuple with
+one array per network input (rows must agree), the bucket signature is
+one entry per input, and the answer is one array per network output (a
+list when there are several).  Time is unpadded only when exactly one
+input is a sequence.
+
 Not ported yet: SLO admission and tenants, int8 weights, the native
 backend, weight versions (staging, canary, promote, rollback), paging,
 trace spans and incidents.  The engine serves weight version 0, the
@@ -43,6 +49,7 @@ network's weights as first placed on each worker.
 
 from __future__ import annotations
 
+import itertools
 import math
 import queue
 import threading
@@ -75,11 +82,11 @@ class QueueFull(ServingError):
 
 
 class _Request:
-    __slots__ = ("x", "n_rows", "sig", "t_enqueue", "future")
+    __slots__ = ("arrays", "n_rows", "sig", "t_enqueue", "future")
 
-    def __init__(self, x, sig):
-        self.x = x
-        self.n_rows = int(x.shape[0])
+    def __init__(self, arrays, sig):
+        self.arrays = arrays
+        self.n_rows = int(arrays[0].shape[0])
         self.sig = sig
         self.t_enqueue = time.perf_counter()
         self.future: Future = Future()
@@ -102,7 +109,7 @@ def _host_dtype(name: str) -> np.dtype:
 
 class InferenceEngine:
     """Concurrent dynamic-batching front end for a trained
-    ``MultiLayerNetwork``.
+    ``MultiLayerNetwork`` or ``ComputationGraph``.
 
     >>> engine = InferenceEngine(net, max_batch_size=32,
     ...                          max_latency_ms=2.0).start()
@@ -126,8 +133,14 @@ class InferenceEngine:
                  devices=None, name: str = "default",
                  session_ttl_s: float = 300.0,
                  max_sessions: int = 1024):
+        from ..nn.computation_graph import ComputationGraph
         model.init()
         self._model = model
+        self._is_graph = isinstance(model, ComputationGraph)
+        self._n_inputs = (len(model.conf.network_inputs)
+                          if self._is_graph else 1)
+        # the JAX package's compile-counter prefix: "cg." or "mln."
+        self._prefix = "cg" if self._is_graph else "mln"
         self._policy = BucketPolicy(max_batch_size, timestep_buckets)
         self._max_latency_s = float(max_latency_ms) / 1000.0
         self._name = str(name)
@@ -255,8 +268,9 @@ class InferenceEngine:
                 block: bool = True):
         """Blocking inference: enqueue, coalesce, return this request's
         rows as host numpy (thread-safe; the engine batches concurrent
-        callers).  ``block=False`` rejects with ``QueueFull`` instead of
-        waiting for queue space."""
+        callers).  A graph takes one array per network input (a list or
+        tuple) and answers one per network output.  ``block=False``
+        rejects with ``QueueFull`` instead of waiting for queue space."""
         return self.predict_async(features, block=block).result(timeout)
 
     def predict_async(self, features, block: bool = True,
@@ -266,8 +280,8 @@ class InferenceEngine:
         blocking."""
         if not self._running:
             raise ServingError("engine not started (call start())")
-        x = self._canonicalize(features)
-        req = _Request(x, self._signature(x))
+        arrays = self._canonicalize(features)
+        req = _Request(arrays, self._signature(arrays))
         try:
             self._queue.put(req, block=block, timeout=timeout)
         except queue.Full:
@@ -318,49 +332,73 @@ class InferenceEngine:
         return out
 
     # ------------------------------------------------------------- warmup
+    def _example_shapes(self, example_shape):
+        """One example shape per network input: a graph may pass a tuple
+        of shapes."""
+        if self._is_graph and isinstance(example_shape, (list, tuple)) \
+                and example_shape and isinstance(example_shape[0],
+                                                 (list, tuple)):
+            shapes = [tuple(s) for s in example_shape]
+        else:
+            shapes = [tuple(example_shape)]
+        if len(shapes) != self._n_inputs:
+            raise ValueError(f"expected {self._n_inputs} example shapes, "
+                             f"got {len(shapes)}")
+        return shapes
+
     def warmup(self, example_shape) -> int:
         """Make every bucket callable on every worker.  ``example_shape``
         is ONE example's feature shape (no batch axis), e.g. ``(784,)``
-        or ``(T, n_in)``; with timestep bucketing, axis 0 of a sequence
-        shape is replaced by each ladder entry.  Returns the number of
-        callables made."""
-        shp = tuple(example_shape)
-        if self._policy.timestep_buckets and len(shp) >= 2:
-            sigs = [("seq", shp[1:], tb)
-                    for tb in self._policy.timestep_buckets]
-        else:
-            sigs = [("dense", shp, None)]
-        return sum(self._ensure_executable(widx, (sig, bb))
-                   for sig in sigs for bb in self._policy.batch_buckets
+        or ``(T, n_in)``, or a tuple of such shapes for a multi-input
+        graph; with timestep bucketing, axis 0 of a sequence shape is
+        replaced by each ladder entry.  Returns the number of callables
+        made."""
+        per_input = []
+        for shp in self._example_shapes(example_shape):
+            if self._policy.timestep_buckets and len(shp) >= 2:
+                per_input.append([("seq", shp[1:], tb)
+                                  for tb in self._policy.timestep_buckets])
+            else:
+                per_input.append([("dense", shp, None)])
+        return sum(self._ensure_executable(widx, (combo, bb))
+                   for combo in itertools.product(*per_input)
+                   for bb in self._policy.batch_buckets
                    for widx in range(len(self._devices)))
 
     def warmup_decode(self, example_shape, chunk_lens=(1,)) -> int:
         """Run the decode step once at every (batch bucket, chunk,
         cache_len) shape, and the grow to the next cache-len bucket, so
         that no session step meets a shape for the first time.
-        ``example_shape`` is ONE token's feature shape, e.g. ``(n_in,)``;
-        ``chunk_lens`` are the chunk lengths to warm (``(1,)``: pure
-        autoregressive decode).  Returns the number of shapes run for the
-        first time (0 on a second call)."""
+        ``example_shape`` is ONE token's feature shape, e.g. ``(n_in,)``
+        (a tuple of shapes for a multi-input graph); ``chunk_lens`` are
+        the chunk lengths to warm (``(1,)``: pure autoregressive decode).
+        Returns the number of shapes run for the first time (0 on a
+        second call); each is counted in ``serving_decode_warmups_total``
+        under ``fn="cg.decode_step"`` or ``"mln.decode_step"``."""
         model = self._model
         if not model.has_kv_ring():
             raise ServingError(
                 "warmup_decode requires a model with KV-ring "
                 "(causal_attention) layers")
+        shapes = self._example_shapes(example_shape)
         ladder = batch_ladder(model.max_cache_len())
         n = 0
         for bb in self._policy.batch_buckets:
             for t in (int(t) for t in chunk_lens):
-                x = np.zeros((bb, t) + tuple(example_shape), self._dtype)
+                xs = [np.zeros((bb, t) + shp, self._dtype) for shp in shapes]
                 for i, cap in enumerate(ladder):
                     if t > cap or (bb, t, cap) in self._decode_warmed:
                         continue
                     carries = model._init_carries(bb, cache_len=cap)
-                    model.decode_step(carries, x)
+                    model.decode_step(carries, *xs)
                     if i + 1 < len(ladder):
                         model.grow_decode_carries(carries, ladder[i + 1])
                     self._decode_warmed.add((bb, t, cap))
                     n += 1
+        _monitor.counter(
+            "serving_decode_warmups_total",
+            "decode step shapes run for the first time by warmup_decode"
+        ).inc(n, engine=self._name, fn=self._prefix + ".decode_step")
         return n
 
     # ------------------------------------------------------- introspection
@@ -386,26 +424,41 @@ class InferenceEngine:
         return sorted({k for (_, k) in self._compiled})
 
     # ------------------------------------------------------------ internals
-    def _canonicalize(self, features) -> np.ndarray:
-        a = np.asarray(features, dtype=self._dtype)
-        if a.ndim < 2:
-            raise ValueError(
-                f"features must include a batch axis: shape {a.shape}")
-        n = a.shape[0]
+    def _canonicalize(self, features) -> Tuple[np.ndarray, ...]:
+        if self._is_graph and isinstance(features, (list, tuple)):
+            arrays = tuple(np.asarray(f, dtype=self._dtype)
+                           for f in features)
+        else:
+            arrays = (np.asarray(features, dtype=self._dtype),)
+        if len(arrays) != self._n_inputs:
+            raise ValueError(f"model expects {self._n_inputs} inputs, "
+                             f"got {len(arrays)}")
+        for a in arrays:
+            if a.ndim < 2:
+                raise ValueError(
+                    f"features must include a batch axis: shape {a.shape}")
+        rows = {a.shape[0] for a in arrays}
+        if len(rows) != 1:
+            raise ValueError(f"inputs disagree on batch size: {rows}")
+        n = rows.pop()
         if n < 1:
             raise ValueError("empty batch")
         if n > self._policy.max_batch_size:
             raise ValueError(
                 f"request of {n} rows exceeds max_batch_size="
                 f"{self._policy.max_batch_size}; split the request")
-        return a
+        return arrays
 
-    def _signature(self, a: np.ndarray) -> Tuple:
-        if self._policy.timestep_buckets and a.ndim >= 3:
-            # validates length <= largest bucket too
-            tb = self._policy.time_bucket(a.shape[1])
-            return ("seq", tuple(a.shape[2:]), tb)
-        return ("dense", tuple(a.shape[1:]), None)
+    def _signature(self, arrays) -> Tuple:
+        sig = []
+        for a in arrays:
+            if self._policy.timestep_buckets and a.ndim >= 3:
+                # validates length <= largest bucket too
+                tb = self._policy.time_bucket(a.shape[1])
+                sig.append(("seq", tuple(a.shape[2:]), tb))
+            else:
+                sig.append(("dense", tuple(a.shape[1:]), None))
+        return tuple(sig)
 
     def _placed_params(self, widx: int):
         """The worker's own copy of the weights (made on first use): a
@@ -414,12 +467,12 @@ class InferenceEngine:
         with self._placed_lock:
             placed = self._placed.get(widx)
             if placed is None:
-                dev = self._devices[widx]
+                dev, model = self._devices[widx], self._model
                 placed = tuple(
-                    [{k: v.detach().to(dev, copy=True)
-                      for k, v in tree.items()} for tree in trees]
-                    for trees in (self._model.params,
-                                  self._model.net_state))
+                    model._trees([(key, {k: v.detach().to(dev, copy=True)
+                                         for k, v in tree.items()})
+                                  for key, tree in model._items(trees)])
+                    for trees in (model.params, model.net_state))
                 self._placed[widx] = placed
             return placed
 
@@ -431,13 +484,21 @@ class InferenceEngine:
         with self._compile_lock:
             if (widx, key) in self._compiled:
                 return False
-            (kind, trailing, tb), bb = key
+            sig, bb = key
             params, state = self._placed_params(widx)
-            seq = kind == "seq"
-            self._compiled[(widx, key)] = self._model.compile_output(
-                (bb, tb) + trailing if seq else (bb,) + trailing,
-                mask_shape=(bb, tb) if seq else None, params=params,
-                net_state=state)
+            shapes = [(bb, tb) + trailing if kind == "seq"
+                      else (bb,) + trailing for kind, trailing, tb in sig]
+            masks = [(bb, tb) if kind == "seq" else None
+                     for kind, _, tb in sig]
+            if self._is_graph:
+                fn = self._model.compile_output(
+                    shapes, mask_shapes=(masks if any(masks) else None),
+                    params=params, net_state=state)
+            else:
+                fn = self._model.compile_output(
+                    shapes[0], mask_shape=masks[0], params=params,
+                    net_state=state)
+            self._compiled[(widx, key)] = fn
             _monitor.counter(
                 "serving_bucket_compiles_total",
                 "bucket inference callables made").inc(engine=self._name)
@@ -508,18 +569,27 @@ class InferenceEngine:
 
     def _run_batch(self, widx: int, job: _BatchJob):
         bb = self._policy.batch_bucket(job.rows)
-        kind, _trailing, tb = job.sig
-        seq = kind == "seq"
-        x, mask, _, waste = assemble_batch(
-            [r.x for r in job.requests], bb, tb if seq else None,
-            mask_dtype=self._dtype)
+        feats, masks, wastes = [], [], []
+        for i, (kind, _trailing, tb) in enumerate(job.sig):
+            x, m, _, waste = assemble_batch(
+                [r.arrays[i] for r in job.requests], bb,
+                tb if kind == "seq" else None, mask_dtype=self._dtype)
+            feats.append(x)
+            masks.append(m)
+            wastes.append(waste)
         key = (job.sig, bb)
         self._ensure_executable(widx, key)
         t0 = time.perf_counter()
         params, state = self._placed_params(widx)
-        # one copy to the host per batch; requests get numpy slices
-        out = host_array(self._compiled[(widx, key)](params, state, x,
-                                                     mask))
+        fn = self._compiled[(widx, key)]
+        if self._is_graph:
+            outs = fn(params, state, tuple(feats),
+                      tuple(masks) if any(m is not None for m in masks)
+                      else None)
+        else:
+            outs = [fn(params, state, feats[0], masks[0])]
+        # one copy to the host per output per batch; requests get slices
+        outs = [host_array(o) for o in outs]
         now = time.perf_counter()
         _monitor.histogram("serving_batch_ms",
                            "device dispatch wall time per batch").observe(
@@ -534,14 +604,22 @@ class InferenceEngine:
         _monitor.histogram(
             "serving_padding_waste_ratio",
             "padded elements carrying no real data, per batch, per model"
-        ).observe(waste, model=self._name)
+        ).observe(float(np.mean(wastes)), model=self._name)
+        # time-unpad is only unambiguous with a single sequence input
+        # (seq-to-seq outputs carry its time axis at the bucket length)
+        seq_inputs = [i for i, (kind, _, _) in enumerate(job.sig)
+                      if kind == "seq"]
+        seq_i = seq_inputs[0] if len(seq_inputs) == 1 else None
+        tb = job.sig[seq_i][2] if seq_i is not None else None
         off = 0
         for r in job.requests:
-            rows = out[off:off + r.n_rows]
-            t_real = r.x.shape[1] if seq else None
-            if seq and t_real < tb and rows.ndim >= 3 \
-                    and rows.shape[1] == tb:
-                rows = rows[:, :t_real]
-            r.future.set_result(rows)
+            sl = [o[off:off + r.n_rows] for o in outs]
+            if seq_i is not None:
+                t_real = r.arrays[seq_i].shape[1]
+                if t_real < tb:
+                    sl = [o[:, :t_real]
+                          if o.ndim >= 3 and o.shape[1] == tb else o
+                          for o in sl]
+            r.future.set_result(sl[0] if len(sl) == 1 else sl)
             self._observe_latency((now - r.t_enqueue) * 1000.0)
             off += r.n_rows

@@ -1,12 +1,15 @@
 """Device-resident per-session state for streaming inference (port of
-``deeplearning4j_tpu/serving/sessions.py``, the ``MultiLayerNetwork``
-path).
+``deeplearning4j_tpu/serving/sessions.py``), for a ``MultiLayerNetwork``
+or a ``ComputationGraph``.
 
 ``SessionCache`` lifts the network's explicit-carry step to N concurrent
 sessions: each session id owns a **state tree** (the per-layer carries)
 that stays on the network's device between requests, so a streaming
 request runs only its own timesteps, never the prefix again.  The state
-tree is whatever the carry contract says it is:
+tree is whatever the carry contract says it is (a list by layer for a
+``MultiLayerNetwork``, a dict by recurrent vertex for a
+``ComputationGraph``, whose requests carry one array per network input
+and get one output per network output):
 
 - **RNN carries** step through ``rnn_stateless_step``;
 - **KV-cache rings** (``CausalSelfAttention``: (batch, heads, cache_len,
@@ -76,10 +79,14 @@ class SessionStateError(SessionError):
 
 # --------------------------------------------------------- state trees
 def _leaves_with_path(tree, path: str = ""):
-    """(path, leaf) pairs of a nested list/tuple tree (the per-layer
-    carries), depth first, paths as ``[0][1]`` (the
-    ``jax.tree_util.keystr`` form); an empty container has no leaves."""
-    if isinstance(tree, (list, tuple)):
+    """(path, leaf) pairs of a nested list/tuple/dict tree (the carries),
+    depth first, dict keys sorted as ``jax.tree_util`` walks them, paths
+    in its ``keystr`` form (``[0][1]``, ``['lstm'][0]``); an empty
+    container has no leaves."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves_with_path(tree[key], f"{path}[{key!r}]")
+    elif isinstance(tree, (list, tuple)):
         for i, child in enumerate(tree):
             yield from _leaves_with_path(child, f"{path}[{i}]")
     else:
@@ -87,8 +94,10 @@ def _leaves_with_path(tree, path: str = ""):
 
 
 def _structure(tree):
-    """The shape of a tree without its leaves: container types and
-    lengths (what a JAX treedef compares)."""
+    """The shape of a tree without its leaves: container types, lengths
+    and keys (what a JAX treedef compares)."""
+    if isinstance(tree, dict):
+        return dict, tuple((k, _structure(tree[k])) for k in sorted(tree))
     if isinstance(tree, (list, tuple)):
         return type(tree), tuple(_structure(c) for c in tree)
     return None
@@ -148,9 +157,11 @@ class SessionCache:
     def __init__(self, model, *, ttl_s: float = 300.0,
                  max_sessions: int = 1024, name: str = "default",
                  version_fn=None, weights_fn=None):
+        from ..nn.computation_graph import ComputationGraph
         model.init()
         model._require_carry_support("SessionCache")
         self._model = model
+        self._is_graph = isinstance(model, ComputationGraph)
         self._ttl_s = float(ttl_s)
         self._max_sessions = int(max_sessions)
         if self._max_sessions < 1:
@@ -229,23 +240,27 @@ class SessionCache:
             "the session", leaf_path=odd)
 
     # ------------------------------------------------------------ stepping
-    def step(self, session_id: str, features, dtype=None) -> np.ndarray:
+    def step(self, session_id: str, features, dtype=None):
         """Advance ``session_id`` by the given timesteps and return the
         output for exactly those steps, as host numpy.
 
         2-D input ``(batch, features)`` is one timestep and returns
         ``(batch, n_out)``; 3-D ``(batch, time, features)`` advances by a
-        chunk and returns ``(batch, time, n_out)``.  Unknown session ids
-        start from zero state.  A batch-size change mid-session raises
+        chunk and returns ``(batch, time, n_out)``.  A graph takes a list
+        or tuple with one array per network input and returns a list when
+        it has several outputs.  Unknown session ids start from zero
+        state.  A batch-size change mid-session raises
         :class:`SessionStateError` naming the offending leaf (reference
         ``rnnTimeStep`` semantics); call :meth:`clear` between unrelated
         sequences."""
-        x = np.asarray(features, dtype=dtype)
-        batch = int(x.shape[0])
-        squeeze = x.ndim == 2
+        feats = (tuple(features) if self._is_graph
+                 and isinstance(features, (list, tuple)) else (features,))
+        xs = tuple(np.asarray(f, dtype=dtype) for f in feats)
+        batch = int(xs[0].shape[0])
+        squeeze = xs[0].ndim == 2
         if squeeze:   # (batch, feat) = one timestep
-            x = x[:, None, :]
-        steps = int(x.shape[1])
+            xs = tuple(x[:, None, :] if x.ndim == 2 else x for x in xs)
+        steps = int(xs[0].shape[1])
         sess = self._acquire(session_id, batch, steps)
         with sess.lock:
             self._check_state(session_id, sess, batch)
@@ -266,7 +281,7 @@ class SessionCache:
                     self._check_structure(session_id, sess)
                     raise
             out, new_carries = self._dispatch(session_id, sess, carries,
-                                              x, kw)
+                                              xs, kw)
             # the session moves only once its step has succeeded
             if grow_to:
                 sess.capacity = grow_to
@@ -277,15 +292,22 @@ class SessionCache:
             sess.last_used = time.monotonic()
         _monitor.counter("serving_session_steps_total",
                          "session steps served").inc(model=self._name)
-        out = host_array(out)
-        return out[:, -1] if squeeze and out.ndim == 3 else out
+        outs = [host_array(o) for o in
+                (out if isinstance(out, list) else [out])]
+        if squeeze:
+            outs = [o[:, -1] if o.ndim == 3 else o for o in outs]
+        return outs if isinstance(out, list) else outs[0]
 
-    def _dispatch(self, session_id: str, sess: _Session, carries, x, kw):
-        """One step of the session's state tree."""
+    def _dispatch(self, session_id: str, sess: _Session, carries, xs, kw):
+        """One step of the session's state tree: ``(out, new_carries)``,
+        ``out`` a list for a graph with several outputs."""
+        model = self._model
+        step = model.decode_step if self._decode else \
+            model.rnn_stateless_step
         try:
-            if self._decode:
-                return self._model.decode_step(carries, x, **kw)
-            return self._model.rnn_stateless_step(carries, x, **kw)
+            if not self._is_graph:
+                return step(carries, xs[0], **kw)
+            outs, new = step(carries, *xs, **kw)
         except SessionError:
             raise
         except Exception:
@@ -294,6 +316,7 @@ class SessionCache:
             # error naming the leaf), else re-raise the original
             self._check_structure(session_id, sess)
             raise
+        return (outs[0] if len(outs) == 1 else outs), new
 
     def _bucket_for(self, session_id: str, sess: _Session,
                     steps: int) -> int:

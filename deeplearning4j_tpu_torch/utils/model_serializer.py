@@ -13,6 +13,10 @@ restores in the other:
   present when a layer has state;
 - ``manifest.json``: counts, iteration, epoch, the ``state.bin`` layout by
   leaf path and offset, and each entry's sha256 and size.
+
+``write_model`` takes a ``MultiLayerNetwork`` or a ``ComputationGraph``;
+``restore_multi_layer_network`` and ``restore_computation_graph`` read
+them back.
 """
 
 from __future__ import annotations
@@ -47,8 +51,9 @@ def _entry_digests(payload) -> dict:
 
 
 def write_model(net, path, save_updater: bool = True) -> None:
-    """Write ``net`` to ``path`` (a file path, written atomically, or a
-    writable binary file object)."""
+    """Write ``net`` (a MultiLayerNetwork or a ComputationGraph) to
+    ``path`` (a file path, written atomically, or a writable binary file
+    object)."""
     net.init()
     flat = net.get_flat_params().astype("<f4")
     state_flat, state_manifest = _flatten_state(net)
@@ -102,9 +107,18 @@ def restore_multi_layer_network(path, load_updater: bool = True,
 
 
 def restore_computation_graph(path, load_updater: bool = True, device=None):
-    """The ComputationGraph is not ported yet."""
-    raise NotImplementedError(
-        "ComputationGraph is not ported yet (ROADMAP A5)")
+    """Build the zip's ComputationGraph on ``device`` (the card unless
+    ``"cpu"``) and load its params, updater state, layer state and
+    counters."""
+    from ..nn.computation_graph import ComputationGraph
+    from ..nn.conf.computation_graph import ComputationGraphConfiguration
+
+    with _open_model_zip(path) as zf:
+        conf = ComputationGraphConfiguration.from_json(
+            zf.read(CONFIG_JSON).decode("utf-8"))
+        net = ComputationGraph(conf, device=device).init()
+        _restore_into(net, zf, load_updater)
+    return net
 
 
 def _open_model_zip(path) -> zipfile.ZipFile:
@@ -191,8 +205,10 @@ def _restore_into(net, zf: zipfile.ZipFile, load_updater: bool) -> None:
 
 
 def _flatten_state(net):
-    """Layer state -> (flat float32 vector, manifest).  Leaves in
-    ``jax.tree_util`` order (keys sorted), paths "key/key"."""
+    """Layer state -> (flat float32 vector, manifest).  Layers in the
+    network's order (a graph's ``net_state`` dict in its key order), each
+    layer's leaves in ``jax.tree_util`` order (keys sorted), paths
+    "key/key"; ``layer`` is the index, or the vertex name."""
     chunks, manifest, offset = [], [], 0
 
     def walk(i, tree, path):
@@ -207,8 +223,8 @@ def _flatten_state(net):
         chunks.append(arr.ravel())
         offset += arr.size
 
-    for i, tree in enumerate(net.net_state):
-        walk(i, tree, [])
+    for key, tree in net._items(net.net_state):
+        walk(key, tree, [])
     if not chunks:
         return np.zeros((0,), np.float32), manifest
     return np.concatenate(chunks), manifest
@@ -219,7 +235,9 @@ def _unflatten_state(net, flat: np.ndarray, manifest) -> None:
         keys = entry["path"].split("/")
         shape = tuple(entry["shape"])
         size = int(np.prod(shape))
-        target = net.net_state[int(entry["layer"])]
+        key = entry["layer"]
+        target = net.net_state[key if isinstance(net.net_state, dict)
+                               else int(key)]
         for k in keys[:-1]:
             target = target[k]
         prev = target.get(keys[-1])

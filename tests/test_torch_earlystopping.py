@@ -2,7 +2,8 @@
 the same scores per epoch, best epoch and termination reason for each of
 the five termination conditions under SGD, the savers (a
 ``LocalFileModelSaver`` zip restores in the JAX package; the best model
-restores to its recorded score), and the trainers' refusals.
+restores to its recorded score; a ComputationGraph trains and restores
+through the same trainer and saver), and the trainers' refusals.
 
 Tolerances: validation scores 1e-6 relative (the same float32 SGD steps,
 sums in another order); a restored model's score equals the recorded one
@@ -183,10 +184,78 @@ def test_local_file_saver_zip_restores_in_both_packages(tmp_path):
                                    device="cpu").get_best_model() is None
 
 
-def test_a_graph_zip_is_refused_naming_a5(tmp_path):
+def _graph_pair():
+    """The MLP of ``_pair`` as a two-branch ComputationGraph (a dense
+    branch and a skip from the input, merged) in both packages."""
+    from deeplearning4j_tpu.nn.computation_graph import \
+        ComputationGraph as JaxCG
+    from deeplearning4j_tpu.nn.conf.computation_graph import MergeVertex
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
+        ComputationGraphConfiguration
+    conf = (JaxConf.builder().seed(17).updater("sgd").learning_rate(0.1)
+            .activation("tanh").graph_builder().add_inputs("in")
+            .add_layer("d", jcore.DenseLayer(n_out=6), "in")
+            .add_vertex("m", MergeVertex(), "d", "in")
+            .add_layer("out", jcore.OutputLayer(
+                n_out=3, activation="softmax", loss="mcxent"), "m")
+            .set_outputs("out").set_input_types(jin.feed_forward(4))
+            .build())
+    jnet = JaxCG(conf).init()
+    pnet = ComputationGraph(ComputationGraphConfiguration.from_json(
+        conf.to_json()), device="cpu").init()
+    pnet.set_flat_params(np.asarray(jnet.get_flat_params()))
+    return jnet, pnet
+
+
+def test_a_graph_trains_under_early_stopping_and_its_best_zip_restores(
+        tmp_path):
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    results = {}
+    for pkg, net in zip(("jax", "port"), _graph_pair()):
+        config_mod, term, score_mod, trainer_cls = (
+            (jconfig, jterm, jscore, _JaxBatchTrainer) if pkg == "jax"
+            else (pes, pes, pes, pes.EarlyStoppingTrainer))
+        train, valid = _iterators(pkg)
+        saver = (pes.LocalFileModelSaver(str(tmp_path / pkg), device="cpu")
+                 if pkg == "port" else jsavers.InMemoryModelSaver())
+        conf = (config_mod.EarlyStoppingConfiguration.builder()
+                .epoch_termination_conditions(
+                    term.MaxEpochsTerminationCondition(4))
+                .score_calculator(score_mod.DataSetLossCalculator(valid))
+                .model_saver(saver).save_last_model(True).build())
+        results[pkg] = (trainer_cls(conf, net, train).fit(), net, valid)
+    jres, _, _ = results["jax"]
+    pres, pnet, valid = results["port"]
+    assert pres.best_model_epoch == jres.best_model_epoch
+    assert pres.total_epochs == jres.total_epochs == 4
+    np.testing.assert_allclose(
+        [pres.score_vs_epoch[e] for e in sorted(pres.score_vs_epoch)],
+        [jres.score_vs_epoch[e] for e in sorted(jres.score_vs_epoch)],
+        rtol=RTOL)
+    best = pres.best_model
+    assert isinstance(best, ComputationGraph) and best is not pnet
+    assert best.device.type == "cpu"
+    np.testing.assert_allclose(
+        pes.DataSetLossCalculator(valid).calculate_score(best),
+        pres.best_model_score, rtol=RTOL)
+    latest = pes.LocalFileModelSaver(str(tmp_path / "port"), device="cpu") \
+        .get_latest_model()
+    assert latest.iteration == pnet.iteration
+    jbest = jsavers.LocalFileModelSaver(str(tmp_path / "port")) \
+        .get_best_model()
+    np.testing.assert_array_equal(np.asarray(jbest.get_flat_params()),
+                                  best.get_flat_params())
+
+
+def test_a_malformed_zip_is_refused_by_both_restores(tmp_path):
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        ModelSerializationError
     (tmp_path / "bestModel.bin").write_bytes(b"not a zip")
     saver = pes.LocalFileModelSaver(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ModelSerializationError, match="not a valid model"):
         saver.get_best_model()
 
 

@@ -780,3 +780,167 @@ def test_evaluate_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(evs[0].confusion.matrix,
                                   evs[1].confusion.matrix)
     assert evs[0].stats() == evs[1].stats()
+
+
+# ---- the ComputationGraph -------------------------------------------------
+# No hand kernel of its own (cuDNN/cuBLAS and elementwise kernels through
+# torch); an attention vertex trains through K1-K3 like the
+# MultiLayerNetwork's layer.  The golden as the cnn_adam one above; the
+# graph of every vertex type card vs CPU in fp32 at 1e-5 of max|CPU| (f32
+# sums in another order; nesterovs passes differences on without
+# normalizing them); the attention graph against its MultiLayerNetwork
+# twin exactly (the same operations in the same order).
+
+def test_graph_golden_restores_on_the_card(cuda):
+    import copy
+    from pathlib import Path
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.utils import model_serializer as ms
+    fixtures = Path(__file__).resolve().parent / "fixtures" / "regression"
+    golden = np.load(fixtures / "graph_merge_nesterovs_golden.npz")
+    x = golden["input"]
+    zip_path = fixtures / "graph_merge_nesterovs.zip"
+    net = ms.restore_computation_graph(zip_path)
+    assert net.device.type == "cuda" and net._pol().name == "mixed_bf16"
+    np.testing.assert_allclose(net.output(x).cpu().numpy(),
+                               golden["prediction"], rtol=0, atol=5e-3)
+    cpu = ms.restore_computation_graph(zip_path, device="cpu")
+    conf = copy.deepcopy(cpu.conf)
+    conf.conf.compute_dtype = "float32"
+    net32 = ComputationGraph(conf, device=cuda).init()
+    net32.set_flat_params(cpu.get_flat_params())
+    net32.set_flat_updater_state(cpu.get_flat_updater_state())
+    np.testing.assert_allclose(net32.output(x).cpu().numpy(),
+                               golden["prediction"], rtol=1e-5, atol=1e-7)
+    y = np.eye(3, dtype=np.float32)[[0, 1, 2, 0]]
+    for n in (net, net32, cpu):
+        n.fit(DataSet(x, y))
+    assert net.iteration == 2 and np.isfinite(net.score())
+    assert _rel(torch.as_tensor(net32.get_flat_params()),
+                torch.as_tensor(cpu.get_flat_params())) <= 1e-5
+
+
+def _all_vertex_graph(device):
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import computation_graph as cg
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.preprocessors import \
+        FeedForwardToCnnPreProcessor
+    from deeplearning4j_tpu_torch.nn.layers.core import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        GravesLSTM, RnnOutputLayer)
+    g = (NeuralNetConfiguration.builder().seed(3).updater("nesterovs")
+         .learning_rate(0.0625).activation("tanh").l2(1e-3)
+         .compute_dtype("float32").graph_builder().add_inputs("seq", "vec")
+         .add_layer("lstm", GravesLSTM(n_out=6), "seq")
+         .add_vertex("last", cg.LastTimeStepVertex(mask_input="seq"), "lstm")
+         .add_layer("dv", DenseLayer(n_out=6), "vec"))
+    for op in ("add", "subtract", "product", "average", "max"):
+        g.add_vertex(op, cg.ElementWiseVertex(op=op), "last", "dv")
+    conf = (g.add_vertex("merge", cg.MergeVertex(), "add", "subtract",
+                         "product", "average", "max")
+            .add_vertex("subset", cg.SubsetVertex(from_index=2, to_index=13),
+                        "merge")
+            .add_vertex("scale", cg.ScaleVertex(scale_factor=0.5), "subset")
+            .add_vertex("shift", cg.ShiftVertex(shift_factor=0.1), "scale")
+            .add_vertex("l2n", cg.L2NormalizeVertex(), "shift")
+            .add_vertex("stack", cg.StackVertex(), "l2n", "shift")
+            .add_layer("shared", DenseLayer(n_out=5), "stack")
+            .add_vertex("u0", cg.UnstackVertex(from_index=0, stack_size=2),
+                        "shared")
+            .add_vertex("u1", cg.UnstackVertex(from_index=1, stack_size=2),
+                        "shared")
+            .add_vertex("l2", cg.L2Vertex(), "u0", "u1")
+            .add_vertex("img", cg.PreprocessorVertex(
+                preprocessor=FeedForwardToCnnPreProcessor(2, 2, 3)), "shift")
+            .add_layer("flat", DenseLayer(n_out=4), "img")
+            .add_vertex("head_in", cg.MergeVertex(), "l2", "u1", "flat")
+            .add_layer("ffout", OutputLayer(n_out=2), "head_in")
+            .add_vertex("dup", cg.DuplicateToTimeSeriesVertex(
+                reference_input="seq"), "flat")
+            .add_vertex("seqm", cg.MergeVertex(), "lstm", "dup")
+            .add_layer("rnnout", RnnOutputLayer(n_out=3), "seqm")
+            .set_outputs("rnnout", "ffout")
+            .set_input_types(inputs.recurrent(3, 7), inputs.feed_forward(4))
+            .build())
+    return ComputationGraph(conf, device=device).init()
+
+
+def test_all_vertex_graph_on_the_card_matches_the_cpu(cuda):
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    card, cpu = _all_vertex_graph(cuda), _all_vertex_graph("cpu")
+    cpu.set_flat_params(card.get_flat_params())
+    rng = np.random.RandomState(6)
+    x1 = rng.randn(8, 7, 3).astype(np.float32)
+    x2 = rng.randn(8, 4).astype(np.float32)
+    fm = (np.arange(7)[None] < rng.randint(1, 8, 8)[:, None]).astype(
+        np.float32)
+    mds = MultiDataSet([x1, x2], [
+        np.eye(3, dtype=np.float32)[rng.randint(0, 3, (8, 7))],
+        np.eye(2, dtype=np.float32)[rng.randint(0, 2, 8)]], [fm, None],
+        [fm, None])
+    for a, b in zip(card.output(x1, x2, features_masks=[fm, None]),
+                    cpu.output(x1, x2, features_masks=[fm, None])):
+        assert _rel(a.cpu(), b) <= 1e-5
+    for _ in range(3):
+        card.fit(mds)
+        cpu.fit(mds)
+    assert abs(card.score() - cpu.score()) <= 1e-5 * abs(cpu.score())
+    assert _rel(torch.as_tensor(card.get_flat_params()),
+                torch.as_tensor(cpu.get_flat_params())) <= 1e-5
+
+
+def test_attention_graph_equals_its_multilayer_twin_on_the_card(cuda):
+    """CausalSelfAttention -> RnnOutputLayer as a graph and as a list, on
+    the same weights under the card's mixed_bf16: the same params and
+    scores after 2 steps, and K1-K3 once a step each on the graph."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        CausalSelfAttention
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    def builder():
+        return (NeuralNetConfiguration.builder().seed(4).updater("adam")
+                .learning_rate(1e-3))
+
+    attn = dict(n_out=64, n_heads=2, cache_len=256)
+    head = dict(n_out=8, activation="softmax", loss="mcxent")
+    twin = MultiLayerNetwork(
+        builder().list().layer(CausalSelfAttention(**attn))
+        .layer(RnnOutputLayer(**head))
+        .set_input_type(inputs.recurrent(16, 256)).build()).init()
+    graph = ComputationGraph(
+        builder().graph_builder().add_inputs("in")
+        .add_layer("attn", CausalSelfAttention(**attn), "in")
+        .add_layer("out", RnnOutputLayer(**head), "attn")
+        .set_outputs("out").set_input_types(inputs.recurrent(16, 256))
+        .build()).init()
+    graph.set_flat_params(twin.get_flat_params())
+    rng = np.random.RandomState(7)
+    ds = DataSet(rng.randn(2, 256, 16).astype(np.float32),
+                 np.eye(8, dtype=np.float32)[rng.randint(0, 8, (2, 256))])
+    for _ in range(2):
+        twin.fit(ds)
+    A.reset_launches()
+    for _ in range(2):
+        graph.fit(ds)
+    assert A.LAUNCHES == {"flash_fwd": 2, "flash_fwd_partials": 0,
+                          "flash_bwd_dkdv": 2, "flash_bwd_dq": 2}
+    assert graph.score() == twin.score()
+    np.testing.assert_array_equal(graph.get_flat_params(),
+                                  twin.get_flat_params())

@@ -1,10 +1,13 @@
 """The port's ModelSerializer (``utils/model_serializer.py``) against the
-JAX package's: the regression goldens restore and predict in the port, a
-zip crosses between the packages in both directions with the same bytes,
-every malformed zip raises ``ModelSerializationError`` in both, and a zip
-of a family that is not ported yet raises ``NotImplementedError`` naming
-its ROADMAP item.  The LSTM golden was saved after a tBPTT fit of 6 steps
-in windows of 4, so it holds iteration 2 and a resumed fit adds 2.
+JAX package's: the regression goldens restore and predict in the port
+(the ``graph_merge_nesterovs`` golden through
+``restore_computation_graph``), a zip crosses between the packages in
+both directions with the same bytes (MultiLayerNetworks and
+ComputationGraphs, ``state.bin`` included), every malformed zip raises
+``ModelSerializationError`` in both, and every serde type of the JAX
+package is ported or raises ``NotImplementedError`` naming its ROADMAP
+item.  The LSTM golden was saved after a tBPTT fit of 6 steps in windows
+of 4, so it holds iteration 2 and a resumed fit adds 2.
 
 Tolerances: goldens at the JAX package's own rtol 1e-6, atol 1e-7
 (``tests/test_regression_goldens.py``); the resumed step against the JAX
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu.datasets.dataset import DataSet as JaxDataSet
+from deeplearning4j_tpu.nn.computation_graph import ComputationGraph as JaxCG
 from deeplearning4j_tpu.nn.conf import inputs as jin
 from deeplearning4j_tpu.nn.conf.neural_net_configuration import \
     NeuralNetConfiguration as JaxConf
@@ -33,6 +37,9 @@ from deeplearning4j_tpu.nn.layers import recurrent as jrec
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxNet
 from deeplearning4j_tpu.utils import model_serializer as jms
 from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.nn.computation_graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
+    ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -56,14 +63,26 @@ def _labels_for(out, seed=3):
 
 
 # windows a fit takes on each golden's input: one, or T=6 / tBPTT 4
-GOLDENS = {"mlp_sgd": 1, "cnn_adam": 1, "lstm_rmsprop_tbptt": 2}
+GOLDENS = {"mlp_sgd": 1, "cnn_adam": 1, "lstm_rmsprop_tbptt": 2,
+           "graph_merge_nesterovs": 1}
+
+
+def _restore(name, pkg="port", source=None):
+    """A golden (or ``source``) restored by the package's restore for
+    its family: graphs through ``restore_computation_graph``."""
+    path = _fixture(f"{name}.zip") if source is None else source
+    graph = name.startswith("graph")
+    if pkg == "jax":
+        return (jms.restore_computation_graph(path) if graph
+                else jms.restore_multi_layer_network(path))
+    return (ms.restore_computation_graph(path, device="cpu") if graph
+            else ms.restore_multi_layer_network(path, device="cpu"))
 
 
 @pytest.mark.parametrize("name", list(GOLDENS))
 def test_golden_restores_and_predicts_identically(name):
     golden = np.load(_fixture(f"{name}_golden.npz"))
-    net = ms.restore_multi_layer_network(_fixture(f"{name}.zip"),
-                                         device="cpu")
+    net = _restore(name)
     assert net.iteration == int(golden["iteration"]) and net.epoch == 1
     pred = net.output(golden["input"]).numpy()
     np.testing.assert_allclose(pred.astype(np.float64), golden["prediction"],
@@ -74,9 +93,7 @@ def test_golden_restores_and_predicts_identically(name):
 def test_golden_resumes_training_like_jax(name):
     golden = np.load(_fixture(f"{name}_golden.npz"))
     x = golden["input"].astype(np.float32)
-    net = ms.restore_multi_layer_network(_fixture(f"{name}.zip"),
-                                         device="cpu")
-    jnet = jms.restore_multi_layer_network(_fixture(f"{name}.zip"))
+    net, jnet = _restore(name), _restore(name, "jax")
     np.testing.assert_array_equal(net.get_flat_updater_state(),
                                   np.asarray(jnet.get_flat_updater_state()))
     y = _labels_for(golden["prediction"])
@@ -291,13 +308,137 @@ def test_an_old_zip_without_digests_still_restores():
     assert manifest["entries"]["coefficients.bin"]["sha256"] == digest
 
 
-@pytest.mark.parametrize("name,item", [("graph_merge_nesterovs", "A5")])
-def test_unported_families_raise_not_implemented(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ms.restore_multi_layer_network(_fixture(f"{name}.zip"),
-                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        ms.restore_computation_graph(_fixture(f"{name}.zip"), device="cpu")
+def test_graph_golden_zip_crosses_both_ways_byte_for_byte():
+    raw = open(_fixture("graph_merge_nesterovs.zip"), "rb").read()
+    net, jnet = _restore("graph_merge_nesterovs"), _restore(
+        "graph_merge_nesterovs", "jax")
+    assert isinstance(net, ComputationGraph)
+    assert net.topo == jnet.topo == ["d1", "d2", "merge", "out"]
+    np.testing.assert_array_equal(net.get_flat_updater_state(),
+                                  np.asarray(jnet.get_flat_updater_state()))
+    # the golden's params and updater state cross as they were written
+    port_zip = _zip_bytes(ms.write_model, net)
+    golden, b = _entries(raw), _entries(port_zip)
+    for name in PAYLOAD[1:]:
+        assert golden[name] == b[name], name
+    # (its configuration.json predates fields the packages write today)
+    jax_zip = _zip_bytes(jms.write_model, jnet)
+    a = _entries(jax_zip)
+    for name in PAYLOAD:
+        assert a[name] == b[name], name
+    back = _entries(_zip_bytes(jms.write_model, _restore(
+        "graph_merge_nesterovs", "jax", io.BytesIO(port_zip))))
+    forth = _entries(_zip_bytes(ms.write_model, _restore(
+        "graph_merge_nesterovs", "port", io.BytesIO(jax_zip))))
+    for name in PAYLOAD:
+        assert back[name] == forth[name] == b[name], name
+    with pytest.raises(ValueError, match="not a multi_layer_conf"):
+        ms.restore_multi_layer_network(io.BytesIO(raw), device="cpu")
+
+
+def _bn_graph_conf(first="bn_a", second="bn_b"):
+    """conv -> BN -> dense -> BN -> softmax, its BN vertices named
+    ``first`` and ``second`` in topological order."""
+    return (JaxConf.builder().seed(9).updater("nesterovs")
+            .learning_rate(0.05).activation("relu").graph_builder()
+            .add_inputs("img")
+            .add_layer("conv", jconvl.ConvolutionLayer(
+                n_out=3, kernel_size=(3, 3), convolution_mode="same"), "img")
+            .add_layer(first, jnorm.BatchNormalization(), "conv")
+            .add_layer("dense", jcore.DenseLayer(n_out=4), first)
+            .add_layer(second, jnorm.BatchNormalization(decay=0.8), "dense")
+            .add_layer("out", jcore.OutputLayer(n_out=3), second)
+            .set_outputs("out").set_input_types(jin.convolutional(5, 5, 2))
+            .build())
+
+
+def _graph_data():
+    rng = np.random.RandomState(12)
+    x = rng.randn(6, 5, 5, 2).astype(np.float32)
+    return x, np.eye(3, dtype=np.float32)[rng.randint(0, 3, 6)]
+
+
+def test_jax_graph_zip_restores_in_the_port_and_writes_back_the_same_bytes():
+    jnet = JaxCG(_bn_graph_conf()).init()
+    x, y = _graph_data()
+    jnet.fit(JaxDataSet(x, y))
+    jzip = _zip_bytes(jms.write_model, jnet)
+    net = ms.restore_computation_graph(io.BytesIO(jzip), device="cpu")
+    assert net.iteration == 1 and net.epoch == 1
+    np.testing.assert_allclose(net.output(x).numpy(),
+                               np.asarray(jnet.output(x)), rtol=1e-5,
+                               atol=1e-6)
+    a, b = _entries(jzip), _entries(_zip_bytes(ms.write_model, net))
+    names = PAYLOAD + ("state.bin",)
+    assert set(a) == set(b) == set(names) | {"manifest.json"}
+    for name in names:
+        assert a[name] == b[name], name
+    ja, pa = json.loads(a["manifest.json"]), json.loads(b["manifest.json"])
+    for key in ("num_params", "num_updater_values", "iteration", "epoch",
+                "state", "entries"):
+        assert pa[key] == ja[key], key
+    assert [e["layer"] for e in pa["state"]] == ["bn_a"] * 2 + ["bn_b"] * 2
+
+
+def test_port_graph_zip_restores_in_jax_and_writes_back_the_same_bytes(
+        tmp_path):
+    conf = ComputationGraphConfiguration.from_json(
+        _bn_graph_conf().to_json())
+    net = ComputationGraph(conf, device="cpu").init()
+    x, y = _graph_data()
+    net.fit(DataSet(x, y))
+    net.fit(DataSet(x, y))
+    path = tmp_path / "graph.zip"
+    ms.write_model(net, str(path))
+    jnet = jms.restore_computation_graph(str(path))
+    assert jnet.iteration == 2
+    np.testing.assert_allclose(np.asarray(jnet.output(x)),
+                               net.output(x).numpy(), rtol=1e-5, atol=1e-6)
+    for name in ("bn_a", "bn_b"):
+        for key in ("mean", "var"):
+            np.testing.assert_array_equal(
+                np.asarray(jnet.net_state[name][key]),
+                net.net_state[name][key].numpy())
+    a = _entries(path.read_bytes())
+    b = _entries(_zip_bytes(jms.write_model, jnet))
+    for name in PAYLOAD + ("state.bin",):
+        assert a[name] == b[name], name
+
+
+def test_graph_state_manifest_orders_vertices_as_jax_does():
+    """After init or a restore the state walks the vertices in
+    topological order; after a fit step in sorted order (the JAX
+    package's jitted step returns its dicts with sorted keys).  With BN
+    vertices whose names sort against the topological order, both
+    packages write the same manifest at each point."""
+    conf = _bn_graph_conf("zbn", "abn")
+    jnet = JaxCG(conf).init()
+    net = ComputationGraph(ComputationGraphConfiguration.from_json(
+        conf.to_json()), device="cpu").init()
+    net.set_flat_params(np.asarray(jnet.get_flat_params()))
+
+    def layers(writer, n):
+        manifest = json.loads(_entries(_zip_bytes(writer, n))
+                              ["manifest.json"])
+        return [(e["layer"], e["path"], e["offset"])
+                for e in manifest["state"]]
+
+    assert layers(ms.write_model, net) == layers(jms.write_model, jnet) == [
+        ("zbn", "mean", 0), ("zbn", "var", 3), ("abn", "mean", 6),
+        ("abn", "var", 10)]
+    x, y = _graph_data()
+    net.fit(DataSet(x, y))
+    jnet.fit(JaxDataSet(x, y))
+    assert layers(ms.write_model, net) == layers(jms.write_model, jnet) == [
+        ("abn", "mean", 0), ("abn", "var", 4), ("zbn", "mean", 8),
+        ("zbn", "var", 11)]
+    again = ms.restore_computation_graph(io.BytesIO(_zip_bytes(
+        ms.write_model, net)), device="cpu")
+    assert list(again.net_state)[:2] == ["conv", "zbn"]
+    for name in ("zbn", "abn"):
+        for key in ("mean", "var"):
+            assert torch.equal(again.net_state[name][key],
+                               net.net_state[name][key])
 
 
 def test_every_jax_serde_type_is_ported_or_named():
@@ -314,7 +455,6 @@ def test_every_jax_serde_type_is_ported_or_named():
     missing = {k for k, cls in jserde.registry().items()
                if k not in ported
                and cls.__module__.startswith("deeplearning4j_tpu.")
-               and not k.startswith("vertex_")
                and not k.endswith("_reconstruction")}
     assert missing == set(N._NOT_PORTED)
     for kind in missing:
@@ -324,7 +464,12 @@ def test_every_jax_serde_type_is_ported_or_named():
             "global_pooling", "batch_norm", "lrn", "cnn_to_ff", "ff_to_cnn",
             "rnn_to_ff", "ff_to_rnn", "cnn_to_rnn", "rnn_to_cnn", "reshape",
             "flat_to_cnn", "graves_lstm", "graves_bidirectional_lstm",
-            "rnn_output"} <= ported
+            "rnn_output", "computation_graph_conf", "vertex_layer",
+            "vertex_merge", "vertex_elementwise", "vertex_subset",
+            "vertex_stack", "vertex_unstack", "vertex_scale", "vertex_shift",
+            "vertex_preprocessor", "vertex_l2", "vertex_l2_normalize",
+            "vertex_last_time_step",
+            "vertex_duplicate_to_time_series"} <= ported
 
 
 def test_atomic_write_replaces_whole_or_not_at_all(tmp_path):
