@@ -105,7 +105,9 @@ Phases (each raises on failure; the exit code is non-zero on any):
    procedural MNIST) for 2 epochs with ``ScoreIterationListener``,
    ``PerformanceListener`` and ``CollectScoresIterationListener``, then
    ``evaluate(MnistDataSetIterator(500, 2000, train=False))`` must exceed
-   ``MNIST_MIN_ACCURACY`` and move 8,000 bytes (int32 indices); fit and
+   ``MNIST_MIN_ACCURACY`` and move 8,000 bytes (int32 indices), all on
+   the per-batch path (``ingest="batch"``, the baseline of phase 13); fit
+   and
    evaluate samples/s, peak memory, the seconds spent generating the data,
    and one more epoch of 10 batches under ``torch.profiler`` (idle share);
    (b) an fp32 copy of the trained net on the card and one on the CPU give
@@ -144,10 +146,49 @@ Phases (each raises on failure; the exit code is non-zero on any):
    clients, two decode sessions through the graph's ``SessionCache``,
    against ``output()`` at ``BF16_PROB_ATOL``; no K1-K4 launch), and a
    trained graph with a GravesLSTM vertex whose session steps equal
-   ``rnn_time_step`` over the same split.
+   ``rnn_time_step`` over the same split;
+13. the fused training runtime ([fused] lines; no hand kernel: the epoch
+   cache replays one captured CUDA graph a step, ``nn/step_graph.py``,
+   where the JAX package runs one ``lax.scan`` a fused epoch): (a)
+   LeNet-5 (``mixed_bf16``) on the full procedural MNIST (60,000 images,
+   batch 256) through ``fit(iterator)``'s default ``ingest="auto"`` with a
+   ``CheckpointListener`` (every 500 iterations and each epoch's end,
+   keeping 3), 2 epochs: the ``ingest_staged_bytes{path="cache"}`` gauge
+   must read the u8 wire plus the f32 labels, epoch 2 runs under
+   ``torch.profiler`` (idle share; it must make 0 host-to-device copies),
+   samples/s of each epoch and of a third unprofiled one, then the test
+   accuracy on 10,000 images above ``MNIST_MIN_ACCURACY``; (b) LeNet
+   ``CAPTURE_STEPS`` steps captured against the eager per-batch path over
+   the same batches, fp32 bitwise and mixed_bf16 within
+   ``GOLDEN_BF16_ATOL`` (every comparison from (b) on runs with cuDNN's
+   deterministic algorithms); (c) phase 5's network through
+   ``ingest="cache"``: equal to the eager steps after
+   ``ATTN_CACHE_STEPS``, and one more epoch under ``torch.profiler``, with
+   the counts set to 0 just before it, shows K1-K3 inside the graph's
+   replays (the wrappers count 0 there, since a replay runs no wrapper;
+   the ``fused`` path of the kernels line is the profiler's count of
+   each kernel in that epoch); (d) a checkpoint inside epoch 2 of a run
+   whose ``CheckpointManager`` saves every ``RESUME_EVERY`` steps (each
+   with a finite score), alone in a directory, resumed with
+   ``resume_from="auto"``: bitwise the uninterrupted run; (e) an
+   ``AsyncDataSetIterator`` with a ``NormalizerStandardize`` is not
+   cacheable, so ``"auto"`` takes the window path: equal to
+   ``ingest="batch"`` in fp32 bitwise, the bytes staged per window; (f)
+   ResNet-50 through the graph's epoch cache at
+   ``examples/sustained_training.py``'s configuration (1,280 bf16 images
+   at 224x224x3, batch 128): a warm-up epoch, then 2 timed epochs
+   (samples/s, peak memory, first and final score), one profiled epoch,
+   and 2 steps captured against eager within ``GOLDEN_BF16_ATOL``; (g)
+   the health guard: ``skip_update`` over NaN batches leaves params and
+   updater state bitwise unchanged (cache, then per-batch), and under
+   ``abort`` the card and the CPU name the same step and layer; (h)
+   ``fit_scan`` against per-batch ``fit`` over the same batches, bitwise:
+   fp32 LeNet as a MultiLayerNetwork and phase 5's network as a
+   ComputationGraph (K1-K3 once a step).
 
 Prints a JSON line of the reference, training, inference, ring, serving,
-feed-forward/convolutional, recurrent, harness and graph results, one
+feed-forward/convolutional, recurrent, harness, graph and fused results,
+one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -157,6 +198,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -298,6 +340,20 @@ GRAPH_REF_T, GRAPH_REF_FITS, GRAPH_REF_RTOL = 9, 3, 1e-5
 RESNET_BATCH, RESNET_STEPS, RESNET_MAX_STEPS = 128, 12, 80
 GRAPH_ATTN_STEPS = 2
 LSTM_GRAPH_FITS, LSTM_SESSION_ATOL = 5, 1e-6
+# Phase 13.  examples/sustained_training.py's LeNet half (full MNIST,
+# batch 256, a CheckpointListener every 500 iterations keeping 3, here
+# also at each epoch's end) for 2 epochs, held to phase 11's accuracy bar;
+# captured against eager over 8 LeNet steps (fp32 bitwise; bf16 within the
+# goldens' 5e-3), the attention net over 4 and ResNet-50 over 2; a resume
+# from a checkpoint 10 steps into epoch 2 of 50-step epochs; the window
+# path over 8 batches in windows of 3; the sustained ResNet-50 half: 1,280
+# bf16 images, batch 128, 2 timed epochs after a warm-up epoch.
+FUSED_BATCH, FUSED_TRAIN, FUSED_TEST, FUSED_EPOCHS = 256, 60000, 10000, 2
+CKPT_EVERY, CKPT_KEEP = 500, 3
+CAPTURE_STEPS, ATTN_CACHE_STEPS = 8, 4
+RESUME_TRAIN, RESUME_EVERY = 12800, 30
+WINDOW_BATCHES, WINDOW_SIZE = 8, 3
+RESNET_CACHE_N, RESNET_CACHE_EPOCHS = 1280, 2
 
 
 def log(msg: str) -> None:
@@ -1743,7 +1799,7 @@ def harness_lenet(ffcnn_samples_per_s: float) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    net.fit(it, epochs=MNIST_EPOCHS)
+    net.fit(it, epochs=MNIST_EPOCHS, ingest="batch")
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     it.close()
@@ -1799,7 +1855,8 @@ def harness_lenet(ffcnn_samples_per_s: float) -> tuple:
     small = AsyncDataSetIterator(ListDataSetIterator(
         DataSet(src.features[:n], src.labels[:n]), MNIST_BATCH,
         shuffle=True))
-    wall_ms, n_events, by_name, busy_ms = profiled(lambda: net.fit(small))
+    wall_ms, n_events, by_name, busy_ms = profiled(
+        lambda: net.fit(small, ingest="batch"))
     small.close()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     profile = {"batches": PROFILED_BATCHES, "wall_ms": wall_ms,
@@ -2328,6 +2385,577 @@ def phase_graph(N, A, seed: int) -> dict:
     return result
 
 
+# ------------------------------------------------------------ phase 13
+def device_split(prof) -> tuple:
+    """(device events, busy ms as the union of their intervals, count of
+    host-to-device copies) of a finished ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in device):
+        if end is None or a > end:
+            busy_ms, end = busy_ms + b - a, b
+        elif b > end:
+            busy_ms, end = busy_ms + b - end, b
+    htod = sum(1 for e in prof.events() if "HtoD" in e.name)
+    return device, busy_ms / 1e3, htod
+
+
+class EpochClock:
+    """A listener: the synchronized wall seconds of each epoch, and
+    ``torch.profiler`` over the whole of epoch ``profiled`` (started
+    before the clock starts and stopped after it stops)."""
+
+    def __init__(self, profiled: int):
+        self.seconds, self._t0 = [], 0.0
+        self.profiled, self.prof = profiled, None
+
+    def iteration_done(self, model, iteration):
+        pass
+
+    def on_epoch_start(self, model):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        if model.epoch == self.profiled:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        self._t0 = time.perf_counter()
+
+    def on_epoch_end(self, model):
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - self._t0)
+        if model.epoch == self.profiled:
+            self.prof.__exit__(None, None, None)
+
+
+def staged_bytes(path: str) -> float:
+    from deeplearning4j_tpu_torch import monitor
+    return monitor.gauge("ingest_staged_bytes").value(path=path)
+
+
+def flat_state(net) -> tuple:
+    return net.get_flat_params(), net.get_flat_updater_state()
+
+
+def same_state(what: str, got, want, atol: float = 0.0) -> float:
+    """Max |got - want| over the params and the updater state (the fp32
+    masters included); 0 is required when ``atol`` is 0."""
+    err = max(float(np.max(np.abs(g.astype(np.float64) - w)))
+              if g.size else 0.0 for g, w in zip(got, want))
+    bitwise = all(np.array_equal(g, w) for g, w in zip(got, want))
+    log(f"[fused] {what}: max |diff| {err:.3e} over params and updater "
+        f"state, bitwise {bitwise} (tol {atol:g})")
+    if (atol == 0.0 and not bitwise) or err > atol:
+        raise RuntimeError(f"{what}: captured and eager differ by {err}")
+    return err
+
+
+def fused_lenet(harness: dict, ffcnn: dict) -> tuple:
+    """(a): LeNet-5 on the full procedural MNIST through fit(iterator)'s
+    default ingest, the epoch cache, with a CheckpointListener; epoch 2
+    under torch.profiler."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.listeners.listeners import \
+        CheckpointListener
+    t0 = time.perf_counter()
+    train = MnistDataSetIterator(FUSED_BATCH, FUSED_TRAIN)
+    test = MnistDataSetIterator(MNIST_TEST_BATCH, FUSED_TEST, train=False)
+    gen_s = time.perf_counter() - t0
+    net = MultiLayerNetwork(lenet()).init()
+    if net._pol().name != "mixed_bf16":
+        raise RuntimeError(f"LeNet runs under {net._pol().name}")
+    clock = EpochClock(profiled=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = CheckpointListener(tmp, save_every_n_iterations=CKPT_EVERY,
+                                  save_every_epochs=1, keep_last=CKPT_KEEP)
+        net.set_listeners(clock, ckpt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        net.fit(train, epochs=FUSED_EPOCHS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        ckpt.flush()
+        written = len(ckpt.saved)
+        kept = len(os.listdir(tmp))
+    peak = torch.cuda.max_memory_allocated()
+    staged = staged_bytes("cache")
+    want = FUSED_TRAIN * 784 + FUSED_TRAIN * 10 * 4
+    steps = -(-FUSED_TRAIN // FUSED_BATCH)
+    iterations = net.iteration
+    net.set_listeners(clock)           # one more epoch, not profiled
+    net.fit(train)
+    rates = [FUSED_TRAIN / s for s in clock.seconds]
+    device, busy_ms, htod = device_split(clock.prof)
+    wall_ms = clock.seconds[1] * 1e3
+    idle = 1.0 - busy_ms / wall_ms
+    t0 = time.perf_counter()
+    acc = net.evaluate(test).accuracy()
+    eval_s = time.perf_counter() - t0
+    log(f"[fused] LeNet-5 on {FUSED_TRAIN} MNIST (generated with "
+        f"{FUSED_TEST} test images in {gen_s:.2f} s), batch {FUSED_BATCH}, "
+        f"{steps} steps an epoch through the epoch cache: staged "
+        f"{staged:.0f} bytes (u8 wire + f32 labels: {want}); epoch seconds "
+        f"{clock.seconds} = {rates[0]:.1f} and {rates[1]:.1f} samples/s "
+        f"(per-batch path: phase 11's {harness['fit_samples_per_s']:.1f} "
+        f"at batch 128 through the iterator, phase 9's median step "
+        f"{ffcnn['lenet']['samples_per_s']:.1f} at batch 256); fit "
+        f"{fit_s:.3f} s; epoch 2 under torch.profiler: host "
+        f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+        f"{idle:.4f}, {len(device)} device events, {htod} host-to-device "
+        f"copies; test accuracy {acc:.4f} on {FUSED_TEST} (> "
+        f"{MNIST_MIN_ACCURACY}) in {eval_s:.3f} s; {written} checkpoints "
+        f"written, {kept} kept; {len(net._graphs)} captured step(s); peak "
+        f"memory {peak / 2**20:.1f} MiB")
+    if staged != want:
+        raise RuntimeError(f"the cache staged {staged} bytes, not {want}")
+    if not net._graphs or iterations != FUSED_EPOCHS * steps:
+        raise RuntimeError("LeNet did not train through captured steps")
+    if htod:
+        raise RuntimeError(f"epoch 2 made {htod} host-to-device copies")
+    if not acc > MNIST_MIN_ACCURACY:
+        raise RuntimeError(f"LeNet reached {acc} on MNIST")
+    if written != FUSED_EPOCHS:
+        raise RuntimeError(f"{written} checkpoints written")
+    return train, {
+        "generate_s": gen_s, "epoch_s": clock.seconds,
+        "samples_per_s": rates, "fit_s": fit_s, "staged_bytes": staged,
+        "epoch2_wall_ms": wall_ms, "epoch2_busy_ms": busy_ms,
+        "epoch2_idle_share": idle, "epoch2_device_events": len(device),
+        "epoch2_htod_copies": htod, "accuracy": acc, "evaluate_s": eval_s,
+        "checkpoints_written": written, "peak_mem_bytes": peak}
+
+
+def lenet_pair(dtype):
+    """Two LeNet-5s of one seed (the same initial weights)."""
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    return [MultiLayerNetwork(lenet(compute_dtype=dtype)).init()
+            for _ in range(2)]
+
+
+def fused_captured_vs_eager(train) -> dict:
+    """(b): CAPTURE_STEPS steps through the captured cache path against
+    the same batches through the eager per-batch path, fp32 and bf16."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.dataset import attach_wire, wire_of
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    n = CAPTURE_STEPS * FUSED_BATCH
+    src = train._ds
+    u8, fmt = wire_of(src)
+    ds = attach_wire(DataSet(src.features[:n], src.labels[:n]), u8[:n], fmt)
+    out = {}
+    for dtype, atol in (("float32", 0.0), (None, GOLDEN_BF16_ATOL)):
+        cap, eager = lenet_pair(dtype)
+        cap.fit(ListDataSetIterator(ds, FUSED_BATCH), ingest="cache")
+        eager.fit(ListDataSetIterator(ds, FUSED_BATCH), ingest="batch")
+        if not cap._graphs:
+            raise RuntimeError("the cache path did not capture")
+        name = cap._pol().name
+        out[name] = same_state(f"LeNet {name}, {CAPTURE_STEPS} steps "
+                               "captured vs eager", flat_state(cap),
+                               flat_state(eager), atol)
+    return out
+
+
+def fused_attention(N, A, seed: int) -> dict:
+    """(c): phase 5's network through fit(iterator, ingest="cache"),
+    captured: equal to the eager per-batch path after ATTN_CACHE_STEPS
+    steps.  One more epoch, with the counts set to 0 just before it,
+    replays the graph under torch.profiler: the wrappers count nothing
+    there (a replay runs no wrapper), and the profiler's kernel names
+    give the launches of K1-K3 inside the replays, the ``fused`` path's
+    counts (K4 shares K1's kernel name; the capturing fit's wrapper
+    counts show it is not in the graph)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    ds = make_batch(seed, BATCH * ATTN_CACHE_STEPS, SEQ, N_IN, N_OUT)
+    nets = [build_net(N, A, seed=seed, n_in=N_IN, hidden=HIDDEN,
+                      heads=HEADS, n_out=N_OUT, cache_len=SEQ)
+            for _ in range(2)]
+    cap, eager = nets
+    eager.fit(ListDataSetIterator(ds, BATCH), ingest="batch")
+    A.reset_launches()
+    cap.fit(ListDataSetIterator(ds, BATCH), ingest="cache")
+    torch.cuda.synchronize()
+    capturing = dict(A.LAUNCHES)     # the warm-up steps and the capture
+    err = same_state(f"attention network, {ATTN_CACHE_STEPS} steps "
+                     "captured vs eager", flat_state(cap), flat_state(eager))
+    A.reset_launches()               # the replayed epoch's counts only
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cap.fit(ListDataSetIterator(ds, BATCH), ingest="cache")
+        torch.cuda.synchronize()
+    wrappers = dict(A.LAUNCHES)
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    seen = {k: sum(1 for n in names if k in n) for k in PORT_KERNELS}
+    launches = {"flash_fwd": seen["flash_fwd_kernel"],
+                "flash_fwd_partials": 0,
+                "flash_bwd_dkdv": seen["flash_bwd_dkdv_kernel"],
+                "flash_bwd_dq": seen["flash_bwd_dq_kernel"]}
+    log(f"[fused] attention cache path: wrapper counts of the capturing "
+        f"fit {capturing}; one more epoch of replays: wrapper counts "
+        f"{wrappers}, profiler kernels {seen}")
+    if capturing["flash_fwd_partials"] or not all(
+            capturing[k] for k in ("flash_fwd", "flash_bwd_dkdv",
+                                   "flash_bwd_dq")):
+        raise RuntimeError(f"the capturing fit's launches {capturing}")
+    if any(wrappers.values()) or \
+            any(seen[k] != ATTN_CACHE_STEPS for k in PORT_KERNELS):
+        raise RuntimeError(f"K1-K3 did not run inside the graph's replays: "
+                           f"profiler {seen}, wrappers {wrappers}")
+    return {"max_abs_diff": err, "launches": launches,
+            "capturing_fit_wrapper_counts": capturing,
+            "profiler_kernels": seen}
+
+
+def fused_resume(train) -> dict:
+    """(d): a mid-epoch checkpoint from a manager whose step cadence
+    splits the epoch, resumed with resume_from="auto", against the
+    uninterrupted run, bitwise (mixed_bf16: fp32 masters included)."""
+    import json
+    import shutil
+    import tempfile
+    import zipfile
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.dataset import attach_wire, wire_of
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.resilience import (CheckpointManager,
+                                                     list_checkpoints)
+    n = RESUME_TRAIN
+    src = train._ds
+    u8, fmt = wire_of(src)
+    ds = attach_wire(DataSet(src.features[:n], src.labels[:n]), u8[:n], fmt)
+
+    def it():
+        return ListDataSetIterator(ds, FUSED_BATCH, shuffle=True, seed=5)
+
+    ref, run = lenet_pair(None)
+    ref.fit(it(), epochs=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        full, cold = os.path.join(tmp, "full"), os.path.join(tmp, "cold")
+        run.fit(it(), epochs=2, checkpoint=CheckpointManager(
+            full, every_steps=RESUME_EVERY, keep_last=8))
+        same_state("the checkpointed run vs the uninterrupted one",
+                   flat_state(run), flat_state(ref))
+        mids = []
+        for path in list_checkpoints(full):
+            with zipfile.ZipFile(path) as zf:
+                r = json.loads(zf.read("resume.json"))
+            if r["epoch"] == 1 and r["step_in_epoch"] > 0:
+                mids.append((path, r))
+        path, r = mids[0]
+        if not all(isinstance(m["score"], float) and np.isfinite(m["score"])
+                   for _, m in mids):
+            raise RuntimeError("a checkpoint lost its score: "
+                               f"{[m['score'] for _, m in mids]}")
+        os.makedirs(cold)
+        shutil.copy(path, cold)
+        resumed = lenet_pair(None)[0]
+        resumed.fit(it(), epochs=2, checkpoint=CheckpointManager(cold),
+                    resume_from="auto")
+    log(f"[fused] resumed from {os.path.basename(path)} (score "
+        f"{r['score']}, epoch {r['epoch']}, step {r['step_in_epoch']} of "
+        f"{RESUME_TRAIN // FUSED_BATCH}) to iteration {resumed.iteration}")
+    err = same_state("mid-epoch resume vs the uninterrupted run",
+                     flat_state(resumed), flat_state(ref))
+    if resumed.iteration != ref.iteration:
+        raise RuntimeError("the resumed run stopped elsewhere")
+    return {"checkpoint_iteration": r["iteration"],
+            "step_in_epoch": r["step_in_epoch"], "max_abs_diff": err}
+
+
+def fused_window(train) -> dict:
+    """(e): an AsyncDataSetIterator with a standardizing preprocessor is
+    not cacheable: "auto" takes the window path, equal to "batch" in
+    fp32 bitwise."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        AsyncDataSetIterator, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.datasets.normalizers import \
+        NormalizerStandardize
+    from deeplearning4j_tpu_torch.nn.ingest import cacheable_source
+    n = WINDOW_BATCHES * FUSED_BATCH
+    ds = DataSet(train._ds.features[:n], train._ds.labels[:n])
+    norm = NormalizerStandardize().fit(ds)
+
+    def it():
+        a = AsyncDataSetIterator(ListDataSetIterator(ds, FUSED_BATCH))
+        a.set_preprocessor(norm)
+        return a
+
+    win, eager = lenet_pair("float32")
+    src = it()
+    if cacheable_source(src) is not None:
+        raise RuntimeError("a preprocessed async iterator is cacheable")
+    from deeplearning4j_tpu_torch import monitor
+    monitor.gauge("ingest_staged_bytes").set(-1, path="window")
+    win.fit(src, window=WINDOW_SIZE)
+    src.close()
+    last = staged_bytes("window")
+    other = it()
+    eager.fit(other, ingest="batch")
+    other.close()
+    row = FUSED_BATCH * (784 * 4 + 10 * 4)
+    sizes = [min(WINDOW_SIZE, WINDOW_BATCHES - i)
+             for i in range(0, WINDOW_BATCHES, WINDOW_SIZE)]
+    per_window = [k * row for k in sizes]
+    log(f"[fused] window path: {len(sizes)} windows of {sizes} batches, "
+        f"staged bytes per window {per_window} (the gauge after the last: "
+        f"{last:.0f})")
+    if last != per_window[-1]:
+        raise RuntimeError(f"the window path staged {last} bytes last")
+    err = same_state("window vs batch, fp32", flat_state(win),
+                     flat_state(eager))
+    return {"windows": sizes, "staged_bytes_per_window": per_window,
+            "max_abs_diff": err}
+
+
+def attention_graph(N, seed: int):
+    """Phase 5's network built with graph_builder()."""
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        CausalSelfAttention
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+    conf = (N.NeuralNetConfiguration.builder().seed(seed).updater("adam")
+            .learning_rate(1e-3).graph_builder().add_inputs("in")
+            .add_layer("attn", CausalSelfAttention(
+                n_out=HIDDEN, n_heads=HEADS, cache_len=SEQ), "in")
+            .add_layer("out", RnnOutputLayer(
+                n_out=N_OUT, activation="softmax", loss="mcxent"), "attn")
+            .set_outputs("out")
+            .set_input_types(inputs.recurrent(N_IN, SEQ)).build())
+    return ComputationGraph(conf).init()
+
+
+def fused_scan(N, A, train, seed: int) -> dict:
+    """(h): fit_scan (the batches stacked, staged on a side stream, an
+    event before use) against the same batches through per-batch fit,
+    bitwise: fp32 LeNet as a MultiLayerNetwork, and phase 5's network as
+    a ComputationGraph under mixed_bf16 (K1-K3 once a step)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    src = train._ds
+    lenet_batches = [DataSet(src.features[i * FUSED_BATCH:
+                                          (i + 1) * FUSED_BATCH],
+                             src.labels[i * FUSED_BATCH:
+                                        (i + 1) * FUSED_BATCH])
+                     for i in range(CAPTURE_STEPS)]
+    attn_batches = [make_batch(seed + i, BATCH, SEQ, N_IN, N_OUT)
+                    for i in range(ATTN_CACHE_STEPS)]
+    out = {}
+    for name, build, batches in (
+            ("LeNet-5 fp32 (MultiLayerNetwork)",
+             lambda: lenet_pair("float32")[0], lenet_batches),
+            ("attention net mixed_bf16 (ComputationGraph)",
+             lambda: attention_graph(N, seed), attn_batches)):
+        scanned, eager = build(), build()
+        A.reset_launches()
+        scores = scanned.fit_scan(batches)
+        launches = dict(A.LAUNCHES)
+        eager_scores = []
+        for ds in batches:
+            eager.fit(ds)
+            eager_scores.append(eager.score())
+        err = same_state(f"fit_scan vs per-batch fit, {name}, "
+                         f"{len(batches)} steps", flat_state(scanned),
+                         flat_state(eager))
+        if not np.array_equal(scores, np.asarray(eager_scores,
+                                                 scores.dtype)):
+            raise RuntimeError(f"fit_scan scores {scores} vs per-batch "
+                               f"{eager_scores}")
+        out[name] = {"steps": len(batches), "max_abs_diff": err,
+                     "launches": launches}
+    graph_launches = out["attention net mixed_bf16 (ComputationGraph)"][
+        "launches"]
+    if graph_launches != {"flash_fwd": ATTN_CACHE_STEPS,
+                          "flash_fwd_partials": 0,
+                          "flash_bwd_dkdv": ATTN_CACHE_STEPS,
+                          "flash_bwd_dq": ATTN_CACHE_STEPS}:
+        raise RuntimeError(f"fit_scan's launches {graph_launches}")
+    return out
+
+
+def resnet_data(n: int):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.RandomState(0)
+    f = torch.from_numpy(rng.rand(n, 224, 224, 3).astype(np.float32)) \
+        .to(torch.bfloat16)
+    y = np.eye(1000, dtype=np.float32)[rng.randint(0, 1000, n)]
+    return DataSet(f, y)
+
+
+def fused_resnet(ds) -> dict:
+    """(f): ResNet-50 through the graph's epoch cache at
+    examples/sustained_training.py's configuration: bf16 host images,
+    batch RESNET_BATCH, one warm-up epoch (upload and capture), then
+    RESNET_CACHE_EPOCHS timed epochs."""
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.resnet import resnet50
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    net = ComputationGraph(resnet50()).init()
+    it = ListDataSetIterator(ds, RESNET_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=1)
+    first = net.score()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net.fit(it, epochs=RESNET_CACHE_EPOCHS)
+    final = net.score()
+    timed_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    staged = staged_bytes("cache")
+    n = ds.num_examples()
+    want = n * 224 * 224 * 3 * 2 + n * 1000 * 4
+    rate = RESNET_CACHE_EPOCHS * n / timed_s
+    wall_ms, n_events, by_name, busy_ms = profiled(lambda: net.fit(it))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[fused] ResNet-50 one more epoch under torch.profiler: host "
+        f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
+        f"{1 - busy_ms / wall_ms:.4f}), {n_events} device events; top 5: "
+        + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+    log(f"[fused] ResNet-50 graph cache, {n} bf16 images at 224x224, batch"
+        f" {RESNET_BATCH}: staged {staged:.0f} bytes ({want}); warm-up epoch"
+        f" {warm_s:.2f} s (upload, capture), {RESNET_CACHE_EPOCHS} epochs "
+        f"in {timed_s:.3f} s = {rate:.1f} samples/s; score {first:.4f} "
+        f"after the warm-up epoch -> {final:.4f}; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    if staged != want or not net._graphs:
+        raise RuntimeError("ResNet-50 did not train from the graph cache")
+    if not (np.isfinite(first) and np.isfinite(final)):
+        raise RuntimeError(f"ResNet-50 scores {first}, {final}")
+    return {"examples": n, "staged_bytes": staged, "warmup_epoch_s": warm_s,
+            "timed_s": timed_s, "samples_per_s": rate, "first_score": first,
+            "final_score": final, "peak_mem_bytes": peak,
+            "profiled_epoch": {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                               "idle_share": 1 - busy_ms / wall_ms,
+                               "device_events": n_events,
+                               "top5": [{"name": k[:120], "ms": v}
+                                        for k, v in top]}}
+
+
+def fused_resnet_vs_eager(ds) -> dict:
+    """(f): 2 steps of ResNet-50 captured vs eager, mixed_bf16, within
+    the graph golden's bf16 tolerance."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.resnet import resnet50
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    n = 2 * RESNET_BATCH
+    small = DataSet(ds.features[:n], ds.labels[:n])
+    cap = ComputationGraph(resnet50()).init()
+    cap.fit(ListDataSetIterator(small, RESNET_BATCH), ingest="cache")
+    got = flat_state(cap)
+    del cap
+    torch.cuda.empty_cache()
+    eager = ComputationGraph(resnet50()).init()
+    eager.fit(ListDataSetIterator(small, RESNET_BATCH), ingest="batch")
+    return {"max_abs_diff": same_state(
+        "ResNet-50, 2 steps captured vs eager (mixed_bf16)", got,
+        flat_state(eager), GOLDEN_BF16_ATOL)}
+
+
+def fused_health(N) -> dict:
+    """(g): skip_update on all-NaN batches leaves the params and the
+    updater state bitwise unchanged on the cache and per-batch paths;
+    under abort the card and the CPU name the same step and layer."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.monitor import health
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    rng = np.random.RandomState(3)
+    x = rng.rand(3 * FUSED_BATCH, 784).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.randint(0, 10, 3 * FUSED_BATCH)]
+    nan = DataSet(np.full_like(x, np.nan), y)
+    try:
+        health.enable("skip_update")
+        net = MultiLayerNetwork(lenet(compute_dtype="float32")).init()
+        before = flat_state(net)
+        net.fit(ListDataSetIterator(nan, FUSED_BATCH), ingest="cache")
+        net.fit(DataSet(nan.features[:FUSED_BATCH], y[:FUSED_BATCH]))
+        skipped = monitor.counter(health.SKIPPED_TOTAL).value()
+        same_state("skip_update on NaN batches (cache, then per-batch)",
+                   flat_state(net), before)
+        health.enable("abort")
+        x[FUSED_BATCH + 7, 100] = np.nan      # batch 2 of 3
+        where = {}
+        for device in ("cuda", "cpu"):
+            net = MultiLayerNetwork(lenet(compute_dtype="float32"),
+                                    device=device).init()
+            try:
+                net.fit(ListDataSetIterator(DataSet(x, y), FUSED_BATCH),
+                        ingest="cache")
+            except health.TrainingDivergedError as e:
+                where[device] = (e.step, e.layer)
+    finally:
+        health.reset()
+    log(f"[fused] health: {skipped:.0f} steps skipped; abort at (step, "
+        f"layer) {where}")
+    if skipped != 4 or where.get("cuda") is None or \
+            where["cuda"] != where.get("cpu"):
+        raise RuntimeError(f"the health guard: skipped {skipped}, {where}")
+    return {"skipped": skipped, "abort": where["cuda"]}
+
+
+def phase_fused(N, A, seed: int, harness: dict, ffcnn: dict) -> dict:
+    """Phase 13: the fused training runtime: the epoch cache (a captured
+    CUDA graph a step), the window path, mid-epoch resume, fit_scan, the
+    health guard, with LeNet-5 on the full MNIST and ResNet-50 (the
+    ``fused`` path of the kernels line: K1-K3 inside the attention net's
+    graph replays, counted by the profiler)."""
+    train, result = fused_lenet(harness, ffcnn)
+    result = {"lenet": result}
+    torch.cuda.empty_cache()
+    images = resnet_data(RESNET_CACHE_N)
+    result["resnet50"] = fused_resnet(images)
+    torch.cuda.empty_cache()
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        result["captured_vs_eager"] = fused_captured_vs_eager(train)
+        result["resnet50"]["captured_vs_eager"] = \
+            fused_resnet_vs_eager(images)
+        del images
+        torch.cuda.empty_cache()
+        result["attention"] = fused_attention(N, A, seed)
+        result["launches"] = result["attention"]["launches"]
+        torch.cuda.empty_cache()
+        result["resume"] = fused_resume(train)
+        result["window"] = fused_window(train)
+        result["fit_scan"] = fused_scan(N, A, train, seed)
+        result["health"] = fused_health(N)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    log(f"[fused] launches {result['launches']}")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2368,6 +2996,8 @@ def main(argv=None) -> int:
     harness = phase_harness(N, A, ffcnn["lenet"]["samples_per_s"])
     torch.cuda.empty_cache()
     graph = phase_graph(N, A, args.seed)
+    torch.cuda.empty_cache()
+    fused = phase_fused(N, A, args.seed, harness["lenet_mnist"], ffcnn)
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -2378,7 +3008,8 @@ def main(argv=None) -> int:
              "serving": serving["launches"],
              "feedforward_cnn": ffcnn["launches"],
              "recurrent": recurrent["launches"],
-             "harness": harness["launches"], "graph": graph["launches"]}
+             "harness": harness["launches"], "graph": graph["launches"],
+             "fused": fused["launches"]}
     kernels = [dict(name=name, route="cuda",
                     source="deeplearning4j_tpu_torch/ops/csrc/"
                            "flash_attention.cu",
@@ -2392,7 +3023,7 @@ def main(argv=None) -> int:
                       "training": training, "inference": inference,
                       "ring": ring, "serving": serving,
                       "feedforward_cnn": ffcnn, "recurrent": recurrent,
-                      "harness": harness, "graph": graph}))
+                      "harness": harness, "graph": graph, "fused": fused}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

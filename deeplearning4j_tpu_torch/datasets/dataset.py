@@ -4,11 +4,17 @@
 One minibatch: features (batch, ...), one-hot or regression labels
 (batch, ...), optional per-timestep masks (batch, time).  Fields hold
 numpy arrays or torch tensors; the network moves them to its device.
+
+A batch may carry a uint8 *wire twin* of its features (``attach_wire``):
+the same examples in uint8 plus the ``normalizers.WireFormat`` whose
+decode reproduces the float32 features bit for bit, so the ingest paths
+(``nn/ingest.py``) upload 1 byte a pixel and decode on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -51,6 +57,28 @@ class DataSet:
             sl = slice(start, min(start + batch_size, n))
             yield DataSet(*[None if a is None else a[sl]
                             for a in self.as_tuple()])
+
+
+def attach_wire(ds: DataSet, u8: np.ndarray, fmt) -> DataSet:
+    """Attach a uint8 wire twin to ``ds``: ``u8`` holds the examples of
+    ``ds.features`` in uint8 and ``fmt`` (a ``normalizers.WireFormat``)
+    decodes it to ``ds.features`` bit for bit.  An instance attribute,
+    not a field: ``dataclasses.replace`` copies (a preprocessed batch)
+    drop it, since preprocessed features no longer match the decode."""
+    ds._wire = (np.asarray(u8), fmt)
+    return ds
+
+
+def wire_of(ds) -> Optional[Tuple[np.ndarray, object]]:
+    """The ``(uint8 buffer, WireFormat)`` twin a reader attached, or
+    None."""
+    return getattr(ds, "_wire", None)
+
+
+def wire_enabled() -> bool:
+    """Whether staging may use the uint8 wire: ``DL4J_TPU_WIRE_UINT8=0``
+    forces float32 everywhere.  Read at each staging decision."""
+    return os.environ.get("DL4J_TPU_WIRE_UINT8", "1") != "0"
 
 
 @dataclasses.dataclass

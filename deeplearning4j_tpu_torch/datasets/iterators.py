@@ -23,8 +23,9 @@ import threading
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
+import torch
 
-from .dataset import DataSet
+from .dataset import DataSet, attach_wire, wire_of
 
 
 class DataSetIterator:
@@ -99,9 +100,19 @@ class ListDataSetIterator(DataSetIterator):
         self._pos += self._batch
 
         def _take(a):
-            return None if a is None else np.asarray(a)[idx]
+            if a is None:
+                return None
+            # a host tensor (bf16 features) stays a tensor
+            return a[idx] if isinstance(a, torch.Tensor) else \
+                np.asarray(a)[idx]
 
-        return self._pre(DataSet(*[_take(a) for a in self._ds.as_tuple()]))
+        batch = DataSet(*[_take(a) for a in self._ds.as_tuple()])
+        wire = wire_of(self._ds)
+        if wire is not None:
+            # the uint8 twin sliced with the same rows; a preprocessor
+            # drops it again in _pre
+            attach_wire(batch, wire[0][idx], wire[1])
+        return self._pre(batch)
 
 
 class ExistingDataSetIterator(DataSetIterator):

@@ -23,8 +23,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .dataset import DataSet
+from .dataset import DataSet, attach_wire
 from .iterators import ListDataSetIterator
+from .normalizers import U8_PIXEL, WireFormat
 
 _GLYPHS = {
     0: ["01110", "10001", "10011", "10101", "11001", "10001", "01110"],
@@ -178,15 +179,21 @@ class MnistDataSetIterator(ListDataSetIterator):
     """Reference signature ``MnistDataSetIterator(batch, numExamples,
     binarize, train, shuffle, seed)``.  Features are flat 784-vectors in
     [0, 1]; pair them with ``InputType.convolutional_flat(28, 28, 1)`` for
-    a CNN."""
+    a CNN.  The dataset carries its uint8 twin (``dataset.attach_wire``),
+    so the ingest paths upload 1 byte a pixel and decode on the device."""
 
     def __init__(self, batch: int, num_examples: int = 60000,
                  binarize: bool = False, train: bool = True,
                  shuffle: bool = True, seed: int = 6):
         u8, labels = mnist_arrays_u8(train, num_examples, seed)
         if binarize:
-            # u8 / 255 > 0.3 is u8 >= 77
-            images = (u8 >= 77).astype(np.float32)
+            # u8 / 255 > 0.3 is u8 >= 77; the {0, 1} result is itself
+            # uint8, so its wire decodes with the identity format
+            u8 = (u8 >= 77).astype(np.uint8)
+            images = u8.astype(np.float32)
+            fmt = WireFormat()
         else:
             images = u8.astype(np.float32) / 255.0
-        super().__init__(DataSet(images, labels), batch, shuffle, seed)
+            fmt = U8_PIXEL
+        super().__init__(attach_wire(DataSet(images, labels), u8, fmt),
+                         batch, shuffle, seed)

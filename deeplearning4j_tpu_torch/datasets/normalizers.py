@@ -23,9 +23,54 @@ time-series (batch, time, features) inputs all normalise per feature, with
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class WireFormat:
+    """Affine decode of a uint8 feature buffer: ``f32 = float32(u8) /
+    denom * mult + add``, in that op order, each op rounded to float32 as
+    numpy rounds it.  The host readers compute their float32 features
+    with exactly this expression, so the on-device decode
+    (``nn/ingest.device_decode``) reproduces them bit for bit:
+
+    - the readers' ``u8 / 255``: ``WireFormat(denom=255.0)``;
+    - ``ImagePreProcessingScaler`` (``x / max_pixel * (b - a) + a``):
+      ``WireFormat(denom=max_pixel, mult=b - a, add=a)``;
+    - raw {0, 1} payloads (binarized pixels): the identity default, whose
+      three ops are exact on the non-negative values of a u8 cast.
+    """
+
+    denom: float = 1.0
+    mult: float = 1.0
+    add: float = 0.0
+
+    def decode_host(self, u8: np.ndarray) -> np.ndarray:
+        """The host (numpy) twin of the device decode."""
+        x = np.asarray(u8, np.float32)
+        return x / np.float32(self.denom) * np.float32(self.mult) \
+            + np.float32(self.add)
+
+    def as_tuple(self):
+        return (self.denom, self.mult, self.add)
+
+
+#: the readers' pixel format: features = u8 / 255
+U8_PIXEL = WireFormat(denom=255.0)
+
+
+def wire_format_of(normalizer) -> Optional[WireFormat]:
+    """The WireFormat that reproduces ``normalizer.transform`` on uint8
+    input, or None: only the stateless ``ImagePreProcessingScaler`` is an
+    affine map of the pixels."""
+    if isinstance(normalizer, ImagePreProcessingScaler):
+        return WireFormat(denom=normalizer.max_pixel,
+                          mult=normalizer.b - normalizer.a,
+                          add=normalizer.a)
+    return None
 
 
 def _moments_axes(features: np.ndarray) -> tuple:

@@ -32,11 +32,15 @@ Carries (``rnn_time_step``, ``rnn_stateless_step``, ``decode_step``,
 ``grow_decode_carries``, truncated BPTT) are dicts keyed by the names of
 the recurrent layer vertices.
 
-Not ported yet: ``fit_scan`` and the fused, cached and windowed ingest
-(``fit(ingest="cache"|"window")``, ROADMAP A7; ``"auto"`` takes the
-per-batch path until then), checkpoint/resume (A7) and ``pretrain``/
-``pretrain_layer`` (A6); each raises ``NotImplementedError`` naming its
-item.
+The fused training runtime is shared with the ``MultiLayerNetwork``
+(``multilayer._Network``): the device-resident epoch cache (a captured
+CUDA graph per step on the card), windowed staging over
+``MultiDataSet``s, ``fit_scan``, the health guard and checkpoint/resume;
+the graph supplies only how a batch's per-input lists become its
+``_loss_fn`` arguments and how a window stacks.
+
+Not ported yet: ``pretrain``/``pretrain_layer`` (A6), which raise
+``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -45,8 +49,9 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from ..datasets.dataset import DataSet, MultiDataSet
+from ..datasets.dataset import DataSet, MultiDataSet, wire_of
 from ..device import DeviceLike
+from . import ingest as _ingest
 from .conf.computation_graph import (ComputationGraphConfiguration,
                                      DuplicateToTimeSeriesVertex,
                                      LastTimeStepVertex, LayerVertex)
@@ -60,12 +65,18 @@ def _as_multi(data) -> MultiDataSet:
     if isinstance(data, MultiDataSet):
         return data
     if isinstance(data, DataSet):
-        return MultiDataSet(
+        mds = MultiDataSet(
             features=[data.features], labels=[data.labels],
             features_masks=(None if data.features_mask is None
                             else [data.features_mask]),
             labels_masks=(None if data.labels_mask is None
                           else [data.labels_mask]))
+        wire = wire_of(data)
+        if wire is not None:
+            # the per-input wire list of ingest.multi_window_wire: a
+            # wrapped DataSet wires its single input
+            mds._wires = [wire]
+        return mds
     raise TypeError(f"Expected DataSet/MultiDataSet, got {type(data)}")
 
 
@@ -233,10 +244,22 @@ class ComputationGraph(_Network):
         return ([data] if isinstance(data, (DataSet, MultiDataSet))
                 else data)
 
-    def fit_scan(self, batches):
-        """Many batches in one dispatch: waits for ROADMAP A7."""
-        raise NotImplementedError(
-            "ComputationGraph.fit_scan is not ported yet (ROADMAP A7)")
+    def _step_batch(self, fs, ls, fms, lms):
+        return (tuple(fs), tuple(ls),
+                None if fms is None else tuple(fms),
+                None if lms is None else tuple(lms))
+
+    def _window_item(self, ds):
+        return _as_multi(ds)
+
+    def _window_sig(self, item):
+        return _ingest.multi_window_signature(item)
+
+    def _window_stack(self, items, pin: bool):
+        return _ingest.stack_multi_window(items, pin)
+
+    def _window_wires(self, items, n_in: int, pin: bool):
+        return _ingest.multi_window_wire(items, n_in, pin)
 
     def pretrain(self, data, epochs: int = 1):
         """Layer-wise pretraining: waits for ROADMAP A6."""
@@ -305,9 +328,8 @@ class ComputationGraph(_Network):
             window_in = _detached(carries)
             f, l = cut(features, sl), cut(labels, sl)
             fm, lm = cut(fmasks, sl, True), cut(lmasks, sl, True)
-            carries = self._update(lambda p: self._loss_fn(
-                p, self.net_state, f, l, fm, lm, self._rng, True,
-                carries=window_in))
+            carries = self._update(lambda p, s: self._loss_fn(
+                p, s, f, l, fm, lm, self._rng, True, carries=window_in))
 
     # --------------------------------------------- rnn streaming state API
     def _recurrent_vertex_names(self) -> List[str]:

@@ -42,16 +42,27 @@ machinery lives in ``_Network``, which ``computation_graph.
 ComputationGraph`` shares: the two containers differ only in how they
 name, order and compose their layers.
 
-Not ported yet: the fused multi-step scans and the device-cached and
-windowed ingest (``fit(ingest="cache"|"window")``, ROADMAP A7; ``"auto"``
-takes the per-batch path until then), health telemetry,
-checkpoint/resume (A7) and pretraining (A6).
+The fused training runtime (``_Network``, shared by both containers):
+``fit(iterator)`` trains a cacheable iterator from the device-resident
+epoch cache (``ingest="auto"``/``"cache"``; on the card each step is one
+replay of a captured CUDA graph, ``nn/step_graph.py``), other iterators in
+staged windows (``"window"``), and ``fit_scan`` a list of batches in one
+call; every path computes the ``monitor.health`` vector and its guard
+when ``monitor.health.in_step()`` asks for them;
+``checkpoint=``/``resume_from=`` write and resume
+``resilience.checkpoint`` checkpoints, mid-epoch on the cache path.  See
+``nn/ingest.py`` for the deliberate difference in the cache path's
+shuffle.
+
+Not ported yet: pretraining (A6).
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+import warnings
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -63,9 +74,13 @@ from ..device import DeviceLike, resolve_device
 from ..eval.evaluation import Evaluation
 from ..eval.regression import RegressionEvaluation
 from ..eval.roc import ROC, ROCMultiClass
+from ..monitor import health as _health
 from ..optimize import solvers as _solvers
 from ..optimize.listeners.listeners import finalize_listeners
+from ..resilience import faults as _faults
+from . import ingest as _ingest
 from . import precision as _precision
+from . import step_graph as _step_graph
 from . import updaters as _updaters
 from .conf.neural_net_configuration import MultiLayerConfiguration
 from .layers.recurrent import BaseRecurrentLayer
@@ -77,8 +92,9 @@ class _Network:
     """What the two containers share (``MultiLayerNetwork`` and
     ``computation_graph.ComputationGraph``): init, the autograd step and
     the updater, the fit loop with its listeners and epoch hooks, the
-    solver route, the flat parameter and updater-state vectors, carry
-    support and ``clone``.
+    fused runtime (the epoch cache, windowed staging, ``fit_scan``, the
+    health guard, checkpoints), the solver route, the flat parameter and
+    updater-state vectors, carry support and ``clone``.
 
     A container names its layers by a *key* (the layer index, or the
     vertex name) and lists them in flat-parameter order in ``_slots()``;
@@ -97,6 +113,12 @@ class _Network:
         self._policy: Optional[_precision.PrecisionPolicy] = None
         self._rnn_carries = None
         self._rnn_carry_batch = -1
+        # the cache path's captured steps (nn/step_graph.py) and the
+        # windowed path's copy stream, made on first use on a card
+        self._static: Optional[_step_graph.StaticTrees] = None
+        self._graphs: Dict[tuple, _step_graph.CapturedGatherStep] = {}
+        self._graph_pool = None
+        self._stage_stream = None
 
     # ---- the container's layout ------------------------------------------
     def _slots(self):
@@ -182,23 +204,75 @@ class _Network:
                 else torch.float32)
 
     # ------------------------------------------------------------- training
-    def _update(self, loss_fn):
-        """One autograd step: ``loss_fn(params) -> (loss, new_state,
-        new_carries)`` on fresh leaves of the params, then the updater.
-        Returns the new carries."""
+    def _train_step(self, params, updater_state, net_state, loss_fn,
+                    iteration: int, scalars=None, health: bool = False):
+        """One forward, one autograd backward and the DL4J-order update, as
+        a pure function of the trees it is given (the step every fit path
+        shares, eager or captured).  ``loss_fn(params, net_state) ->
+        (loss, new_state, new_carries)`` runs on fresh leaves of
+        ``params``.  Returns ``(new_params, new_updater_state, new_state,
+        score, hvec, new_carries)``.  With ``health`` the packed health
+        vector of ``monitor.health`` and its guard, where
+        ``health.in_step()`` asks for them (else ``hvec`` is None);
+        ``scalars`` (per layer key) replaces the iteration's updater
+        scalars (a captured step reads them from the device)."""
         leaves = self._trees(
             [(key, {k: p.detach().requires_grad_(p.is_floating_point())
                     for k, p in tree.items()})
-             for key, tree in self._items(self.params)])
-        data_loss, new_state, new_carries = loss_fn(leaves)
+             for key, tree in self._items(params)])
+        data_loss, new_state, new_carries = loss_fn(leaves, net_state)
         flat = [p for _, tree in self._items(leaves) for p in tree.values()]
         grads = torch.autograd.grad(data_loss, flat, allow_unused=True)
         with torch.no_grad():
-            score = data_loss.detach() + self._reg_score(self.params)
-            self._apply_updates(flat, grads)
-        self.net_state = self._stored_state(new_state)
+            grads = [torch.zeros_like(leaf) if g is None else g
+                     for g, leaf in zip(grads, flat)]
+            score = data_loss.detach() + self._reg_score(params)
+            new_params, new_ustate = self._updated(
+                params, updater_state, grads, iteration, scalars)
+            new_state = self._stored_state(new_state)
+            hvec = None
+            if health and _health.in_step():
+                hvec, bad = _health.layer_stats(
+                    _flat_leaves(self, params), _flat_leaves(self, new_params),
+                    grads, data_loss, _health.leaf_counts(self),
+                    _health.layer_matrix(self))
+                new_params, new_ustate, new_state = _health.guard_select(
+                    bad, (new_params, new_ustate, new_state),
+                    (params, updater_state, net_state))
+        return new_params, new_ustate, new_state, score, hvec, new_carries
+
+    def _updated(self, params, updater_state, flat_grads, iteration: int,
+                 scalars=None):
+        """New (params, updater state) trees after the updater step of
+        every layer; ``flat_grads`` in flat-parameter order."""
+        grads_iter = iter(flat_grads)
+        new_p, new_u = [], []
+        for key, layer in self._slots():
+            g = {name: next(grads_iter) for name in params[key]}
+            if g:
+                p, u = _updaters.apply_layer_updates(
+                    self._updater_conf(key), layer, params[key],
+                    updater_state[key], g, iteration,
+                    scalars=None if scalars is None else scalars.get(key))
+            else:
+                p, u = params[key], updater_state[key]
+            new_p.append((key, p))
+            new_u.append((key, u))
+        return self._trees(new_p), self._trees(new_u)
+
+    def _update(self, loss_fn, health: bool = False):
+        """One step of the network on its own trees (per-batch and tBPTT
+        paths): the health vector is recorded when ``health``; listeners
+        fire.  Returns the new carries."""
+        (self.params, self.updater_state, self.net_state, score, hvec,
+         new_carries) = self._train_step(
+            self.params, self.updater_state, self.net_state, loss_fn,
+            self.iteration, health=health)
         self._score = score
+        if health:
+            _health.record_dispatch(self, hvec, self.iteration)
         self.iteration += 1
+        _iterations().inc()
         self._fire_listeners()
         return new_carries
 
@@ -208,24 +282,10 @@ class _Network:
         return self._trees([(key, {k: v.detach() for k, v in s.items()})
                             for key, s in self._items(new_state)])
 
-    def _apply_updates(self, flat_leaves, flat_grads) -> None:
-        grads_iter = iter(flat_grads)
-        leaves_iter = iter(flat_leaves)
-        for key, layer in self._slots():
-            g = {}
-            for name in self.params[key]:
-                grad, leaf = next(grads_iter), next(leaves_iter)
-                g[name] = torch.zeros_like(leaf) if grad is None else grad
-            if not g:
-                continue
-            self.params[key], self.updater_state[key] = \
-                _updaters.apply_layer_updates(
-                    self._updater_conf(key), layer, self.params[key],
-                    self.updater_state[key], g, self.iteration)
-
     def _fit_batch(self, ds) -> None:
         """One forward, one backward and one update per iteration (per
         window under tBPTT), or one solver iteration."""
+        _faults.slow_worker()
         batch = self._batch(ds)
         self.last_batch_size = ds.num_examples()
         solver = self._solver
@@ -233,13 +293,14 @@ class _Network:
             if solver is not None:
                 self._score = solver.optimize(*batch)
                 self.iteration += 1
+                _iterations().inc()
                 self._fire_listeners()
                 continue
             if self.conf.backprop_type == "tbptt":
                 self._fit_tbptt(*batch)
             else:
-                self._update(lambda p: self._loss_fn(
-                    p, self.net_state, *batch, self._rng, True))
+                self._update(lambda p, s: self._loss_fn(
+                    p, s, *batch, self._rng, True), health=True)
 
     def _fire_listeners(self) -> None:
         for listener in self.listeners:
@@ -249,51 +310,416 @@ class _Network:
         """``fit``'s data as a list of batches or an iterator."""
         raise NotImplementedError
 
+    # ---- the fused paths' container hooks --------------------------------
+    def _step_batch(self, fs, ls, fms, lms):
+        """``_loss_fn``'s (features, labels, masks) from per-input lists of
+        device tensors (mask lists may be None)."""
+        raise NotImplementedError
+
+    def _window_item(self, ds):
+        """An iterator's batch as the windowed path buffers it."""
+        raise NotImplementedError
+
+    def _window_sig(self, item):
+        raise NotImplementedError
+
+    def _window_stack(self, items, pin: bool):
+        """Host (W, B, ...) per-input lists (features, labels, features
+        masks or None, labels masks or None) of a window."""
+        raise NotImplementedError
+
+    def _window_wires(self, items, n_in: int, pin: bool):
+        """(per-input uint8 stacks, specs) of a window, or (None, None)."""
+        raise NotImplementedError
+
+    # ---- the device-resident epoch cache ---------------------------------
+    def _gather_step(self, params, updater_state, net_state, data_fs,
+                     data_ls, wires, idx, iteration: int, scalars=None):
+        """The cache path's step: gather the minibatch ``idx`` from the
+        resident per-input arrays (``index_select``), decode the wire,
+        train.  Returns ``(new_params, new_updater_state, new_state,
+        score, hvec)``."""
+        ldt = self._label_dtype()
+        fs = [_ingest.device_decode(d.index_select(0, idx), w)
+              for d, w in zip(data_fs, wires)]
+        ls = [d.index_select(0, idx).to(ldt) for d in data_ls]
+        batch = self._step_batch(fs, ls, None, None)
+        return self._train_step(
+            params, updater_state, net_state,
+            lambda p, s: self._loss_fn(p, s, *batch, self._rng, True),
+            iteration, scalars=scalars, health=True)[:5]
+
+    def _captured_step(self, data_fs, data_ls, wires, batch_rows: int,
+                       capacity: int, columns):
+        """The CUDA graph of the gather step for this dataset and batch
+        shape, captured on first use (``nn/step_graph.py``); the static
+        trees take the network's current values."""
+        if self._static is None:
+            self._static = _step_graph.StaticTrees(self)
+        else:
+            self._static.load(self)
+        key = _step_graph.capture_key(data_fs, data_ls, batch_rows,
+                                      capacity, _health.config_key())
+        step = self._graphs.get(key)
+        if step is None:
+            if any(k[:2] != key[:2] for k in self._graphs):
+                # another dataset: drop its graphs, and their memory pool
+                # with them (a pool all of whose graphs are gone cannot
+                # take a new capture)
+                self._graphs.clear()
+                self._graph_pool = None
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            score_dtype = self._label_dtype()
+            # a weak reference: no cycle through the graph, so a dropped
+            # network frees its graphs at once, never in the middle of
+            # another network's capture
+            net = weakref.ref(self)
+            step = _step_graph.CapturedGatherStep(
+                self, self._static,
+                lambda p, u, s, idx, sc: net()._gather_step(
+                    p, u, s, data_fs, data_ls, wires, idx, 0, sc),
+                batch_rows, capacity, columns, score_dtype,
+                2 + 3 * len(self._slots()) if _health.in_step() else 0,
+                self._graph_pool)
+            self._graphs[key] = step
+        return step
+
+    def _fit_device_cached(self, source, epochs: int, start_step: int = 0,
+                           ckpt=None):
+        """One ``fit`` over a device-resident dataset.  ``source`` is the
+        ``ListDataSetIterator`` vetted by ``ingest.cacheable_source``.
+        Batch boundaries (the tail batch included) and the per-iteration
+        updater and dropout streams are those of the per-batch path; the
+        example order is ``ingest.epoch_permutation`` (continuing across
+        fits through ``self.epoch``).  On the card each step is one replay
+        of the captured gather step; on the CPU the same step runs in an
+        eager loop.  ``start_step``/``ckpt`` are the resume offset and the
+        checkpoint manager of ``ingest.run_device_cached_fit``."""
+        dev_f, dev_l, wire = _ingest.device_cached_arrays(
+            self, source._ds, source.get_preprocessor())
+        data_fs, data_ls, wires = (dev_f,), (dev_l,), (wire,)
+        n, batch = source._ds.num_examples(), source._batch
+        steps, tail = divmod(n, batch)
+        shuffle, seed = bool(source._shuffle), int(self.conf.conf.seed)
+        capture = self.device.type == "cuda"
+        if capture:
+            fuse_cap = max(1, _ingest.max_steps_per_dispatch()
+                           // max(1, steps))
+            columns = _step_graph.table_columns(self)
+            it0 = self.iteration
+            table = _step_graph.scalar_table(
+                self, columns, it0, epochs * (steps + (1 if tail else 0)),
+                self.device)
+
+        def rows_of(first_epoch, fused, tail_rows, start, run):
+            out = []
+            for e in range(first_epoch, first_epoch + fused):
+                perm = _ingest.epoch_permutation(seed, e, n, shuffle,
+                                                 self.device)
+                if tail_rows:
+                    out.append(perm[steps * batch:].reshape(1, tail_rows))
+                else:
+                    out.append(perm[start * batch:(start + run) * batch]
+                               .reshape(run, batch))
+            return torch.cat(out)
+
+        def dispatch(first_epoch, fused, tail_rows, start=0, run=None):
+            rows = rows_of(first_epoch, fused, tail_rows, start,
+                           steps if run is None else run)
+            if capture:
+                step = self._captured_step(
+                    data_fs, data_ls, wires, rows.shape[1],
+                    1 if tail_rows else fuse_cap * steps, columns)
+                r = self.iteration - it0
+                scores, hstack = step.run(rows, table[r:r + rows.shape[0]])
+                self._static.bind(self)
+            else:
+                scores, hs = [], []
+                for j in range(rows.shape[0]):
+                    (self.params, self.updater_state, self.net_state, score,
+                     hvec) = self._gather_step(
+                        self.params, self.updater_state, self.net_state,
+                        data_fs, data_ls, wires, rows[j], self.iteration + j)
+                    scores.append(score)
+                    hs.append(hvec)
+                scores, hstack = torch.stack(scores), _stacked(hs)
+            _health.record_dispatch(self, hstack, self.iteration)
+            return scores
+
+        try:
+            return _ingest.run_device_cached_fit(
+                self, source, epochs, dispatch, start_step=start_step,
+                ckpt=ckpt)
+        finally:
+            if capture and self._static is not None:
+                self._static.release(self)
+
+    # ---- windowed staging and fit_scan ------------------------------------
+    def _stage(self, host):
+        """Copy host tensors (or None) to the device.  On the card they
+        come from pinned memory and go ``non_blocking`` on a side stream;
+        the returned event orders the copy before their use
+        (:meth:`_await_staged`)."""
+        if self.device.type != "cuda":
+            return [None if t is None else t.to(self.device)
+                    for t in host], None
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(device=self.device)
+        with torch.cuda.stream(self._stage_stream):
+            dev = [None if t is None else t.to(self.device,
+                                               non_blocking=True)
+                   for t in host]
+        done = torch.cuda.Event()
+        done.record(self._stage_stream)
+        return dev, done
+
+    def _await_staged(self, dev, done) -> None:
+        if done is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(done)
+        for t in dev:
+            if t is not None:
+                t.record_stream(cur)     # the allocator waits for our use
+
+    def _multi_steps(self, fs, ls, fms, lms, wires):
+        """One step per leading row of the stacked per-input device
+        tensors (the JAX package's scan over a window), on the network's
+        own trees.  Returns the (S,) scores and the (S, 2+3L) health stack
+        (None when the steps computed none)."""
+        ldt = self._label_dtype()
+
+        def row(ts, j, dtype=None):
+            if ts is None:
+                return None
+            return [None if t is None else
+                    (t[j] if dtype is None or not t.is_floating_point()
+                     else t[j].to(dtype)) for t in ts]
+
+        scores, hs = [], []
+        for j in range(fs[0].shape[0]):
+            f = [_ingest.device_decode(x, w) for x, w in zip(row(fs, j),
+                                                              wires)]
+            batch = self._step_batch(f, row(ls, j, ldt),
+                                     row(fms, j, torch.float32),
+                                     row(lms, j, torch.float32))
+            (self.params, self.updater_state, self.net_state, score, hvec,
+             _) = self._train_step(
+                self.params, self.updater_state, self.net_state,
+                lambda p, s: self._loss_fn(p, s, *batch, self._rng, True),
+                self.iteration + j, health=True)
+            scores.append(score)
+            hs.append(hvec)
+        return torch.stack(scores), _stacked(hs)
+
+    def _staged_window(self, items, pin: bool):
+        """Stack a window on the host (into pinned memory on the card),
+        ship the uint8 wire where every batch has one, else cast float32
+        features to a bf16 compute dtype on the host, and start the copy.
+        Returns what :meth:`_train_window` takes."""
+        _faults.slow_worker()
+        fs, ls, fms, lms = self._window_stack(items, pin)
+        u8s, wires = self._window_wires(items, len(fs), pin)
+        cdt = self._pol().compute_dtype
+        fs = [u8s[i] if u8s is not None and u8s[i] is not None
+              else _ingest.cast_for_transfer(f, cdt)
+              for i, f in enumerate(fs)]
+        wires = tuple(wires) if wires is not None else (None,) * len(fs)
+        parts = [fs, ls, fms or [], lms or []]
+        dev, done = self._stage([t for part in parts for t in part])
+        _monitor.gauge("ingest_staged_bytes", _ingest._STAGED_HELP).set(
+            sum(_ingest._nbytes(t) for t in fs + ls), path="window")
+        cut = [len(part) for part in parts]
+        out, at = [], 0
+        for k in cut:
+            out.append(dev[at:at + k])
+            at += k
+        return (out[0], out[1], out[2] if fms is not None else None,
+                out[3] if lms is not None else None, wires, dev, done,
+                len(items), items[0].num_examples())
+
+    def _train_window(self, staged, replay) -> None:
+        fs, ls, fms, lms, wires, dev, done, count, rows = staged
+        self._await_staged(dev, done)
+        scores, hstack = self._multi_steps(fs, ls, fms, lms, wires)
+        _health.record_dispatch(self, hstack, self.iteration)
+        replay.add(self.iteration, scores)
+        _iterations().inc(count)
+        self.iteration += count
+        self.last_batch_size = rows
+
+    def _fit_windowed(self, iterator, epochs: int, window: int, ckpt=None):
+        """Streaming ``fit(iterator)`` in multi-batch windows: window k+1
+        is stacked on the host and its copy started on a side stream
+        before window k's steps are enqueued, so the copy overlaps them
+        (datasets that fit the card take ``_fit_device_cached``).  A
+        window ends at ``window`` batches or at a change of shape or
+        masks.  ``ckpt`` saves at epoch boundaries (windows re-stack from
+        the host iterator, so mid-epoch offsets are not replayable here;
+        the epoch-cache path owns exact mid-epoch resume)."""
+        replay = _ingest.ScoreReplayer(self)
+        bound = _ingest.EpochBoundary(self, ckpt, replay)
+        pin = self.device.type == "cuda"
+        for _ in range(epochs):
+            bound.start_epoch()
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            buf, sig, pending = [], None, None
+            for ds in iterator:
+                item = self._window_item(ds)
+                s = self._window_sig(item)
+                if buf and (s != sig or len(buf) >= window):
+                    staged = self._staged_window(buf, pin)
+                    if pending is not None:
+                        self._train_window(pending, replay)
+                    pending, buf = staged, []
+                sig = s
+                buf.append(item)
+            if buf:
+                staged = self._staged_window(buf, pin)
+                if pending is not None:
+                    self._train_window(pending, replay)
+                pending = staged
+            if pending is not None:
+                self._train_window(pending, replay)
+            bound.end_epoch()
+        bound.finish()
+        return self
+
+    def fit_scan(self, batches) -> np.ndarray:
+        """Fit a list of same-shaped minibatches in one dispatch; returns
+        the per-step scores.  Listeners fire once at the end with the last
+        iteration.  The standard-backprop regime only: tBPTT,
+        ``num_iterations > 1`` and line-search solvers raise (use
+        ``fit``)."""
+        self.init()
+        if self.conf.backprop_type == "tbptt":
+            raise ValueError("fit_scan does not support tBPTT; use fit()")
+        if self.conf.conf.num_iterations != 1:
+            raise ValueError("fit_scan runs one update per batch; "
+                             "num_iterations > 1 must use fit()")
+        if self._solver is not None:
+            raise ValueError("fit_scan supports the SGD path only; this "
+                             "config uses a line-search solver")
+        items = [self._window_item(b) for b in batches]
+        for which in ("features_masks", "labels_masks"):
+            present = [_mask_presence(it, which) for it in items]
+            if len(set(present)) > 1:
+                raise ValueError(
+                    "Mixed mask presence across batches in fit_scan; "
+                    "provide masks on all batches or none")
+        _faults.slow_worker()
+        fs, ls, fms, lms = self._window_stack(items, False)
+        parts = [fs, ls, fms or [], lms or []]
+        dev, done = self._stage([t for part in parts for t in part])
+        self._await_staged(dev, done)
+        n_f, n_l, n_fm = len(fs), len(ls), len(parts[2])
+        fs, ls = dev[:n_f], dev[n_f:n_f + n_l]
+        fms = dev[n_f + n_l:n_f + n_l + n_fm] if fms is not None else None
+        lms = dev[n_f + n_l + n_fm:] if lms is not None else None
+        scores, hstack = self._multi_steps(fs, ls, fms, lms,
+                                           (None,) * len(fs))
+        _health.record_dispatch(self, hstack, self.iteration)
+        _iterations().inc(len(items))
+        self.iteration += len(items)
+        self._score = scores[-1]
+        self.last_batch_size = items[0].num_examples()
+        self._fire_listeners()
+        return scores.detach().cpu().numpy()
+
+    # ------------------------------------------------------------------- fit
+    def _resolve_resilience(self, checkpoint, resume_from, epochs):
+        """``(manager, start_step, remaining_epochs)`` of ``fit``'s
+        ``checkpoint=``/``resume_from=``."""
+        if checkpoint is None and resume_from is None:
+            return None, 0, epochs
+        from ..resilience.checkpoint import resolve_fit_resilience
+        return resolve_fit_resilience(self, checkpoint, resume_from, epochs)
+
+    @staticmethod
+    def _warn_partial_epoch_restart(start_step: int, path: str) -> None:
+        """Only the epoch-cache path can seek into an epoch (its order is
+        re-derived from the seed and the epoch); the others restart the
+        interrupted epoch."""
+        if start_step:
+            warnings.warn(
+                f"resume_from checkpoint was taken mid-epoch "
+                f"(step_in_epoch={start_step}) but the {path} path "
+                "cannot seek into an epoch; restarting the epoch from "
+                "step 0 (at-least-once semantics)", RuntimeWarning)
+
     def fit(self, data, labels=None, epochs: int = 1, ingest: str = "auto",
             window: int = 16, checkpoint=None, resume_from=None):
         """Train on a batch, a features array with ``labels``, or an
         iterator of batches (reset at each epoch): one update per batch,
         listeners fired after each.
 
-        ``ingest`` takes the JAX package's values.  ``"batch"`` is the
-        per-batch path; ``"auto"`` takes it too until the fused ingest
-        is ported (the JAX package's ``"auto"`` trains a cacheable
-        iterator from a device-resident copy in an on-device permutation,
-        so its batch order is not the iterator's).  ``"cache"`` and
-        ``"window"``, ``checkpoint`` and ``resume_from`` wait for ROADMAP
-        A7 and raise ``NotImplementedError``.  The ``window`` keyword
-        sizes ``"window"`` only, so the other modes ignore it."""
+        ``ingest`` selects the iterator's data path, as in the JAX
+        package: ``"auto"`` (default) trains from the device-resident
+        epoch cache when ``ingest.cacheable_source`` accepts the iterator
+        (a ``ListDataSetIterator`` of dense floats, ``MnistDataSetIterator``
+        included, possibly behind an ``AsyncDataSetIterator``), else in
+        windows of ``window`` batches staged while the previous window
+        trains; ``"cache"``, ``"window"`` and ``"batch"`` force one path.
+        The cache and window paths fire listeners by replaying each
+        step's exact score after the dispatch (the params a listener sees
+        are the dispatch's last); solver, tBPTT and ``num_iterations > 1``
+        networks always take the per-batch path.  With shuffle, the cache
+        path's example order is ``ingest.epoch_permutation``'s, not the
+        iterator's.
+
+        ``checkpoint=`` (a ``resilience.CheckpointManager`` or a
+        directory) saves checkpoints at the manager's step or time
+        cadence (epoch boundaries by default); ``resume_from=``
+        (``"auto"``, a directory or a checkpoint file) restores params,
+        updater state, the fit generator and the progress first, and
+        ``epochs`` is then the TOTAL epoch target of the original run.  On
+        the cache path a mid-epoch restore resumes at the exact step
+        (bit-identical to the uninterrupted run); the window and batch
+        paths restart the interrupted epoch."""
         if ingest not in ("auto", "cache", "window", "batch"):
             raise ValueError(
                 f"unknown ingest mode {ingest!r}; expected 'auto', "
                 "'cache', 'window', or 'batch'")
-        if ingest in ("cache", "window"):
-            raise NotImplementedError(
-                f"fit(ingest={ingest!r}) is not ported yet (ROADMAP A7)")
-        if checkpoint is not None or resume_from is not None:
-            raise NotImplementedError(
-                "fit(checkpoint=, resume_from=) is not ported yet "
-                "(ROADMAP A7)")
         self.init()
+        ckpt, start_step, epochs = self._resolve_resilience(
+            checkpoint, resume_from, epochs)
         if not self.conf.backprop:
             return self
         batches = self._batches(data, labels)
+        single = labels is not None or isinstance(data,
+                                                  (DataSet, MultiDataSet))
         try:
+            if (not single and ingest != "batch" and self._solver is None
+                    and self.conf.backprop_type != "tbptt"
+                    and self.conf.conf.num_iterations == 1):
+                if ingest in ("auto", "cache"):
+                    source = _ingest.cacheable_source(batches)
+                    if source is not None:
+                        return self._fit_device_cached(
+                            source, epochs, start_step=start_step,
+                            ckpt=ckpt)
+                    if ingest == "cache":
+                        raise ValueError(
+                            "ingest='cache' but the iterator is not "
+                            "device-cacheable (see nn/ingest.py "
+                            "eligibility)")
+                self._warn_partial_epoch_restart(start_step, "window")
+                return self._fit_windowed(batches, epochs, window, ckpt=ckpt)
+            self._warn_partial_epoch_restart(start_step, "batch")
+            bound = _ingest.EpochBoundary(self, ckpt)
             for _ in range(epochs):
-                for listener in self.listeners:
-                    if hasattr(listener, "on_epoch_start"):
-                        listener.on_epoch_start(self)
+                bound.start_epoch()
                 if hasattr(batches, "reset"):
                     batches.reset()
                 for ds in batches:
                     self._fit_batch(ds)
-                for listener in self.listeners:
-                    if hasattr(listener, "on_epoch_end"):
-                        listener.on_epoch_end(self)
-                self.epoch += 1
+                bound.end_epoch()
+            bound.finish()
+            return self
         finally:
             finalize_listeners(self.listeners)
-        return self
 
     # --------------------------------------------------------------- carries
     def _require_carry_support(self, what: str) -> None:
@@ -654,6 +1080,25 @@ class MultiLayerNetwork(_Network):
             data = DataSet(data, labels)
         return [data] if isinstance(data, DataSet) else data
 
+    def _step_batch(self, fs, ls, fms, lms):
+        return (fs[0], ls[0], None if fms is None else fms[0],
+                None if lms is None else lms[0])
+
+    def _window_item(self, ds):
+        return ds
+
+    def _window_sig(self, item):
+        return _ingest.window_signature(item)
+
+    def _window_stack(self, items, pin: bool):
+        f, l, fm, lm = _ingest.stack_window(items, pin)
+        return ([f], [l], None if fm is None else [fm],
+                None if lm is None else [lm])
+
+    def _window_wires(self, items, n_in: int, pin: bool):
+        u8, spec = _ingest.window_wire(items, pin)
+        return (None, None) if u8 is None else ([u8], [spec])
+
     # ---------------------------------------------------------------- tBPTT
     @staticmethod
     def _last_stateful_recurrent(carries) -> int:
@@ -733,8 +1178,8 @@ class MultiLayerNetwork(_Network):
             lm = None if lmask is None else lmask[:, sl]
             loss = self._tbptt_window_loss(max(0, f.shape[1] - back),
                                            carries)
-            carries = self._update(lambda p: loss(
-                p, self.net_state, f, l, fm, lm, self._rng))
+            carries = self._update(lambda p, s: loss(
+                p, s, f, l, fm, lm, self._rng))
 
     # ------------------------------------------------------------ inference
     def output(self, features, train: bool = False,
@@ -950,6 +1395,31 @@ class MultiLayerNetwork(_Network):
     def f1_score(self, data) -> float:
         """Macro F1 on a DataSet or an iterator (reference ``f1Score``)."""
         return self.evaluate(data).f1()
+
+
+def _iterations():
+    return _monitor.counter("train_iterations_total",
+                            "supervised train iterations")
+
+
+def _flat_leaves(net, trees) -> List[Tensor]:
+    """Param leaves of ``trees`` in flat-parameter order."""
+    return [p for _, tree in net._items(trees) for p in tree.values()]
+
+
+def _stacked(hvecs) -> Optional[Tensor]:
+    """The steps' health vectors as one (S, 2+3L) stack, or None when the
+    steps computed none."""
+    return torch.stack(hvecs) if hvecs and hvecs[0] is not None else None
+
+
+def _mask_presence(item, which: str):
+    """Which inputs of a DataSet or MultiDataSet carry a mask."""
+    if isinstance(item, DataSet):
+        return (item.features_mask if which == "features_masks"
+                else item.labels_mask) is not None
+    masks = getattr(item, which)
+    return None if masks is None else tuple(m is not None for m in masks)
 
 
 def _host(a) -> np.ndarray:

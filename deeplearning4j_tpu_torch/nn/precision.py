@@ -61,9 +61,13 @@ class PrecisionPolicy:
                 and self.compute_dtype.itemsize < 4)
 
     def describe(self) -> str:
+        """The JAX package's text (dtype names without ``torch.``), which
+        checkpoints stamp to refuse a resume under another policy."""
+        def name(d):
+            return str(d).rsplit(".", 1)[-1]
         return "%s(param=%s,compute=%s,updater=%s,masters=%d)" % (
-            self.name, self.param_dtype, self.compute_dtype,
-            self.updater_dtype, int(self.master_weights))
+            self.name, name(self.param_dtype), name(self.compute_dtype),
+            name(self.updater_dtype), int(self.master_weights))
 
 
 _FP32_POLICY = PrecisionPolicy(torch.float32, torch.float32, torch.float32,

@@ -24,6 +24,7 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from .conf import serde as _serde
@@ -81,6 +82,7 @@ class UpdaterConfig:
 
 # ---------------------------------------------------------------------------
 # Learning-rate policies: plain floats, the iteration is a host integer
+# (a captured step reads them from a device table: step_scalars)
 # ---------------------------------------------------------------------------
 
 def learning_rate_for(conf: UpdaterConfig, iteration: int) -> float:
@@ -117,6 +119,45 @@ def momentum_for(conf: UpdaterConfig, iteration: int) -> float:
         if iteration >= step:
             mu = float(value)
     return mu
+
+
+def step_scalars(conf: UpdaterConfig, iteration: int) -> Dict[str, float]:
+    """Every scalar of :func:`compute_update` that depends on the
+    iteration, as the host computes it in float64: ``lr``; ``mu`` and
+    ``mu1`` (``1 + mu``) for the momentum rules; ``alpha``, the
+    bias-corrected Adam step.  A CUDA-graph step (``nn/step_graph.py``)
+    cannot take host floats that change from replay to replay, so it
+    reads these from a device table the host filled with this function,
+    and :func:`compute_update` takes them there as 0-dim tensors."""
+    name = conf.updater.lower()
+    lr = learning_rate_for(conf, iteration)
+    if name in ("sgd", "adagrad", "rmsprop"):
+        return {"lr": lr}
+    if name in ("nesterovs", "lars"):
+        mu = momentum_for(conf, iteration)
+        return {"lr": lr, "mu": mu, "mu1": 1.0 + mu}
+    if name == "adam":
+        # bias-corrected step (reference Adam.getGradient), in float32 as
+        # the JAX package traces it (lr, t and the decays as f32)
+        f32 = np.float32
+        t = f32(iteration) + f32(1.0)
+        alpha = f32(lr) * np.sqrt(f32(1.0) - np.power(
+            f32(conf.adam_var_decay), t)) / (f32(1.0) - np.power(
+                f32(conf.adam_mean_decay), t))
+        return {"alpha": float(alpha)}
+    return {}
+
+
+def _mul(s, t: Tensor) -> Tensor:
+    """``s * t`` for a host float ``s``, or the same value for a 0-dim
+    tensor ``s``: PyTorch rounds a host scalar to the op's math type
+    (float32 for bf16/f16/f32, float64 for f64) and rounds the product to
+    ``t``'s dtype, so the tensor form does exactly that."""
+    if not isinstance(s, Tensor):
+        return s * t
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return (s.float() * t.float()).to(t.dtype)
+    return s.to(t.dtype) * t
 
 
 # ---------------------------------------------------------------------------
@@ -198,43 +239,46 @@ def init_state(conf: UpdaterConfig, params: ParamTree,
 
 
 def compute_update(conf: UpdaterConfig, grads: ParamTree, state: dict,
-                   iteration: int, params: Optional[ParamTree] = None):
+                   iteration: int, params: Optional[ParamTree] = None,
+                   scalars: Optional[Dict[str, Any]] = None):
     """Turn (regularized, normalized) grads into the step to subtract.
-    Returns ``(updates, new_state)``."""
+    Returns ``(updates, new_state)``.  ``scalars`` overrides
+    :func:`step_scalars` of ``iteration`` (0-dim tensors of a captured
+    step)."""
     name = conf.updater.lower()
-    lr = learning_rate_for(conf, iteration)
+    sc = step_scalars(conf, iteration) if scalars is None else scalars
     if name in ("none", "noop"):
         return grads, state
     if name == "sgd":
-        return {k: lr * g for k, g in grads.items()}, state
+        return {k: _mul(sc["lr"], g) for k, g in grads.items()}, state
     if name == "nesterovs":
-        mu = momentum_for(conf, iteration)
+        mu, lr = sc["mu"], sc["lr"]
         v_prev = state["v"]
-        v_new = {k: mu * v_prev[k] - lr * g for k, g in grads.items()}
+        v_new = {k: _mul(mu, v_prev[k]) - _mul(lr, g)
+                 for k, g in grads.items()}
         # reference Nesterovs.getGradient: step = mu*vPrev - (1+mu)*vNew
-        updates = {k: mu * v_prev[k] - (1.0 + mu) * v_new[k] for k in grads}
+        updates = {k: _mul(mu, v_prev[k]) - _mul(sc["mu1"], v_new[k])
+                   for k in grads}
         return updates, {"v": v_new}
     if name == "adagrad":
         h = {k: state["h"][k] + torch.square(g) for k, g in grads.items()}
-        updates = {k: lr * g / (torch.sqrt(h[k]) + _EPS_ADAGRAD)
+        updates = {k: _mul(sc["lr"], g) / (torch.sqrt(h[k]) + _EPS_ADAGRAD)
                    for k, g in grads.items()}
         return updates, {"h": h}
     if name == "rmsprop":
         d = conf.rms_decay
         cache = {k: d * state["cache"][k] + (1.0 - d) * torch.square(g)
                  for k, g in grads.items()}
-        updates = {k: lr * g / (torch.sqrt(cache[k]) + _EPS_RMSPROP)
+        updates = {k: _mul(sc["lr"], g)
+                   / (torch.sqrt(cache[k]) + _EPS_RMSPROP)
                    for k, g in grads.items()}
         return updates, {"cache": cache}
     if name == "adam":
         b1, b2 = conf.adam_mean_decay, conf.adam_var_decay
-        t = float(iteration) + 1.0
         m = {k: b1 * state["m"][k] + (1 - b1) * g for k, g in grads.items()}
         v = {k: b2 * state["v"][k] + (1 - b2) * torch.square(g)
              for k, g in grads.items()}
-        # bias-corrected step (reference Adam.getGradient)
-        alpha = lr * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
-        updates = {k: alpha * m[k] / (torch.sqrt(v[k]) + _EPS_ADAM)
+        updates = {k: _mul(sc["alpha"], m[k]) / (torch.sqrt(v[k]) + _EPS_ADAM)
                    for k in grads}
         return updates, {"m": m, "v": v}
     if name == "adadelta":
@@ -251,7 +295,7 @@ def compute_update(conf: UpdaterConfig, grads: ParamTree, state: dict,
             raise ValueError("lars needs the params (trust ratios are "
                              "weight-norm relative)")
         eta, wd = conf.lars_trust_coefficient, conf.lars_weight_decay
-        mu = momentum_for(conf, iteration)
+        mu, lr = sc["mu"], sc["lr"]
 
         def one(w, g, v):
             w_norm = torch.linalg.norm(w.reshape(-1))
@@ -260,7 +304,7 @@ def compute_update(conf: UpdaterConfig, grads: ParamTree, state: dict,
                 (w_norm > 0) & (g_norm > 0),
                 eta * w_norm / (g_norm + wd * w_norm + 1e-12),
                 torch.ones_like(w_norm))
-            return mu * v + lr * trust * (g + wd * w)
+            return _mul(mu, v) + _mul(lr, trust) * (g + wd * w)
 
         v_new = {k: one(params[k], g, state["v"][k])
                  for k, g in grads.items()}
@@ -303,11 +347,12 @@ def regularization_score(params: ParamTree, l1_by_param: Dict[str, float],
 
 
 def apply_layer_updates(uconf: UpdaterConfig, layer, params: ParamTree,
-                        state: dict, grads: ParamTree, iteration: int):
+                        state: dict, grads: ParamTree, iteration: int,
+                        scalars: Optional[Dict[str, Any]] = None):
     """Full DL4J-order update of one layer: returns ``(new_params,
     new_state)``.  With fp32 masters in ``state`` every step of the
     updater math runs on the masters in fp32 and the storage params are
-    re-derived by one cast."""
+    re-derived by one cast.  ``scalars``: see :func:`compute_update`."""
     if getattr(layer, "frozen", False):
         return dict(params), state
     masters = state.get(MASTER_KEY)
@@ -323,7 +368,7 @@ def apply_layer_updates(uconf: UpdaterConfig, layer, params: ParamTree,
     g = normalize_gradients(g, layer.gradient_normalization,
                             layer.gradient_normalization_threshold)
     updates, new_state = compute_update(uconf, g, mstate, iteration,
-                                        params=work)
+                                        params=work, scalars=scalars)
     new_params = dict(params)
     if masters is not None:
         new_masters = dict(masters)

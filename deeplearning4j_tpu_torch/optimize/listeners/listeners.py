@@ -10,11 +10,8 @@ the port's serializer).
 
 Listeners run on the host after each update.  A listener that reads
 ``model.score()`` waits for the step to finish on the device: one host
-sync per firing, as in the JAX package.  Not ported yet: the per-step
-``health`` columns of ``ParamAndGradientIterationListener`` (they wait
-with ``monitor/health.py``, ROADMAP A7; the port prints what the JAX
-package prints with health off) and the ``profiler/capture`` trace span
-(tracing, ROADMAP A11).
+sync per firing, as in the JAX package.  Not ported yet: the
+``profiler/capture`` trace span (tracing, ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -132,7 +129,11 @@ class ParamAndGradientIterationListener(IterationListener):
 
     The gradients live only inside the step, so the reference's gradient
     columns are ``update_win`` statistics: the parameter delta since this
-    listener last ran (what the updater applied over the window)."""
+    listener last ran (what the updater applied over the window).  With
+    the health layer enabled (``monitor.health``) two exact per-step
+    columns follow, from the model's last recorded dispatch:
+    ``grad_l2_step`` and ``update_ratio_step`` of the param's layer
+    (blank when the layer is not in the snapshot)."""
 
     def __init__(self, iterations: int = 1, print_header: bool = True,
                  print_mean: bool = True, print_min_max: bool = True,
@@ -153,6 +154,15 @@ class ParamAndGradientIterationListener(IterationListener):
             # truncated once; the rows are appended as they come
             open(file_path, "w").close()
 
+    @staticmethod
+    def _device_stats(snap, name):
+        """(grad_l2, update_ratio) of ``name``'s layer in a health
+        snapshot, as text."""
+        stats = snap["layers"].get(name.rsplit("_", 1)[0])
+        if stats is None:
+            return ("", "")
+        return (f"{stats['grad_l2']:.6g}", f"{stats['update_ratio']:.6g}")
+
     def _stats(self, name, arr, prev):
         cols = [name]
         upd = arr - prev if prev is not None else np.zeros_like(arr)
@@ -166,7 +176,7 @@ class ParamAndGradientIterationListener(IterationListener):
                 cols.append(f"{float(np.mean(np.abs(a))):.6g}")
         return cols
 
-    def _header(self):
+    def _header(self, with_device: bool = False):
         cols = ["param"]
         for kind in ("param", "update_win"):
             if self.print_mean:
@@ -175,6 +185,8 @@ class ParamAndGradientIterationListener(IterationListener):
                 cols += [f"{kind}_min", f"{kind}_max"]
             if self.print_mean_abs:
                 cols.append(f"{kind}_mean_abs")
+        if with_device:
+            cols += ["grad_l2_step", "update_ratio_step"]
         return cols
 
     def _emit(self, line: str) -> None:
@@ -187,14 +199,19 @@ class ParamAndGradientIterationListener(IterationListener):
     def iteration_done(self, model, iteration: int) -> None:
         if iteration % self.iterations != 0:
             return
+        from ...monitor import health as _health
         tables = (model.param_table() if hasattr(model, "param_table")
                   else {})
+        snap = _health.last_for(model) if _health.enabled() else None
         if self.print_header and not self._header_written:
-            self._emit(self.delimiter.join(["iteration"] + self._header()))
+            self._emit(self.delimiter.join(
+                ["iteration"] + self._header(snap is not None)))
             self._header_written = True
         prev = self._last_params or {}
         for name, arr in tables.items():
             cols = self._stats(name, arr, prev.get(name))
+            if snap is not None:
+                cols += list(self._device_stats(snap, name))
             self._emit(self.delimiter.join([str(iteration)] + cols))
         self._last_params = tables
 

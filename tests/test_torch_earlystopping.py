@@ -45,6 +45,14 @@ class _JaxBatchTrainer(jtrainer.EarlyStoppingTrainer):
         self.net.fit(self.iterator, ingest="batch")
 
 
+class _PortBatchTrainer(pes.EarlyStoppingTrainer):
+    """The port's trainer on its per-batch ingest path too (its ``"auto"``
+    trains a cacheable iterator in a device permutation)."""
+
+    def _fit_one_epoch(self):
+        self.net.fit(self.iterator, ingest="batch")
+
+
 def _pair(lr=0.1):
     conf = (JaxConf.builder().seed(17).updater("sgd").learning_rate(lr)
             .activation("tanh").list()
@@ -98,7 +106,7 @@ CONDITIONS = {
 def _run(pkg, name, saver=None, evaluate_every=1):
     net = _pair()[0 if pkg == "jax" else 1]
     mods = ((jconfig, jterm, jscore, _JaxBatchTrainer) if pkg == "jax"
-            else (pes, pes, pes, pes.EarlyStoppingTrainer))
+            else (pes, pes, pes, _PortBatchTrainer))
     config_mod, term, score_mod, trainer_cls = mods
     epoch_conds, iter_conds = CONDITIONS[name]
     train, valid = _iterators(pkg)
@@ -217,7 +225,7 @@ def test_a_graph_trains_under_early_stopping_and_its_best_zip_restores(
     for pkg, net in zip(("jax", "port"), _graph_pair()):
         config_mod, term, score_mod, trainer_cls = (
             (jconfig, jterm, jscore, _JaxBatchTrainer) if pkg == "jax"
-            else (pes, pes, pes, pes.EarlyStoppingTrainer))
+            else (pes, pes, pes, _PortBatchTrainer))
         train, valid = _iterators(pkg)
         saver = (pes.LocalFileModelSaver(str(tmp_path / pkg), device="cpu")
                  if pkg == "port" else jsavers.InMemoryModelSaver())

@@ -192,7 +192,7 @@ def test_small_lenet_gives_the_same_confusion_matrix():
     confusion matrix and ``stats()``; 1,024 bytes of int32 indices moved."""
     jnet, pnet = _pair(_small_lenet())
     jnet.fit(JaxMnist(32, 256), ingest="batch")
-    pnet.fit(MnistDataSetIterator(32, 256))
+    pnet.fit(MnistDataSetIterator(32, 256), ingest="batch")
     ev = pnet.evaluate(MnistDataSetIterator(64, 256, train=False))
     jev_ = jnet.evaluate(JaxMnist(64, 256, train=False))
     np.testing.assert_array_equal(ev.confusion.matrix, jev_.confusion.matrix)

@@ -944,3 +944,152 @@ def test_attention_graph_equals_its_multilayer_twin_on_the_card(cuda):
     assert graph.score() == twin.score()
     np.testing.assert_array_equal(graph.get_flat_params(),
                                   twin.get_flat_params())
+
+
+@pytest.mark.parametrize("model", ["lenet", "attention"])
+def test_the_captured_cache_path_equals_the_eager_steps(cuda, model):
+    """The epoch cache on the card replays one captured CUDA graph a step
+    (``nn/step_graph.py``): 4 steps of it equal 4 eager per-batch steps
+    over the same batches bit for bit (fp32 LeNet with cuDNN's
+    deterministic algorithms; the attention network under mixed_bf16,
+    where K1-K3 launch inside the graph).  A replay runs no wrapper, so
+    the wrapper counts of a fit of replays are 0; the profiler's kernel
+    names count K1-K3 there, as many as the eager steps' wrappers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        CausalSelfAttention
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    rng = np.random.RandomState(9)
+    if model == "lenet":
+        def build():
+            return MultiLayerNetwork(lenet(compute_dtype="float32")).init()
+        ds = DataSet(rng.rand(4 * 32, 784).astype(np.float32),
+                     np.eye(10, dtype=np.float32)[rng.randint(0, 10, 128)])
+        batch = 32
+    else:
+        def build():
+            return MultiLayerNetwork(
+                NeuralNetConfiguration.builder().seed(4).updater("adam")
+                .learning_rate(1e-3).list()
+                .layer(CausalSelfAttention(n_out=64, n_heads=2,
+                                           cache_len=256))
+                .layer(RnnOutputLayer(n_out=8, activation="softmax",
+                                      loss="mcxent"))
+                .set_input_type(inputs.recurrent(16, 256)).build()).init()
+        ds = DataSet(rng.randn(8, 256, 16).astype(np.float32),
+                     np.eye(8, dtype=np.float32)[rng.randint(0, 8,
+                                                             (8, 256))])
+        batch = 2
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        eager, captured = build(), build()
+        eager.fit(ListDataSetIterator(ds, batch), ingest="batch")
+        captured.fit(ListDataSetIterator(ds, batch), ingest="cache")
+        assert captured._graphs
+        A.reset_launches()
+        eager.fit(ListDataSetIterator(ds, batch), ingest="batch")
+        eager_launches = dict(A.LAUNCHES)
+        A.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            captured.fit(ListDataSetIterator(ds, batch), ingest="cache")
+            torch.cuda.synchronize()
+        assert set(A.LAUNCHES.values()) == {0}
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    for counter, kernel in (("flash_fwd", "flash_fwd_kernel"),
+                            ("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
+                            ("flash_bwd_dq", "flash_bwd_dq_kernel")):
+        assert sum(1 for n in names if kernel in n) == \
+            eager_launches[counter]
+    if model == "attention":
+        assert eager_launches["flash_fwd"] == 4
+    np.testing.assert_array_equal(captured.get_flat_params(),
+                                  eager.get_flat_params())
+    np.testing.assert_array_equal(captured.get_flat_updater_state(),
+                                  eager.get_flat_updater_state())
+    assert captured.score() == eager.score()
+
+
+@pytest.mark.parametrize("container", ["mln", "graph"])
+def test_fit_scan_equals_the_per_batch_steps(cuda, container):
+    """``fit_scan`` stages its stacked batches on a side stream and waits
+    for the copy's event before its steps: 4 steps of it equal 4
+    per-batch ``fit`` steps on the card bit for bit (fp32 LeNet under
+    cuDNN's deterministic algorithms; the attention graph under
+    mixed_bf16, K1-K3 once a step)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        CausalSelfAttention
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    rng = np.random.RandomState(11)
+    if container == "mln":
+        def build():
+            return MultiLayerNetwork(lenet(compute_dtype="float32")).init()
+        batches = [DataSet(rng.rand(64, 784).astype(np.float32),
+                           np.eye(10, dtype=np.float32)[
+                               rng.randint(0, 10, 64)]) for _ in range(4)]
+    else:
+        def build():
+            return ComputationGraph(
+                NeuralNetConfiguration.builder().seed(4).updater("adam")
+                .learning_rate(1e-3).graph_builder().add_inputs("in")
+                .add_layer("attn", CausalSelfAttention(
+                    n_out=64, n_heads=2, cache_len=256), "in")
+                .add_layer("out", RnnOutputLayer(
+                    n_out=8, activation="softmax", loss="mcxent"), "attn")
+                .set_outputs("out")
+                .set_input_types(inputs.recurrent(16, 256)).build()).init()
+        batches = [DataSet(rng.randn(2, 256, 16).astype(np.float32),
+                           np.eye(8, dtype=np.float32)[
+                               rng.randint(0, 8, (2, 256))])
+                   for _ in range(4)]
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        scanned, eager = build(), build()
+        A.reset_launches()
+        scores = scanned.fit_scan(batches)
+        scan_launches = dict(A.LAUNCHES)
+        eager_scores = []
+        for ds in batches:
+            eager.fit(ds)
+            eager_scores.append(eager.score())
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    if container == "graph":
+        assert scan_launches == {"flash_fwd": 4, "flash_fwd_partials": 0,
+                                 "flash_bwd_dkdv": 4, "flash_bwd_dq": 4}
+    np.testing.assert_array_equal(scores, np.asarray(eager_scores,
+                                                     scores.dtype))
+    np.testing.assert_array_equal(scanned.get_flat_params(),
+                                  eager.get_flat_params())
+    np.testing.assert_array_equal(scanned.get_flat_updater_state(),
+                                  eager.get_flat_updater_state())

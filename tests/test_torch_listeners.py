@@ -101,7 +101,7 @@ def test_listeners_fire_alike(algo):
     (pc, _, pp, pr), pout = _attach(pnet, pl)
     (jc, _, jp, jr), jout = _attach(jnet, jl)
     pnet.fit(ListDataSetIterator(DataSet(x, y), 12, shuffle=True, seed=4),
-             epochs=2)
+             epochs=2, ingest="batch")
     jnet.fit(JaxList(JaxDataSet(x, y), 12, shuffle=True, seed=4), epochs=2,
              ingest="batch")
     assert [i for i, _ in pc.scores] == [i for i, _ in jc.scores] == \
@@ -222,20 +222,26 @@ def test_fit_finalizes_listeners_when_a_listener_raises(tmp_path):
     assert prof._prof is None and prof.trace_path is not None
 
 
-def test_fit_ingest_and_resilience_keywords():
+def test_fit_ingest_and_resilience_keywords(tmp_path):
+    """Every ``ingest`` value and the resilience keywords run (on a single
+    DataSet the ingest mode does not apply, as in the JAX package); a
+    resume restores the checkpoint's progress, and ``epochs`` is then the
+    total target."""
     _, pnet = _pair(_conf())
     x, y = _data()
     ds = DataSet(x, y)
     with pytest.raises(ValueError, match="unknown ingest"):
         pnet.fit(ds, ingest="stream")
-    for kw in ({"ingest": "cache"}, {"ingest": "window"},
-               {"checkpoint": "dir"}, {"resume_from": "auto"}):
-        with pytest.raises(NotImplementedError, match="A7"):
-            pnet.fit(ds, **kw)
-    assert pnet.iteration == 0
+    for kw in ({"ingest": "cache"}, {"ingest": "window"}):
+        pnet.fit(ds, **kw)
+    assert pnet.iteration == pnet.epoch == 2
+    pnet.fit(ds, checkpoint=str(tmp_path))
+    assert len(os.listdir(tmp_path)) == 1
+    pnet.fit(ds, resume_from=str(tmp_path), epochs=3)   # 3 done: no step
+    assert pnet.iteration == 3
     pnet.fit(ds, ingest="batch")
     pnet.fit(ds, ingest="auto")
-    assert pnet.iteration == 2
+    assert pnet.iteration == 5
 
 
 @pytest.mark.parametrize("dtype", [None, "bfloat16"])
