@@ -184,11 +184,35 @@ Phases (each raises on failure; the exit code is non-zero on any):
    ``abort`` the card and the CPU name the same step and layer; (h)
    ``fit_scan`` against per-batch ``fit`` over the same batches, bitwise:
    fp32 LeNet as a MultiLayerNetwork and phase 5's network as a
-   ComputationGraph (K1-K3 once a step).
+   ComputationGraph (K1-K3 once a step);
+14. transfer learning and VGG-16 ([transfer] lines; no hand kernel: cuDNN
+   and cuBLAS through torch, XLA lowerings in the JAX package): (a)
+   VGG-16 at full width (``keras/trained_models.vgg16``, BASELINE.md
+   config #5 as ``bench.py:439`` builds it: 224x224x3, 1000 classes,
+   nesterovs at ``VGG_LR``, the card's ``mixed_bf16``, 138,357,544
+   params) on one staged batch of ``VGG_BATCH`` seeded images through
+   ``VGG16ImagePreProcessor``: ``VGG_STEPS`` timed steps after
+   ``VGG_WARMUP`` (median ms, samples/s, peak memory), untimed steps until
+   the score falls below the first, one more step under
+   ``torch.profiler`` (device events, busy ms, idle share, top 5 CUDA
+   ops) and the FLOP bound of three forwards at the bf16 peak; (b)
+   ``TransferLearning.builder`` on that net: frozen through the last pool
+   (layer ``TUNE_FROZEN``), the head swapped for ``TUNE_CLASSES``
+   classes, timed and profiled as (a) (the bound: the trunk's forward and
+   three forwards of the head), a few steps timed with the frozen trunk
+   differentiated (what keeping it out of autograd saves), then ``TUNE_EPOCHS`` epochs through
+   ``fit(iterator)``'s default (the epoch cache), the frozen trunk
+   bitwise unchanged after each; one step at ``MASTER_LR`` keeps the kept
+   Dense layers within one bf16 ulp of the source (rtol 2^-7, atol
+   ``BF16_ATOL``, element by element: the fp32 masters
+   follow the transferred weights); (c) the importer's 64x64 VGG-16
+   variant in fp32, its weights carried from the CPU by flat params:
+   outputs, a transfer and one fine-tune step, card vs CPU within
+   ``REF_RTOL``.  K1-K4 launch 0 times on this path.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
-feed-forward/convolutional, recurrent, harness, graph and fused results,
-one
+feed-forward/convolutional, recurrent, harness, graph, fused and transfer
+results, one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -204,6 +228,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -354,6 +379,31 @@ CAPTURE_STEPS, ATTN_CACHE_STEPS = 8, 4
 RESUME_TRAIN, RESUME_EVERY = 12800, 30
 WINDOW_BATCHES, WINDOW_SIZE = 8, 3
 RESNET_CACHE_N, RESNET_CACHE_EPOCHS = 1280, 2
+# Phase 14.  VGG-16 (BASELINE.md config #5) as bench.py:439 builds it:
+# vgg16() at 224x224x3, 1000 classes, batch 256, the card's mixed_bf16,
+# nesterovs, on seeded 0-255 images through VGG16ImagePreProcessor.  From
+# vgg16()'s He init the configuration's lr 1e-2 diverges on such images
+# (on the CPU at batch 4 in fp32 the score went 762 -> 3.8e30 -> NaN in 3
+# steps; 1e-4 diverged too, 1e-6 fell from 762 to 184 in one step), so
+# the run takes VGG_LR, its one change to the configuration (a rate
+# moves no time).  VGG_WARMUP untimed steps, then VGG_STEPS timed ones
+# (the median), untimed steps until the score falls below the first (at
+# most VGG_MAX_STEPS in all).  The fine-tune freezes through the last
+# pool (layer TUNE_FROZEN) and swaps the head for TUNE_CLASSES classes:
+# the same steps per batch, then TUNE_EPOCHS epochs of TUNE_CACHE_BATCHES
+# batches through fit(iterator)'s default (the epoch cache); the frozen
+# trunk must stay bitwise.  The master check: one step at MASTER_LR keeps
+# the kept Dense layers within one bf16 ulp of the source, element by
+# element (2^-7 of the value, and BF16_ATOL for the biases near 0, which
+# a 1e-8 step may move by more than their own ulp); a fine-tune that
+# started from the fresh init's masters would move the weights by their
+# own size.  The importer's 64x64 variant (tests/test_keras_import.py:521)
+# card vs CPU in fp32 at phase 9's REF_RTOL; the card's machine has no
+# h5py, so its weights cross by flat params and the h5 reading is held by
+# the CPU tests.
+VGG_BATCH, VGG_WARMUP, VGG_STEPS, VGG_MAX_STEPS, VGG_LR = 256, 2, 12, 40, 1e-6
+TUNE_FROZEN, TUNE_CLASSES, TUNE_CACHE_BATCHES, TUNE_EPOCHS = 17, 10, 2, 2
+MASTER_LR, VGG_SMALL, VGG_SMALL_CLASSES = 1e-8, 64, 5
 
 
 def log(msg: str) -> None:
@@ -2956,6 +3006,283 @@ def phase_fused(N, A, seed: int, harness: dict, ffcnn: dict) -> dict:
     return result
 
 
+# ------------------------------------------------------- phase 14
+def layer_flops(net, batch: int) -> List[float]:
+    """Multiply-adds x 2 of one forward of each layer of a
+    MultiLayerNetwork, from the shapes its configuration infers (the
+    input type through each preprocessor and layer)."""
+    it = net.conf.input_type
+    flops = []
+    for i, layer in enumerate(net.layers):
+        if i in net.conf.input_preprocessors:
+            it = net.conf.input_preprocessors[i].output_type(it)
+        out, kind = layer.output_type(it), type(layer).__name__
+        if kind == "ConvolutionLayer":
+            kh, kw = layer.kernel_size
+            flops.append(2.0 * batch * out.height * out.width * kh * kw
+                         * layer.n_in * layer.n_out)
+        elif kind in ("DenseLayer", "OutputLayer"):
+            flops.append(2.0 * batch * layer.n_in * layer.n_out)
+        else:
+            flops.append(0.0)
+        it = out
+    return flops
+
+
+def vgg_images(seed: int, n: int, classes: int):
+    """``n`` seeded 0-255 images through VGG16ImagePreProcessor and
+    one-hot labels, on the host."""
+    from deeplearning4j_tpu_torch.keras.trained_models import \
+        VGG16ImagePreProcessor
+    rng = np.random.RandomState(seed)
+    f = VGG16ImagePreProcessor().transform(
+        rng.rand(n, 224, 224, 3).astype(np.float32) * 255)
+    return f, np.eye(classes, dtype=np.float32)[rng.randint(0, classes, n)]
+
+
+def timed_steps(net, ds, warmup: int, steps: int):
+    """``warmup`` untimed fit steps, then ``steps`` timed ones (host clock
+    around a step that ends in a score read and a synchronize).  Returns
+    (scores of the timed steps, their ms)."""
+    for _ in range(warmup):
+        net.fit(ds)
+    scores, step_ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ds)
+        s = net.score()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        scores.append(s)
+    return scores, step_ms
+
+
+def transfer_vgg(seed: int):
+    """(a): VGG-16 at full width trains from scratch on one staged batch:
+    the median step, samples/s, peak memory, a profiled step and the FLOP
+    bound of three forwards at the bf16 peak."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.keras.trained_models import vgg16
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = vgg16()
+    for u in [conf.conf.updater] + [l.updater for l in conf.layers]:
+        u.learning_rate = VGG_LR
+    net = MultiLayerNetwork(conf).init()
+    if net._pol().name != "mixed_bf16":
+        raise RuntimeError(f"VGG-16 runs under {net._pol().name}")
+    if net.num_params() != 138_357_544:
+        raise RuntimeError(f"VGG-16 has {net.num_params()} params")
+    f, y = vgg_images(seed, VGG_BATCH, 1000)
+    ds = DataSet(torch.as_tensor(f, device=net.device),
+                 torch.as_tensor(y, device=net.device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scores, step_ms = timed_steps(net, ds, VGG_WARMUP, VGG_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(step_ms))
+    flops = 3.0 * sum(layer_flops(net, VGG_BATCH))
+    bound = flops / PEAK_BF16_FLOPS * 1e3
+    more = []
+    while scores[-1] >= scores[0] and len(scores) + len(more) < \
+            VGG_MAX_STEPS and all(np.isfinite(scores + more)):
+        net.fit(ds)
+        more.append(net.score())
+        if more[-1] < scores[0]:
+            break
+    log(f"[transfer] VGG-16 batch {VGG_BATCH}, 224x224, lr {VGG_LR:g}: "
+        f"scores {scores}, then {more}; median step {median:.3f} ms "
+        f"({VGG_BATCH * 1e3 / median:.1f} samples/s), steps {step_ms}; "
+        f"{flops:.4e} FLOP a step, bound {bound:.4f} ms at the bf16 peak "
+        f"({bound / median:.3f} of the median); peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    if not (all(np.isfinite(scores + more))
+            and (scores + more)[-1] < scores[0]):
+        raise RuntimeError(f"VGG-16 did not train: {scores}, {more}")
+    profile = profile_step(net, ds, min(step_ms))
+    return net, {"batch": VGG_BATCH, "params": net.num_params(),
+                 "lr": VGG_LR, "scores": scores, "scores_after": more,
+                 "step_ms": step_ms, "median_step_ms": median,
+                 "samples_per_s": VGG_BATCH * 1e3 / median,
+                 "flop_per_step": flops, "bound_ms": bound,
+                 "bound_by": "operations", "peak_mem_bytes": peak,
+                 "profile": profile}
+
+
+def frozen_trunk(net) -> List[Dict[str, torch.Tensor]]:
+    return [{k: v.clone() for k, v in net.params[i].items()}
+            for i in range(TUNE_FROZEN + 1)]
+
+
+def trunk_unchanged(net, trunk, what: str) -> None:
+    for i, tree in enumerate(trunk):
+        for k, v in tree.items():
+            if not torch.equal(net.params[i][k], v):
+                raise RuntimeError(f"{what}: frozen layer {i} {k} moved")
+    log(f"[transfer] {what}: the frozen trunk (layers 0-{TUNE_FROZEN}) is "
+        "bitwise unchanged")
+
+
+def transfer_finetune(vgg, seed: int) -> dict:
+    """(b): the frozen-trunk fine-tune of (a)'s net, per batch and
+    through the epoch cache, and the master check."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
+
+    def tuned(lr):
+        return (TransferLearning.builder(vgg).fine_tune_learning_rate(lr)
+                .set_feature_extractor(TUNE_FROZEN).remove_output_layer()
+                .add_layer(OutputLayer(n_in=4096, n_out=TUNE_CLASSES))
+                .build())
+
+    net = tuned(VGG_LR)
+    frozen = [l.frozen for l in net.layers]
+    if frozen != [True] * (TUNE_FROZEN + 1) + [False] * 3:
+        raise RuntimeError(f"frozen flags {frozen}")
+    trunk = frozen_trunk(net)
+    f, y = vgg_images(seed + 1, VGG_BATCH * TUNE_CACHE_BATCHES, TUNE_CLASSES)
+    ds = DataSet(torch.as_tensor(f[:VGG_BATCH], device=net.device),
+                 torch.as_tensor(y[:VGG_BATCH], device=net.device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scores, step_ms = timed_steps(net, ds, VGG_WARMUP, VGG_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    median = float(np.median(step_ms))
+    per_layer = layer_flops(net, VGG_BATCH)
+    # the trunk's forward, and three forwards of the trained head
+    flops = sum(per_layer[:TUNE_FROZEN + 1]) + 3.0 * sum(
+        per_layer[TUNE_FROZEN + 1:])
+    bound = flops / PEAK_BF16_FLOPS * 1e3
+    log(f"[transfer] fine-tune (layers 0-{TUNE_FROZEN} frozen, head "
+        f"{TUNE_CLASSES} classes) batch {VGG_BATCH}: scores {scores}; "
+        f"median step {median:.3f} ms ({VGG_BATCH * 1e3 / median:.1f} "
+        f"samples/s), steps {step_ms}; {flops:.4e} FLOP a step, bound "
+        f"{bound:.4f} ms ({bound / median:.3f} of the median); peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    if not all(np.isfinite(scores)):
+        raise RuntimeError(f"the fine-tune's scores {scores}")
+    profile = profile_step(net, ds, min(step_ms))
+    # the same steps with the frozen trunk differentiated, as a step that
+    # reads its gradients (the health vector) must: what leaving it out
+    # of autograd saves
+    keys = {key for key, _ in net._slots()}
+    net._grad_keys = lambda all_layers: keys
+    _, diff_ms = timed_steps(net, ds, 1, VGG_WARMUP + 2)
+    del net._grad_keys
+    diff_median = float(np.median(diff_ms))
+    log(f"[transfer] the same step with the frozen trunk in autograd: "
+        f"median {diff_median:.3f} ms, steps {diff_ms}")
+    trunk_unchanged(net, trunk, "per-batch fine-tune")
+    del ds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator(DataSet(f, y), VGG_BATCH),
+            epochs=TUNE_EPOCHS)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    if not net._graphs:
+        raise RuntimeError("fit(iterator) did not take the epoch cache")
+    log(f"[transfer] fit(iterator) default: {TUNE_EPOCHS} epochs of "
+        f"{TUNE_CACHE_BATCHES} batches from the epoch cache (one captured "
+        f"graph a step, capture included) in {cache_s:.3f} s, score "
+        f"{net.score():.4f}")
+    trunk_unchanged(net, trunk, "epoch-cache fine-tune")
+    del net, trunk
+    torch.cuda.empty_cache()
+    # the master check: without the masters re-derived from the
+    # transferred weights, the first step would write the fresh init back
+    probe = tuned(MASTER_LR)
+    probe.fit(DataSet(torch.as_tensor(f[:VGG_BATCH], device=probe.device),
+                      torch.as_tensor(y[:VGG_BATCH], device=probe.device)))
+    worst, outside = 0.0, 0
+    for i in range(TUNE_FROZEN + 1, len(vgg.layers) - 1):
+        for k, src in vgg.params[i].items():
+            ref = src.float()
+            gap = (probe.params[i][k].float() - ref).abs()
+            worst = max(worst, float(gap.max()))
+            outside += int((gap > BF16_RTOL * ref.abs() + BF16_ATOL).sum())
+    log(f"[transfer] master check: one step at lr {MASTER_LR:g} moves the "
+        f"kept Dense layers by at most {worst:.3e} from the source; "
+        f"{outside} elements outside one bf16 ulp (rtol {BF16_RTOL:g}, atol "
+        f"{BF16_ATOL:g})")
+    if outside:
+        raise RuntimeError("the fine-tune did not start from the "
+                           "transferred weights")
+    return {"batch": VGG_BATCH, "classes": TUNE_CLASSES,
+            "frozen_through": TUNE_FROZEN, "scores": scores,
+            "step_ms": step_ms, "median_step_ms": median,
+            "samples_per_s": VGG_BATCH * 1e3 / median,
+            "flop_per_step": flops, "bound_ms": bound,
+            "bound_by": "operations", "peak_mem_bytes": peak,
+            "profile": profile, "trunk_in_autograd_step_ms": diff_ms,
+            "trunk_in_autograd_median_ms": diff_median,
+            "cache_epochs_s": cache_s,
+            "master_max_abs": worst, "master_outside": outside}
+
+
+def transfer_small(seed: int) -> dict:
+    """(c): the importer's 64x64 VGG-16 variant in fp32, weights carried
+    from the CPU to the card by flat params: outputs, then a transfer
+    (trunk frozen, a new 3-class head with the CPU's weights) and one
+    fine-tune step, card vs CPU within REF_RTOL."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.keras.trained_models import vgg16
+    from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
+
+    def small():
+        return vgg16(n_classes=VGG_SMALL_CLASSES, height=VGG_SMALL,
+                     width=VGG_SMALL, compute_dtype="float32")
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    cpu = MultiLayerNetwork(small(), device="cpu").init()
+    card = MultiLayerNetwork(small()).init()
+    card.set_flat_params(cpu.get_flat_params())
+    rng = np.random.RandomState(seed + 2)
+    x = rng.rand(4, VGG_SMALL, VGG_SMALL, 3).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 4)]
+    out_rel = rel(card.output(x).cpu().numpy(), cpu.output(x).numpy())
+    nets = [(TransferLearning.builder(n).set_feature_extractor(TUNE_FROZEN)
+             .remove_output_layer().add_layer(OutputLayer(n_in=4096, n_out=3))
+             .build()) for n in (cpu, card)]
+    nets[1].set_flat_params(nets[0].get_flat_params())
+    for n in nets:
+        n.fit(DataSet(x, y))
+    p_rel = rel(nets[1].get_flat_params(), nets[0].get_flat_params())
+    s_rel = abs(nets[1].score() - nets[0].score()) / abs(nets[0].score())
+    log(f"[transfer] {VGG_SMALL}x{VGG_SMALL} VGG-16 fp32 card vs CPU: "
+        f"outputs rel={out_rel:.2e}; after one fine-tune step params "
+        f"rel={p_rel:.2e}, score rel={s_rel:.2e} (tol {REF_RTOL:g})")
+    if not max(out_rel, p_rel, s_rel) <= REF_RTOL:
+        raise RuntimeError("the 64x64 VGG-16 disagrees between card and CPU")
+    return {"outputs_rel": out_rel, "params_rel": p_rel, "score_rel": s_rel}
+
+
+def phase_transfer(A, seed: int) -> dict:
+    """Phase 14: transfer learning and VGG-16 (the ``transfer`` path of the
+    kernels line: it launches none of K1-K4)."""
+    torch.cuda.synchronize()
+    A.reset_launches()            # counts of the main path's run only
+    vgg, result = transfer_vgg(seed)
+    result = {"vgg16": result}
+    torch.cuda.empty_cache()
+    result["fine_tune"] = transfer_finetune(vgg, seed)
+    del vgg
+    torch.cuda.empty_cache()
+    result["small_fp32"] = transfer_small(seed)
+    result["launches"] = dict(A.LAUNCHES)
+    log(f"[transfer] launches {result['launches']}")
+    if any(result["launches"].values()):
+        raise RuntimeError("the transfer path launched a flash kernel")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2998,6 +3325,8 @@ def main(argv=None) -> int:
     graph = phase_graph(N, A, args.seed)
     torch.cuda.empty_cache()
     fused = phase_fused(N, A, args.seed, harness["lenet_mnist"], ffcnn)
+    torch.cuda.empty_cache()
+    transfer = phase_transfer(A, args.seed)
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -3009,7 +3338,7 @@ def main(argv=None) -> int:
              "feedforward_cnn": ffcnn["launches"],
              "recurrent": recurrent["launches"],
              "harness": harness["launches"], "graph": graph["launches"],
-             "fused": fused["launches"]}
+             "fused": fused["launches"], "transfer": transfer["launches"]}
     kernels = [dict(name=name, route="cuda",
                     source="deeplearning4j_tpu_torch/ops/csrc/"
                            "flash_attention.cu",
@@ -3023,7 +3352,8 @@ def main(argv=None) -> int:
                       "training": training, "inference": inference,
                       "ring": ring, "serving": serving,
                       "feedforward_cnn": ffcnn, "recurrent": recurrent,
-                      "harness": harness, "graph": graph, "fused": fused}))
+                      "harness": harness, "graph": graph, "fused": fused,
+                      "transfer": transfer}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

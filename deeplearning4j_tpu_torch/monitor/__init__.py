@@ -3,12 +3,16 @@
 gauges and histograms (:mod:`.metrics`), the device-side training health
 layer with its ``train_health_*`` series and divergence guard
 (:mod:`.health`), and the lock factory of the threaded subsystems
-(:mod:`.locks`).  Call sites resolve metrics by name through
-:func:`registry` at call time.  Tracing, alerts, the flight recorder and
-the compile watch of the JAX package are not ported yet.
+(:mod:`.locks`), and the host phase attribution of the training loop
+(:func:`observe_phase`, :func:`phase_breakdown`).  Call sites resolve
+metrics by name through :func:`registry` at call time.  Tracing, alerts,
+the flight recorder and the compile watch of the JAX package are not
+ported yet (ROADMAP A11), so ``phase_breakdown``'s compile fields stay 0.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 from . import health
 from .health import TrainingDivergedError
@@ -16,7 +20,17 @@ from .metrics import Counter, Gauge, Histogram, MetricsRegistry, registry
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "TrainingDivergedError", "counter", "gauge", "health",
-           "histogram", "registry", "reset"]
+           "histogram", "observe_phase", "phase_breakdown",
+           "prometheus_text", "registry", "reset", "snapshot"]
+
+# host wall-clock phases of one training loop: "data" = host batch prep
+# and transfer, "step" = the train step's dispatch, "listener" = the
+# listener callbacks (with the device syncs they force)
+_PHASE_HELP = {
+    "data": "host data prep + transfer staging per dispatch (ms)",
+    "step": "train-step dispatch per iteration (ms)",
+    "listener": "host listener callbacks per iteration (ms)",
+}
 
 
 def counter(name: str, help: str = "") -> Counter:
@@ -29,6 +43,57 @@ def gauge(name: str, help: str = "") -> Gauge:
 
 def histogram(name: str, help: str = "") -> Histogram:
     return registry().histogram(name, help)
+
+
+def observe_phase(phase: str, seconds: float, **labels) -> None:
+    """Record ``seconds`` of host wall-clock against a training phase
+    (``data`` / ``step`` / ``listener``) as a ``phase_<name>_ms``
+    histogram observation."""
+    registry().histogram(f"phase_{phase}_ms",
+                         _PHASE_HELP.get(phase, "")).observe(
+        seconds * 1e3, **labels)
+
+
+def snapshot() -> Dict:
+    """Point-in-time copy of every metric; feed it back to
+    :func:`phase_breakdown` to get the deltas over a region."""
+    return registry().snapshot()
+
+
+def phase_breakdown(since: Optional[Dict] = None) -> Dict:
+    """Per-phase host wall-clock (ms) and compile counts, optionally as a
+    delta against an earlier :func:`snapshot`: ``{"data_ms", "step_ms",
+    "listener_ms", "compile_ms", "recompiles", "steps"}``."""
+    snap = registry().snapshot()
+
+    def _sums(name: str, field: str) -> float:
+        total = 0.0
+        for key, val in snap.get(name, {}).get("values", {}).items():
+            prev = 0.0
+            if since is not None:
+                prev_val = since.get(name, {}).get("values", {}).get(key)
+                if isinstance(prev_val, dict):
+                    prev = float(prev_val.get(field, 0.0))
+                elif prev_val is not None:
+                    prev = float(prev_val)
+            total += (float(val.get(field, 0.0))
+                      if isinstance(val, dict) else float(val)) - prev
+        return total
+
+    return {
+        "data_ms": round(_sums("phase_data_ms", "sum"), 3),
+        "step_ms": round(_sums("phase_step_ms", "sum"), 3),
+        "listener_ms": round(_sums("phase_listener_ms", "sum"), 3),
+        "compile_ms": round(_sums("jit_compile_ms", "sum"), 3),
+        "recompiles": int(_sums("jit_compiles_total", "sum")),
+        "steps": int(_sums("phase_step_ms", "count")),
+    }
+
+
+def prometheus_text() -> str:
+    """Prometheus text exposition of every registered metric (the
+    ``GET /metrics`` body)."""
+    return registry().prometheus_text()
 
 
 def reset() -> None:

@@ -111,6 +111,26 @@ _ACTIVATIONS: dict[str, Callable[[Tensor], Tensor]] = {
 }
 
 
+_BUILTIN_ACTIVATIONS = frozenset(_ACTIVATIONS)
+
+
+def register(name: str, fn: Callable[[Tensor], Tensor],
+             overwrite: bool = False) -> None:
+    """Register a user-defined activation under a (case-insensitive) name,
+    so layer configs refer to it like a built-in (the reference's custom
+    ``IActivation``).  ``fn`` is a function on tensors; its gradient comes
+    from autograd.  Shadowing a built-in name changes every model in the
+    process (``from_json`` restores included), so it raises unless
+    ``overwrite=True``."""
+    key = name.lower()
+    if key in _BUILTIN_ACTIVATIONS and not overwrite:
+        raise ValueError(
+            f"'{key}' is a built-in activation; registering over it "
+            "would change every model in this process — pass "
+            "overwrite=True if that is really intended")
+    _ACTIVATIONS[key] = fn
+
+
 def get(name: str) -> Callable[[Tensor], Tensor]:
     """Resolve an activation by (case-insensitive) name."""
     key = name.lower()

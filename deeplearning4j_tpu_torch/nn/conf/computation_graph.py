@@ -343,6 +343,17 @@ class ComputationGraphConfiguration:
     def from_json(s: str) -> "ComputationGraphConfiguration":
         return ComputationGraphConfiguration.from_dict(json.loads(s))
 
+    def to_yaml(self) -> str:
+        """The configuration as YAML (reference ``toYaml``); PyYAML is
+        imported here, so the package needs it only for this call."""
+        import yaml
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "ComputationGraphConfiguration":
+        import yaml
+        return ComputationGraphConfiguration.from_dict(yaml.safe_load(s))
+
 
 class GraphBuilder:
     """The fluent graph API (``NeuralNetConfiguration.builder()...

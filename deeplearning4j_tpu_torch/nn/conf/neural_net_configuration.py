@@ -127,6 +127,17 @@ class MultiLayerConfiguration:
     def from_json(s: str) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration.from_dict(json.loads(s))
 
+    def to_yaml(self) -> str:
+        """The configuration as YAML (reference ``toYaml``); PyYAML is
+        imported here, so the package needs it only for this call."""
+        import yaml
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "MultiLayerConfiguration":
+        import yaml
+        return MultiLayerConfiguration.from_dict(yaml.safe_load(s))
+
 
 class NeuralNetConfiguration:
     """``NeuralNetConfiguration.builder()`` starts a fluent config chain."""
@@ -232,6 +243,11 @@ class Builder:
 
     def drop_out(self, p: float) -> "Builder":
         return self._set(dropout=float(p))
+
+    def regularization(self, flag: bool = True) -> "Builder":
+        """The reference's gate for l1/l2, kept for the API: here l1/l2 > 0
+        turns regularization on."""
+        return self
 
     def l1(self, value: float) -> "Builder":
         return self._set(l1=float(value))

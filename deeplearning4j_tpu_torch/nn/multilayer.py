@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import time
 import warnings
 import weakref
 from typing import Any, Dict, List, Optional
@@ -108,6 +109,8 @@ class _Network:
         self.epoch = 0
         self.listeners: List[Any] = []
         self._init_done = False
+        # set by unsupervised pretraining (A6); a transfer carries it over
+        self._pretrain_done = False
         self._score: Optional[Tensor] = None
         self._rng: Optional[torch.Generator] = None
         self._policy: Optional[_precision.PrecisionPolicy] = None
@@ -164,6 +167,7 @@ class _Network:
         if self._init_done:
             return self
         pol = self._pol()
+        _precision.publish(pol)
         seed = int(self.conf.conf.seed)
         gen = torch.Generator().manual_seed(seed)
         slots = self._slots()
@@ -216,13 +220,22 @@ class _Network:
         ``health.in_step()`` asks for them (else ``hvec`` is None);
         ``scalars`` (per layer key) replaces the iteration's updater
         scalars (a captured step reads them from the device)."""
+        # a frozen layer's gradient is read only by the health vector (the
+        # updater and the solvers skip the layer), so without it the
+        # layer's params stay out of autograd, and so does every layer
+        # below a frozen trunk; the layer then takes a zero gradient
+        need = self._grad_keys(health and _health.in_step())
         leaves = self._trees(
-            [(key, {k: p.detach().requires_grad_(p.is_floating_point())
-                    for k, p in tree.items()})
+            [(key, {k: p.detach().requires_grad_(
+                p.is_floating_point() and key in need)
+                for k, p in tree.items()})
              for key, tree in self._items(params)])
         data_loss, new_state, new_carries = loss_fn(leaves, net_state)
         flat = [p for _, tree in self._items(leaves) for p in tree.values()]
-        grads = torch.autograd.grad(data_loss, flat, allow_unused=True)
+        wanted = [p for p in flat if p.requires_grad]
+        got = iter(torch.autograd.grad(data_loss, wanted, allow_unused=True)
+                   if wanted else ())
+        grads = [next(got) if p.requires_grad else None for p in flat]
         with torch.no_grad():
             grads = [torch.zeros_like(leaf) if g is None else g
                      for g, leaf in zip(grads, flat)]
@@ -240,6 +253,12 @@ class _Network:
                     bad, (new_params, new_ustate, new_state),
                     (params, updater_state, net_state))
         return new_params, new_ustate, new_state, score, hvec, new_carries
+
+    def _grad_keys(self, all_layers: bool) -> set:
+        """The layer keys whose params take part in autograd: every layer
+        when ``all_layers``, else the layers that are not frozen."""
+        return {key for key, layer in self._slots()
+                if all_layers or not getattr(layer, "frozen", False)}
 
     def _updated(self, params, updater_state, flat_grads, iteration: int,
                  scalars=None):
@@ -264,6 +283,7 @@ class _Network:
         """One step of the network on its own trees (per-batch and tBPTT
         paths): the health vector is recorded when ``health``; listeners
         fire.  Returns the new carries."""
+        t0 = time.perf_counter()
         (self.params, self.updater_state, self.net_state, score, hvec,
          new_carries) = self._train_step(
             self.params, self.updater_state, self.net_state, loss_fn,
@@ -273,6 +293,7 @@ class _Network:
             _health.record_dispatch(self, hvec, self.iteration)
         self.iteration += 1
         _iterations().inc()
+        _monitor.observe_phase("step", time.perf_counter() - t0)
         self._fire_listeners()
         return new_carries
 
@@ -286,7 +307,9 @@ class _Network:
         """One forward, one backward and one update per iteration (per
         window under tBPTT), or one solver iteration."""
         _faults.slow_worker()
+        t0 = time.perf_counter()
         batch = self._batch(ds)
+        _monitor.observe_phase("data", time.perf_counter() - t0)
         self.last_batch_size = ds.num_examples()
         solver = self._solver
         for _ in range(self.conf.conf.num_iterations):
@@ -303,8 +326,12 @@ class _Network:
                     p, s, *batch, self._rng, True), health=True)
 
     def _fire_listeners(self) -> None:
+        if not self.listeners:
+            return
+        t0 = time.perf_counter()
         for listener in self.listeners:
             listener.iteration_done(self, self.iteration)
+        _monitor.observe_phase("listener", time.perf_counter() - t0)
 
     def _batches(self, data, labels):
         """``fit``'s data as a list of batches or an iterator."""
@@ -960,6 +987,7 @@ class _Network:
         other.net_state = _cloned(self.net_state)
         other.updater_state = _cloned(self.updater_state)
         other.iteration = self.iteration
+        other._pretrain_done = self._pretrain_done
         return other
 
 
@@ -993,14 +1021,17 @@ class MultiLayerNetwork(_Network):
     def _forward(self, params, net_state, x: Tensor, *, train: bool,
                  rng: Optional[torch.Generator], mask=None, carries=None,
                  to_layer: Optional[int] = None, from_layer: int = 0,
-                 preoutput_last: bool = False):
+                 preoutput_last: bool = False,
+                 acts: Optional[List[Tensor]] = None):
         """Compose the layers ``from_layer`` to ``to_layer`` (default: all)
         with ``x`` as the input of ``from_layer``.  Returns (out,
         new_state, new_carries).  ``carries`` is a per-layer list of
         recurrent carries (``()`` for a stateless layer) threaded through
         ``forward_seq``; None runs every recurrent layer from zero state.
         With ``preoutput_last`` the last layer composed contributes its
-        pre-activation, so the loss can fuse softmax stably."""
+        pre-activation, so the loss can fuse softmax stably.  ``acts``
+        collects each layer's activation as ``to_layer=i`` would return
+        it."""
         pol = self._pol()
         if x.is_floating_point():
             x = x.to(pol.compute_dtype)
@@ -1038,6 +1069,8 @@ class MultiLayerNetwork(_Network):
                 x, new_state[i] = layer.forward(
                     params[i], net_state[i], x, train=train, rng=rng,
                     mask=mask)
+            if acts is not None:
+                acts.append(x.float() if pol.downcasts_output else x)
         if pol.downcasts_output:
             x = x.float()
         return x, new_state, new_carries
@@ -1193,6 +1226,22 @@ class MultiLayerNetwork(_Network):
                 train=train, rng=self._rng if train else None,
                 mask=self._tensor(features_mask, torch.float32))
         return out
+
+    def feed_forward(self, features) -> List[Tensor]:
+        """Every layer's activation in inference mode (reference
+        ``feedForward``), each as ``output`` returns its last one; one
+        pass through the layers."""
+        self.init()
+        acts: List[Tensor] = []
+        with torch.no_grad():
+            self._forward(self.params, self.net_state,
+                          self._tensor(features), train=False, rng=None,
+                          acts=acts)
+        return acts
+
+    def predict(self, features) -> Tensor:
+        """Argmax class indices (reference ``predict``)."""
+        return self.output(features).argmax(-1)
 
     def compile_output(self, feature_shape, mask_shape=None, params=None,
                        net_state=None):

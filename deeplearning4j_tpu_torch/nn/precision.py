@@ -122,3 +122,16 @@ def resolve_policy(gconf, device: torch.device) -> PrecisionPolicy:
             updater_dtype=torch.float32 if low_param else param,
             master_weights=low_param, name="custom")
     return _MIXED_POLICY if device.type == "cuda" else _FP32_POLICY
+
+
+def publish(policy: PrecisionPolicy) -> None:
+    """Expose the resolved policy on the metrics registry: the
+    ``precision_param_bits``, ``precision_compute_bits`` and
+    ``precision_master_weights`` gauges."""
+    from .. import monitor
+    monitor.gauge("precision_param_bits").set(
+        policy.param_dtype.itemsize * 8)
+    monitor.gauge("precision_compute_bits").set(
+        policy.compute_dtype.itemsize * 8)
+    monitor.gauge("precision_master_weights").set(
+        int(policy.master_weights))

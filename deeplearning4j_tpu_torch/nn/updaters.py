@@ -21,7 +21,6 @@ form), so a caller's references to the old params stay valid.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -81,69 +80,85 @@ class UpdaterConfig:
 
 
 # ---------------------------------------------------------------------------
-# Learning-rate policies: plain floats, the iteration is a host integer
-# (a captured step reads them from a device table: step_scalars)
+# Learning-rate policies: numpy float32 on the host, in the JAX package's
+# operation order (it traces lr, the iteration and every power/exp in
+# float32, and XLA turns a division by a constant into a product with its
+# float32 reciprocal); a captured step reads them from a device table:
+# step_scalars
 # ---------------------------------------------------------------------------
 
-def learning_rate_for(conf: UpdaterConfig, iteration: int) -> float:
-    """Effective learning rate at ``iteration``."""
-    lr = float(conf.learning_rate)
-    it = float(iteration)
+_f32 = np.float32
+
+
+def _learning_rate_f32(conf: UpdaterConfig, iteration: int) -> np.float32:
+    lr = _f32(conf.learning_rate)
+    it = _f32(iteration)
     policy = conf.lr_policy.lower()
-    decay = conf.lr_policy_decay_rate
+    decay = _f32(conf.lr_policy_decay_rate)
+    power = _f32(conf.lr_policy_power)
+    one = _f32(1.0)
     if policy in ("none", ""):
         return lr
     if policy == "exponential":
-        return lr * decay ** it
+        return lr * np.power(decay, it)
     if policy == "inverse":
-        return lr / (1.0 + decay * it) ** conf.lr_policy_power
+        return lr / np.power(one + decay * it, power)
     if policy in ("step", "torchstep"):
-        return lr * decay ** math.floor(it / conf.lr_policy_steps)
+        return lr * np.power(decay, np.floor(
+            it * (one / _f32(conf.lr_policy_steps))))
     if policy == "poly":
-        frac = min(max(it / max(conf.max_num_iterations, 1), 0.0), 1.0)
-        return lr * (1.0 - frac) ** conf.lr_policy_power
+        frac = np.clip(it * (one / _f32(max(conf.max_num_iterations, 1))),
+                       _f32(0.0), one)
+        return lr * np.power(one - frac, power)
     if policy == "sigmoid":
-        return lr / (1.0 + math.exp(-decay * (it - conf.lr_policy_steps)))
+        return lr / (one + np.exp(-decay * (it - _f32(conf.lr_policy_steps))))
     if policy == "schedule":
         out = lr
         for step, value in sorted((conf.lr_schedule or {}).items()):
             if it >= step:
-                out = float(value)
+                out = _f32(value)
         return out
     raise ValueError(f"Unknown lr policy '{conf.lr_policy}'")
 
 
+def learning_rate_for(conf: UpdaterConfig, iteration: int) -> float:
+    """Effective learning rate at ``iteration``: a float32 value, as the
+    JAX package computes it, returned as a Python float."""
+    return float(_learning_rate_f32(conf, iteration))
+
+
 def momentum_for(conf: UpdaterConfig, iteration: int) -> float:
-    mu = float(conf.momentum)
+    """Momentum at ``iteration``, a float32 value as a Python float."""
+    mu = _f32(conf.momentum)
     for step, value in sorted((conf.momentum_schedule or {}).items()):
-        if iteration >= step:
-            mu = float(value)
-    return mu
+        if _f32(iteration) >= step:
+            mu = _f32(value)
+    return float(mu)
 
 
 def step_scalars(conf: UpdaterConfig, iteration: int) -> Dict[str, float]:
     """Every scalar of :func:`compute_update` that depends on the
-    iteration, as the host computes it in float64: ``lr``; ``mu`` and
-    ``mu1`` (``1 + mu``) for the momentum rules; ``alpha``, the
-    bias-corrected Adam step.  A CUDA-graph step (``nn/step_graph.py``)
-    cannot take host floats that change from replay to replay, so it
-    reads these from a device table the host filled with this function,
-    and :func:`compute_update` takes them there as 0-dim tensors."""
+    iteration, each a float32 value as the JAX package traces it:
+    ``lr``; ``mu`` and ``mu1`` (``1 + mu``) for the momentum rules;
+    ``alpha``, the bias-corrected Adam step.  A CUDA-graph step
+    (``nn/step_graph.py``) cannot take host floats that change from
+    replay to replay, so it reads these from a device table the host
+    filled with this function, and :func:`compute_update` takes them
+    there as 0-dim tensors."""
     name = conf.updater.lower()
     lr = learning_rate_for(conf, iteration)
     if name in ("sgd", "adagrad", "rmsprop"):
         return {"lr": lr}
     if name in ("nesterovs", "lars"):
         mu = momentum_for(conf, iteration)
-        return {"lr": lr, "mu": mu, "mu1": 1.0 + mu}
+        return {"lr": lr, "mu": mu, "mu1": float(_f32(1.0) + _f32(mu))}
     if name == "adam":
         # bias-corrected step (reference Adam.getGradient), in float32 as
         # the JAX package traces it (lr, t and the decays as f32)
-        f32 = np.float32
-        t = f32(iteration) + f32(1.0)
-        alpha = f32(lr) * np.sqrt(f32(1.0) - np.power(
-            f32(conf.adam_var_decay), t)) / (f32(1.0) - np.power(
-                f32(conf.adam_mean_decay), t))
+        t = _f32(iteration) + _f32(1.0)
+        alpha = _f32(lr) * np.sqrt(_f32(1.0) - np.power(
+            _f32(conf.adam_var_decay), t)) / (_f32(1.0) - np.power(
+                _f32(conf.adam_mean_decay), t))
         return {"alpha": float(alpha)}
     return {}
 

@@ -1,5 +1,5 @@
-"""Crash-safe file writes (port of ``deeplearning4j_tpu/utils/fileio.py``,
-its ``atomic_write`` and ``atomic_write_bytes``).
+"""Crash-safe file writes (port of ``deeplearning4j_tpu/utils/fileio.py``:
+``atomic_write`` and its bytes, text and JSON forms).
 
 After a crash at any point, the destination holds either the complete old
 content or the complete new content, never a torn mix:
@@ -15,6 +15,7 @@ content or the complete new content, never a torn mix:
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import tempfile
 from typing import Any, Iterator, Optional
@@ -70,3 +71,15 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
     """Atomically replace ``path`` with ``data``."""
     with atomic_write(path, "wb") as fh:
         fh.write(data)
+
+
+def atomic_write_text(path: str, text: str,
+                      encoding: str = "utf-8") -> None:
+    """Atomically replace ``path`` with ``text``."""
+    with atomic_write(path, "w", encoding=encoding) as fh:
+        fh.write(text)
+
+
+def atomic_write_json(path: str, obj: Any, **json_kwargs) -> None:
+    """Atomically replace ``path`` with ``json.dumps(obj)``."""
+    atomic_write_text(path, json.dumps(obj, **json_kwargs))

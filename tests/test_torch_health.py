@@ -317,3 +317,63 @@ def test_param_listener_prints_the_jax_health_columns(tmp_path):
         np.testing.assert_allclose([float(v) for v in got[2:]],
                                    [float(v) for v in want[2:]],
                                    rtol=1e-5, atol=1e-7)
+
+
+# --------------------------------- the phase attribution and the gauges
+def test_phase_functions_and_prometheus_text_match_jax():
+    """The same observations in both registries give the same
+    phase_breakdown (whole and as a delta against a snapshot) and the
+    same exposition lines; a port fit records its data/step/listener
+    phases and the precision gauges."""
+    jmonitor.reset()
+    monitor.reset()
+    for mod in (jmonitor, monitor):
+        mod.observe_phase("data", 0.002)
+        mod.observe_phase("step", 0.010, path="batch")
+    jsnap, psnap = jmonitor.snapshot(), monitor.snapshot()
+    for mod in (jmonitor, monitor):
+        mod.observe_phase("step", 0.004, path="batch")
+        mod.observe_phase("listener", 0.001)
+    assert monitor.phase_breakdown() == jmonitor.phase_breakdown()
+    assert monitor.phase_breakdown(psnap) == jmonitor.phase_breakdown(jsnap)
+    assert monitor.phase_breakdown(psnap)["steps"] == 1
+
+    def phase_lines(text):
+        # the help strings differ: the port's step is not a jitted one
+        return [ln for ln in text.splitlines()
+                if "phase_" in ln and not ln.startswith("# HELP")]
+
+    assert phase_lines(monitor.prometheus_text()) == \
+        phase_lines(jmonitor.prometheus_text())
+    monitor.reset()
+    x, y = _arrays()
+    _, pnet = _pair()
+    from deeplearning4j_tpu_torch.optimize.listeners.listeners import \
+        CollectScoresIterationListener
+    pnet.set_listeners(CollectScoresIterationListener())
+    for i in range(3):
+        pnet.fit(DataSet(x[16 * i:16 * i + 16], y[16 * i:16 * i + 16]))
+    got = monitor.phase_breakdown()
+    assert got["steps"] == 3 and got["step_ms"] > 0 and got["data_ms"] > 0
+    assert got["listener_ms"] > 0
+    assert monitor.gauge("precision_param_bits").value() == 32
+    assert monitor.gauge("precision_master_weights").value() == 0
+    monitor.reset()
+    jmonitor.reset()
+
+
+@pytest.mark.parametrize("mode", ["fp32", "mixed_bf16"])
+def test_precision_gauges_match_jax(mode, monkeypatch):
+    from deeplearning4j_tpu.nn import precision as jprecision
+    from deeplearning4j_tpu_torch.nn import precision
+    monkeypatch.setenv("DL4J_TPU_PRECISION", mode)
+    jmonitor.reset()
+    monitor.reset()
+    jprecision.publish(jprecision.resolve_policy(None))
+    precision.publish(precision.resolve_policy(None,
+                                               torch.device("cpu")))
+    for name in ("precision_param_bits", "precision_compute_bits",
+                 "precision_master_weights"):
+        assert monitor.gauge(name).value() == jmonitor.gauge(name).value()
+    monitor.reset()
+    jmonitor.reset()

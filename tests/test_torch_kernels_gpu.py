@@ -1093,3 +1093,52 @@ def test_fit_scan_equals_the_per_batch_steps(cuda, container):
                                   eager.get_flat_params())
     np.testing.assert_array_equal(scanned.get_flat_updater_state(),
                                   eager.get_flat_updater_state())
+
+
+def test_a_frozen_lenet_trunk_stays_bitwise_in_the_captured_cache(cuda):
+    """A LeNet-5 fine-tune with its convolutional trunk frozen (layers
+    0-3) and a new 5-class head, trained through fit(iterator)'s default:
+    the epoch cache replays one captured CUDA graph a step, the trunk
+    stays bit for bit, and the params equal the eager per-batch steps
+    over the same batches (fp32, cuDNN's deterministic algorithms)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.transfer import TransferLearning
+    src = MultiLayerNetwork(lenet(compute_dtype="float32")).init()
+
+    def tuned():
+        return (TransferLearning.builder(src).set_feature_extractor(3)
+                .remove_output_layer()
+                .add_layer(OutputLayer(n_in=src.layers[-1].n_in, n_out=5))
+                .build())
+
+    rng = np.random.RandomState(3)
+    ds = DataSet(rng.rand(4 * 32, 784).astype(np.float32),
+                 np.eye(5, dtype=np.float32)[rng.randint(0, 5, 128)])
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        captured, eager = tuned(), tuned()
+        eager.set_flat_params(captured.get_flat_params())
+        trunk = [{k: v.clone() for k, v in captured.params[i].items()}
+                 for i in range(4)]
+        captured.fit(ListDataSetIterator(ds, 32), epochs=2)
+        eager.fit(ListDataSetIterator(ds, 32), epochs=2, ingest="batch")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    assert captured._graphs and captured.iteration == 8
+    for i, tree in enumerate(trunk):
+        assert captured.layers[i].frozen
+        for k, v in tree.items():
+            assert torch.equal(captured.params[i][k], v), (i, k)
+            assert torch.equal(src.params[i][k], v), (i, k)
+    np.testing.assert_array_equal(captured.get_flat_params(),
+                                  eager.get_flat_params())

@@ -11,6 +11,7 @@ outputs; 1e-6 for the pure elementwise modules.
 
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +26,8 @@ from deeplearning4j_tpu.nn.conf.neural_net_configuration import \
     NeuralNetConfiguration as JaxConf
 from deeplearning4j_tpu.nn.layers.attention import \
     CausalSelfAttention as JaxAttention
+from deeplearning4j_tpu.nn.layers.core import DenseLayer as JaxDense
+from deeplearning4j_tpu.nn.layers.core import OutputLayer as JaxOutput
 from deeplearning4j_tpu.nn.layers.recurrent import \
     RnnOutputLayer as JaxRnnOutput
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxNet
@@ -269,3 +272,164 @@ def test_weight_init_fan_rules(scheme, expected_std):
     assert w.dtype == torch.bfloat16 and w.shape == (300, 200)
     np.testing.assert_allclose(w.float().std().item(), expected_std,
                                rtol=0.03)
+
+
+# ----------------------------------------------- C7: lr policies in float32
+_POLICIES = {
+    "none": {},
+    "exponential": dict(lr_policy_decay_rate=0.9991),
+    "inverse": dict(lr_policy_decay_rate=0.01, lr_policy_power=0.75),
+    "step": dict(lr_policy_decay_rate=0.5, lr_policy_steps=100.0),
+    "torchstep": dict(lr_policy_decay_rate=0.7, lr_policy_steps=30.0),
+    "poly": dict(lr_policy_power=2.0),
+    "sigmoid": dict(lr_policy_decay_rate=0.01, lr_policy_steps=500.0),
+    "schedule": dict(lr_schedule={0: 0.1, 300: 0.05, 700: 0.01}),
+}
+
+
+@pytest.mark.parametrize("policy", sorted(_POLICIES))
+def test_learning_rate_policy_within_2_ulp_of_jax(policy):
+    """Every iteration up to ``max_num_iterations``: the JAX package
+    traces the policies in float32 (C7)."""
+    kw = dict(learning_rate=0.1, lr_policy=policy, max_num_iterations=1000,
+              momentum_schedule={0: 0.5, 400: 0.9}, **_POLICIES[policy])
+    pconf = updaters.UpdaterConfig(**kw)
+    jconf = jax_updaters.UpdaterConfig(**kw)
+    its = np.arange(0, 1001)
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda i: jax_updaters.learning_rate_for(jconf, i)))(its))
+    got = np.array([updaters.learning_rate_for(pconf, int(i)) for i in its],
+                   np.float32)
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 2, (int(its[ulps.argmax()]), int(ulps.max()))
+    mu_want = np.asarray(jax.jit(jax.vmap(
+        lambda i: jax_updaters.momentum_for(jconf, i)))(its))
+    mu_got = np.array([updaters.momentum_for(pconf, int(i)) for i in its],
+                      np.float32)
+    np.testing.assert_array_equal(mu_got, mu_want)
+
+
+# (base lr, policy fields) of the fit test: poly's last steps take 2e-3
+# and 1e-3 of the base, so a base of 1e3 (10 for adam, whose step does
+# not scale with the gradient) makes its float32 lr error (1.4e-4 at
+# iteration 999) show in the step; exponential takes 0.41 of its base
+_FIT_POLICIES = {"poly": (1e3, dict(lr_policy_power=1.0)),
+                 "exponential": (0.1, dict(lr_policy_decay_rate=0.9991))}
+
+
+def _dense_pair(updater, policy):
+    lr, fields = _FIT_POLICIES[policy]
+    if policy == "poly" and updater == "adam":
+        lr = 10.0
+    b = (JaxConf.builder().seed(4).updater(updater).learning_rate(lr)
+         .learning_rate_decay_policy(policy).activation("tanh")
+         .weight_init("xavier"))
+    for name, value in fields.items():
+        getattr(b, name)(value)
+    conf = (b.list().layer(JaxDense(n_out=8))
+            .layer(JaxOutput(n_out=3))
+            .set_input_type(jax_inputs.feed_forward(6)).build())
+    for u in {id(conf.conf.updater): conf.conf.updater,
+              **{id(l.updater): l.updater for l in conf.layers}}.values():
+        u.max_num_iterations = 1000
+    return _pair(conf)
+
+
+@pytest.mark.parametrize("updater", ["sgd", "adam", "nesterovs"])
+@pytest.mark.parametrize("policy", ["poly", "exponential"])
+def test_fit_near_iteration_1000_matches_jax(updater, policy):
+    """Two steps from iteration 998: the step each package takes (new -
+    old params) and the params, at rtol 2e-5 / atol 1e-7.  In float64 the
+    policy's lr was up to 3e-5 off there (C7)."""
+    jnet, pnet = _dense_pair(updater, policy)
+    jnet.iteration = pnet.iteration = 998
+    rng = np.random.RandomState(9)
+    x = rng.randn(16, 6).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 16)]
+    for _ in range(2):
+        j0, p0 = np.asarray(jnet.get_flat_params()), pnet.get_flat_params()
+        jnet.fit(JaxDataSet(x, y))
+        pnet.fit(DataSet(x, y))
+        j1, p1 = np.asarray(jnet.get_flat_params()), pnet.get_flat_params()
+        np.testing.assert_allclose(p1 - p0, j1 - j0, rtol=2e-5, atol=1e-7)
+        np.testing.assert_allclose(p1, j1, rtol=2e-5, atol=1e-7)
+    assert pnet.iteration == jnet.iteration == 1000
+
+
+# ------------------------------------- the container and configuration API
+def _mlp_pair(activation="tanh"):
+    conf = (JaxConf.builder().seed(2).updater("sgd").learning_rate(0.1)
+            .activation(activation).weight_init("xavier").regularization(True)
+            .l2(1e-3).list().layer(JaxDense(n_out=7))
+            .layer(JaxDense(n_out=5, activation="relu"))
+            .layer(JaxOutput(n_out=3))
+            .set_input_type(jax_inputs.feed_forward(6)).build())
+    return _pair(conf)
+
+
+def test_feed_forward_and_predict_match_jax():
+    jnet, pnet = _mlp_pair()
+    x = np.random.RandomState(3).randn(9, 6).astype(np.float32)
+    got, want = pnet.feed_forward(x), jnet.feed_forward(x)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, rtol=OUT_TOL, atol=OUT_TOL)
+    np.testing.assert_array_equal(pnet.predict(x).numpy(), jnet.predict(x))
+    assert pnet._pretrain_done is False
+    assert pnet.clone()._pretrain_done is False
+
+
+@pytest.mark.parametrize("container", ["mln", "graph"])
+def test_yaml_round_trip_matches_jax(container):
+    from deeplearning4j_tpu.nn.conf.computation_graph import \
+        ComputationGraphConfiguration as JaxCGConf
+    from deeplearning4j_tpu_torch.nn.conf.computation_graph import \
+        ComputationGraphConfiguration
+    if container == "graph":
+        jconf = (JaxConf.builder().seed(1).graph_builder().add_inputs("in")
+                 .add_layer("d", JaxDense(n_in=4, n_out=5), "in")
+                 .add_layer("out", JaxOutput(n_in=5, n_out=2), "d")
+                 .set_outputs("out").build())
+        pconf = ComputationGraphConfiguration.from_json(jconf.to_json())
+        load = ComputationGraphConfiguration.from_yaml
+        jload = JaxCGConf.from_yaml
+    else:
+        jconf = _mlp_pair()[0].conf
+        pconf = MultiLayerConfiguration.from_json(jconf.to_json())
+        load = MultiLayerConfiguration.from_yaml
+        from deeplearning4j_tpu.nn.conf.neural_net_configuration import \
+            MultiLayerConfiguration as JaxMLConf
+        jload = JaxMLConf.from_yaml
+    assert pconf.to_yaml() == jconf.to_yaml()
+    assert load(jconf.to_yaml()).to_json() == jconf.to_json()
+    assert jload(pconf.to_yaml()).to_json() == pconf.to_json()
+
+
+def test_registered_activation_resolves_and_survives_json():
+    from deeplearning4j_tpu.nn import activations as jact
+    from deeplearning4j_tpu_torch.nn import activations as pact
+    with pytest.raises(ValueError) as jerr:
+        jact.register("relu", lambda x: x)
+    with pytest.raises(ValueError) as perr:
+        pact.register("ReLU", lambda x: x)
+    assert str(perr.value) == str(jerr.value)
+    jact.register("Scaled_Tanh", lambda x: 1.7159 * jnp.tanh(2 * x / 3))
+    pact.register("Scaled_Tanh", lambda x: 1.7159 * torch.tanh(2 * x / 3))
+    try:
+        assert pact.get("scaled_tanh") is pact.get("SCALED_TANH")
+        assert "scaled_tanh" in pact.available()
+        jnet, pnet = _mlp_pair(activation="scaled_tanh")
+        again = MultiLayerConfiguration.from_json(pnet.conf.to_json())
+        assert again.layers[0].activation == "scaled_tanh"
+        x = np.random.RandomState(4).randn(5, 6).astype(np.float32)
+        np.testing.assert_allclose(pnet.output(x).numpy(),
+                                   np.asarray(jnet.output(x)),
+                                   rtol=OUT_TOL, atol=OUT_TOL)
+        pact.register("relu", torch.relu, overwrite=True)
+        assert pact.get("relu") is torch.relu
+    finally:
+        jact._ACTIVATIONS.pop("scaled_tanh", None)
+        pact._ACTIVATIONS.pop("scaled_tanh", None)
+        pact._ACTIVATIONS["relu"] = pact.relu

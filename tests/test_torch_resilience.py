@@ -356,3 +356,18 @@ def test_model_entries_are_the_jax_bytes(tmp_path):
     jckpt.restore(back, ppath)
     np.testing.assert_array_equal(np.asarray(back.get_flat_params()),
                                   np.asarray(jnet.get_flat_params()))
+
+
+def test_atomic_text_and_json_writes_match_jax(tmp_path):
+    from deeplearning4j_tpu.utils import fileio as jfileio
+    from deeplearning4j_tpu_torch.utils import fileio
+    obj = {"b": [1, 2.5, None], "a": "ü"}
+    for mod, tag in ((jfileio, "jax"), (fileio, "port")):
+        mod.atomic_write_text(str(tmp_path / f"{tag}.txt"), "ünï\ncode")
+        mod.atomic_write_json(str(tmp_path / f"{tag}.json"), obj,
+                              sort_keys=True, indent=1)
+    for ext in ("txt", "json"):
+        assert (tmp_path / f"port.{ext}").read_bytes() == \
+            (tmp_path / f"jax.{ext}").read_bytes()
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "jax.json", "jax.txt", "port.json", "port.txt"]
