@@ -208,11 +208,37 @@ Phases (each raises on failure; the exit code is non-zero on any):
    follow the transferred weights); (c) the importer's 64x64 VGG-16
    variant in fp32, its weights carried from the CPU by flat params:
    outputs, a transfer and one fine-tune step, card vs CPU within
-   ``REF_RTOL``.  K1-K4 launch 0 times on this path.
+   ``REF_RTOL``.  K1-K4 launch 0 times on this path;
+15. embeddings ([embeddings] lines; no hand kernel: gathers, einsums and
+   ``index_add_`` scatters through torch, XLA in the JAX package), at
+   BASELINE.md config #4 (Word2Vec SGNS: vocab 10,000, dim 128, batch
+   8,192, K=5): (a) the staged SGNS step of ``bench.py:483``, one step
+   against the CPU, then ``EMB_RUNS`` runs of ``EMB_STEPS`` steps a route
+   in turns, plain and with the unique-row aggregation of
+   ``ops/scatter.py`` (ms a step, pairs/s, the hand bytes bound of
+   ``bench.py:539-542``, a profiled window: the measurement behind
+   ``scatter.CARD_AGGREGATES``); (b) ``SequenceVectors.fit`` through the
+   device corpus pipeline as ``bench.py:564`` runs it (2,000 seeded
+   sentences of 1,000 words, window 5, no HS): a warm-up fit, then
+   ``EMB_FITS`` timed fits (pairs/s, pairs a pass), one profiled pass
+   (device events, busy ms, idle share, top 5), peak memory, the loss a
+   pair of the last pass below the first's; (c) one pass of skip-gram
+   NS, skip-gram HS and CBOW HS+NS over a small corpus on the card and
+   on the CPU from the same tables and draws (``host_draws``), within
+   ``EMB_REF_RTOL``, and two passes on the card under
+   ``torch.use_deterministic_algorithms(True)``, bitwise equal; (d)
+   ``examples/word2vec_text.py``'s configuration through
+   ``Word2Vec.Builder`` (the host path): ``"queen"`` among the 3 nearest
+   to ``"king"``; (e) GloVe as ``bench.py:605`` (vocab 20,000, 400,000
+   zipf triples): the fused and naive AdaGrad routes equal after one
+   batch, then ``GLOVE_EPOCHS`` epochs of each (triples/s); (f) PV-DBOW as
+   ``bench.py:783`` (1,200 documents of 500 words): pairs/s; PV-DM and
+   ``infer_vector`` on 8 small documents, card against CPU.  K1-K4 launch
+   0 times on this path.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
-feed-forward/convolutional, recurrent, harness, graph, fused and transfer
-results, one
+feed-forward/convolutional, recurrent, harness, graph, fused, transfer and
+embeddings results, one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -404,6 +430,37 @@ RESNET_CACHE_N, RESNET_CACHE_EPOCHS = 1280, 2
 VGG_BATCH, VGG_WARMUP, VGG_STEPS, VGG_MAX_STEPS, VGG_LR = 256, 2, 12, 40, 1e-6
 TUNE_FROZEN, TUNE_CLASSES, TUNE_CACHE_BATCHES, TUNE_EPOCHS = 17, 10, 2, 2
 MASTER_LR, VGG_SMALL, VGG_SMALL_CLASSES = 1e-8, 64, 5
+# Phase 15.  BASELINE.md config #4 (Word2Vec skip-gram with negative
+# sampling) as bench.py builds it: the staged step of bench.py:483 (vocab
+# 10,000, dim 128, batch 8,192 pairs, K=5, seeded indices, 2 x 800 steps,
+# with and without the unique-row aggregation) and the end-to-end fit of
+# bench.py:564 (2,000 seeded sentences of 1,000 words, window 5, no HS,
+# batch 8,192, pair_generation="device": a warm-up fit, then EMB_FITS
+# timed ones and a profiled one); GloVe as bench.py:605 (vocab 20,000,
+# dim 128, batch 8,192, 400,000 zipf triples, 2 epochs a route); PV-DBOW
+# as bench.py:783 (1,200 documents of 500 words, vocab 10,000, D128,
+# K=5); examples/word2vec_text.py's configuration on the host path.
+# Card against CPU in fp32 (the same tables, the same draws): the tables
+# within EMB_REF_RTOL of max|CPU|.  On the card index_add_ adds duplicate
+# rows by atomics and the einsums run on cuBLAS, so the sums come in
+# another order; on the CPU a reordering of the duplicate sums alone (the
+# aggregated route against the plain one) moves a one-pass table by up to
+# 2.5e-6 of its largest entry, and one full-width GloVe batch (~3,100
+# duplicates of its hottest row) by 2.9e-6, so 2e-5 leaves a factor of
+# ~7.  GloVe's two routes are held after one batch: over 2 epochs the
+# AdaGrad feedback grows that 2.9e-6 to 1.6e-3 on the CPU, the same math.
+EMB_VOCAB, EMB_DIM, EMB_BATCH, EMB_K = 10000, 128, 8192, 5
+EMB_STEPS, EMB_RUNS, EMB_PROFILED_STEPS = 800, 2, 20
+EMB_WORDS, EMB_SENT_LEN, EMB_WINDOW, EMB_FITS = 2_000_000, 1000, 5, 3
+EMB_REF_RTOL = 2e-5
+GLOVE_VOCAB, GLOVE_TRIPLES, GLOVE_EPOCHS = 20000, 400_000, 2
+PV_DOCS, PV_DOC_LEN = 1200, 500
+W2V_SENTENCES = [
+    "king man royal crown", "queen woman royal crown",
+    "king rules the kingdom", "queen rules the kingdom",
+    "the king is a man", "the queen is a woman",
+    "a man walks the dog", "a woman walks the dog",
+    "day sun bright light", "night moon dark light"] * 60
 
 
 def log(msg: str) -> None:
@@ -828,7 +885,9 @@ def profiled(fn) -> tuple:
     """Run ``fn`` under ``torch.profiler`` and synchronize: the host wall
     ms (profiler overhead included), the number of device events, the
     CUDA ms by kernel name and the union of the device's busy intervals
-    in ms."""
+    in ms.  Read from the profiler's raw events: their parse into
+    ``FunctionEvent``s takes tens of seconds for a trace as long as a
+    full-width Word2Vec pass (~70,000 device events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -838,19 +897,19 @@ def profiled(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = [(e.start_ns(), e.end_ns(), e.name())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
     by_name = {}
-    for e in device:
-        by_name[e.name] = by_name.get(e.name, 0.0) + \
-            (e.time_range.end - e.time_range.start) / 1e3
-    busy_ms, end = 0.0, None
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in device):
+    for a, b, name in device:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e6
+    busy_ns, end = 0, None
+    for a, b, _ in sorted(device):
         if end is None or a > end:
-            busy_ms, end = busy_ms + b - a, b
+            busy_ns, end = busy_ns + b - a, b
         elif b > end:
-            busy_ms, end = busy_ms + b - end, b
-    return wall_ms, len(device), by_name, busy_ms / 1e3
+            busy_ns, end = busy_ns + b - end, b
+    return wall_ms, len(device), by_name, busy_ns / 1e6
 
 
 def profile_step(net, ds, steady_ms: float) -> dict:
@@ -3283,6 +3342,473 @@ def phase_transfer(A, seed: int) -> dict:
     return result
 
 
+# ------------------------------------------------------------- phase 15
+def emb_rel(what: str, got: torch.Tensor, want: torch.Tensor,
+            rtol: float = EMB_REF_RTOL) -> float:
+    """max|got - want| / max|want| of two tables (any devices); raises
+    above ``rtol`` or on a non-finite value."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise RuntimeError(f"{what}: non-finite values")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    rel = err / scale
+    log(f"[embeddings] {what}: max|diff| {err:.3e}, {rel:.3e} of "
+        f"max|ref| {scale:.3e} (tol {rtol:g})")
+    if not rel <= rtol:
+        raise RuntimeError(f"{what}: {rel:.3e} of max|ref| > {rtol:g}")
+    return rel
+
+
+class scatter_agg:
+    """``DL4J_TPU_SCATTER_AGG`` set to ``on`` inside the block."""
+
+    def __init__(self, on: bool):
+        self.on, self.prev = on, None
+
+    def __enter__(self):
+        self.prev = os.environ.get("DL4J_TPU_SCATTER_AGG")
+        os.environ["DL4J_TPU_SCATTER_AGG"] = "1" if self.on else "0"
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            del os.environ["DL4J_TPU_SCATTER_AGG"]
+        else:
+            os.environ["DL4J_TPU_SCATTER_AGG"] = self.prev
+
+
+class deterministic:
+    """``torch.use_deterministic_algorithms(True)`` inside the block (with
+    the cuBLAS workspace setting it asks for)."""
+
+    def __enter__(self):
+        self.prev = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+        if self.prev is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self.prev
+
+
+def top_kernels(by_name: dict, n: int = 5) -> list:
+    return [{"name": name[:120], "ms": ms} for ms, name in
+            sorted(((ms, name) for name, ms in by_name.items()),
+                   reverse=True)[:n]]
+
+
+def sgns_inputs(device):
+    """bench.py:483's staged SGNS batch: seeded syn0, zero syn1neg, the
+    indices, labels and masks, lr 0.025."""
+    rng = np.random.RandomState(0)
+    V, D, B, K = EMB_VOCAB, EMB_DIM, EMB_BATCH, EMB_K
+    syn0 = torch.from_numpy(rng.randn(V, D).astype(np.float32) * 0.01)
+    inputs = torch.from_numpy(rng.randint(0, V, B))
+    targets = torch.from_numpy(rng.randint(0, V, (B, 1 + K)))
+    labels = torch.cat([torch.ones(1), torch.zeros(K)])
+    args = (inputs, targets, labels, torch.ones((B, 1 + K)),
+            torch.ones((B,)), torch.tensor(0.025))
+    return (syn0.to(device), torch.zeros((V, D), device=device),
+            tuple(a.to(device) for a in args))
+
+
+def emb_sgns_step() -> dict:
+    """(a) The staged SGNS step at full width, plain and aggregated: one
+    step of each against the CPU, then EMB_RUNS runs of EMB_STEPS steps
+    a route in turns (plain, aggregated, aggregated, plain; host clock,
+    synchronized), then EMB_PROFILED_STEPS steps of each route under
+    ``torch.profiler``.  The bound is bench.py:539-542's hand model of
+    the bytes a step moves over the card's memory rate."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import _ns_update
+    from deeplearning4j_tpu_torch.ops import scatter
+    B, D, K = EMB_BATCH, EMB_DIM, EMB_K
+    syn0, syn1, args = sgns_inputs("cuda")
+    c0, c1, cargs = sgns_inputs("cpu")
+    _ns_update(c0, c1, *cargs)
+    checks = {}
+    tables = {}
+    for agg in (False, True):
+        with scatter_agg(agg):
+            s0, s1 = syn0.clone(), syn1.clone()
+            _ns_update(s0, s1, *args)
+        route = "aggregated" if agg else "plain"
+        checks[route] = {
+            "syn0": emb_rel(f"one SGNS step ({route}) card vs CPU", s0, c0),
+            "syn1neg": emb_rel(f"one SGNS step ({route}) card vs CPU syn1neg",
+                               s1, c1)}
+        tables[agg] = (s0, s1)
+    hand_bytes = (2 * B * D * 4 + 2 * B * (1 + K) * D * 4 + B * 4
+                  + B * (1 + K) * (4 + 4 + 4))
+    bound = hand_bytes / PEAK_BYTES * 1e3
+    runs = {False: [], True: []}
+    for agg in (False, True, True, False):
+        s0, s1 = tables[agg]
+        with scatter_agg(agg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EMB_STEPS):
+                _, _, loss = _ns_update(s0, s1, *args)
+            torch.cuda.synchronize()
+        runs[agg].append((time.perf_counter() - t0) * 1e3 / EMB_STEPS)
+        if not np.isfinite(loss.item()):
+            raise RuntimeError("the staged SGNS step diverged")
+    result = {"bytes_per_step": hand_bytes, "bound_ms": bound,
+              "bound_by": "bytes", "steps_per_run": EMB_STEPS,
+              "card_vs_cpu": checks}
+    for agg in (False, True):
+        s0, s1 = tables[agg]
+        with scatter_agg(agg):
+            wall, events, by_name, busy = profiled(
+                lambda: [_ns_update(s0, s1, *args)
+                         for _ in range(EMB_PROFILED_STEPS)])
+        ms = float(np.mean(runs[agg]))
+        route = "aggregated" if agg else "plain"
+        result[route] = {
+            "run_ms_per_step": runs[agg], "ms_per_step": ms,
+            "pairs_per_s": B * 1e3 / ms, "bound_share": bound / ms,
+            "device_events_per_step": events / EMB_PROFILED_STEPS,
+            "device_busy_ms_per_step": busy / EMB_PROFILED_STEPS,
+            "idle_share": 1.0 - busy / wall,
+            "top5": top_kernels(by_name)}
+        log(f"[embeddings] SGNS step V={EMB_VOCAB} D={D} B={B} K={K}, "
+            f"{route}: {ms:.4f} ms a step (runs {runs[agg]}), "
+            f"{B * 1e3 / ms:.1f} pairs/s; bytes bound {bound:.5f} ms "
+            f"({bound / ms:.3f} of the step); profiled: "
+            f"{events / EMB_PROFILED_STEPS:.1f} device events and "
+            f"{busy / EMB_PROFILED_STEPS:.4f} ms busy a step, idle "
+            f"{1.0 - busy / wall:.3f}; top 5: "
+            + "; ".join(f"{d['name'][:60]} {d['ms']:.3f}"
+                        for d in result[route]["top5"]))
+    faster = result["aggregated"]["ms_per_step"] < \
+        result["plain"]["ms_per_step"]
+    result["faster_route"] = "aggregated" if faster else "plain"
+    result["card_default_aggregates"] = scatter.CARD_AGGREGATES
+    log(f"[embeddings] the faster route here: {result['faster_route']}; "
+        f"the card's default aggregates: {scatter.CARD_AGGREGATES}")
+    return result
+
+
+def emb_corpus(seed: int = 0):
+    """bench.py:564's corpus: EMB_WORDS // EMB_SENT_LEN seeded sentences
+    of EMB_SENT_LEN words over EMB_VOCAB."""
+    rng = np.random.RandomState(seed)
+    return [["w%d" % w for w in rng.randint(0, EMB_VOCAB, EMB_SENT_LEN)]
+            for _ in range(EMB_WORDS // EMB_SENT_LEN)]
+
+
+def emb_fit() -> dict:
+    """(b) End-to-end ``SequenceVectors.fit`` through the device pipeline
+    at full width: a warm-up fit (vocab, corpus upload, one pass), then
+    EMB_FITS timed fits (each one pass; ``finish()`` reads the counters,
+    the completion barrier), one more under ``torch.profiler``."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import SequenceVectors
+    t0 = time.perf_counter()
+    seqs = emb_corpus()
+    sv = SequenceVectors(layer_size=EMB_DIM, window_size=EMB_WINDOW,
+                         negative=EMB_K, use_hierarchic_softmax=False,
+                         batch_size=EMB_BATCH, epochs=1,
+                         min_word_frequency=1, pair_generation="device")
+    if sv.device.type != "cuda":
+        raise RuntimeError(f"SequenceVectors defaults to {sv.device}")
+    sv.build_vocab(seqs)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sv.fit(seqs)
+    warm_s = time.perf_counter() - t0
+    first = dict(sv._device_pipeline_stats)
+    secs = []
+    for _ in range(EMB_FITS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sv.fit(seqs)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    wall_ms, events, by_name, busy_ms = profiled(lambda: sv.fit(seqs))
+    last = dict(sv._device_pipeline_stats)
+    peak = torch.cuda.max_memory_allocated()
+    pairs = last["pairs_trained"]
+    med = float(np.median(secs))
+    first_loss = first["loss_sum"] / first["pairs_trained"]
+    last_loss = last["loss_sum"] / last["pairs_trained"]
+    result = {"corpus_words": EMB_WORDS, "span": last["span"],
+              "n_spans": last["n_spans"], "pairs_per_pass": pairs,
+              "setup_s": setup_s, "warmup_fit_s": warm_s, "fit_s": secs,
+              "pairs_per_s": pairs / med,
+              "profiled_fit_ms": wall_ms, "device_events": events,
+              "device_events_per_span": events / last["n_spans"],
+              "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+              "idle_share_steady": 1.0 - busy_ms / (med * 1e3),
+              "top5": top_kernels(by_name), "peak_mem_bytes": peak,
+              "loss_per_pair_first": first_loss,
+              "loss_per_pair_last": last_loss}
+    log(f"[embeddings] fit: {EMB_WORDS} words, span {last['span']}, "
+        f"{last['n_spans']} spans, {pairs:.0f} pairs a pass; setup "
+        f"{setup_s:.2f} s, warm-up fit {warm_s:.2f} s, fits {secs} s: "
+        f"{pairs / med:.1f} pairs/s; profiled pass {wall_ms:.1f} ms, "
+        f"{events} device events ({events / last['n_spans']:.1f} a span), "
+        f"busy {busy_ms:.1f} ms, idle {1.0 - busy_ms / wall_ms:.3f} "
+        f"({result['idle_share_steady']:.3f} of the median fit); peak "
+        f"{peak / 2**30:.3f} GiB; loss a pair {first_loss:.4f} -> "
+        f"{last_loss:.4f}; top 5: " + "; ".join(
+            f"{d['name'][:60]} {d['ms']:.2f}" for d in result["top5"]))
+    if not (np.isfinite(last_loss) and last_loss < first_loss):
+        raise RuntimeError(f"the fit's loss did not fall: {first_loss} -> "
+                           f"{last_loss}")
+    return result
+
+
+EMB_CASES = {
+    "skipgram_ns": dict(use_hierarchic_softmax=False, negative=4),
+    "skipgram_hs": dict(use_hierarchic_softmax=True, negative=0),
+    "cbow_hs_ns": dict(use_hierarchic_softmax=True, negative=3,
+                       elements_learning_algorithm="cbow"),
+}
+
+
+def emb_small_pass(device, case: str) -> tuple:
+    """One subsampled device-pipeline pass over a small zipf corpus with
+    the draws of ``host_draws(7)``; the tables (on the CPU) and stats."""
+    from deeplearning4j_tpu_torch.nlp.device_corpus import host_draws
+    from deeplearning4j_tpu_torch.nlp.word2vec import SequenceVectors
+    rng = np.random.RandomState(0)
+    zipf = np.minimum(rng.zipf(1.3, 6000) - 1, 47)
+    seqs = [["w%d" % w for w in zipf[i:i + 30]] for i in range(0, 6000, 30)]
+    sv = SequenceVectors(layer_size=16, window_size=3, epochs=1,
+                         batch_size=256, seed=5, sampling=2e-2,
+                         pair_generation="device", device=device,
+                         **EMB_CASES[case])
+    sv.draw_source = host_draws(7)
+    sv.fit(seqs)
+    lt = sv.lookup_table
+    return ({n: getattr(lt, n).cpu() for n in ("syn0", "syn1", "syn1neg")
+             if getattr(lt, n) is not None}, sv._device_pipeline_stats)
+
+
+def emb_card_vs_cpu() -> dict:
+    """(c) One pass of each case on the card and on the CPU from the same
+    tables and draws, within EMB_REF_RTOL; then two passes on the card
+    under deterministic algorithms, bitwise equal."""
+    result = {}
+    for case in EMB_CASES:
+        card, cs = emb_small_pass(None, case)
+        cpu, ps = emb_small_pass("cpu", case)
+        if cs["pairs_trained"] != ps["pairs_trained"]:
+            raise RuntimeError(f"{case}: {cs['pairs_trained']} pairs on the "
+                               f"card, {ps['pairs_trained']} on the CPU")
+        rel = {n: emb_rel(f"{case} pass card vs CPU {n}", card[n], cpu[n])
+               for n in cpu}
+        with deterministic():
+            a, _ = emb_small_pass(None, case)
+            b, _ = emb_small_pass(None, case)
+        same = all(torch.equal(a[n], b[n]) for n in a)
+        log(f"[embeddings] {case}: two deterministic passes on the card "
+            f"bitwise equal: {same}")
+        if not same:
+            raise RuntimeError(f"{case}: deterministic passes differ")
+        result[case] = {"pairs": cs["pairs_trained"], "rel": rel,
+                        "deterministic_bitwise": same}
+    return result
+
+
+def emb_example() -> dict:
+    """(d) examples/word2vec_text.py's configuration through the port's
+    ``Word2Vec.Builder`` on the card (the host path)."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w2v = (Word2Vec.Builder().min_word_frequency(2).layer_size(24)
+           .window_size(3).seed(1).epochs(80).negative(5).batch_size(128)
+           .build())
+    w2v.fit(W2V_SENTENCES)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nearest = w2v.words_nearest("king", top_n=3)
+    analogy = w2v.words_nearest(["king", "woman"], negative=["man"],
+                                top_n=3)
+    log(f"[embeddings] word2vec_text: fit {secs:.2f} s on "
+        f"{w2v.lookup_table.syn0.device}; nearest to 'king' {nearest}; "
+        f"king - man + woman -> {analogy}")
+    if w2v.lookup_table.syn0.device.type != "cuda":
+        raise RuntimeError("Word2Vec trained off the card")
+    if "queen" not in nearest:
+        raise RuntimeError(f"'queen' is not near 'king': {nearest}")
+    return {"fit_s": secs, "nearest": nearest, "analogy": analogy}
+
+
+def glove_data(device):
+    """bench.py:605's triples, order and init (numpy streams 0 and 1)."""
+    rng = np.random.RandomState(0)
+    n, V, D, B = GLOVE_TRIPLES, GLOVE_VOCAB, EMB_DIM, EMB_BATCH
+    rows = np.minimum(rng.zipf(1.5, n) - 1, V - 1)
+    cols = np.minimum(rng.zipf(1.5, n) - 1, V - 1)
+    xs = rng.rand(n).astype(np.float32) * 50 + 1
+    n_chunks = -(-n // B)
+    order = np.full(n_chunks * B, -1, np.int64)
+    order[:n] = rng.permutation(n)
+    r = np.random.RandomState(1)
+    W = (r.rand(V, D).astype(np.float32) - .5) / D
+    Wc = (r.rand(V, D).astype(np.float32) - .5) / D
+    data = [torch.from_numpy(a).to(device) for a in (
+        rows, cols, np.log(xs),
+        np.minimum(1.0, (xs / 100.0) ** 0.75).astype(np.float32))]
+    order_d = torch.from_numpy(order.reshape(n_chunks, B)).to(device)
+    return data, order_d, torch.from_numpy(W), torch.from_numpy(Wc)
+
+
+def glove_tables(W, Wc, device):
+    """Fresh naive tables and packed fused state from one init."""
+    V, D = W.shape
+    z = lambda *s: torch.zeros(s, device=device)  # noqa: E731
+    naive = [W.to(device), Wc.to(device), z(V), z(V), z(V, D), z(V, D),
+             z(V), z(V)]
+    fused = [torch.cat([W.to(device), z(V, 1), z(V, D), z(V, 1)], dim=1),
+             torch.cat([Wc.to(device), z(V, 1), z(V, D), z(V, 1)], dim=1)]
+    return naive, fused
+
+
+def emb_glove() -> dict:
+    """(e) GloVe at bench.py:605's configuration: the two AdaGrad routes
+    from the same init after one batch (within EMB_REF_RTOL), then
+    GLOVE_EPOCHS epochs of each, timed (fused, naive)."""
+    from deeplearning4j_tpu_torch.nlp.glove import (_glove_epoch,
+                                                    _glove_epoch_fused)
+    data, order, W, Wc = glove_data("cuda")
+    lr = torch.tensor(0.05, device="cuda")
+    D = EMB_DIM
+    naive, fused = glove_tables(W, Wc, "cuda")
+    _glove_epoch(*naive, *data, order[:1], lr)
+    _glove_epoch_fused(*fused, *data, order[:1], lr)
+    rel = {"W": emb_rel("GloVe one batch fused vs naive W",
+                        fused[0][:, :D], naive[0]),
+           "Wc": emb_rel("GloVe one batch fused vs naive Wc",
+                         fused[1][:, :D], naive[1]),
+           "b": emb_rel("GloVe one batch fused vs naive b",
+                        fused[0][:, D], naive[2]),
+           "hW": emb_rel("GloVe one batch fused vs naive hW",
+                         fused[0][:, D + 1:2 * D + 1], naive[4])}
+    B, n_chunks = EMB_BATCH, order.shape[0]
+    hand_bytes = 2 * 2 * B * (2 * D + 2) * 4 + B * (4 + 4 + 4 + 4)
+    bound = hand_bytes * n_chunks / PEAK_BYTES * 1e3
+    result = {"one_batch_rel": rel, "epoch_bound_ms": bound,
+              "bound_by": "bytes"}
+    for route, fn in (("fused", _glove_epoch_fused), ("naive", _glove_epoch)):
+        naive, fused = glove_tables(W, Wc, "cuda")
+        tables = fused if route == "fused" else naive
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GLOVE_EPOCHS):
+            loss = fn(*tables, *data, order, lr)
+        loss = loss.item()
+        secs = time.perf_counter() - t0
+        rate = GLOVE_EPOCHS * GLOVE_TRIPLES / secs
+        log(f"[embeddings] GloVe {route}: {GLOVE_EPOCHS} epochs of "
+            f"{GLOVE_TRIPLES} triples (V={GLOVE_VOCAB}, D={D}, B={B}) in "
+            f"{secs:.3f} s, {rate:.1f} triples/s, last epoch loss "
+            f"{loss:.1f}; bytes bound {bound:.4f} ms an epoch")
+        if not np.isfinite(loss):
+            raise RuntimeError(f"GloVe {route} diverged")
+        result[route] = {"seconds": secs, "triples_per_s": rate,
+                         "epoch_ms": secs * 1e3 / GLOVE_EPOCHS,
+                         "last_epoch_loss": loss}
+    return result
+
+
+def pv_small(device, mode: str):
+    from deeplearning4j_tpu_torch.nlp.device_corpus import host_draws
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import \
+        ParagraphVectors
+    rng = np.random.RandomState(3)
+    docs = [(" ".join("w%d" % w for w in np.minimum(
+        rng.zipf(1.4, 40) - 1, 29)), "DOC_%d" % i) for i in range(8)]
+    pv = ParagraphVectors(sequence_learning_algorithm=mode, layer_size=16,
+                          window_size=3, negative=3, epochs=2,
+                          batch_size=128, seed=9, pair_generation="device",
+                          device=device)
+    pv.draw_source = host_draws(11)
+    pv.fit(docs)
+    return pv, docs
+
+
+def emb_pv() -> dict:
+    """(f) PV-DBOW at bench.py:783's configuration through the device
+    pipelines (a warm-up fit, then EMB_FITS timed fits: word and label
+    pairs/s); then PV-DM (HS and NS) and ``infer_vector`` on 8 small
+    documents, card against CPU from the same draws."""
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import \
+        ParagraphVectors
+    rng = np.random.RandomState(0)
+    docs = [(" ".join("w%d" % w for w in rng.randint(0, EMB_VOCAB,
+                                                     PV_DOC_LEN)),
+             "DOC_%d" % i) for i in range(PV_DOCS)]
+    pv = ParagraphVectors(sequence_learning_algorithm="dbow",
+                          layer_size=EMB_DIM, negative=EMB_K,
+                          use_hierarchic_softmax=False, epochs=1,
+                          batch_size=EMB_BATCH, min_word_frequency=1,
+                          pair_generation="device")
+    t0 = time.perf_counter()
+    pv.fit(docs)
+    warm_s = time.perf_counter() - t0
+    secs = []
+    for _ in range(EMB_FITS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pv.fit(docs)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    words = pv._device_pipeline_stats["pairs_trained"]
+    labels = pv._device_dbow_stats["pairs_trained"]
+    rate = (words + labels) / float(np.median(secs))
+    log(f"[embeddings] PV-DBOW {PV_DOCS} docs x {PV_DOC_LEN} words: warm-up "
+        f"fit {warm_s:.2f} s, fits {secs} s; {words:.0f} word + "
+        f"{labels:.0f} label pairs a pass, {rate:.1f} pairs/s")
+    result = {"dbow": {"warmup_fit_s": warm_s, "fit_s": secs,
+                       "word_pairs_per_pass": words,
+                       "label_pairs_per_pass": labels,
+                       "pairs_per_s": rate}}
+    del pv
+    card, docs = pv_small(None, "dm")
+    cpu, _ = pv_small("cpu", "dm")
+    rel = {n: emb_rel(f"PV-DM card vs CPU {n}",
+                      getattr(card.lookup_table, n),
+                      getattr(cpu.lookup_table, n))
+           for n in ("syn0", "syn1", "syn1neg")}
+    text = docs[2][0].split()[:15]
+    rel["infer_vector"] = emb_rel(
+        "PV-DM infer_vector card vs CPU",
+        torch.from_numpy(card.infer_vector(text)),
+        torch.from_numpy(cpu.infer_vector(text)))
+    result["dm_card_vs_cpu"] = rel
+    return result
+
+
+def phase_embeddings(A) -> dict:
+    """Phase 15: the embeddings tier (the ``embeddings`` path of the
+    kernels line: it launches none of K1-K4)."""
+    torch.cuda.synchronize()
+    A.reset_launches()            # counts of the main path's run only
+    result, seconds = {}, {}
+    for name, part in (("sgns_step", emb_sgns_step), ("fit", emb_fit),
+                       ("card_vs_cpu", emb_card_vs_cpu),
+                       ("example", emb_example), ("glove", emb_glove),
+                       ("pv", emb_pv)):
+        t0 = time.perf_counter()
+        result[name] = part()
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+    result["seconds"] = seconds
+    log(f"[embeddings] seconds by part {seconds}")
+    result["launches"] = dict(A.LAUNCHES)
+    log(f"[embeddings] launches {result['launches']}")
+    if any(result["launches"].values()):
+        raise RuntimeError("the embeddings path launched a flash kernel")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3327,6 +3853,8 @@ def main(argv=None) -> int:
     fused = phase_fused(N, A, args.seed, harness["lenet_mnist"], ffcnn)
     torch.cuda.empty_cache()
     transfer = phase_transfer(A, args.seed)
+    torch.cuda.empty_cache()
+    embeddings = phase_embeddings(A)
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -3338,7 +3866,8 @@ def main(argv=None) -> int:
              "feedforward_cnn": ffcnn["launches"],
              "recurrent": recurrent["launches"],
              "harness": harness["launches"], "graph": graph["launches"],
-             "fused": fused["launches"], "transfer": transfer["launches"]}
+             "fused": fused["launches"], "transfer": transfer["launches"],
+             "embeddings": embeddings["launches"]}
     kernels = [dict(name=name, route="cuda",
                     source="deeplearning4j_tpu_torch/ops/csrc/"
                            "flash_attention.cu",
@@ -3353,7 +3882,7 @@ def main(argv=None) -> int:
                       "ring": ring, "serving": serving,
                       "feedforward_cnn": ffcnn, "recurrent": recurrent,
                       "harness": harness, "graph": graph, "fused": fused,
-                      "transfer": transfer}))
+                      "transfer": transfer, "embeddings": embeddings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1142,3 +1142,64 @@ def test_a_frozen_lenet_trunk_stays_bitwise_in_the_captured_cache(cuda):
             assert torch.equal(src.params[i][k], v), (i, k)
     np.testing.assert_array_equal(captured.get_flat_params(),
                                   eager.get_flat_params())
+
+
+# Embeddings: one device-pipeline pass on the card against the same pass
+# on the CPU, from the same tables and the same draws (host_draws).  On
+# the card index_add_ accumulates duplicate rows by atomics and the
+# einsums run on cuBLAS, so the sums come in another order: the tables
+# are held to 2e-5 of max|CPU| (fp32; on the CPU a reordering of the
+# duplicate sums alone, the aggregated route against the plain one, moves
+# these one-pass tables by up to 2.5e-6 of their largest entry).  Under
+# torch.use_deterministic_algorithms(True) two passes on the card are
+# bitwise equal.
+EMB_REF_RTOL = 2e-5
+EMB_CASES = {
+    "skipgram_ns": dict(use_hierarchic_softmax=False, negative=4),
+    "skipgram_hs": dict(use_hierarchic_softmax=True, negative=0),
+    "cbow_hs_ns": dict(use_hierarchic_softmax=True, negative=3,
+                       elements_learning_algorithm="cbow"),
+}
+
+
+def _emb_pass(device, case):
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp.device_corpus import host_draws
+    from deeplearning4j_tpu_torch.nlp.word2vec import SequenceVectors
+    rng = np.random.RandomState(0)
+    zipf = np.minimum(rng.zipf(1.3, 6000) - 1, 47)
+    seqs = [["w%d" % w for w in zipf[i:i + 30]] for i in range(0, 6000, 30)]
+    sv = SequenceVectors(layer_size=16, window_size=3, epochs=1,
+                         batch_size=256, seed=5, sampling=2e-2,
+                         pair_generation="device", device=device,
+                         **EMB_CASES[case])
+    sv.draw_source = host_draws(7)
+    sv.fit(seqs)
+    lt = sv.lookup_table
+    return {n: getattr(lt, n).cpu() for n in ("syn0", "syn1", "syn1neg")
+            if getattr(lt, n) is not None}, sv._device_pipeline_stats
+
+
+@pytest.mark.parametrize("case", sorted(EMB_CASES))
+def test_device_corpus_pass_on_the_card_matches_the_cpu(cuda, case):
+    import os
+    card, card_stats = _emb_pass("cuda", case)
+    cpu, cpu_stats = _emb_pass("cpu", case)
+    assert card_stats["pairs_trained"] == cpu_stats["pairs_trained"] > 0
+    for name, want in cpu.items():
+        err = (card[name] - want).abs().max().item()
+        assert err <= EMB_REF_RTOL * want.abs().max().item(), (name, err)
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        first, _ = _emb_pass("cuda", case)
+        second, _ = _emb_pass("cuda", case)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    for name in first:
+        assert torch.equal(first[name], second[name]), name

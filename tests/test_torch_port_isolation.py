@@ -95,6 +95,25 @@ def test_default_device_raises_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         flash_attention(q, q, q)
     assert MultiLayerNetwork(conf, device="cpu").device.type == "cpu"
+    from deeplearning4j_tpu_torch.nlp import (Glove, ParagraphVectors,
+                                              SequenceVectors, Word2Vec)
+    from deeplearning4j_tpu_torch.nlp.serializer import (
+        load_binary_word_vectors, load_txt_vectors, read_full_model)
+    for cls in (Word2Vec, Glove, ParagraphVectors, SequenceVectors):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls()
+        assert cls(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Word2Vec.Builder().layer_size(4).build()
+    w2v = Word2Vec.Builder().layer_size(4).min_word_frequency(1) \
+        .device("cpu").build()
+    w2v.fit(["a b c a b", "c a b c"])
+    assert w2v.lookup_table.syn0.device.type == "cpu"
+    assert w2v.lookup_table.syn0.shape == (3, 4)
+    for load in (load_txt_vectors, load_binary_word_vectors,
+                 read_full_model):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load(__file__)
     meta = torch.zeros(1, 4, 1, 8, device="meta")
     with pytest.raises(ValueError, match="asked for"):
         flash_attention(meta, meta, meta, device="cpu")
