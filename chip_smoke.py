@@ -19,8 +19,13 @@ Phases (each raises on failure; the exit code is non-zero on any):
    a yardstick the port never calls).  With bf16 inputs all four run on
    the tensor cores and round P (K1/K4: the operand of P V) and dS (K2/K3)
    to bf16, so each has two references: the plain twin that rounds alike
-   (tight), and the all-f32 twin (the gap that rounding costs, bounded
-   and reported on the ``[check]`` lines and as ``f32_twin_gap``);
+   (tight; for K1/K4 over the key tile of the body that ran,
+   ``attention.fwd_key_tile``), and the all-f32 twin (the gap that
+   rounding costs, bounded and reported on the ``[check]`` lines and as
+   ``f32_twin_gap``).  Every bf16 K1/K4 launch here, timed ones included,
+   must take the Hopper body (wgmma, TMA: ``flash_fwd_sm90_kernel``), the
+   f32 ones the scalar body (``attention.BODY_LAUNCHES``; reported as
+   ``body`` and ``body_launches``);
 4. reference: a small network trains 2 steps on the card (kernels) and on
    the CPU (plain versions) from the same weights, in fp32; scores and
    params must agree;
@@ -28,7 +33,10 @@ Phases (each raises on failure; the exit code is non-zero on any):
    n_heads=4, cache_len=8192) -> RnnOutputLayer(n_out=32, softmax,
    mcxent), n_in=64, adam, the card's default mixed_bf16 policy) takes
    3 fit steps; the score must be finite and every kernel's
-   launch count must rise by exactly one per step; then one more step
+   launch count must rise by exactly one per step, every K1 launch on the
+   Hopper body (as on the bf16 ring of phase 7, the graph steps of phase
+   12 and the captured paths of phase 13: ``hopper_bodies``); then one
+   more step
    under ``torch.profiler`` splits the step's CUDA time into the port's
    kernels and everything else (top 5 kernels) and gives its idle share;
 6. inference: ``output()`` of the trained net must be finite
@@ -571,17 +579,37 @@ def bwd_twins(A, args, causal: bool, scale: float):
     return twins[0], (twins[1] if tensor_core else None)
 
 
+def key_tile(A, q, k, v) -> int:
+    """Keys of a K/V tile of the K1/K4 body that these card tensors take:
+    the ``block`` of the plain twin that rounds P as that body does (the
+    running max, and so the rounding, depends on where tiles start)."""
+    return A.fwd_key_tile(q.shape[-1], A.fwd_route(q, k, v))
+
+
 def fwd_twins(A, q, k, v, causal: bool, scale: float, mode: str):
     """The plain K1/K4 results in ``mode`` that the kernel is held to: with
     P rounded to bf16 for bf16 q/k/v (the tensor-core route), else
-    all-f32; and the all-f32 twin for the tensor-core route (None
-    otherwise)."""
+    all-f32, over the kernel's key tile; and the all-f32 twin for the
+    tensor-core route (None otherwise)."""
     tensor_core = q.dtype == torch.bfloat16
-    twins = [A.flash_forward_plain(q, k, v, causal, scale, mode,
+    block = key_tile(A, q, k, v)
+    twins = [A.flash_forward_plain(q, k, v, causal, scale, mode, block=block,
                                    operand_dtype=operands)
              for operands in ([torch.bfloat16, None] if tensor_core
                               else [None])]
     return twins[0], (twins[1] if tensor_core else None)
+
+
+def hopper_bodies(A, what: str) -> dict:
+    """K1/K4's launches by body since the counts were last set to 0;
+    raises unless every one of them took the Hopper body (``sm90``)."""
+    bodies = {name: dict(counts) for name, counts in A.BODY_LAUNCHES.items()}
+    for name, counts in bodies.items():
+        if counts["sm90"] != A.LAUNCHES[name]:
+            raise RuntimeError(f"{what}: {name} launches by body {counts} of "
+                               f"{A.LAUNCHES[name]}: not all on the Hopper "
+                               "body")
+    return bodies
 
 
 def ring_step_inputs(A, gen, dtype, scale: float):
@@ -611,7 +639,9 @@ def phase_kernels(A, seed: int):
     checks = {name: [] for name in KERNELS}
     gaps = {name: [] for name in KERNELS}
     inputs = {}
+    check_bodies = {}
     for dtype in (torch.bfloat16, torch.float32):
+        A.reset_launches()
         q, k, v, g = (randn(shape, gen, dtype) for _ in range(4))
         out, lse = A.flash_forward(q, k, v, causal=True, sm_scale=scale,
                                    with_lse=True)
@@ -709,6 +739,13 @@ def phase_kernels(A, seed: int):
         inputs[dtype] = (q, k, v, g, out, lse, Drow, lse_nc, D_nc,
                          ring_step)
         del items, gap_items, got, want, f32_want, sdk, sdv, sdq
+        body = "sm90" if dtype == torch.bfloat16 else "scalar"
+        check_bodies[dname] = {n: dict(c) for n, c in
+                               A.BODY_LAUNCHES.items()}
+        for name, counts in check_bodies[dname].items():
+            if counts[body] != A.LAUNCHES[name]:
+                raise RuntimeError(f"{name} with {dname} inputs: launches by "
+                                   f"body {counts}, expected all {body}")
 
     q, k, v, g, out, lse, Drow, lse_nc, D_nc, ring_step = \
         inputs[torch.bfloat16]
@@ -766,6 +803,7 @@ def phase_kernels(A, seed: int):
             q, k, v, g, lse, Drow, True, scale,
             operand_dtype=torch.bfloat16), **plain),
     }
+    timed_bodies = hopper_bodies(A, "phase 3's timed K1/K4")
     lib_fwd, lib_bwd = time_ms(sdpa_fwd), time_ms(sdpa_bwd)
     lib_fwd_full = time_ms(lambda: sdpa_fwd(causal=False))
     A.reset_launches()
@@ -808,11 +846,19 @@ def phase_kernels(A, seed: int):
     timing["flash_fwd"]["ms_normalized"] = t["flash_fwd_normalized"]
     for name in KERNELS:
         timing[name]["f32_twin_gap"] = gaps[name]
+    for name in timed_bodies:
+        # the body the bf16 K1/K4 launches (checked and timed) took
+        timing[name]["body"] = "sm90"
+        timing[name]["body_launches"] = {"checks": {d: c[name] for d, c in
+                                                    check_bodies.items()},
+                                         "timed": timed_bodies[name]}
     for name, kind in (("flash_bwd_dkdv", "dkdv"), ("flash_bwd_dq", "dq")):
         timing[name]["segment_ms"] = t["segment_" + kind]
         timing[name]["segment_bound_ms"] = seg_bounds[name][0]
         timing[name]["ring_step_ms"] = t["ring_step_" + kind]
         timing[name]["ring_step_bound_ms"] = ring_bounds[name][0]
+    log(f"[kernels] K1/K4 launches by body: checks {check_bodies}, timed "
+        f"{timed_bodies}")
     log(f"[kernels] library yardsticks: sdpa fwd causal {lib_fwd:.4f} ms, "
         f"non-causal {lib_fwd_full:.4f} ms, sdpa bwd causal (dq, dk, dv "
         f"together) {lib_bwd:.4f} ms")
@@ -877,8 +923,11 @@ def phase_reference(N, A, seed: int) -> dict:
     return {"steps": 2, "max_rel": worst}
 
 
-PORT_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel")     # K1 and K4 share flash_fwd_kernel
+# profiler kernel names: K1 and K4 share a body, the Hopper one
+# (flash_fwd_sm90_kernel) on every bf16 call of the main paths, else
+# flash_fwd_kernel (mma.sync or scalar)
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
+                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 def profiled(fn) -> tuple:
@@ -966,9 +1015,11 @@ def phase_training(N, A, seed: int):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         scores.append(s)
     launches = dict(A.LAUNCHES)
+    bodies = hopper_bodies(A, "training")
     peak = torch.cuda.max_memory_allocated()
     log(f"[training] scores {scores}; step ms {step_ms}; launches "
-        f"{launches}; peak memory {peak / 2**30:.3f} GiB")
+        f"{launches}, K1/K4 by body {bodies}; peak memory "
+        f"{peak / 2**30:.3f} GiB")
     if not all(np.isfinite(scores)):
         raise RuntimeError(f"non-finite training score: {scores}")
     expected = {name: STEPS for name in KERNELS}
@@ -978,6 +1029,7 @@ def phase_training(N, A, seed: int):
                            f"expected {expected}")
     return net, ds, {"scores": scores, "step_ms": step_ms,
                      "peak_mem_bytes": peak, "launches": launches,
+                     "body_launches": bodies,
                      "profile": profile_step(net, ds, min(step_ms[1:]))}
 
 
@@ -1015,7 +1067,8 @@ def backward_at_ring_stats(A, S, q, k, v, g):
 
 def ring_forward_twin(A, S, q, k, v):
     """The causal ring forward's output built from K4's plain twin that
-    rounds P to bf16, merged by the ring's own ``_merge`` in the ring's
+    rounds P to bf16 (over K4's key tile), merged by the ring's own
+    ``_merge`` in the ring's
     order (shard i: its own K/V first, causal by local positions, then
     shards i - 1, ..., 0): what the bf16 ring forward computes, up to the
     order of f32 sums."""
@@ -1027,6 +1080,8 @@ def ring_forward_twin(A, S, q, k, v):
         for j in range(i, -1, -1):
             part = A.flash_forward_plain(qs[i], ks[j], vs[j], j == i,
                                          D_HEAD ** -0.5, "partials",
+                                         block=key_tile(A, qs[i], ks[j],
+                                                        vs[j]),
                                          operand_dtype=torch.bfloat16)
             state = S._merge(*state, *part)
         o, _, l = state
@@ -1064,11 +1119,16 @@ def phase_ring(A, S, seed: int) -> dict:
         torch.cuda.synchronize()
         launches = dict(A.LAUNCHES)
         dname = str(dtype).replace("torch.", "")
-        log(f"[ring] {dname} causal fwd+bwd launches {launches}")
+        bodies = (hopper_bodies(A, "the bf16 ring")
+                  if dtype == torch.bfloat16 else
+                  {n: dict(c) for n, c in A.BODY_LAUNCHES.items()})
+        log(f"[ring] {dname} causal fwd+bwd launches {launches}, K1/K4 by "
+            f"body {bodies}")
         if launches != expected:
             raise RuntimeError(f"ring launches {launches}, expected "
                                f"{expected}")
         result["launches"] = launches
+        result.setdefault("body_launches", {})[dname] = bodies
         ref = fwd_bwd(q, k, v, g, False)
         names = ("out", "dq", "dk", "dv")
         if dtype == torch.bfloat16:
@@ -2374,6 +2434,7 @@ def graph_attention(N, A, seed: int):
         scores.append(net.score())
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(A.LAUNCHES)
+    bodies = hopper_bodies(A, "the attention graph")
     expected = {name: GRAPH_ATTN_STEPS for name in KERNELS}
     expected["flash_fwd_partials"] = 0
     check = compare("graph vs MultiLayerNetwork params after "
@@ -2391,7 +2452,7 @@ def graph_attention(N, A, seed: int):
     del twin
     return net, {"scores": scores, "twin_scores": twin_scores,
                  "step_ms": step_ms, "launches": launches,
-                 "params_vs_twin": check}
+                 "body_launches": bodies, "params_vs_twin": check}
 
 
 def lstm_graph_session(N, seed: int) -> dict:
@@ -2681,8 +2742,9 @@ def fused_attention(N, A, seed: int) -> dict:
     replays the graph under torch.profiler: the wrappers count nothing
     there (a replay runs no wrapper), and the profiler's kernel names
     give the launches of K1-K3 inside the replays, the ``fused`` path's
-    counts (K4 shares K1's kernel name; the capturing fit's wrapper
-    counts show it is not in the graph)."""
+    counts (K4 shares K1's kernel names; the capturing fit's wrapper
+    counts show it is not in the graph, and its body counts that K1 took
+    the Hopper body, as the profiler shows for the replays)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2698,6 +2760,7 @@ def fused_attention(N, A, seed: int) -> dict:
     cap.fit(ListDataSetIterator(ds, BATCH), ingest="cache")
     torch.cuda.synchronize()
     capturing = dict(A.LAUNCHES)     # the warm-up steps and the capture
+    capturing_bodies = hopper_bodies(A, "the capturing fit")
     err = same_state(f"attention network, {ATTN_CACHE_STEPS} steps "
                      "captured vs eager", flat_state(cap), flat_state(eager))
     A.reset_launches()               # the replayed epoch's counts only
@@ -2709,10 +2772,14 @@ def fused_attention(N, A, seed: int) -> dict:
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     seen = {k: sum(1 for n in names if k in n) for k in PORT_KERNELS}
-    launches = {"flash_fwd": seen["flash_fwd_kernel"],
+    launches = {"flash_fwd": seen["flash_fwd_sm90_kernel"]
+                + seen["flash_fwd_kernel"],
                 "flash_fwd_partials": 0,
                 "flash_bwd_dkdv": seen["flash_bwd_dkdv_kernel"],
                 "flash_bwd_dq": seen["flash_bwd_dq_kernel"]}
+    # K1 on the Hopper body in every replay, the mma.sync/scalar body never
+    replayed = dict.fromkeys(PORT_KERNELS, ATTN_CACHE_STEPS)
+    replayed["flash_fwd_kernel"] = 0
     log(f"[fused] attention cache path: wrapper counts of the capturing "
         f"fit {capturing}; one more epoch of replays: wrapper counts "
         f"{wrappers}, profiler kernels {seen}")
@@ -2720,12 +2787,13 @@ def fused_attention(N, A, seed: int) -> dict:
             capturing[k] for k in ("flash_fwd", "flash_bwd_dkdv",
                                    "flash_bwd_dq")):
         raise RuntimeError(f"the capturing fit's launches {capturing}")
-    if any(wrappers.values()) or \
-            any(seen[k] != ATTN_CACHE_STEPS for k in PORT_KERNELS):
-        raise RuntimeError(f"K1-K3 did not run inside the graph's replays: "
-                           f"profiler {seen}, wrappers {wrappers}")
+    if any(wrappers.values()) or seen != replayed:
+        raise RuntimeError(f"K1-K3 did not run inside the graph's replays "
+                           f"on the expected bodies: profiler {seen} "
+                           f"(expected {replayed}), wrappers {wrappers}")
     return {"max_abs_diff": err, "launches": launches,
             "capturing_fit_wrapper_counts": capturing,
+            "capturing_fit_body_launches": capturing_bodies,
             "profiler_kernels": seen}
 
 
@@ -2876,6 +2944,7 @@ def fused_scan(N, A, train, seed: int) -> dict:
         A.reset_launches()
         scores = scanned.fit_scan(batches)
         launches = dict(A.LAUNCHES)
+        bodies = hopper_bodies(A, f"fit_scan, {name}")
         eager_scores = []
         for ds in batches:
             eager.fit(ds)
@@ -2888,7 +2957,7 @@ def fused_scan(N, A, train, seed: int) -> dict:
             raise RuntimeError(f"fit_scan scores {scores} vs per-batch "
                                f"{eager_scores}")
         out[name] = {"steps": len(batches), "max_abs_diff": err,
-                     "launches": launches}
+                     "launches": launches, "body_launches": bodies}
     graph_launches = out["attention net mixed_bf16 (ComputationGraph)"][
         "launches"]
     if graph_launches != {"flash_fwd": ATTN_CACHE_STEPS,
@@ -3868,14 +3937,16 @@ def main(argv=None) -> int:
              "harness": harness["launches"], "graph": graph["launches"],
              "fused": fused["launches"], "transfer": transfer["launches"],
              "embeddings": embeddings["launches"]}
+    fwd_source = "deeplearning4j_tpu_torch/ops/csrc/flash_fwd_sm90.cuh"
     kernels = [dict(name=name, route="cuda",
-                    source="deeplearning4j_tpu_torch/ops/csrc/"
-                           "flash_attention.cu",
+                    source=(fwd_source if name in A.BODY_LAUNCHES else
+                            "deeplearning4j_tpu_torch/ops/csrc/"
+                            "flash_attention.cu"),
                     replaces=sources[name],
                     launches=sum(counts[name] for counts in paths.values()),
                     launches_by_path={path: counts[name]
                                       for path, counts in paths.items()},
-                    **timing[name])
+                    **{"body": "tc", **timing[name]})
                for name in sources]
     print(json.dumps({"build_s": build_s, "reference": reference,
                       "training": training, "inference": inference,

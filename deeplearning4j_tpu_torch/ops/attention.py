@@ -11,8 +11,14 @@ Kernels, hand-written CUDA for Hopper in ``csrc/flash_attention.cu``:
   differ from q's.  Replaces the kernel launched by
   ``flash_attention_partial``; the ring flash attention merges these.
   For bf16 q/k/v K1 and K4 run on the tensor cores and round P to bf16 as
-  the operand of P V (the softmax statistics stay f32); f32 inputs keep an
-  all-f32 scalar body.
+  the operand of P V (the softmax statistics stay f32): on the Hopper body
+  (``flash_fwd_sm90.cuh``: wgmma fed by TMA, 128-key tiles) when TMA can
+  address the rows (d a multiple of 8, 16-byte aligned bases and strides),
+  else on the mma.sync body (64-key tiles); f32 inputs keep an all-f32
+  scalar body.  ``fwd_route`` names the body a call takes (the library's
+  own predicate) and ``fwd_key_tile`` its key tile, which the rounding twin
+  must share: the running max, and so the rounding of P, depends on where
+  key tiles start.
 - K2 ``flash_bwd_dkdv`` and K3 ``flash_bwd_dq``: the fused two-pass
   backward that rebuilds P from the saved logsumexp, sharing one
   elementwise core.  Replace ``_make_dkdv_kernel``/``_make_dq_kernel``
@@ -28,7 +34,8 @@ in its three modes, ``flash_dkdv_plain``, ``flash_dq_plain``; each with
 ``operand_dtype=torch.bfloat16`` for the tensor-core rounding) running the
 same tiled streaming arithmetic.  A wrapper runs the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``.
+kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``, and a
+K1/K4 launch also to ``BODY_LAUNCHES[<kernel>][<body>]``.
 
 Layouts are the JAX package's: q, k, v are (batch, T, heads, d); the
 logsumexp and D = rowsum(dO * O) are (batch, Tq, heads) float32; gradients
@@ -62,11 +69,32 @@ _FWD_MODES = ("normalized", "normalized_lse", "partials")
 
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_partials": 0, "flash_bwd_dkdv": 0,
             "flash_bwd_dq": 0}
+# K1/K4's bodies, indexed by what dl4j_flash_fwd_route returns: the scalar
+# f32 body, the mma.sync body (fwd_tc) and the Hopper body (wgmma, TMA)
+FWD_BODIES = ("scalar", "tc", "sm90")
+BODY_LAUNCHES = {name: dict.fromkeys(FWD_BODIES, 0)
+                 for name in ("flash_fwd", "flash_fwd_partials")}
+# keys of a streamed K/V tile of each body at every d (TILE, FWD_BK and
+# SM90_BK in the CUDA sources)
+FWD_KEY_TILES = {"scalar": TILE, "tc": TILE, "sm90": 128}
+_TMA_ENCODE_FAILED = 100000      # + the CUresult, from a K1/K4 entry point
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in BODY_LAUNCHES.values():
+        for body in counts:
+            counts[body] = 0
+
+
+def fwd_key_tile(d: int, body: str) -> int:
+    """Keys of a K/V tile that K1/K4's ``body`` (one of ``FWD_BODIES``)
+    streams at head dim ``d``: the ``block`` of the plain twin that rounds
+    P as that body does."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside (0, {MAX_HEAD_DIM}]")
+    return FWD_KEY_TILES[body]
 
 
 # ------------------------------------------------------------ the library
@@ -76,6 +104,7 @@ _GEOM = [_I] * 5 + [_L] * 6       # B, Tq, Tk, H, d, q strides, k strides
 _SIGNATURES = {
     "dl4j_flash_fwd": [_P] * 5 + _GEOM + [_F, _I, _I, _I, _P],
     "dl4j_flash_fwd_partials": [_P] * 6 + _GEOM + [_F, _I, _I, _P],
+    "dl4j_flash_fwd_route": [_P] * 3 + _GEOM + [_I],
     "dl4j_flash_bwd_dkdv": [_P] * 8 + _GEOM + [_F, _I, _I, _I, _P],
     "dl4j_flash_bwd_dq": [_P] * 7 + _GEOM + [_F, _I, _I, _I, _P],
 }
@@ -95,19 +124,34 @@ def _lib():
     return _bound
 
 
-def _launch(name: str, fn: str, device: torch.device, *args) -> None:
+def _launch(name: str, fn: str, device: torch.device, *args,
+            body: Optional[str] = None) -> None:
     """Call one C entry point with ``device`` (the tensors' card) current
-    and on that card's current stream, raise on a refused launch, count
-    it.  The launch and the kernels' shared-memory opt-in act on the
-    current device, so on any card but the current one they would go to
-    the wrong card without the guard."""
+    and on that card's current stream, raise on a refused launch (or a
+    tensor map the Hopper body could not encode), count it, and for K1/K4
+    count the ``body`` it ran.  The launch and the kernels' shared-memory
+    opt-in act on the current device, so on any card but the current one
+    they would go to the wrong card without the guard."""
     with torch.cuda.device(device):
         rc = getattr(_lib(), fn)(
             *args, torch.cuda.current_stream(device).cuda_stream)
+    if rc >= _TMA_ENCODE_FAILED:
+        raise RuntimeError(f"CUDA kernel {name}: a tensor map could not be "
+                           f"encoded (CUresult {rc - _TMA_ENCODE_FAILED})")
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: CUDA "
                            f"error {rc}")
     LAUNCHES[name] += 1
+    if body is not None:
+        BODY_LAUNCHES[name][body] += 1
+
+
+def fwd_route(q: Tensor, k: Tensor, v: Tensor) -> str:
+    """The body (one of ``FWD_BODIES``) that K1/K4 launch for these CUDA
+    tensors, as the library decides it: by dtype, shape and alignment."""
+    return FWD_BODIES[_lib().dl4j_flash_fwd_route(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *_geometry(q, k),
+        int(q.dtype == torch.bfloat16))]
 
 
 def _check_on_card(name: str, ref: Tensor, t: Tensor) -> None:
@@ -269,7 +313,7 @@ def flash_forward(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, *_geometry(q, k),
             float(sm_scale), int(causal), int(q.dtype == torch.bfloat16),
-            int(with_lse))
+            int(with_lse), body=fwd_route(q, k, v))
     return (out, lse) if with_lse else out
 
 
@@ -299,7 +343,8 @@ def flash_attention_partial(q: Tensor, k: Tensor, v: Tensor, *,
     _launch("flash_fwd_partials", "dl4j_flash_fwd_partials", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(), *_geometry(q, k), scale,
-            int(causal), int(q.dtype == torch.bfloat16))
+            int(causal), int(q.dtype == torch.bfloat16),
+            body=fwd_route(q, k, v))
     return acc, m, l
 
 

@@ -28,8 +28,16 @@
 // the work.  K2 owns one k-tile per block, so dK and dV need no atomics,
 // and dQ has its own kernel (K3): results are deterministic.
 //
+// - K1/K4 with bf16 q/k/v whose rows TMA can address (d a multiple of 8,
+//   16-byte aligned bases and strides: every K1/K4 call of the training
+//   path, the ring and the captured graphs) run the Hopper body of
+//   flash_fwd_sm90.cuh: wgmma fed by TMA, one producer and two consumer
+//   warpgroups; its note says what bounds K1/K4 and what it does about
+//   it.  dl4j_flash_fwd_route exports that choice, made by shape and
+//   alignment only; the wrapper counts each body's launches by it.
 // - For bf16 q/k/v (and a bf16 dO in K2/K3), what the training path and
-//   the ring give them, all four run on the tensor cores: mma.sync
+//   the ring give them, the other bf16 bodies (K2/K3 always, K1/K4 on
+//   rows TMA cannot address) run on the tensor cores: mma.sync
 //   m16n8k16 bf16 x bf16 with f32 accumulation, operands from bf16 tiles in
 //   shared memory through ldmatrix.  Each warp owns 16 rows of the block's
 //   tile.  The score-side products leave P (and dS) in the accumulator
@@ -69,6 +77,7 @@
 // kernels (no padding to block multiples), and the (B, T, H, d) strides
 // are read directly (no transposes).
 
+#include <cuda.h>             // CUtensorMap (the encode is reached at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -869,6 +878,10 @@ __device__ void fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// K1/K4 on wgmma and TMA (Hopper): flash_fwd_sm90_kernel, its tensor maps
+// and the route predicate.
+#include "flash_fwd_sm90.cuh"
+
 // K2 on the tensor cores, k-tile kt of slice bh.  Warp w owns key rows
 // 16w..16w+15; per q-tile it forms S^T = K Q^T and dP^T = V dO^T, turns
 // them into P^T and dS^T in place, and accumulates dV += P^T dO and
@@ -1261,12 +1274,28 @@ int rows_16b(const Geom& g, std::initializer_list<const void*> ptrs) {
          sk.sh % 8 == 0;
 }
 
+// The body a K1/K4 call takes: FWD_SM90 (flash_fwd_sm90_kernel), FWD_TC
+// (fwd_tc) or FWD_SCALAR (fwd_scalar).
+enum FwdRoute { FWD_SCALAR = 0, FWD_TC = 1, FWD_SM90 = 2 };
+
+int fwd_route(const Geom& g, int bf16_in, const void* q, const void* k,
+              const void* v) {
+  if (sm90_route(g, bf16_in, {q, k, v})) return FWD_SM90;
+  return bf16_in ? FWD_TC : FWD_SCALAR;
+}
+
+// Returns a cudaError_t, or TMA_ENCODE_FAILED + a CUresult.
 template <int MODE>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       void* out, void* stat_a, void* stat_b, const Geom& g,
-                       float scale, int causal, int bf16_in, void* stream) {
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               void* stat_a, void* stat_b, const Geom& g, float scale,
+               int causal, int bf16_in, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(bf16_in, g.d, [&](auto cfg) -> cudaError_t {
+  if (fwd_route(g, bf16_in, q, k, v) == FWD_SM90)
+    return g.d <= 64 ? launch_fwd_sm90<64, MODE>(q, k, v, out, stat_a, stat_b,
+                                                 g, scale, causal, s)
+                     : launch_fwd_sm90<128, MODE>(q, k, v, out, stat_a,
+                                                  stat_b, g, scale, causal, s);
+  return (int)dispatch(bf16_in, g.d, [&](auto cfg) -> cudaError_t {
     using C = decltype(cfg);
     using T_ = typename C::type;
     using O_ = std::conditional_t<MODE == PARTIALS, float, T_>;
@@ -1345,7 +1374,20 @@ extern "C" {
 // strides qsb, qst, qsh; k and v (and dk, dv) are (B, Tk, H, d) with
 // strides ksb, kst, ksh (stride 1 along d); row statistics are contiguous
 // (B, Tq, H) f32.  bf16 != 0 selects __nv_bfloat16 q/k/v, else float.
-// Each returns the CUDA error of the launch (0 on success).
+// Each returns the CUDA error of the launch (0 on success); K1/K4 return
+// TMA_ENCODE_FAILED (100000) + the CUresult when a tensor map of the
+// Hopper body cannot be encoded.
+
+// The body that dl4j_flash_fwd / dl4j_flash_fwd_partials launch for these
+// arguments: 2 the Hopper body (wgmma, TMA), 1 the mma.sync body, 0 the
+// scalar f32 body.  Decided by dtype, shape and alignment only.
+int dl4j_flash_fwd_route(const void* q, const void* k, const void* v, int B,
+                         int Tq, int Tk, int H, int d, long long qsb,
+                         long long qst, long long qsh, long long ksb,
+                         long long kst, long long ksh, int bf16) {
+  return fwd_route(make_geom(B, Tq, Tk, H, d, qsb, qst, qsh, ksb, kst, ksh),
+                   bf16, q, k, v);
+}
 
 // K1: out in q's dtype; lse written when with_lse != 0.
 int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* out,
@@ -1354,11 +1396,11 @@ int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* out,
                    long long ksb, long long kst, long long ksh, float scale,
                    int causal, int bf16, int with_lse, void* stream) {
   const Geom g = make_geom(B, Tq, Tk, H, d, qsb, qst, qsh, ksb, kst, ksh);
-  return (int)(with_lse
-                   ? launch_fwd<NORMALIZED_LSE>(q, k, v, out, lse, nullptr, g,
-                                                scale, causal, bf16, stream)
-                   : launch_fwd<NORMALIZED>(q, k, v, out, nullptr, nullptr,
-                                            g, scale, causal, bf16, stream));
+  return with_lse
+             ? launch_fwd<NORMALIZED_LSE>(q, k, v, out, lse, nullptr, g,
+                                          scale, causal, bf16, stream)
+             : launch_fwd<NORMALIZED>(q, k, v, out, nullptr, nullptr, g,
+                                      scale, causal, bf16, stream);
 }
 
 // K4: acc (B, Tq, H, d) f32, m and l (B, Tq, H) f32.
@@ -1369,8 +1411,8 @@ int dl4j_flash_fwd_partials(const void* q, const void* k, const void* v,
                             long long kst, long long ksh, float scale,
                             int causal, int bf16, void* stream) {
   const Geom g = make_geom(B, Tq, Tk, H, d, qsb, qst, qsh, ksb, kst, ksh);
-  return (int)launch_fwd<PARTIALS>(q, k, v, acc, m, l, g, scale, causal,
-                                   bf16, stream);
+  return launch_fwd<PARTIALS>(q, k, v, acc, m, l, g, scale, causal, bf16,
+                              stream);
 }
 
 // K2: dk, dv f32 with k's strides; L, Drow the (global) logsumexp and

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes``.  Builds happen at first use, into ``build/kernels/`` beside the
-package (git-ignored); the library name carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library is never
+package (git-ignored); the library name carries a hash of every file under
+``csrc/`` (the sources and the headers they include) and of the flags, so
+an edited source or header is rebuilt and a stale library is never
 loaded.  Nothing is compiled at import.
 """
 
@@ -41,8 +42,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(source.encode() + b"\0")
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        digest.update(path.relative_to(CSRC).as_posix().encode() + b"\0")
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 

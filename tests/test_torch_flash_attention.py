@@ -22,6 +22,9 @@ largest element leaves a factor of 4 for the tail.  (The TPU kernel itself
 rounds P to bf16 for its P V dot at its default precision on the MXU.)
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +37,7 @@ from deeplearning4j_tpu.ops.attention import (
     flash_attention_partial as jax_partial)
 from deeplearning4j_tpu.parallel.sequence import _full_attention
 from deeplearning4j_tpu_torch.ops import attention as port
+from deeplearning4j_tpu_torch.ops import kernel_build
 
 F32_FWD, F32_GRAD, BF16_ORACLE, BF16_KERNEL = 2e-5, 1e-4, 0.1, 2e-2
 TC_F32_GAP = 1e-2
@@ -502,7 +506,7 @@ def test_plain_forward_default_operands_unchanged(mode, causal, tq, tk):
         assert torch.equal(a, b)
 
 
-def _float64_forward_bf16_operands(q, k, v, causal, scale, block=64):
+def _float64_forward_bf16_operands(q, k, v, causal, scale, block):
     """Float64 streaming softmax over ``block``-key tiles with P rounded to
     bf16 (from the same running max) as the operand of P V, and the slack
     that the midpoint elements of P allow in acc (one bf16 ulp times |v|,
@@ -536,16 +540,19 @@ def _float64_forward_bf16_operands(q, k, v, causal, scale, block=64):
 @pytest.mark.parametrize("tq,tk", [(50, 50), (130, 130), (37, 70),
                                    (150, 100)])
 @pytest.mark.parametrize("causal", [False, True])
-def test_plain_forward_bf16_operands_match_float64(causal, tq, tk):
+@pytest.mark.parametrize("block", [64, 128])
+def test_plain_forward_bf16_operands_match_float64(block, causal, tq, tk):
     """``operand_dtype=torch.bfloat16``: acc, m, l (partials), out and lse
     (normalized_lse) and out (normalized) equal a float64 streaming
     softmax that rounds P to bf16 from the same running max, element by
     element within 1e-6 of max|ref| (f32 sums) plus the slack of P
-    elements within 1e-5 of a bf16 rounding midpoint, ragged and Tk != Tq.
-    The f32 twin sits further away (the rounding is real) but within
-    ``TC_F32_GAP`` of its largest element."""
+    elements within 1e-5 of a bf16 rounding midpoint, ragged and Tk != Tq,
+    over the key tiles of both bf16 kernel bodies (64: mma.sync, 128: the
+    Hopper body).  The f32 twin sits further away (the rounding is real)
+    but within ``TC_F32_GAP`` of its largest element."""
     q, k, v = _forward_case(tq, tk, seed=14)
-    acc, m, l, slack = _float64_forward_bf16_operands(q, k, v, causal, 0.25)
+    acc, m, l, slack = _float64_forward_bf16_operands(q, k, v, causal, 0.25,
+                                                      block)
     denom = torch.clamp_min(l, 1e-30)[..., None]
     out, lse = acc / denom, m + torch.log(denom[..., 0])
     refs = {"partials": ((acc, slack), (m, 0.0), (l, 0.0)),
@@ -553,9 +560,10 @@ def test_plain_forward_bf16_operands_match_float64(causal, tq, tk):
             "normalized": ((out, slack / denom),)}
     for mode, ref in refs.items():
         got = _as_tuple(port.flash_forward_plain(
-            q, k, v, causal, 0.25, mode, operand_dtype=torch.bfloat16))
+            q, k, v, causal, 0.25, mode, block=block,
+            operand_dtype=torch.bfloat16))
         f32 = _as_tuple(port.flash_forward_plain(q, k, v, causal, 0.25,
-                                                 mode))
+                                                 mode, block=block))
         for a, (want, s) in zip(got, ref):
             assert a.dtype == torch.float32 and a.shape == want.shape
             bound = 1e-6 * want.abs().max() + s
@@ -594,3 +602,71 @@ def test_plain_forward_bf16_operands_within_gap_of_pallas(causal):
         TC_F32_GAP * np.abs(r_acc).max()
     _close(m, r_m, F32_FWD)
     _close(l, r_l, F32_FWD)
+
+
+# ------------------------------------------------- the kernels' bodies
+_CSRC = Path(port.__file__).resolve().parent / "csrc"
+
+
+def _constexpr(source: str, name: str) -> str:
+    text = (_CSRC / source).read_text()
+    found = re.findall(rf"constexpr int {name} = ([^;]+);", text)
+    assert len(found) == 1, (source, name, found)
+    return found[0]
+
+
+def test_key_tiles_agree_with_the_cuda_sources():
+    """``fwd_key_tile`` (the ``block`` of the rounding twin) is the key
+    tile each K1/K4 body streams in the CUDA sources, read from their
+    constexprs, so the twin and the kernels cannot drift apart; and the
+    route codes the library returns index ``FWD_BODIES`` in order."""
+    tile = int(_constexpr("flash_attention.cu", "TILE"))
+    assert _constexpr("flash_attention.cu", "FWD_BK") == "TILE"
+    sm90 = int(_constexpr("flash_fwd_sm90.cuh", "SM90_BK"))
+    assert port.TILE == tile
+    for d in (8, 32, 64, 96, 128):
+        assert port.fwd_key_tile(d, "scalar") == tile
+        assert port.fwd_key_tile(d, "tc") == tile
+        assert port.fwd_key_tile(d, "sm90") == sm90 == 128
+    text = (_CSRC / "flash_attention.cu").read_text()
+    codes = re.search(r"enum FwdRoute \{([^}]*)\}", text).group(1)
+    pairs = re.findall(r"FWD_(\w+) = (\d+)", codes)
+    assert {name.lower(): int(n) for name, n in pairs} == \
+        {body: i for i, body in enumerate(port.FWD_BODIES)}
+    for bad in (0, 129):
+        with pytest.raises(ValueError):
+            port.fwd_key_tile(bad, "sm90")
+
+
+def test_reset_launches_zeroes_the_body_counts():
+    port.BODY_LAUNCHES["flash_fwd"]["sm90"] = 3
+    port.BODY_LAUNCHES["flash_fwd_partials"]["tc"] = 1
+    port.LAUNCHES["flash_fwd"] = 3
+    port.reset_launches()
+    assert port.BODY_LAUNCHES == {
+        name: {"scalar": 0, "tc": 0, "sm90": 0}
+        for name in ("flash_fwd", "flash_fwd_partials")}
+    assert set(port.LAUNCHES.values()) == {0}
+
+
+def test_library_hash_covers_every_csrc_file_and_the_flags(tmp_path,
+                                                            monkeypatch):
+    """An edited header under ``csrc/`` (not only the source nvcc is given)
+    or other flags name another library, so a stale one is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "k.cuh"\n')
+    (csrc / "k.cuh").write_text("// v1\n")
+    monkeypatch.setattr(kernel_build, "CSRC", csrc)
+    first = kernel_build.library_path("k.cu")
+    assert first.name.startswith("k-") and first.suffix == ".so"
+    assert kernel_build.library_path("k.cu") == first
+    (csrc / "k.cuh").write_text("// v2\n")
+    second = kernel_build.library_path("k.cu")
+    assert second != first
+    (csrc / "extra.cuh").write_text("// new\n")
+    assert kernel_build.library_path("k.cu") != second
+    third = kernel_build.library_path("k.cu")
+    monkeypatch.setattr(kernel_build, "NVCC_FLAGS",
+                        kernel_build.NVCC_FLAGS + ("-lineinfo",))
+    assert kernel_build.library_path("k.cu") != third

@@ -15,7 +15,11 @@ float64 for f32 inputs.
 
 With bf16 q/k/v all four kernels run on the tensor cores: K1/K4 round P
 to bf16 as the operand of O += P V, K2/K3 (with a bf16 dO) round P and dS
-as operands of the gradient products.  So they have two references: the
+as operands of the gradient products.  K1/K4 take the Hopper body (wgmma
+fed by TMA, 128-key tiles) where TMA can address the rows, else the
+mma.sync body (64-key tiles); the rounding twin runs over the key tile of
+the body that ran (``attention.fwd_key_tile``), since the running max, and
+so the rounding of P, depends on where key tiles start.  So they have two references: the
 plain twin that rounds the same way (``operand_dtype=torch.bfloat16``),
 held tightly (a bf16 ``out`` element by element as above; f32 results,
 and the softmax statistics lse, m, l, at 1e-4 of max|reference|), and the
@@ -102,11 +106,13 @@ def _assert_forward_matches_plain(got, q, k, v, causal, s, mode):
     them) against the plain twins: for bf16 q/k/v (the tensor-core route)
     the twin that rounds P to bf16, tightly, then the all-f32 twin, with
     the first result (out or acc) at ``TC_F32_GAP`` and the statistics at
-    1e-4; for f32 inputs the f32 twin, tightly."""
+    1e-4; for f32 inputs the f32 twin, tightly.  Both twins run over the
+    key tile of the body that these inputs take."""
     got = got if isinstance(got, tuple) else (got,)
     tensor_core = q.dtype == torch.bfloat16
+    block = A.fwd_key_tile(q.shape[-1], A.fwd_route(q, k, v))
     for operands in ([torch.bfloat16, None] if tensor_core else [None]):
-        want = A.flash_forward_plain(q, k, v, causal, s, mode,
+        want = A.flash_forward_plain(q, k, v, causal, s, mode, block=block,
                                      operand_dtype=operands)
         want = want if isinstance(want, tuple) else (want,)
         gap = tensor_core and operands is None
@@ -197,6 +203,7 @@ def test_launch_counts_one_per_kernel_per_step(cuda):
     with torch.no_grad():
         A.flash_attention(q, k, v, causal=True)
     assert A.LAUNCHES["flash_fwd"] == 2
+    assert A.BODY_LAUNCHES["flash_fwd"] == {"scalar": 0, "tc": 0, "sm90": 2}
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -354,10 +361,30 @@ def test_bf16_forward_stages_element_by_element(cuda, case):
     if case != "d=20":
         q, k, v = (_off_16_bytes(x) for x in (q, k, v))
         assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    assert A.fwd_route(q, k, v) == "tc"           # TMA cannot address these
     for causal in (True, False):
         _assert_bf16_forward(q, k, v, causal, d ** -0.5)
         _assert_bf16_forward(q, k[:, :130].contiguous(),
                              v[:, :130].contiguous(), causal, d ** -0.5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tk", [1100, 700, 1300])
+def test_bf16_forward_takes_the_hopper_body(cuda, causal, tk):
+    """At the main path's d = 64 with T = 1100 (a multiple of neither 64
+    nor 128), K/V as long as q, shorter or longer: every K1/K4 launch
+    takes the Hopper body (``BODY_LAUNCHES``), held to the twin over its
+    128-key tiles."""
+    q, k, v, _ = _segment_inputs((2, 1100, 3, 64), tk, torch.bfloat16, cuda,
+                                 seed=11)
+    assert A.fwd_route(q, k, v) == "sm90"
+    assert A.fwd_key_tile(64, "sm90") == 128
+    A.reset_launches()
+    _assert_bf16_forward(q, k, v, causal, 0.125)
+    k1 = 2 if tk == 1100 else 0
+    assert A.BODY_LAUNCHES == {
+        "flash_fwd": {"scalar": 0, "tc": 0, "sm90": k1},
+        "flash_fwd_partials": {"scalar": 0, "tc": 0, "sm90": 1}}
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -411,19 +438,27 @@ def test_bf16_backward_runs_on_tensor_cores(cuda):
 
 
 def test_bf16_forward_runs_on_tensor_cores(cuda):
-    """The bf16 instances of K1/K4 (every head-dim bucket and mode) issue
-    HMMA instructions and spill nothing to local memory; the f32 instances
-    stay scalar."""
+    """The Hopper instances of K1/K4 (the d <= 64 and d = 128 buckets, each
+    mode) issue wgmma (HGMMA) fed by TMA loads (UTMALDG) and spill nothing
+    to local memory; the bf16 instances of the mma.sync body (every bucket
+    and mode) issue HMMA and spill nothing; the f32 instances issue
+    neither."""
     library = kernel_build.build(A._SOURCE)
     sass = _cuobjdump_by_kernel(library, "--dump-sass", r"Function : (\S+)")
     usage = _cuobjdump_by_kernel(library, "--dump-resource-usage",
                                  r"Function (\S+):")
+    hopper = [n for n in sass if n.startswith("flash_fwd_sm90_kernel<")]
+    assert len(hopper) == 6, sorted(sass)      # 2 buckets x 3 modes
+    for name in hopper:
+        assert "HGMMA" in sass[name] and "UTMALDG" in sass[name], name
+        assert re.search(r"\bLOCAL:0\b", usage[name]), name
     for types, tensor_core in (("__nv_bfloat16", True), ("float", False)):
         names = [n for n in sass
                  if n.startswith(f"flash_fwd_kernel<{types},")]
         assert len(names) == 9, sorted(sass)   # 3 buckets x 3 modes
         for name in names:
             assert ("HMMA" in sass[name]) == tensor_core, name
+            assert "HGMMA" not in sass[name], name
             if tensor_core:
                 assert re.search(r"\bLOCAL:0\b", usage[name]), name
 
@@ -1002,6 +1037,8 @@ def test_the_captured_cache_path_equals_the_eager_steps(cuda, model):
         A.reset_launches()
         eager.fit(ListDataSetIterator(ds, batch), ingest="batch")
         eager_launches = dict(A.LAUNCHES)
+        assert A.BODY_LAUNCHES["flash_fwd"]["sm90"] == \
+            eager_launches["flash_fwd"]
         A.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1013,11 +1050,13 @@ def test_the_captured_cache_path_equals_the_eager_steps(cuda, model):
             torch.backends.cudnn.benchmark = flags
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
-    for counter, kernel in (("flash_fwd", "flash_fwd_kernel"),
+    # K1 on the Hopper body (mixed_bf16 q/k/v), in the replays as eagerly
+    for counter, kernel in (("flash_fwd", "flash_fwd_sm90_kernel"),
                             ("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
                             ("flash_bwd_dq", "flash_bwd_dq_kernel")):
         assert sum(1 for n in names if kernel in n) == \
             eager_launches[counter]
+    assert not any("flash_fwd_kernel" in n for n in names)
     if model == "attention":
         assert eager_launches["flash_fwd"] == 4
     np.testing.assert_array_equal(captured.get_flat_params(),
