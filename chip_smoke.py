@@ -19,13 +19,15 @@ Phases (each raises on failure; the exit code is non-zero on any):
    a yardstick the port never calls).  With bf16 inputs all four run on
    the tensor cores and round P (K1/K4: the operand of P V) and dS (K2/K3)
    to bf16, so each has two references: the plain twin that rounds alike
-   (tight; for K1/K4 over the key tile of the body that ran,
-   ``attention.fwd_key_tile``), and the all-f32 twin (the gap that
-   rounding costs, bounded and reported on the ``[check]`` lines and as
-   ``f32_twin_gap``).  Every bf16 K1/K4 launch here, timed ones included,
-   must take the Hopper body (wgmma, TMA: ``flash_fwd_sm90_kernel``), the
-   f32 ones the scalar body (``attention.BODY_LAUNCHES``; reported as
-   ``body`` and ``body_launches``);
+   (tight; for K1/K4 and K3 over the key tile of the body that ran,
+   ``attention.fwd_key_tile`` and ``attention.bwd_key_tile``), and the
+   all-f32 twin (the gap that rounding costs, bounded and reported on the
+   ``[check]`` lines and as ``f32_twin_gap``).  Every bf16 launch of K1-K4
+   here, timed ones included, must take its Hopper body (wgmma, TMA:
+   ``flash_fwd_sm90_kernel``, ``flash_bwd_dkdv_sm90_kernel``,
+   ``flash_bwd_dq_sm90_kernel``), the f32 ones the scalar bodies
+   (``attention.BODY_LAUNCHES``; reported as ``body`` and
+   ``body_launches``);
 4. reference: a small network trains 2 steps on the card (kernels) and on
    the CPU (plain versions) from the same weights, in fp32; scores and
    params must agree;
@@ -33,9 +35,10 @@ Phases (each raises on failure; the exit code is non-zero on any):
    n_heads=4, cache_len=8192) -> RnnOutputLayer(n_out=32, softmax,
    mcxent), n_in=64, adam, the card's default mixed_bf16 policy) takes
    3 fit steps; the score must be finite and every kernel's
-   launch count must rise by exactly one per step, every K1 launch on the
-   Hopper body (as on the bf16 ring of phase 7, the graph steps of phase
-   12 and the captured paths of phase 13: ``hopper_bodies``); then one
+   launch count must rise by exactly one per step, every K1-K3 launch on
+   its Hopper body (as on the bf16 ring of phase 7, the graph steps of
+   phase 12 and the captured paths of phase 13: ``hopper_bodies``); then
+   one
    more step
    under ``torch.profiler`` splits the step's CUDA time into the port's
    kernels and everything else (top 5 kernels) and gives its idle share;
@@ -566,15 +569,16 @@ def randn(shape, gen, dtype) -> torch.Tensor:
 def bwd_twins(A, args, causal: bool, scale: float):
     """The plain K2/K3 results ((dk, dv), dq) that the kernels are held to:
     with P and dS rounded to bf16 for bf16 q and dO (the tensor-core
-    route), else all-f32; and the all-f32 twin for the tensor-core route
-    (None otherwise)."""
+    route), else all-f32, dq summed over K3's key tile; and the all-f32
+    twin for the tensor-core route (None otherwise)."""
     q, g = args[0], args[3]
     tensor_core = q.dtype == g.dtype == torch.bfloat16
+    block = A.bwd_key_tile(q.shape[-1], A.bwd_route(*args[:4]))
     twins = []
     for operands in ([torch.bfloat16, None] if tensor_core else [None]):
         twins.append((A.flash_dkdv_plain(*args, causal, scale,
                                          operand_dtype=operands),
-                      A.flash_dq_plain(*args, causal, scale,
+                      A.flash_dq_plain(*args, causal, scale, block=block,
                                        operand_dtype=operands)))
     return twins[0], (twins[1] if tensor_core else None)
 
@@ -601,8 +605,8 @@ def fwd_twins(A, q, k, v, causal: bool, scale: float, mode: str):
 
 
 def hopper_bodies(A, what: str) -> dict:
-    """K1/K4's launches by body since the counts were last set to 0;
-    raises unless every one of them took the Hopper body (``sm90``)."""
+    """K1-K4's launches by body since the counts were last set to 0;
+    raises unless every one of them took its Hopper body (``sm90``)."""
     bodies = {name: dict(counts) for name, counts in A.BODY_LAUNCHES.items()}
     for name, counts in bodies.items():
         if counts["sm90"] != A.LAUNCHES[name]:
@@ -803,7 +807,7 @@ def phase_kernels(A, seed: int):
             q, k, v, g, lse, Drow, True, scale,
             operand_dtype=torch.bfloat16), **plain),
     }
-    timed_bodies = hopper_bodies(A, "phase 3's timed K1/K4")
+    timed_bodies = hopper_bodies(A, "phase 3's timed kernels")
     lib_fwd, lib_bwd = time_ms(sdpa_fwd), time_ms(sdpa_bwd)
     lib_fwd_full = time_ms(lambda: sdpa_fwd(causal=False))
     A.reset_launches()
@@ -847,7 +851,7 @@ def phase_kernels(A, seed: int):
     for name in KERNELS:
         timing[name]["f32_twin_gap"] = gaps[name]
     for name in timed_bodies:
-        # the body the bf16 K1/K4 launches (checked and timed) took
+        # the body the bf16 launches (checked and timed) took
         timing[name]["body"] = "sm90"
         timing[name]["body_launches"] = {"checks": {d: c[name] for d, c in
                                                     check_bodies.items()},
@@ -857,7 +861,7 @@ def phase_kernels(A, seed: int):
         timing[name]["segment_bound_ms"] = seg_bounds[name][0]
         timing[name]["ring_step_ms"] = t["ring_step_" + kind]
         timing[name]["ring_step_bound_ms"] = ring_bounds[name][0]
-    log(f"[kernels] K1/K4 launches by body: checks {check_bodies}, timed "
+    log(f"[kernels] K1-K4 launches by body: checks {check_bodies}, timed "
         f"{timed_bodies}")
     log(f"[kernels] library yardsticks: sdpa fwd causal {lib_fwd:.4f} ms, "
         f"non-causal {lib_fwd_full:.4f} ms, sdpa bwd causal (dq, dk, dv "
@@ -923,10 +927,11 @@ def phase_reference(N, A, seed: int) -> dict:
     return {"steps": 2, "max_rel": worst}
 
 
-# profiler kernel names: K1 and K4 share a body, the Hopper one
-# (flash_fwd_sm90_kernel) on every bf16 call of the main paths, else
-# flash_fwd_kernel (mma.sync or scalar)
-PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel",
+# profiler kernel names: the Hopper bodies on every bf16 call of the main
+# paths (K1 and K4 share flash_fwd_sm90_kernel), else the mma.sync or
+# scalar bodies' kernels
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkdv_sm90_kernel",
+                "flash_bwd_dq_sm90_kernel", "flash_fwd_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
@@ -1018,7 +1023,7 @@ def phase_training(N, A, seed: int):
     bodies = hopper_bodies(A, "training")
     peak = torch.cuda.max_memory_allocated()
     log(f"[training] scores {scores}; step ms {step_ms}; launches "
-        f"{launches}, K1/K4 by body {bodies}; peak memory "
+        f"{launches}, by body {bodies}; peak memory "
         f"{peak / 2**30:.3f} GiB")
     if not all(np.isfinite(scores)):
         raise RuntimeError(f"non-finite training score: {scores}")
@@ -1122,8 +1127,8 @@ def phase_ring(A, S, seed: int) -> dict:
         bodies = (hopper_bodies(A, "the bf16 ring")
                   if dtype == torch.bfloat16 else
                   {n: dict(c) for n, c in A.BODY_LAUNCHES.items()})
-        log(f"[ring] {dname} causal fwd+bwd launches {launches}, K1/K4 by "
-            f"body {bodies}")
+        log(f"[ring] {dname} causal fwd+bwd launches {launches}, by body "
+            f"{bodies}")
         if launches != expected:
             raise RuntimeError(f"ring launches {launches}, expected "
                                f"{expected}")
@@ -2743,8 +2748,9 @@ def fused_attention(N, A, seed: int) -> dict:
     there (a replay runs no wrapper), and the profiler's kernel names
     give the launches of K1-K3 inside the replays, the ``fused`` path's
     counts (K4 shares K1's kernel names; the capturing fit's wrapper
-    counts show it is not in the graph, and its body counts that K1 took
-    the Hopper body, as the profiler shows for the replays)."""
+    counts show it is not in the graph, and its body counts that K1-K3
+    took their Hopper bodies, as the profiler's names show for the
+    replays)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2772,14 +2778,12 @@ def fused_attention(N, A, seed: int) -> dict:
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     seen = {k: sum(1 for n in names if k in n) for k in PORT_KERNELS}
-    launches = {"flash_fwd": seen["flash_fwd_sm90_kernel"]
-                + seen["flash_fwd_kernel"],
-                "flash_fwd_partials": 0,
-                "flash_bwd_dkdv": seen["flash_bwd_dkdv_kernel"],
-                "flash_bwd_dq": seen["flash_bwd_dq_kernel"]}
-    # K1 on the Hopper body in every replay, the mma.sync/scalar body never
-    replayed = dict.fromkeys(PORT_KERNELS, ATTN_CACHE_STEPS)
-    replayed["flash_fwd_kernel"] = 0
+    launches = {"flash_fwd_partials": 0}
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        launches[name] = seen[name + "_sm90_kernel"] + seen[name + "_kernel"]
+    # K1-K3 on the Hopper bodies in every replay, the others never
+    replayed = {k: ATTN_CACHE_STEPS if "sm90" in k else 0
+                for k in PORT_KERNELS}
     log(f"[fused] attention cache path: wrapper counts of the capturing "
         f"fit {capturing}; one more epoch of replays: wrapper counts "
         f"{wrappers}, profiler kernels {seen}")
@@ -3937,16 +3941,17 @@ def main(argv=None) -> int:
              "harness": harness["launches"], "graph": graph["launches"],
              "fused": fused["launches"], "transfer": transfer["launches"],
              "embeddings": embeddings["launches"]}
-    fwd_source = "deeplearning4j_tpu_torch/ops/csrc/flash_fwd_sm90.cuh"
-    kernels = [dict(name=name, route="cuda",
-                    source=(fwd_source if name in A.BODY_LAUNCHES else
-                            "deeplearning4j_tpu_torch/ops/csrc/"
-                            "flash_attention.cu"),
+    csrc = "deeplearning4j_tpu_torch/ops/csrc/"
+    bodies = {"flash_fwd": csrc + "flash_fwd_sm90.cuh",
+              "flash_fwd_partials": csrc + "flash_fwd_sm90.cuh",
+              "flash_bwd_dkdv": csrc + "flash_bwd_sm90.cuh",
+              "flash_bwd_dq": csrc + "flash_bwd_sm90.cuh"}
+    kernels = [dict(name=name, route="cuda", source=bodies[name],
                     replaces=sources[name],
                     launches=sum(counts[name] for counts in paths.values()),
                     launches_by_path={path: counts[name]
                                       for path, counts in paths.items()},
-                    **{"body": "tc", **timing[name]})
+                    **timing[name])
                for name in sources]
     print(json.dumps({"build_s": build_s, "reference": reference,
                       "training": training, "inference": inference,

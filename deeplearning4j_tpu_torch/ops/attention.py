@@ -26,16 +26,22 @@ Kernels, hand-written CUDA for Hopper in ``csrc/flash_attention.cu``:
   sequence (``Tk != Tq``): with the global logsumexp and D the gradients
   are that segment's exact contribution, and contributions of segments
   sum.  For bf16 q/k/v and dO they run on the tensor cores and round P and
-  dS to bf16 as operands of the gradient products; f32 inputs, or an f32
-  dO with bf16 q, keep an all-f32 scalar body.
+  dS to bf16 as operands of the gradient products: on the Hopper bodies
+  (``flash_bwd_sm90.cuh``: wgmma fed by TMA; K2 128 keys a block against
+  streamed query tiles, K3 128 queries against streamed key tiles) when
+  TMA can address the rows, else on the mma.sync bodies; f32 inputs, or an
+  f32 dO with bf16 q, keep an all-f32 scalar body.  ``bwd_route`` names
+  the body a call takes and ``bwd_key_tile`` K3's key tile, which the
+  rounding twin shares: K3's f32 sum over key tiles follows it (the
+  rounding of P and dS, rebuilt from L, does not depend on the tile).
 
 Beside each kernel is its plain PyTorch version (``flash_forward_plain``
 in its three modes, ``flash_dkdv_plain``, ``flash_dq_plain``; each with
 ``operand_dtype=torch.bfloat16`` for the tensor-core rounding) running the
 same tiled streaming arithmetic.  A wrapper runs the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``, and a
-K1/K4 launch also to ``BODY_LAUNCHES[<kernel>][<body>]``.
+kernel or raises.  Each launch adds one to ``LAUNCHES[<kernel>]`` and to
+``BODY_LAUNCHES[<kernel>][<body>]``.
 
 Layouts are the JAX package's: q, k, v are (batch, T, heads, d); the
 logsumexp and D = rowsum(dO * O) are (batch, Tq, heads) float32; gradients
@@ -69,15 +75,18 @@ _FWD_MODES = ("normalized", "normalized_lse", "partials")
 
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_partials": 0, "flash_bwd_dkdv": 0,
             "flash_bwd_dq": 0}
-# K1/K4's bodies, indexed by what dl4j_flash_fwd_route returns: the scalar
-# f32 body, the mma.sync body (fwd_tc) and the Hopper body (wgmma, TMA)
+# every kernel's bodies, indexed by what dl4j_flash_fwd_route and
+# dl4j_flash_bwd_route return: the scalar f32 body, the mma.sync body
+# (fwd_tc, dkdv_tc, dq_tc) and the Hopper body (wgmma, TMA)
 FWD_BODIES = ("scalar", "tc", "sm90")
-BODY_LAUNCHES = {name: dict.fromkeys(FWD_BODIES, 0)
-                 for name in ("flash_fwd", "flash_fwd_partials")}
-# keys of a streamed K/V tile of each body at every d (TILE, FWD_BK and
-# SM90_BK in the CUDA sources)
+BODY_LAUNCHES = {name: dict.fromkeys(FWD_BODIES, 0) for name in LAUNCHES}
+# keys of a streamed K/V tile of each K1/K4 body at every d (TILE, FWD_BK
+# and SM90_BK in the CUDA sources)
 FWD_KEY_TILES = {"scalar": TILE, "tc": TILE, "sm90": 128}
-_TMA_ENCODE_FAILED = 100000      # + the CUresult, from a K1/K4 entry point
+# keys of a streamed K/V tile of each K3 body, at d <= 64 and at d > 64
+# (TILE; TcCfg::BS; SM90_DQ_BK_D64 and SM90_DQ_BK_D128)
+DQ_KEY_TILES = {"scalar": (TILE, TILE), "tc": (64, 32), "sm90": (128, 64)}
+_TMA_ENCODE_FAILED = 100000      # + the CUresult, from any entry point
 
 
 def reset_launches() -> None:
@@ -88,13 +97,25 @@ def reset_launches() -> None:
             counts[body] = 0
 
 
+def _check_head_dim(d: int) -> None:
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside (0, {MAX_HEAD_DIM}]")
+
+
 def fwd_key_tile(d: int, body: str) -> int:
     """Keys of a K/V tile that K1/K4's ``body`` (one of ``FWD_BODIES``)
     streams at head dim ``d``: the ``block`` of the plain twin that rounds
     P as that body does."""
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} outside (0, {MAX_HEAD_DIM}]")
+    _check_head_dim(d)
     return FWD_KEY_TILES[body]
+
+
+def bwd_key_tile(d: int, body: str) -> int:
+    """Keys of a K/V tile that K3's ``body`` (one of ``FWD_BODIES``)
+    streams at head dim ``d``: the ``block`` of ``flash_dq_plain`` that
+    sums dQ over key tiles as that body does."""
+    _check_head_dim(d)
+    return DQ_KEY_TILES[body][d > 64]
 
 
 # ------------------------------------------------------------ the library
@@ -105,6 +126,7 @@ _SIGNATURES = {
     "dl4j_flash_fwd": [_P] * 5 + _GEOM + [_F, _I, _I, _I, _P],
     "dl4j_flash_fwd_partials": [_P] * 6 + _GEOM + [_F, _I, _I, _P],
     "dl4j_flash_fwd_route": [_P] * 3 + _GEOM + [_I],
+    "dl4j_flash_bwd_route": [_P] * 4 + _GEOM + [_I, _I],
     "dl4j_flash_bwd_dkdv": [_P] * 8 + _GEOM + [_F, _I, _I, _I, _P],
     "dl4j_flash_bwd_dq": [_P] * 7 + _GEOM + [_F, _I, _I, _I, _P],
 }
@@ -125,11 +147,11 @@ def _lib():
 
 
 def _launch(name: str, fn: str, device: torch.device, *args,
-            body: Optional[str] = None) -> None:
+            body: str) -> None:
     """Call one C entry point with ``device`` (the tensors' card) current
     and on that card's current stream, raise on a refused launch (or a
-    tensor map the Hopper body could not encode), count it, and for K1/K4
-    count the ``body`` it ran.  The launch and the kernels' shared-memory
+    tensor map a Hopper body could not encode), count it, and count the
+    ``body`` it ran.  The launch and the kernels' shared-memory
     opt-in act on the current device, so on any card but the current one
     they would go to the wrong card without the guard."""
     with torch.cuda.device(device):
@@ -142,8 +164,7 @@ def _launch(name: str, fn: str, device: torch.device, *args,
         raise RuntimeError(f"CUDA kernel {name} failed to launch: CUDA "
                            f"error {rc}")
     LAUNCHES[name] += 1
-    if body is not None:
-        BODY_LAUNCHES[name][body] += 1
+    BODY_LAUNCHES[name][body] += 1
 
 
 def fwd_route(q: Tensor, k: Tensor, v: Tensor) -> str:
@@ -152,6 +173,17 @@ def fwd_route(q: Tensor, k: Tensor, v: Tensor) -> str:
     return FWD_BODIES[_lib().dl4j_flash_fwd_route(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *_geometry(q, k),
         int(q.dtype == torch.bfloat16))]
+
+
+def bwd_route(q: Tensor, k: Tensor, v: Tensor, dout: Tensor) -> str:
+    """The body (one of ``FWD_BODIES``) that K2/K3 launch for these CUDA
+    tensors, as the library decides it: by dtype (q's and dO's), shape and
+    alignment."""
+    bf16 = q.dtype == torch.bfloat16
+    return FWD_BODIES[_lib().dl4j_flash_bwd_route(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        *_geometry(q, k), int(bf16),
+        int(bf16 and dout.dtype == torch.float32))]
 
 
 def _check_on_card(name: str, ref: Tensor, t: Tensor) -> None:
@@ -396,8 +428,10 @@ def flash_dkdv_plain(q, k, v, dout, L, Drow, causal: bool, sm_scale: float,
 
 def flash_dq_plain(q, k, v, dout, L, Drow, causal: bool, sm_scale: float,
                    block: int = TILE, operand_dtype=None) -> Tensor:
-    """Plain twin of K3: dQ = sum over k-blocks of dS K.  f32
-    (B, Tq, H, d); ``operand_dtype`` as in ``flash_dkdv_plain``."""
+    """Plain twin of K3: dQ = sum over k-blocks of ``block`` keys of
+    dS K, in key order (the f32 order of a body over its key tile,
+    ``bwd_key_tile``).  f32 (B, Tq, H, d); ``operand_dtype`` as in
+    ``flash_dkdv_plain``."""
     qf, kf, vf, dof, Lr, Dr = _plain_bwd_inputs(q, k, v, dout, L, Drow)
     dq = torch.zeros_like(qf)
     for k0 in range(0, k.shape[1], block):
@@ -434,7 +468,8 @@ def flash_dkdv(q, k, v, dout, L, Drow, *, causal: bool,
     _launch("flash_bwd_dkdv", "dl4j_flash_bwd_dkdv", q.device,
             *_bwd_launch_args(q, k, v, dout, L, Drow), dk.data_ptr(),
             dv.data_ptr(), *_geometry(q, k),
-            *_bwd_flags(q, dout, causal, sm_scale))
+            *_bwd_flags(q, dout, causal, sm_scale),
+            body=bwd_route(q, k, v, dout))
     return dk, dv
 
 
@@ -449,7 +484,8 @@ def flash_dq(q, k, v, dout, L, Drow, *, causal: bool,
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _launch("flash_bwd_dq", "dl4j_flash_bwd_dq", q.device,
             *_bwd_launch_args(q, k, v, dout, L, Drow), dq.data_ptr(),
-            *_geometry(q, k), *_bwd_flags(q, dout, causal, sm_scale))
+            *_geometry(q, k), *_bwd_flags(q, dout, causal, sm_scale),
+            body=bwd_route(q, k, v, dout))
     return dq
 
 

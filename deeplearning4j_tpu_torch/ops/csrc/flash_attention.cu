@@ -11,6 +11,9 @@
 //                               flash_attention_bwd
 //   K3 flash_bwd_dq_kernel   <- _make_dq_kernel + _bwd_tile, launched by
 //                               flash_attention_bwd
+// (bf16 calls whose rows TMA can address run the Hopper kernels
+// flash_fwd_sm90_kernel, flash_bwd_dkdv_sm90_kernel and
+// flash_bwd_dq_sm90_kernel instead; see below.)
 //
 // What bounds them on the H100: all four are bound by operations.  At the
 // training shape (B=2, T=8192, H=4, d=64, causal) K1 does two T x T x d
@@ -33,11 +36,14 @@
 //   path, the ring and the captured graphs) run the Hopper body of
 //   flash_fwd_sm90.cuh: wgmma fed by TMA, one producer and two consumer
 //   warpgroups; its note says what bounds K1/K4 and what it does about
-//   it.  dl4j_flash_fwd_route exports that choice, made by shape and
-//   alignment only; the wrapper counts each body's launches by it.
-// - For bf16 q/k/v (and a bf16 dO in K2/K3), what the training path and
-//   the ring give them, the other bf16 bodies (K2/K3 always, K1/K4 on
-//   rows TMA cannot address) run on the tensor cores: mma.sync
+//   it.  K2/K3 with bf16 q/k/v and dO whose rows TMA can address (every
+//   K2/K3 call of those paths) run the Hopper bodies of
+//   flash_bwd_sm90.cuh, built the same way.  dl4j_flash_fwd_route and
+//   dl4j_flash_bwd_route export these choices, made by dtype, shape and
+//   alignment only; the wrapper counts each body's launches by them.
+// - For bf16 q/k/v (and a bf16 dO in K2/K3) on rows TMA cannot address
+//   (d not a multiple of 8, rows off 16 bytes), the other bf16 bodies run
+//   on the tensor cores: mma.sync
 //   m16n8k16 bf16 x bf16 with f32 accumulation, operands from bf16 tiles in
 //   shared memory through ldmatrix.  Each warp owns 16 rows of the block's
 //   tile.  The score-side products leave P (and dS) in the accumulator
@@ -1324,6 +1330,22 @@ struct BwdArgs {
   int causal;
 };
 
+// K2/K3 on wgmma and TMA (Hopper): flash_bwd_dkdv_sm90_kernel,
+// flash_bwd_dq_sm90_kernel and their launchers.
+#include "flash_bwd_sm90.cuh"
+
+// The body a K2/K3 call takes: BWD_SM90 (the kernels of
+// flash_bwd_sm90.cuh) for bf16 q/k/v and dO whose rows TMA can address,
+// BWD_TC (dkdv_tc, dq_tc) for other bf16 q/k/v and dO, BWD_SCALAR for f32
+// inputs or an f32 dO.
+enum BwdRoute { BWD_SCALAR = 0, BWD_TC = 1, BWD_SM90 = 2 };
+
+int bwd_route(const BwdArgs& a, int bf16_in, int do_f32) {
+  const int tc = bf16_in && !do_f32;
+  if (sm90_route(a.g, tc, {a.q, a.k, a.v, a.dout})) return BWD_SM90;
+  return tc ? BWD_TC : BWD_SCALAR;
+}
+
 template <typename T, typename TO, int DM>
 cudaError_t launch_dkdv(const BwdArgs& a, cudaStream_t s) {
   using C = Cfg<T, DM>;
@@ -1374,9 +1396,9 @@ extern "C" {
 // strides qsb, qst, qsh; k and v (and dk, dv) are (B, Tk, H, d) with
 // strides ksb, kst, ksh (stride 1 along d); row statistics are contiguous
 // (B, Tq, H) f32.  bf16 != 0 selects __nv_bfloat16 q/k/v, else float.
-// Each returns the CUDA error of the launch (0 on success); K1/K4 return
-// TMA_ENCODE_FAILED (100000) + the CUresult when a tensor map of the
-// Hopper body cannot be encoded.
+// Each returns the CUDA error of the launch (0 on success), or
+// TMA_ENCODE_FAILED (100000) + the CUresult when a tensor map of a Hopper
+// body cannot be encoded.
 
 // The body that dl4j_flash_fwd / dl4j_flash_fwd_partials launch for these
 // arguments: 2 the Hopper body (wgmma, TMA), 1 the mma.sync body, 0 the
@@ -1415,6 +1437,20 @@ int dl4j_flash_fwd_partials(const void* q, const void* k, const void* v,
                               stream);
 }
 
+// The body that dl4j_flash_bwd_dkdv / dl4j_flash_bwd_dq launch for these
+// arguments: 2 the Hopper bodies (wgmma, TMA), 1 the mma.sync bodies, 0
+// the scalar f32 bodies.  Decided by dtype, shape and alignment only.
+int dl4j_flash_bwd_route(const void* q, const void* k, const void* v,
+                         const void* dout, int B, int Tq, int Tk, int H,
+                         int d, long long qsb, long long qst, long long qsh,
+                         long long ksb, long long kst, long long ksh,
+                         int bf16, int do_f32) {
+  const BwdArgs a{q, k, v, dout, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  make_geom(B, Tq, Tk, H, d, qsb, qst, qsh, ksb, kst, ksh),
+                  0.f, 0};
+  return bwd_route(a, bf16, do_f32);
+}
+
 // K2: dk, dv f32 with k's strides; L, Drow the (global) logsumexp and
 // rowsum(dO * O); dout has q's dtype, or f32 when do_f32 != 0.
 int dl4j_flash_bwd_dkdv(const void* q, const void* k, const void* v,
@@ -1428,6 +1464,8 @@ int dl4j_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                   make_geom(B, Tq, Tk, H, d, qsb, qst, qsh, ksb, kst, ksh),
                   scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bwd_route(a, bf16, do_f32) == BWD_SM90)
+    return d <= 64 ? launch_dkdv_sm90<64>(a, s) : launch_dkdv_sm90<128>(a, s);
   return (int)dispatch(bf16, d, [&](auto cfg) -> cudaError_t {
     using C = decltype(cfg);
     using T_ = typename C::type;
@@ -1448,6 +1486,8 @@ int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                   make_geom(B, Tq, Tk, H, d, qsb, qst, qsh, ksb, kst, ksh),
                   scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bwd_route(a, bf16, do_f32) == BWD_SM90)
+    return d <= 64 ? launch_dq_sm90<64>(a, s) : launch_dq_sm90<128>(a, s);
   return (int)dispatch(bf16, d, [&](auto cfg) -> cudaError_t {
     using C = decltype(cfg);
     using T_ = typename C::type;

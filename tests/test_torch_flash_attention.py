@@ -370,11 +370,12 @@ def _segment_case(tq, tk, causal, seed, dtype=torch.float32, d=16):
     return tq_, tk_, tv_, tg_, L, D
 
 
-def _plain_twins(q, k, v, g, L, D, causal, scale, operand_dtype):
+def _plain_twins(q, k, v, g, L, D, causal, scale, operand_dtype,
+                 dq_block=64):
     dk, dv = port.flash_dkdv_plain(q, k, v, g, L, D, causal, scale,
                                    operand_dtype=operand_dtype)
     dq = port.flash_dq_plain(q, k, v, g, L, D, causal, scale,
-                             operand_dtype=operand_dtype)
+                             block=dq_block, operand_dtype=operand_dtype)
     return dk, dv, dq
 
 
@@ -424,15 +425,18 @@ def _float64_bwd_bf16_operands(q, k, v, g, L, D, causal, scale):
 
 @pytest.mark.parametrize("tq,tk", [(50, 50), (50, 24), (37, 70)])
 @pytest.mark.parametrize("causal", [False, True])
-def test_plain_twins_bf16_operands_match_float64(causal, tq, tk):
+@pytest.mark.parametrize("dq_block", [64, 128])
+def test_plain_twins_bf16_operands_match_float64(dq_block, causal, tq, tk):
     """``operand_dtype=torch.bfloat16``: the twins equal dense float64 math
     with P and dS rounded to bf16, element by element within 1e-6 of
-    max|ref| (f32 sums) plus the midpoint slack, ragged and Tk != Tq.  The
-    f32 twins sit further away (the rounding is real) but within the
-    1e-2 of max|f32 twin| that the tensor-core kernels are held to."""
+    max|ref| (f32 sums) plus the midpoint slack, ragged and Tk != Tq, with
+    dQ summed over the key tiles of both bf16 K3 bodies at d <= 64 (64:
+    mma.sync, 128: the Hopper body).  The f32 twins sit further away (the
+    rounding is real) but within the 1e-2 of max|f32 twin| that the
+    tensor-core kernels are held to."""
     case = _segment_case(tq, tk, causal, seed=12, dtype=torch.bfloat16)
-    got = _plain_twins(*case, causal, 0.3, torch.bfloat16)
-    f32 = _plain_twins(*case, causal, 0.3, None)
+    got = _plain_twins(*case, causal, 0.3, torch.bfloat16, dq_block)
+    f32 = _plain_twins(*case, causal, 0.3, None, dq_block)
     ref, slack = _float64_bwd_bf16_operands(*case, causal, 0.3)
     for a, f, want, s in zip(got, f32, ref, slack):
         bound = 1e-6 * want.abs().max() + s
@@ -616,10 +620,11 @@ def _constexpr(source: str, name: str) -> str:
 
 
 def test_key_tiles_agree_with_the_cuda_sources():
-    """``fwd_key_tile`` (the ``block`` of the rounding twin) is the key
-    tile each K1/K4 body streams in the CUDA sources, read from their
-    constexprs, so the twin and the kernels cannot drift apart; and the
-    route codes the library returns index ``FWD_BODIES`` in order."""
+    """``fwd_key_tile`` and ``bwd_key_tile`` (the ``block`` of the K1/K4
+    and K3 twins) are the key tiles each body streams in the CUDA sources,
+    read from their constexprs, so the twins and the kernels cannot drift
+    apart; and the route codes the library returns (``FwdRoute``,
+    ``BwdRoute``) index ``FWD_BODIES`` in order."""
     tile = int(_constexpr("flash_attention.cu", "TILE"))
     assert _constexpr("flash_attention.cu", "FWD_BK") == "TILE"
     sm90 = int(_constexpr("flash_fwd_sm90.cuh", "SM90_BK"))
@@ -628,24 +633,45 @@ def test_key_tiles_agree_with_the_cuda_sources():
         assert port.fwd_key_tile(d, "scalar") == tile
         assert port.fwd_key_tile(d, "tc") == tile
         assert port.fwd_key_tile(d, "sm90") == sm90 == 128
+    # K3: the scalar body's TILE, the mma.sync body's TcCfg::BS and the
+    # Hopper body's SM90_DQ_BK_D64 / _D128, by the d <= 64 and d = 128
+    # buckets (the d <= 32 bucket runs the d <= 64 tiles)
+    assert _constexpr("flash_attention.cu", "BS") == "DM <= 64 ? 64 : 32"
+    dq_cfg = re.search(r"struct Sm90DqCfg \{.*?constexpr int BK = ([^;]+);",
+                       (_CSRC / "flash_bwd_sm90.cuh").read_text(), re.S)
+    assert dq_cfg.group(1) == "DM <= 64 ? SM90_DQ_BK_D64 : SM90_DQ_BK_D128"
+    hopper = [int(_constexpr("flash_bwd_sm90.cuh", f"SM90_DQ_BK_D{dm}"))
+              for dm in (64, 128)]
+    for d, bucket in ((8, 0), (32, 0), (64, 0), (96, 1), (128, 1)):
+        assert port.bwd_key_tile(d, "scalar") == tile
+        assert port.bwd_key_tile(d, "tc") == (64, 32)[bucket]
+        assert port.bwd_key_tile(d, "sm90") == hopper[bucket]
+    assert hopper == [128, 64]
     text = (_CSRC / "flash_attention.cu").read_text()
-    codes = re.search(r"enum FwdRoute \{([^}]*)\}", text).group(1)
-    pairs = re.findall(r"FWD_(\w+) = (\d+)", codes)
-    assert {name.lower(): int(n) for name, n in pairs} == \
-        {body: i for i, body in enumerate(port.FWD_BODIES)}
+    for enum, prefix in (("FwdRoute", "FWD"), ("BwdRoute", "BWD")):
+        codes = re.search(rf"enum {enum} \{{([^}}]*)\}}", text).group(1)
+        pairs = re.findall(rf"{prefix}_(\w+) = (\d+)", codes)
+        assert {name.lower(): int(n) for name, n in pairs} == \
+            {body: i for i, body in enumerate(port.FWD_BODIES)}
     for bad in (0, 129):
         with pytest.raises(ValueError):
             port.fwd_key_tile(bad, "sm90")
+        with pytest.raises(ValueError):
+            port.bwd_key_tile(bad, "sm90")
 
 
 def test_reset_launches_zeroes_the_body_counts():
     port.BODY_LAUNCHES["flash_fwd"]["sm90"] = 3
     port.BODY_LAUNCHES["flash_fwd_partials"]["tc"] = 1
+    port.BODY_LAUNCHES["flash_bwd_dkdv"]["sm90"] = 2
+    port.BODY_LAUNCHES["flash_bwd_dq"]["scalar"] = 1
     port.LAUNCHES["flash_fwd"] = 3
+    port.LAUNCHES["flash_bwd_dq"] = 1
     port.reset_launches()
     assert port.BODY_LAUNCHES == {
         name: {"scalar": 0, "tc": 0, "sm90": 0}
-        for name in ("flash_fwd", "flash_fwd_partials")}
+        for name in ("flash_fwd", "flash_fwd_partials", "flash_bwd_dkdv",
+                     "flash_bwd_dq")}
     assert set(port.LAUNCHES.values()) == {0}
 
 

@@ -15,11 +15,12 @@ float64 for f32 inputs.
 
 With bf16 q/k/v all four kernels run on the tensor cores: K1/K4 round P
 to bf16 as the operand of O += P V, K2/K3 (with a bf16 dO) round P and dS
-as operands of the gradient products.  K1/K4 take the Hopper body (wgmma
-fed by TMA, 128-key tiles) where TMA can address the rows, else the
-mma.sync body (64-key tiles); the rounding twin runs over the key tile of
-the body that ran (``attention.fwd_key_tile``), since the running max, and
-so the rounding of P, depends on where key tiles start.  So they have two references: the
+as operands of the gradient products.  All four take their Hopper bodies
+(wgmma fed by TMA) where TMA can address the rows, else the mma.sync
+bodies; the rounding twin runs over the key tile of the body that ran
+(``attention.fwd_key_tile``, ``attention.bwd_key_tile``), since the
+running max, and so the rounding of P, depends on where K1/K4's key tiles
+start, and K3's f32 sum follows its key tiles.  So they have two references: the
 plain twin that rounds the same way (``operand_dtype=torch.bfloat16``),
 held tightly (a bf16 ``out`` element by element as above; f32 results,
 and the softmax statistics lse, m, l, at 1e-4 of max|reference|), and the
@@ -90,10 +91,11 @@ def _assert_backward_matches_plain(got, q, k, v, g, L, D, causal, s):
     at 1e-4."""
     tensor_core = q.dtype == g.dtype == torch.bfloat16
     twins = [torch.bfloat16, None] if tensor_core else [None]
+    block = A.bwd_key_tile(q.shape[-1], A.bwd_route(q, k, v, g))
     for operands, tol in zip(twins, (1e-4, TC_F32_GAP)):
         pdk, pdv = A.flash_dkdv_plain(q, k, v, g, L, D, causal, s,
                                       operand_dtype=operands)
-        pdq = A.flash_dq_plain(q, k, v, g, L, D, causal, s,
+        pdq = A.flash_dq_plain(q, k, v, g, L, D, causal, s, block=block,
                                operand_dtype=operands)
         for a, b in zip(got, (pdk, pdv, pdq)):
             assert a.dtype == torch.float32 and a.shape == b.shape
@@ -204,6 +206,8 @@ def test_launch_counts_one_per_kernel_per_step(cuda):
         A.flash_attention(q, k, v, causal=True)
     assert A.LAUNCHES["flash_fwd"] == 2
     assert A.BODY_LAUNCHES["flash_fwd"] == {"scalar": 0, "tc": 0, "sm90": 2}
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        assert A.BODY_LAUNCHES[name] == {"scalar": 0, "tc": 0, "sm90": 1}
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -295,18 +299,42 @@ def _off_16_bytes(x):
 def test_bf16_backward_stages_element_by_element(cuda, case):
     """Tiles that 16-byte copies cannot stage (d not a multiple of 8, or
     rows not 16-byte aligned) are loaded element by element into the same
-    bf16 tiles; the results are the same."""
+    bf16 tiles of the mma.sync bodies (TMA cannot address them); the
+    results are the same."""
     d = 20 if case == "d=20" else 64
     q, k, v, g = _segment_inputs((2, 150, 2, d), 130, torch.bfloat16, cuda,
                                  seed=7)
     if case != "d=20":
         q, k, v, g = (_off_16_bytes(x) for x in (q, k, v, g))
         assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    assert A.bwd_route(q, k, v, g) == "tc"
     s = d ** -0.5
     L, D = _segment_stats(q, k, v, g, True, s)
     dk, dv = A.flash_dkdv(q, k, v, g, L, D, causal=True, sm_scale=s)
     dq = A.flash_dq(q, k, v, g, L, D, causal=True, sm_scale=s)
     _assert_backward_matches_plain((dk, dv, dq), q, k, v, g, L, D, True, s)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tk", [1100, 700, 1300])
+def test_bf16_backward_takes_the_hopper_body(cuda, causal, tk):
+    """At the main path's d = 64 with T = 1100 (a multiple of neither 64
+    nor 128), K/V as long as q, shorter or longer: every K2/K3 launch takes
+    the Hopper body (``BODY_LAUNCHES``), held to the twins (K3's over its
+    128-key tiles); an f32 dO takes the scalar body."""
+    q, k, v, g = _segment_inputs((2, 1100, 3, 64), tk, torch.bfloat16, cuda,
+                                 seed=12)
+    assert A.bwd_route(q, k, v, g) == "sm90"
+    assert A.bwd_route(q, k, v, g.float()) == "scalar"
+    assert A.bwd_key_tile(64, "sm90") == 128
+    L, D = _segment_stats(q, k, v, g, causal, 0.125)
+    A.reset_launches()
+    dk, dv = A.flash_dkdv(q, k, v, g, L, D, causal=causal, sm_scale=0.125)
+    dq = A.flash_dq(q, k, v, g, L, D, causal=causal, sm_scale=0.125)
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        assert A.BODY_LAUNCHES[name] == {"scalar": 0, "tc": 0, "sm90": 1}
+    _assert_backward_matches_plain((dk, dv, dq), q, k, v, g, L, D, causal,
+                                   0.125)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -384,7 +412,9 @@ def test_bf16_forward_takes_the_hopper_body(cuda, causal, tk):
     k1 = 2 if tk == 1100 else 0
     assert A.BODY_LAUNCHES == {
         "flash_fwd": {"scalar": 0, "tc": 0, "sm90": k1},
-        "flash_fwd_partials": {"scalar": 0, "tc": 0, "sm90": 1}}
+        "flash_fwd_partials": {"scalar": 0, "tc": 0, "sm90": 1},
+        "flash_bwd_dkdv": {"scalar": 0, "tc": 0, "sm90": 0},
+        "flash_bwd_dq": {"scalar": 0, "tc": 0, "sm90": 0}}
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -419,19 +449,29 @@ def _cuobjdump_by_kernel(library: Path, flag: str, header: str) -> dict:
 
 
 def test_bf16_backward_runs_on_tensor_cores(cuda):
-    """The bf16 instances of K2 and K3 issue HMMA (tensor-core)
-    instructions and spill nothing to local memory; the f32 and f32-dO
-    instances stay scalar: the route is fixed at compile time by the
-    operand types."""
+    """The Hopper instances of K2 and K3 (the d <= 64 and d = 128
+    buckets) issue wgmma (HGMMA) fed by TMA loads (UTMALDG) and spill
+    nothing to local memory; the bf16 instances of the mma.sync bodies
+    issue HMMA (tensor-core) instructions and spill nothing; the f32 and
+    f32-dO instances stay scalar: among those the route is fixed at compile
+    time by the operand types."""
     library = kernel_build.build(A._SOURCE)
     sass = _cuobjdump_by_kernel(library, "--dump-sass", r"Function : (\S+)")
     usage = _cuobjdump_by_kernel(library, "--dump-resource-usage",
                                  r"Function (\S+):")
+    for kernel in ("flash_bwd_dkdv_sm90_kernel", "flash_bwd_dq_sm90_kernel"):
+        hopper = [n for n in sass if n.startswith(f"{kernel}<")]
+        assert sorted(hopper) == [f"{kernel}<128>", f"{kernel}<64>"], \
+            sorted(sass)
+        for name in hopper:
+            assert "HGMMA" in sass[name] and "UTMALDG" in sass[name], name
+            assert re.search(r"\bLOCAL:0\b", usage[name]), name
     bf16 = "__nv_bfloat16"
     for kernel in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"):
         for dm in (32, 64, 128):
             tensor_core = f"{kernel}<{bf16},{bf16},{dm}>"
             assert "HMMA" in sass[tensor_core]
+            assert "HGMMA" not in sass[tensor_core]
             assert re.search(r"\bLOCAL:0\b", usage[tensor_core])
             for types in ("float,float", f"{bf16},float"):
                 assert "HMMA" not in sass[f"{kernel}<{types},{dm}>"]
@@ -1037,8 +1077,9 @@ def test_the_captured_cache_path_equals_the_eager_steps(cuda, model):
         A.reset_launches()
         eager.fit(ListDataSetIterator(ds, batch), ingest="batch")
         eager_launches = dict(A.LAUNCHES)
-        assert A.BODY_LAUNCHES["flash_fwd"]["sm90"] == \
-            eager_launches["flash_fwd"]
+        for counter in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+            assert A.BODY_LAUNCHES[counter]["sm90"] == \
+                eager_launches[counter]
         A.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1050,13 +1091,17 @@ def test_the_captured_cache_path_equals_the_eager_steps(cuda, model):
             torch.backends.cudnn.benchmark = flags
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
-    # K1 on the Hopper body (mixed_bf16 q/k/v), in the replays as eagerly
+    # K1-K3 on the Hopper bodies (mixed_bf16 q/k/v), in the replays as
+    # eagerly
     for counter, kernel in (("flash_fwd", "flash_fwd_sm90_kernel"),
-                            ("flash_bwd_dkdv", "flash_bwd_dkdv_kernel"),
-                            ("flash_bwd_dq", "flash_bwd_dq_kernel")):
+                            ("flash_bwd_dkdv", "flash_bwd_dkdv_sm90_kernel"),
+                            ("flash_bwd_dq", "flash_bwd_dq_sm90_kernel")):
         assert sum(1 for n in names if kernel in n) == \
             eager_launches[counter]
-    assert not any("flash_fwd_kernel" in n for n in names)
+        assert A.BODY_LAUNCHES[counter]["sm90"] == 0   # no wrapper ran
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                   "flash_bwd_dq_kernel"):
+        assert not any(kernel in n for n in names)
     if model == "attention":
         assert eager_launches["flash_fwd"] == 4
     np.testing.assert_array_equal(captured.get_flat_params(),

@@ -112,12 +112,13 @@ VARIANTS = {
 }
 
 
-def build_all() -> dict:
-    """Each variant's library, compiled in parallel; raises on a failure."""
+def build_all(variants: dict = VARIANTS, out: Path = OUT) -> dict:
+    """Each variant's library (``variants``: name -> (file patched, patch)),
+    compiled in parallel under ``out``; raises on a failure."""
     nvcc = kernel_build.nvcc_path()
     procs = {}
-    for name, (target, patch) in VARIANTS.items():
-        src = OUT / name
+    for name, (target, patch) in variants.items():
+        src = out / name
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(kernel_build.CSRC, src)
         if patch is not None:
@@ -132,7 +133,7 @@ def build_all() -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        libs[name] = OUT / name / "lib.so"
+        libs[name] = out / name / "lib.so"
     return libs
 
 
@@ -150,13 +151,17 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_fwd_variants: no CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = card_line()
     libs = build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(SHAPE, generator=gen, device="cuda")
