@@ -245,11 +245,35 @@ Phases (each raises on failure; the exit code is non-zero on any):
    batch, then ``GLOVE_EPOCHS`` epochs of each (triples/s); (f) PV-DBOW as
    ``bench.py:783`` (1,200 documents of 500 words): pairs/s; PV-DM and
    ``infer_vector`` on 8 small documents, card against CPU.  K1-K4 launch
-   0 times on this path.
+   0 times on this path;
+16. DeepWalk, the language tools and the readers ([deepwalk] lines; no
+   hand kernel: the walk steps, gathers, einsums and ``index_add_``
+   through torch, XLA in the JAX package): (a) ``bench.py:717``'s
+   configuration (20,000 vertices, 200,000 random edges, walk length 40,
+   window 2, dim 128) through ``DeepWalk.Builder`` on the card, walks
+   generated there: a warm-up epoch, then ``DW_TRIALS`` timed
+   ``fit(g, walk_length=40, epochs=2)`` (pairs/s, median and spread),
+   ``bench_deepwalk``'s bytes bound with the mean Huffman code length read
+   from the code-mask table and pairs/s as a share of it, one profiled
+   epoch (device events a chunk, busy ms, idle share), peak memory, the
+   graph's build seconds on the host and the loss a pair; (b) a
+   two-community graph: the device walks and their pair grid from the
+   same draws bitwise equal on the card and the CPU, then one
+   device-walk and one host-walk epoch of each, tables within
+   ``EMB_REF_RTOL``, and two on the card under deterministic algorithms
+   bitwise equal; (c) ``tests/test_graph.py``'s two-clique graph on the
+   card: in-community similarity above cross-community; (d) the procedural
+   ``CifarDataSetIterator`` through ``fit(iterator)``'s epoch cache on a
+   small CNN (the u8 wire staged, 0 host-to-device copies in the
+   profiled second epoch, a finite score), the iris MLP fed from a CSV by
+   ``RecordReaderDataSetIterator`` card vs CPU (``DW_IRIS_RTOL``), and
+   ``Word2Vec`` with ``JapaneseTokenizerFactory()`` over the lattice
+   tests' sentences with the vocab of the same model on the CPU.  K1-K4
+   launch 0 times on this path.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
-feed-forward/convolutional, recurrent, harness, graph, fused, transfer and
-embeddings results, one
+feed-forward/convolutional, recurrent, harness, graph, fused, transfer,
+embeddings and deepwalk results, one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -466,6 +490,25 @@ EMB_WORDS, EMB_SENT_LEN, EMB_WINDOW, EMB_FITS = 2_000_000, 1000, 5, 3
 EMB_REF_RTOL = 2e-5
 GLOVE_VOCAB, GLOVE_TRIPLES, GLOVE_EPOCHS = 20000, 400_000, 2
 PV_DOCS, PV_DOC_LEN = 1200, 500
+# Phase 16.  DeepWalk at bench.py:717's configuration (bench_deepwalk):
+# 20,000 vertices, 200,000 random endpoint pairs from RandomState(0)
+# (self-pairs dropped), walk length 40, window 2, dim 128, seed 7, batch
+# 2,048 (the 2x-vertices clamp keeps it), walks on the device: one warm-up
+# epoch, then DW_TRIALS timed fits of DW_EPOCHS epochs (bench.py's
+# epochs_per_window and trials), one profiled epoch.  Card against CPU on
+# a two-community graph of DW_SMALL vertices, walk length DW_SMALL_WALK,
+# the same draws (host_walk_draws): walks and pair grid bitwise, tables
+# within EMB_REF_RTOL of max|CPU| (phase 15's argument: atomic index_add_
+# order, cuBLAS einsums), bitwise twice under deterministic algorithms.
+# The readers: the procedural CIFAR-10 (DW_CIFAR images, batch
+# DW_CIFAR_BATCH) through the epoch cache on a small CNN, 2 epochs, the
+# second profiled; the iris MLP from a CSV through
+# RecordReaderDataSetIterator, DW_IRIS_EPOCHS epochs, fp32 params card vs
+# CPU within DW_IRIS_RTOL of max|CPU| (f32 sums in another order).
+DW_VERTICES, DW_EDGES, DW_WALK, DW_WINDOW, DW_DIM = 20000, 200_000, 40, 2, 128
+DW_SEED, DW_BATCH, DW_EPOCHS, DW_TRIALS = 7, 2048, 2, 3
+DW_SMALL, DW_SMALL_WALK = 300, 20
+DW_CIFAR, DW_CIFAR_BATCH, DW_IRIS_EPOCHS, DW_IRIS_RTOL = 2560, 128, 5, 1e-5
 W2V_SENTENCES = [
     "king man royal crown", "queen woman royal crown",
     "king rules the kingdom", "queen rules the kingdom",
@@ -3417,7 +3460,7 @@ def phase_transfer(A, seed: int) -> dict:
 
 # ------------------------------------------------------------- phase 15
 def emb_rel(what: str, got: torch.Tensor, want: torch.Tensor,
-            rtol: float = EMB_REF_RTOL) -> float:
+            rtol: float = EMB_REF_RTOL, tag: str = "embeddings") -> float:
     """max|got - want| / max|want| of two tables (any devices); raises
     above ``rtol`` or on a non-finite value."""
     got, want = got.detach().float().cpu(), want.detach().float().cpu()
@@ -3426,28 +3469,33 @@ def emb_rel(what: str, got: torch.Tensor, want: torch.Tensor,
     scale = want.abs().max().item()
     err = (got - want).abs().max().item()
     rel = err / scale
-    log(f"[embeddings] {what}: max|diff| {err:.3e}, {rel:.3e} of "
+    log(f"[{tag}] {what}: max|diff| {err:.3e}, {rel:.3e} of "
         f"max|ref| {scale:.3e} (tol {rtol:g})")
     if not rel <= rtol:
         raise RuntimeError(f"{what}: {rel:.3e} of max|ref| > {rtol:g}")
     return rel
 
 
-class scatter_agg:
-    """``DL4J_TPU_SCATTER_AGG`` set to ``on`` inside the block."""
+class env_set:
+    """Environment variable ``name`` set to ``value`` inside the block."""
 
-    def __init__(self, on: bool):
-        self.on, self.prev = on, None
+    def __init__(self, name: str, value: str):
+        self.name, self.value, self.prev = name, value, None
 
     def __enter__(self):
-        self.prev = os.environ.get("DL4J_TPU_SCATTER_AGG")
-        os.environ["DL4J_TPU_SCATTER_AGG"] = "1" if self.on else "0"
+        self.prev = os.environ.get(self.name)
+        os.environ[self.name] = self.value
 
     def __exit__(self, *exc):
         if self.prev is None:
-            del os.environ["DL4J_TPU_SCATTER_AGG"]
+            del os.environ[self.name]
         else:
-            os.environ["DL4J_TPU_SCATTER_AGG"] = self.prev
+            os.environ[self.name] = self.prev
+
+
+def scatter_agg(on: bool) -> env_set:
+    """``DL4J_TPU_SCATTER_AGG`` set to ``on`` inside the block."""
+    return env_set("DL4J_TPU_SCATTER_AGG", "1" if on else "0")
 
 
 class deterministic:
@@ -3882,6 +3930,357 @@ def phase_embeddings(A) -> dict:
     return result
 
 
+# ------------------------------------------------------------- phase 16
+def dw_bench_graph():
+    """bench.py:728-734: DW_EDGES random endpoint pairs over DW_VERTICES
+    from RandomState(0), self-pairs dropped, undirected, weight 1."""
+    from deeplearning4j_tpu_torch.graph import Graph
+    rng = np.random.RandomState(0)
+    g = Graph(DW_VERTICES)
+    a = rng.randint(0, DW_VERTICES, DW_EDGES)
+    b = rng.randint(0, DW_VERTICES, DW_EDGES)
+    for i in range(DW_EDGES):
+        if a[i] != b[i]:
+            g.add_edge(int(a[i]), int(b[i]), 1.0, False)
+    g.csr()
+    return g
+
+
+def dw_full() -> dict:
+    """(a) bench_deepwalk's configuration on the card."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    t0 = time.perf_counter()
+    g = dw_bench_graph()
+    build_s = time.perf_counter() - t0
+    dw = (DeepWalk.Builder().vector_size(DW_DIM).window_size(DW_WINDOW)
+          .seed(DW_SEED).batch_size(DW_BATCH).build())
+    if dw.device.type != "cuda":
+        raise RuntimeError(f"DeepWalk defaults to {dw.device}")
+    t0 = time.perf_counter()
+    dw.initialize(g)
+    init_s = time.perf_counter() - t0
+    L = DW_WALK + 1
+    pairs = DW_VERTICES * (L - 2 * DW_WINDOW) * 2 * DW_WINDOW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dw.fit(g, walk_length=DW_WALK, epochs=1)       # warm-up
+    warm_s = time.perf_counter() - t0
+    first_loss = dw._cum_loss / pairs
+    stats = dict(dw._walk_stats)
+    if stats != {"route": "device", "batch": DW_BATCH, "pairs": pairs,
+                 "chunks": -(-pairs // DW_BATCH)}:
+        raise RuntimeError(f"the epoch ran as {stats}")
+    secs = []
+    for _ in range(DW_TRIALS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dw.fit(g, walk_length=DW_WALK, epochs=DW_EPOCHS)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    before = dw._cum_loss
+    wall_ms, events, by_name, busy_ms = profiled(
+        lambda: dw.fit(g, walk_length=DW_WALK, epochs=1))
+    last_loss = (dw._cum_loss - before) / pairs
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(secs))
+    rate = DW_EPOCHS * pairs / med
+    spread = (max(secs) - min(secs)) / med
+    # bench.py:751-755's hand bytes model of an epoch
+    avg_len = float(dw._cmask_dev.sum(dim=1).mean().item())
+    hand_bytes = (pairs * (2 * DW_DIM * 4 + 2 * avg_len * DW_DIM * 4 + 8)
+                  + DW_VERTICES * DW_WALK * 3 * 4)
+    bound_ms = hand_bytes / PEAK_BYTES * 1e3
+    bound_rate = pairs / (bound_ms / 1e3)
+    chunks = stats["chunks"]
+    s0 = dw.syn0
+    if not (torch.isfinite(s0).all() and torch.isfinite(dw.syn1).all()):
+        raise RuntimeError("DeepWalk's tables are not finite")
+    result = {
+        "vertices": DW_VERTICES, "edges": g.num_edges(),
+        "csr_entries": int(g.csr()[1].size), "pairs_per_epoch": pairs,
+        "chunks_per_epoch": chunks, "graph_build_s": build_s,
+        "initialize_s": init_s, "warmup_epoch_s": warm_s, "fit_s": secs,
+        "epochs_per_fit": DW_EPOCHS, "pairs_per_s": rate,
+        "spread": spread, "mean_code_length": avg_len,
+        "bytes_per_epoch": hand_bytes, "epoch_bound_ms": bound_ms,
+        "bound_by": "bytes", "bound_share": rate / bound_rate,
+        "profiled_epoch_ms": wall_ms, "device_events": events,
+        "device_events_per_chunk": events / chunks,
+        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+        "top5": top_kernels(by_name), "peak_mem_bytes": peak,
+        "loss_per_pair_first": first_loss, "loss_per_pair_last": last_loss}
+    log(f"[deepwalk] bench_deepwalk: {DW_VERTICES} vertices, "
+        f"{g.num_edges()} edges ({result['csr_entries']} CSR entries) built "
+        f"on the host in {build_s:.2f} s, initialize {init_s:.2f} s; "
+        f"{pairs} pairs an epoch in {chunks} chunks of {DW_BATCH}; warm-up "
+        f"epoch {warm_s:.2f} s; fits of {DW_EPOCHS} epochs {secs} s: "
+        f"{rate:.1f} pairs/s (median, spread {spread:.3f}); bytes bound "
+        f"{bound_ms:.3f} ms an epoch at mean code length {avg_len:.2f} "
+        f"({bound_rate:.1f} pairs/s; share {rate / bound_rate:.4f}); "
+        f"profiled epoch {wall_ms:.1f} ms, {events} device events "
+        f"({events / chunks:.1f} a chunk), busy {busy_ms:.1f} ms, idle "
+        f"{1.0 - busy_ms / wall_ms:.3f}; peak {peak / 2**30:.3f} GiB; loss "
+        f"a pair {first_loss:.4f} -> {last_loss:.4f}; top 5: " + "; ".join(
+            f"{d['name'][:60]} {d['ms']:.2f}" for d in result["top5"]))
+    if not (np.isfinite(last_loss) and last_loss < first_loss):
+        raise RuntimeError(f"DeepWalk's loss did not fall: {first_loss} -> "
+                           f"{last_loss}")
+    return result
+
+
+def dw_two_communities(size: int = DW_SMALL // 2, intra: int = 1500,
+                       cross: int = 20, seed: int = 0):
+    """Two random communities of ``size`` vertices joined by ``cross``
+    edges (tests/test_torch_kernels_gpu.py's graph)."""
+    from deeplearning4j_tpu_torch.graph import Graph
+    rng = np.random.RandomState(seed)
+    g = Graph(2 * size)
+    for c in (0, size):
+        a = rng.randint(0, size, intra) + c
+        b = rng.randint(0, size, intra) + c
+        for i, j in zip(a, b):
+            if i != j:
+                g.add_edge(int(i), int(j))
+    for i, j in zip(rng.randint(0, size, cross),
+                    rng.randint(size, 2 * size, cross)):
+        g.add_edge(int(i), int(j))
+    return g
+
+
+def dw_small_epoch(device, route: str) -> tuple:
+    """One epoch of the two-community graph on ``device`` by ``route``
+    (device or host walks) from the same tables and draws."""
+    from deeplearning4j_tpu_torch.graph.deepwalk import (DeepWalk,
+                                                         host_walk_draws)
+    g = dw_two_communities()
+    dw = DeepWalk(vector_size=32, window_size=2, learning_rate=0.05, seed=7,
+                  batch_size=512, device=device)
+    dw.initialize(g)
+    dw.draw_source = host_walk_draws(11)
+    with env_set("DL4J_TPU_DEVICE_WALKS", "1" if route == "device" else "0"):
+        dw.fit(g, walk_length=DW_SMALL_WALK, epochs=1)
+    if dw._walk_stats["route"] != route:
+        raise RuntimeError(f"the {route}-walk epoch ran {dw._walk_stats}")
+    return {"syn0": dw.syn0.cpu(), "syn1": dw.syn1.cpu()}, dw._cum_loss
+
+
+def dw_card_vs_cpu() -> dict:
+    """(b) walks and pair grid bitwise, then each route's epoch card vs
+    CPU and bitwise twice under deterministic algorithms."""
+    from deeplearning4j_tpu_torch.graph.deepwalk import (device_walks,
+                                                         host_walk_draws,
+                                                         walk_pair_grid)
+    g = dw_two_communities()
+    indptr, indices, _ = g.csr()
+    starts, u = host_walk_draws(11)(g.num_vertices(), DW_SMALL_WALK, 0)
+    grids = {}
+    for dev in ("cpu", "cuda"):
+        walks = device_walks(
+            torch.from_numpy(indptr.astype(np.int32)).to(dev),
+            torch.from_numpy(indices.astype(np.int32)).to(dev),
+            starts.to(dev), u.to(dev))
+        grids[dev] = [walks.cpu()] + [t.cpu() for t in
+                                       walk_pair_grid(walks, 2, 512)]
+    walks_equal = all(torch.equal(a, b)
+                      for a, b in zip(grids["cpu"], grids["cuda"]))
+    log(f"[deepwalk] {g.num_vertices()} vertices, {g.num_edges()} edges: "
+        f"walks {tuple(grids['cpu'][0].shape)} and pair grid "
+        f"{tuple(grids['cpu'][1].shape)} card vs CPU bitwise equal: "
+        f"{walks_equal}")
+    if not walks_equal:
+        raise RuntimeError("the device walks differ between card and CPU")
+    result = {"walks_bitwise": walks_equal}
+    for route in ("device", "host"):
+        card, card_loss = dw_small_epoch(None, route)
+        cpu, cpu_loss = dw_small_epoch("cpu", route)
+        rel = {n: emb_rel(f"{route}-walk epoch card vs CPU {n}", card[n],
+                          cpu[n], tag="deepwalk") for n in cpu}
+        rel["loss"] = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        with deterministic():
+            a, _ = dw_small_epoch(None, route)
+            b, _ = dw_small_epoch(None, route)
+        same = all(torch.equal(a[n], b[n]) for n in a)
+        log(f"[deepwalk] {route}-walk epoch: loss card {card_loss:.3f}, "
+            f"CPU {cpu_loss:.3f} (rel {rel['loss']:.2e}); two deterministic "
+            f"epochs on the card bitwise equal: {same}")
+        if not same or rel["loss"] > EMB_REF_RTOL:
+            raise RuntimeError(f"the {route}-walk epoch disagrees")
+        result[route] = {"rel": rel, "deterministic_bitwise": same}
+    return result
+
+
+def dw_learns() -> dict:
+    """(c) tests/test_graph.py's two cliques of 10 joined by one bridge,
+    the Builder of its test_fit_learns_communities, on the card."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+    g = Graph(20)
+    for start in (0, 10):
+        for i in range(start, start + 10):
+            for j in range(i + 1, start + 10):
+                g.add_edge(i, j)
+    g.add_edge(0, 10)
+    dw = (DeepWalk.Builder().vector_size(16).window_size(2)
+          .learning_rate(0.05).seed(12345).build())
+    dw.initialize(g)
+    dw.fit(g, walk_length=10, epochs=12)
+    inside = float(np.mean([dw.similarity(i, j) for i in (2, 3, 13, 14)
+                            for j in range(20) if j != i
+                            and (j < 10) == (i < 10)]))
+    across = float(np.mean([dw.similarity(i, j) for i in (2, 3, 13, 14)
+                            for j in range(20) if (j < 10) != (i < 10)]))
+    hits = sum(1 for probe in (2, 3, 13, 14)
+               for v in dw.vertices_nearest(probe, 5)
+               if (int(v) < 10) == (probe < 10))
+    log(f"[deepwalk] two cliques on {dw.syn0.device}: mean similarity "
+        f"in-community {inside:.4f}, cross {across:.4f}; {hits} of 20 "
+        f"nearest neighbours in-community")
+    if dw.syn0.device.type != "cuda" or not inside > across:
+        raise RuntimeError("DeepWalk did not separate the communities")
+    return {"in_community": inside, "cross_community": across,
+            "nearest_in_community": hits}
+
+
+def small_cnn(N):
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.layers.convolution import (
+        ConvolutionLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.layers.core import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (N.NeuralNetConfiguration.builder().seed(3).updater("adam")
+            .learning_rate(1e-3).weight_init("xavier").list()
+            .layer(ConvolutionLayer(n_out=16, kernel_size=(3, 3),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(DenseLayer(n_out=64, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(inputs.convolutional(32, 32, 3)).build())
+    return MultiLayerNetwork(conf).init()
+
+
+def dw_readers(N) -> dict:
+    """(d) the readers feed the card."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets.cifar import CifarDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.iris import iris_dataset
+    from deeplearning4j_tpu_torch.datasets.records import (
+        CSVRecordReader, RecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.nlp.lang import JapaneseTokenizerFactory
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with env_set("CIFAR_DIR", tmp):
+            t0 = time.perf_counter()
+            cifar = CifarDataSetIterator(DW_CIFAR_BATCH, DW_CIFAR)
+            gen_s = time.perf_counter() - t0
+        net = small_cnn(N)
+        clock = EpochClock(profiled=1)
+        net.set_listeners(clock)
+        net.fit(cifar, epochs=2)
+        device, busy_ms, htod = device_split(clock.prof)
+        score = net.score()
+        staged = staged_bytes("cache")
+        want = DW_CIFAR * 32 * 32 * 3 + DW_CIFAR * 10 * 4
+        wall_ms = clock.seconds[1] * 1e3
+        log(f"[deepwalk] CIFAR-10 (procedural, {DW_CIFAR} images in "
+            f"{gen_s:.2f} s) through the epoch cache on a small CNN: staged "
+            f"{staged:.0f} bytes (u8 wire + f32 labels: {want}); epochs "
+            f"{clock.seconds} s; epoch 2: {len(device)} device events, busy "
+            f"{busy_ms:.2f} of {wall_ms:.2f} ms, {htod} host-to-device "
+            f"copies; score {score:.4f}; {len(net._graphs)} captured step(s)")
+        if staged != want or htod or not np.isfinite(score) \
+                or not net._graphs:
+            raise RuntimeError("CIFAR-10 did not train from the epoch cache")
+        result["cifar"] = {"generate_s": gen_s, "epoch_s": clock.seconds,
+                           "staged_bytes": staged, "epoch2_htod": htod,
+                           "epoch2_idle_share": 1.0 - busy_ms / wall_ms,
+                           "score": score}
+        iris = iris_dataset()
+        path = os.path.join(tmp, "iris.csv")
+        with open(path, "w") as f:
+            f.write("sepal_l,sepal_w,petal_l,petal_w,class\n")
+            for x, y in zip(iris.features, iris.labels):
+                f.write(",".join(repr(float(v)) for v in x)
+                        + f",{int(np.argmax(y))}\n")
+        card = iris_mlp(N, "stochastic_gradient_descent", "cuda")
+        cpu = iris_mlp(N, "stochastic_gradient_descent", "cpu")
+        p0 = card.get_flat_params()
+        cpu.set_flat_params(p0)
+        for net in (card, cpu):
+            reader = CSVRecordReader(skip_num_lines=1).initialize(path)
+            net.fit(RecordReaderDataSetIterator(reader, 50, label_index=4,
+                                                num_possible_labels=3),
+                    epochs=DW_IRIS_EPOCHS)
+        got, want_p = card.get_flat_params(), cpu.get_flat_params()
+        rel = float(np.abs(got - want_p).max() / np.abs(want_p).max())
+        moved = float(np.abs(got - p0).max())
+        log(f"[deepwalk] iris MLP from a CSV through "
+            f"RecordReaderDataSetIterator, {DW_IRIS_EPOCHS} epochs: params "
+            f"card vs CPU rel={rel:.2e} (tol {DW_IRIS_RTOL:g}), moved "
+            f"{moved:.3e} from the init")
+        if not (rel <= DW_IRIS_RTOL and moved > 0):
+            raise RuntimeError("the iris MLP disagrees between card and CPU")
+        result["iris_csv"] = {"params_rel": rel, "moved": moved}
+    rng = np.random.RandomState(0)
+    animals, foods = ["犬", "猫", "馬"], ["寿司", "ラーメン", "パン"]
+    sentences = ["すもももももももものうち", "わたしはにほんごをべんきょうします",
+                 "ここではきものをぬいでください", "東京大学で日本語を勉強しています",
+                 "コンピュータを使って仕事をします", "今日は、いい天気です。"]
+    for _ in range(120):
+        group = animals if rng.rand() < 0.5 else foods
+        sentences.append("と".join(rng.choice(group, 4)) + "です")
+    card, cpu = (Word2Vec(tokenizer_factory=JapaneseTokenizerFactory(),
+                          layer_size=12, window_size=3, min_word_frequency=1,
+                          negative=5.0, use_hierarchic_softmax=False,
+                          batch_size=128, seed=5, learning_rate=0.05,
+                          device=dev) for dev in (None, "cpu"))
+    card.fit(sentences)
+    cpu.fit(sentences)
+    vocab = [w.word for w in card.vocab.vocab_words()]
+    same = vocab == [w.word for w in cpu.vocab.vocab_words()]
+    sims = (card.similarity("犬", "猫"), card.similarity("犬", "寿司"))
+    log(f"[deepwalk] Word2Vec with JapaneseTokenizerFactory on "
+        f"{card.device}: {len(vocab)} words, the same vocab as on the CPU: "
+        f"{same}; similarity of two animals {sims[0]:.4f}, of an animal and "
+        f"a food {sims[1]:.4f}")
+    if not (same and card.device.type == "cuda"
+            and torch.isfinite(card.lookup_table.syn0).all()):
+        raise RuntimeError("the Japanese Word2Vec differs from the CPU's")
+    result["japanese_word2vec"] = {"vocab": len(vocab), "same_vocab": same,
+                                   "similarities": sims}
+    return result
+
+
+def phase_deepwalk(A, N=None) -> dict:
+    """Phase 16: DeepWalk at bench_deepwalk's full width, the card against
+    the CPU, the readers and the language tools (the ``deepwalk`` path of
+    the kernels line: it launches none of K1-K4)."""
+    if N is None:
+        from deeplearning4j_tpu_torch.nn.conf import \
+            neural_net_configuration as N
+    torch.cuda.synchronize()
+    A.reset_launches()            # counts of the main path's run only
+    result, seconds = {}, {}
+    for name, part in (("full", dw_full), ("card_vs_cpu", dw_card_vs_cpu),
+                       ("learns", dw_learns),
+                       ("readers", lambda: dw_readers(N))):
+        t0 = time.perf_counter()
+        result[name] = part()
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+    result["seconds"] = seconds
+    log(f"[deepwalk] seconds by part {seconds}")
+    result["launches"] = dict(A.LAUNCHES)
+    log(f"[deepwalk] launches {result['launches']}")
+    if any(result["launches"].values()):
+        raise RuntimeError("the deepwalk path launched a flash kernel")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3928,6 +4327,8 @@ def main(argv=None) -> int:
     transfer = phase_transfer(A, args.seed)
     torch.cuda.empty_cache()
     embeddings = phase_embeddings(A)
+    torch.cuda.empty_cache()
+    deepwalk = phase_deepwalk(A, N)
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -3940,7 +4341,8 @@ def main(argv=None) -> int:
              "recurrent": recurrent["launches"],
              "harness": harness["launches"], "graph": graph["launches"],
              "fused": fused["launches"], "transfer": transfer["launches"],
-             "embeddings": embeddings["launches"]}
+             "embeddings": embeddings["launches"],
+             "deepwalk": deepwalk["launches"]}
     csrc = "deeplearning4j_tpu_torch/ops/csrc/"
     bodies = {"flash_fwd": csrc + "flash_fwd_sm90.cuh",
               "flash_fwd_partials": csrc + "flash_fwd_sm90.cuh",
@@ -3958,7 +4360,8 @@ def main(argv=None) -> int:
                       "ring": ring, "serving": serving,
                       "feedforward_cnn": ffcnn, "recurrent": recurrent,
                       "harness": harness, "graph": graph, "fused": fused,
-                      "transfer": transfer, "embeddings": embeddings}))
+                      "transfer": transfer, "embeddings": embeddings,
+                      "deepwalk": deepwalk}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ Equivalent of the reference's ``deeplearning4j-nlp-parent`` (SURVEY.md
 construction + Huffman coding, in-memory lookup tables, SequenceVectors /
 Word2Vec (skip-gram/CBOW as torch ops, on the host path or the
 device-resident corpus pipeline), ParagraphVectors, GloVe, TF-IDF /
-bag-of-words, and word-vector serde.  ``lang.py`` and ``lattice.py`` are
-not ported yet.
+bag-of-words, word-vector serde, and the language tools: the Japanese
+(dictionary lattice + Viterbi, ``lattice.py``), Korean and UIMA-style
+tokenizers of ``lang.py``.
 """
 
 from .tokenization import (CommonPreprocessor, DefaultTokenizerFactory,
@@ -28,7 +29,15 @@ from .vectorizer import BagOfWordsVectorizer, TfidfVectorizer
 from .iterators import (CnnSentenceDataSetIterator,
                         CollectionLabeledSentenceProvider,
                         LabeledSentenceProvider)
-from .jax_tables import load_jax_glove_tables, load_jax_tables
+from .jax_tables import (load_jax_glove_tables, load_jax_graph_tables,
+                         load_jax_tables)
+from .lang import (CAS, AnalysisEngine, Annotator, JapaneseTokenizerFactory,
+                   KoreanTokenizerFactory, SentenceAnnotator,
+                   TokenAnnotator, UimaSentenceIterator,
+                   UimaTokenizerFactory, japanese_tokenize, korean_tokenize)
+from .lattice import (DICTIONARY, LatticeTokenizer, Trie,
+                      load_connection_matrix, load_dictionary,
+                      save_dictionary)
 
 __all__ = [
     "BagOfWordsVectorizer", "BasicLineIterator",
@@ -41,5 +50,10 @@ __all__ = [
     "SentenceIterator", "SequenceVectors", "SimpleLabelAwareIterator",
     "TfidfVectorizer", "Tokenizer", "TokenizerFactory", "VocabCache",
     "VocabConstructor", "VocabWord", "Word2Vec", "build_huffman_tree",
-    "load_jax_glove_tables", "load_jax_tables",
+    "load_jax_glove_tables", "load_jax_graph_tables", "load_jax_tables",
+    "AnalysisEngine", "Annotator", "CAS", "JapaneseTokenizerFactory",
+    "KoreanTokenizerFactory", "SentenceAnnotator", "TokenAnnotator",
+    "UimaSentenceIterator", "UimaTokenizerFactory", "japanese_tokenize",
+    "korean_tokenize", "DICTIONARY", "LatticeTokenizer", "Trie",
+    "load_connection_matrix", "load_dictionary", "save_dictionary",
 ]

@@ -1,4 +1,5 @@
-"""Carry a JAX-package embedding model's tables into the port.
+"""Carry a JAX-package embedding model's tables into the port (Word2Vec,
+ParagraphVectors, GloVe and DeepWalk).
 
 The two packages build the same vocabulary (the same indices, Huffman
 codes and points) from the same corpus, so the tables cross as plain
@@ -65,3 +66,14 @@ def load_jax_glove_tables(glove, W, Wc, b=None, bc=None, hW=None, hWc=None,
         "b": t(b, (V,), "b"), "bc": t(bc, (V,), "bc"),
         "hW": t(hW, (V, D), "hW"), "hWc": t(hWc, (V, D), "hWc"),
         "hb": t(hb, (V,), "hb"), "hbc": t(hbc, (V,), "hbc")}
+
+
+def load_jax_graph_tables(model, syn0, syn1) -> None:
+    """Write a JAX-package ``DeepWalk``'s syn0 (vertices, D) and syn1
+    (inner nodes, D) onto the port ``DeepWalk``'s device.  ``model`` must
+    be initialized on the same graph (``initialize``), so both have the
+    same degree tree and table shapes."""
+    if model.syn0 is None:
+        raise ValueError("initialize the port model on the graph first")
+    model.syn0 = _table(syn0, model.syn0, None, model.device, "syn0")
+    model.syn1 = _table(syn1, model.syn1, None, model.device, "syn1")

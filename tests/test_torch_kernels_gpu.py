@@ -1287,3 +1287,98 @@ def test_device_corpus_pass_on_the_card_matches_the_cpu(cuda, case):
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
     for name in first:
         assert torch.equal(first[name], second[name]), name
+
+
+# DeepWalk: one device-walk epoch and one host-walk epoch of a small
+# two-community graph on the card against the same epochs on the CPU,
+# from the same tables and, for the device walks, the same draws
+# (graph.deepwalk.host_walk_draws).  The walks and the pair grid are
+# integer work and must be bitwise equal; the tables are held to
+# EMB_REF_RTOL of max|CPU| (atomic index_add_ order, cuBLAS einsums), and
+# two epochs on the card under deterministic algorithms are bitwise equal.
+def _two_communities(size=150, intra=1500, cross=20, seed=0):
+    import numpy as np
+    from deeplearning4j_tpu_torch.graph import Graph
+    rng = np.random.RandomState(seed)
+    g = Graph(2 * size)
+    for c in (0, size):
+        a = rng.randint(0, size, intra) + c
+        b = rng.randint(0, size, intra) + c
+        for i, j in zip(a, b):
+            if i != j:
+                g.add_edge(int(i), int(j))
+    for i, j in zip(rng.randint(0, size, cross),
+                    rng.randint(size, 2 * size, cross)):
+        g.add_edge(int(i), int(j))
+    return g
+
+
+def _dw_epoch(device, route, monkeypatch):
+    from deeplearning4j_tpu_torch.graph.deepwalk import (DeepWalk,
+                                                         host_walk_draws)
+    g = _two_communities()
+    dw = DeepWalk(vector_size=32, window_size=2, learning_rate=0.05, seed=7,
+                  batch_size=512, device=device)
+    dw.initialize(g)
+    dw.draw_source = host_walk_draws(11)
+    monkeypatch.setenv("DL4J_TPU_DEVICE_WALKS",
+                       "1" if route == "device" else "0")
+    dw.fit(g, walk_length=20, epochs=1)
+    assert dw._walk_stats["route"] == route
+    return {"syn0": dw.syn0.cpu(), "syn1": dw.syn1.cpu()}, dw._cum_loss
+
+
+def test_device_walks_on_the_card_equal_the_cpu(cuda):
+    import numpy as np
+    from deeplearning4j_tpu_torch.graph.deepwalk import (device_walks,
+                                                         host_walk_draws,
+                                                         walk_pair_grid)
+    g = _two_communities()
+    indptr, indices, _ = g.csr()
+    starts, u = host_walk_draws(11)(g.num_vertices(), 20, 0)
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("card", cuda)):
+        walks = device_walks(
+            torch.from_numpy(indptr.astype(np.int32)).to(dev),
+            torch.from_numpy(indices.astype(np.int32)).to(dev),
+            starts.to(dev), u.to(dev))
+        out[key] = [walks.cpu()] + [t.cpu() for t in
+                                    walk_pair_grid(walks, 2, 512)]
+    for a, b in zip(out["cpu"], out["card"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_deepwalk_epoch_on_the_card_matches_the_cpu(cuda, route,
+                                                    monkeypatch):
+    import os
+    card, card_loss = _dw_epoch("cuda", route, monkeypatch)
+    cpu, cpu_loss = _dw_epoch("cpu", route, monkeypatch)
+    for name, want in cpu.items():
+        err = (card[name] - want).abs().max().item()
+        assert err <= EMB_REF_RTOL * want.abs().max().item(), (name, err)
+    assert abs(card_loss - cpu_loss) <= EMB_REF_RTOL * abs(cpu_loss)
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        first, _ = _dw_epoch("cuda", route, monkeypatch)
+        second, _ = _dw_epoch("cuda", route, monkeypatch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    for name in first:
+        assert torch.equal(first[name], second[name]), name
+
+
+def test_deepwalk_defaults_to_the_card(cuda):
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    dw = DeepWalk(vector_size=8)
+    assert dw.device.type == "cuda"
+    dw.fit(_two_communities(size=20, intra=80, cross=2), walk_length=6)
+    assert dw.syn0.device.type == "cuda" and dw._walk_stats["route"] == \
+        "device"
+    assert DeepWalk.Builder().build().device.type == "cuda"

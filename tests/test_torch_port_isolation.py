@@ -44,6 +44,62 @@ def test_importing_every_port_module_loads_no_jax():
     assert bad == "[]"
 
 
+_BLOCKED_IMPORT = """
+import importlib, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        root = name.split(".")[0]
+        if root in ("jax", "jaxlib", "deeplearning4j_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+print("ok")
+"""
+
+#: the graph tier, the language tools and the readers (ROADMAP A10, A4)
+NEW_MODULES = [
+    "deeplearning4j_tpu_torch.graph", "deeplearning4j_tpu_torch.graph.api",
+    "deeplearning4j_tpu_torch.graph.graph",
+    "deeplearning4j_tpu_torch.graph.iterators",
+    "deeplearning4j_tpu_torch.graph.deepwalk",
+    "deeplearning4j_tpu_torch.nlp.lang", "deeplearning4j_tpu_torch.nlp.lattice",
+    "deeplearning4j_tpu_torch.nlp.jax_tables",
+    "deeplearning4j_tpu_torch.datasets.records",
+    "deeplearning4j_tpu_torch.datasets.cifar",
+    "deeplearning4j_tpu_torch.datasets.lfw",
+    "deeplearning4j_tpu_torch.datasets.curves",
+]
+
+
+def test_new_modules_import_with_jax_blocked():
+    """The graph tier, ``lang``/``lattice`` and the readers import, and a
+    DeepWalk epoch, a Japanese tokenizer and a CIFAR batch run, with every
+    import of ``jax`` or the JAX package refused."""
+    run = _BLOCKED_IMPORT + """
+from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+from deeplearning4j_tpu_torch.nlp.lang import JapaneseTokenizerFactory
+from deeplearning4j_tpu_torch.datasets.cifar import CifarDataSetIterator
+g = Graph(6)
+for i in range(6):
+    g.add_edge(i, (i + 1) % 6)
+DeepWalk(vector_size=4, device="cpu").fit(g, walk_length=5)
+assert JapaneseTokenizerFactory().create("犬と猫").get_tokens() == [
+    "犬", "と", "猫"]
+assert next(iter(CifarDataSetIterator(2, 4))).features.shape == (2, 32, 32, 3)
+"""
+    env = _clean_env()
+    env["CIFAR_DIR"] = env["HOME"] = str(ROOT / "tests" / "no_such_dir")
+    out = subprocess.run([sys.executable, "-c", run] + NEW_MODULES,
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -105,6 +161,10 @@ def test_default_device_raises_without_a_card():
         assert cls(device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         Word2Vec.Builder().layer_size(4).build()
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeepWalk()
+    assert DeepWalk.Builder().device("cpu").build().device.type == "cpu"
     w2v = Word2Vec.Builder().layer_size(4).min_word_frequency(1) \
         .device("cpu").build()
     w2v.fit(["a b c a b", "c a b c"])
