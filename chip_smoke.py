@@ -269,11 +269,47 @@ Phases (each raises on failure; the exit code is non-zero on any):
    ``RecordReaderDataSetIterator`` card vs CPU (``DW_IRIS_RTOL``), and
    ``Word2Vec`` with ``JapaneseTokenizerFactory()`` over the lattice
    tests' sentences with the vocab of the same model on the CPU.  K1-K4
-   launch 0 times on this path.
+   launch 0 times on this path;
+17. the pretraining families ([pretrain] lines; no hand kernel: cuBLAS
+   products and elementwise torch ops, plain XLA products in the JAX
+   package): (a) the DL4J 0.7 examples' ``DeepAutoEncoderExample`` at full
+   width (nine RBMs 784-1000-500-250-100-30-100-250-500-1000 with
+   kl_divergence, an OutputLayer 1000 -> 784, seed 123, line gradient
+   descent, ``pretrain(True).backprop(True)``, batch 1000 of the
+   procedural MNIST binarised at 0.5) under the card's ``mixed_bf16``:
+   ``fit`` over ``DAE_BATCHES`` batches pretrains each RBM (ms a step,
+   median and spread; each RBM's mean-field reconstruction error on a
+   held-out batch must fall) and then fine-tunes one line-search iteration
+   a batch (ms an iteration, host reads; the held-out score must fall; the
+   first fine-tune step must land nearer the pretrained weights than the
+   init, the params equal to their fp32 masters cast to bf16), one
+   profiled pretrain step and fine-tune iteration (idle share), peak
+   memory; (b) its ``VariationalAutoEncoderExample`` at full width (784 ->
+   2, encoder and decoder (256, 256), leakyrelu, identity p(z|x),
+   Bernoulli(sigmoid), rmsprop 1e-3, l2 1e-4, xavier, seed 12345, batch
+   128, pretrain only): ``VAE_EPOCHS`` x ``VAE_BATCHES`` steps (ms a step;
+   the ELBO loss and the held-out loss must fall and the held-out
+   ``reconstruction_log_probability`` rise), one fp32 step's score and
+   gradients card vs CPU on the same params and draws within
+   ``REF_RTOL``; (c) LeNet-5 (BASELINE config #1, batch 256) with a
+   ``CenterLossOutputLayer`` at the JAX defaults: one fp32 step's cL
+   against the reference delta per batch and on the captured step, then
+   ``CL_EPOCHS`` epochs per batch and from the epoch cache under
+   ``mixed_bf16``, equal within ``GOLDEN_BF16_ATOL`` (ms a step of each);
+   (d) an AutoEncoder on ``CurvesDataSetIterator``, a gaussian-visible
+   RBM, a VAE with a composite distribution and a ComputationGraph with a
+   pretrained vertex, card vs CPU in fp32 on one draw stream
+   (``host_pretrain_draws``) within ``REF_RTOL``;
+   ``check_pretrain_gradients`` of the card-trained VAE copied to the CPU
+   in f64; a zip of every new layer written on the card and restored on
+   the CPU (bitwise); the masters rule under sgd and adam; (e) the
+   kill/resume harness (``resilience/chaos.py``) with its children on the
+   card: the victim's return code -9, 0 score mismatches, the same final
+   params.  K1-K4 launch 0 times on this path.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
 feed-forward/convolutional, recurrent, harness, graph, fused, transfer,
-embeddings and deepwalk results, one
+embeddings and deepwalk results, a ``{"pretrain": ...}`` JSON line, one
 ``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -509,6 +545,26 @@ DW_VERTICES, DW_EDGES, DW_WALK, DW_WINDOW, DW_DIM = 20000, 200_000, 40, 2, 128
 DW_SEED, DW_BATCH, DW_EPOCHS, DW_TRIALS = 7, 2048, 2, 3
 DW_SMALL, DW_SMALL_WALK = 300, 20
 DW_CIFAR, DW_CIFAR_BATCH, DW_IRIS_EPOCHS, DW_IRIS_RTOL = 2560, 128, 5, 1e-5
+# Phase 17.  The DL4J 0.7 examples' DeepAutoEncoderExample at full width
+# (nine RBMs 784-1000-500-250-100-30-100-250-500-1000 with kl_divergence,
+# an OutputLayer 1000 -> 784 with mse and sigmoid, seed 123, line gradient
+# descent, pretrain and backprop, batch 1000 of MNIST binarised at 0.5),
+# cut to DAE_BATCHES batches: fit pretrains each RBM one step a batch, then
+# fine-tunes one line-search iteration a batch; a further held-out batch
+# scores the reconstructions.  At lr 0.1 a deep RBM's mean-field
+# reconstruction error first rises for a few CD-1 steps (RBM 7, 250 ->
+# 500: 0.028 -> 0.060 after 5 batches in the first call on the card)
+# before it falls, so the cut keeps 12 batches.  Its VariationalAutoEncoderExample (784 -> 2,
+# encoder and decoder (256, 256), batch 128, pretrain only) over
+# VAE_EPOCHS epochs of VAE_BATCHES batches; reconstruction_log_probability
+# over VAE_LOGP_SAMPLES samples.  Center loss on LeNet-5 (BASELINE config
+# #1, batch 256) over CL_EPOCHS epochs of CL_BATCHES batches, per batch
+# and from the epoch cache.  Card vs CPU in fp32 at REF_RTOL (f32 sums in
+# another order over the same draws).
+DAE_WIDTHS = (784, 1000, 500, 250, 100, 30, 100, 250, 500, 1000)
+DAE_BATCH, DAE_BATCHES = 1000, 12
+VAE_BATCH, VAE_BATCHES, VAE_EPOCHS, VAE_LOGP_SAMPLES = 128, 40, 8, 16
+CL_BATCH, CL_BATCHES, CL_EPOCHS = 256, 8, 3
 W2V_SENTENCES = [
     "king man royal crown", "queen woman royal crown",
     "king rules the kingdom", "queen rules the kingdom",
@@ -4281,6 +4337,649 @@ def phase_deepwalk(A, N=None) -> dict:
     return result
 
 
+# ------------------------------------------------------------ phase 17
+def pre_mnist() -> dict:
+    """The procedural MNIST images of phase 17, generated once: the deep
+    autoencoder's batches and held-out batch and the VAE's, binarised at
+    0.5, and LeNet's first CL_BATCHES batches as the iterator gives them
+    (the u8 wire attached)."""
+    from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+    t0 = time.perf_counter()
+    n = (DAE_BATCHES + 1) * DAE_BATCH
+    it = MnistDataSetIterator(DAE_BATCH, n, shuffle=False)
+    x = (it._ds.features >= 0.5).astype(np.float32)
+    lenet = MnistDataSetIterator(CL_BATCH, CL_BATCH * CL_BATCHES,
+                                 shuffle=False)
+    seconds = time.perf_counter() - t0
+    log(f"[pretrain] {n} + {CL_BATCH * CL_BATCHES} procedural MNIST images "
+        f"in {seconds:.2f} s")
+    return {"binary": x, "lenet": lenet, "seconds": seconds}
+
+
+class StepClock:
+    """A listener: the score each iteration left (a host read) and its
+    synchronized wall ms, from the end of the one before (or ``start()``)
+    to its own end; on the iterations of ``at`` a callback runs after the
+    clock stops and before it starts again, so its time counts nowhere."""
+
+    def __init__(self, at=None):
+        self.ms, self.scores, self.at = [], [], dict(at or {})
+        self._t0 = None
+
+    def start(self) -> None:
+        torch.cuda.synchronize()
+        self._t0 = time.perf_counter()
+
+    def iteration_done(self, model, iteration):
+        self.scores.append(float(model._score))
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - self._t0) * 1e3)
+        if iteration in self.at:
+            self.at[iteration](model)
+        self.start()
+
+
+def step_ms(clock: StepClock, first: int, count: int) -> List[float]:
+    """ms of the iterations ``first``..``first + count - 1`` (1-based)."""
+    return clock.ms[first - 1:first - 1 + count]
+
+
+def spread(ms: List[float]) -> dict:
+    return {"median": float(np.median(ms)), "min": float(np.min(ms)),
+            "max": float(np.max(ms)), "n": len(ms)}
+
+
+def deep_autoencoder(N):
+    """The DL4J 0.7 examples' DeepAutoEncoderExample: nine RBMs
+    784-1000-500-250-100-30-100-250-500-1000 (kl_divergence), an
+    OutputLayer 1000 -> 784 (mse, sigmoid), seed 123, line gradient
+    descent, pretrain and backprop."""
+    from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.pretrain import RBM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    b = (N.NeuralNetConfiguration.builder().seed(123).iterations(1)
+         .optimization_algo("line_gradient_descent").list())
+    for n_in, n_out in zip(DAE_WIDTHS[:-1], DAE_WIDTHS[1:]):
+        b.layer(RBM(n_in=n_in, n_out=n_out, loss="kl_divergence"))
+    b.layer(OutputLayer(n_in=DAE_WIDTHS[-1], n_out=DAE_WIDTHS[0],
+                        loss="mse", activation="sigmoid"))
+    return MultiLayerNetwork(b.pretrain(True).backprop(True).build()).init()
+
+
+def rbm_recon_mse(net, params, i: int, x: torch.Tensor) -> float:
+    """Mean squared error of RBM ``i``'s mean-field reconstruction
+    ``prop_down(prop_up(v))`` of its input v, the layers below and layer
+    ``i`` at ``params``; in fp32."""
+    with torch.no_grad():
+        v, _, _ = net._forward(params, net.net_state, x, train=False,
+                               rng=None, to_layer=i - 1)
+        v = v.float()
+        p = {k: t.float() for k, t in params[i].items()}
+        layer = net.layers[i]
+        return float(((layer.prop_down(p, layer.prop_up(p, v)) - v) ** 2)
+                     .mean())
+
+
+def pre_deep_ae(N, data) -> dict:
+    """(a) the deep autoencoder at full width under mixed_bf16: ``fit``
+    pretrains each RBM over DAE_BATCHES batches of 1000, then fine-tunes
+    one line-search iteration a batch; then one profiled pretrain step and
+    one profiled fine-tune iteration."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn import updaters
+    x = data["binary"]
+    batches = [DataSet(x[i:i + DAE_BATCH], x[i:i + DAE_BATCH])
+               for i in range(0, DAE_BATCHES * DAE_BATCH, DAE_BATCH)]
+    held = DataSet(x[-DAE_BATCH:], x[-DAE_BATCH:])
+    torch.cuda.reset_peak_memory_stats()
+    net = deep_autoencoder(N)
+    if net._pol().name != "mixed_bf16":
+        raise RuntimeError("the deep autoencoder is not on mixed_bf16")
+    n_rbm = len(DAE_WIDTHS) - 1
+    pre_steps = n_rbm * DAE_BATCHES
+    init = [{k: v.clone() for k, v in t.items()} for t in net.params]
+    snap = {}
+
+    def at_pretrained(model):
+        snap["pretrained"] = [{k: v.clone() for k, v in t.items()}
+                              for t in model.params]
+        snap["masters_exact"] = all(
+            torch.equal(model.params[i][k],
+                        s[updaters.MASTER_KEY][k].to(torch.bfloat16))
+            for i, s in enumerate(model.updater_state)
+            for k in s[updaters.MASTER_KEY])
+        snap["held_score"] = model.score(held)
+
+    def at_first_finetune(model):
+        snap["after_first"] = [{k: v.clone() for k, v in t.items()}
+                               for t in model.params]
+
+    clock = StepClock({pre_steps: at_pretrained,
+                       pre_steps + 1: at_first_finetune})
+    net.set_listeners(clock)
+    t0 = time.perf_counter()
+    clock.start()
+    net.fit(batches)
+    fit_s = time.perf_counter() - t0
+    held_after = net.score(held)
+    xh = net._tensor(held.features)
+    layers = []
+    for i in range(n_rbm):
+        ms = step_ms(clock, i * DAE_BATCHES + 2, DAE_BATCHES - 1)
+        before = rbm_recon_mse(net, snap["pretrained"][:i] + [init[i]], i,
+                               xh)
+        after = rbm_recon_mse(net, snap["pretrained"], i, xh)
+        scores = clock.scores[i * DAE_BATCHES:(i + 1) * DAE_BATCHES]
+        layers.append({"n_in": DAE_WIDTHS[i], "n_out": DAE_WIDTHS[i + 1],
+                       "step_ms": spread(ms), "recon_mse_before": before,
+                       "recon_mse_after": after, "scores": scores})
+        log(f"[pretrain] RBM {i} ({DAE_WIDTHS[i]} -> {DAE_WIDTHS[i + 1]}): "
+            f"{spread(ms)['median']:.3f} ms a pretrain step (median of "
+            f"steps 2-{DAE_BATCHES}, min {min(ms):.3f}, max {max(ms):.3f}); "
+            f"held-out reconstruction mse {before:.5f} -> {after:.5f}; "
+            f"scores {scores[0]:.4f} ... {scores[-1]:.4f}")
+        if not after < before:
+            raise RuntimeError(f"pretraining RBM {i} did not lower its "
+                               "reconstruction error")
+    tune_ms = step_ms(clock, pre_steps + 2, DAE_BATCHES - 1)
+    tune_scores = clock.scores[pre_steps:]
+
+    def dist(a, b):
+        return float(torch.sqrt(sum(((a[i][k].float() - b[i][k].float()) ** 2)
+                                    .sum() for i in range(len(a))
+                                    for k in a[i])))
+    from_pre = dist(snap["after_first"], snap["pretrained"])
+    from_init = dist(snap["after_first"], init)
+    solver = net._solver
+    log(f"[pretrain] deep autoencoder fine-tune: {spread(tune_ms)['median']:.3f} "
+        f"ms a line-search iteration (median of {len(tune_ms)}), "
+        f"{solver.host_syncs / solver.iterations:.2f} host reads an "
+        f"iteration; held-out score {snap['held_score']:.6f} -> "
+        f"{held_after:.6f}; the first fine-tune step lands {from_pre:.4f} "
+        f"from the pretrained weights, {from_init:.4f} from the init; "
+        f"params == bf16(masters) after pretraining: "
+        f"{snap['masters_exact']}")
+    if not (held_after < snap["held_score"] and from_pre < from_init
+            and snap["masters_exact"]):
+        raise RuntimeError("the fine-tune did not lower the score or did "
+                           "not start from the pretrained weights")
+    peak = torch.cuda.max_memory_allocated()
+    net.set_listeners()
+    prof = {}
+    for what, fn in (("pretrain_step", lambda: net.pretrain_layer(
+                          0, batches[0])),
+                     ("finetune_iteration", lambda: net.fit(batches[0]))):
+        wall_ms, n_events, by_name, busy_ms = profiled(fn)
+        prof[what] = {"wall_ms": wall_ms, "device_events": n_events,
+                      "device_busy_ms": busy_ms,
+                      "idle_share": 1.0 - busy_ms / wall_ms,
+                      "top5": top_kernels(by_name)}
+        log(f"[pretrain] one profiled {what.replace('_', ' ')}: host "
+            f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+            f"{1.0 - busy_ms / wall_ms:.3f}, {n_events} device events")
+    return {"widths": list(DAE_WIDTHS), "batch": DAE_BATCH,
+            "batches": DAE_BATCHES, "policy": net._pol().name,
+            "fit_s": fit_s, "layers": layers,
+            "finetune_ms": spread(tune_ms), "finetune_scores": tune_scores,
+            "held_score_pretrained": snap["held_score"],
+            "held_score_finetuned": held_after,
+            "first_step_from_pretrained": from_pre,
+            "first_step_from_init": from_init,
+            "masters_exact": snap["masters_exact"],
+            "host_syncs_per_iteration": solver.host_syncs
+            / solver.iterations,
+            "peak_memory_bytes": peak, "profiled": prof}
+
+
+def mnist_vae(N, device="cuda", compute_dtype=None):
+    """The DL4J 0.7 examples' VariationalAutoEncoderExample: 784 -> 2,
+    encoder and decoder (256, 256), leakyrelu, identity p(z|x), a
+    Bernoulli(sigmoid) reconstruction, rmsprop 1e-3, l2 1e-4, xavier,
+    seed 12345, pretrain only."""
+    from deeplearning4j_tpu_torch.nn.layers.variational import (
+        BernoulliReconstructionDistribution, VariationalAutoencoder)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    b = (N.NeuralNetConfiguration.builder().seed(12345).updater("rmsprop")
+         .learning_rate(1e-3).l2(1e-4).weight_init("xavier"))
+    if compute_dtype:
+        b = b.compute_dtype(compute_dtype)
+    conf = (b.list()
+            .layer(VariationalAutoencoder(
+                n_in=784, n_out=2, encoder_layer_sizes=(256, 256),
+                decoder_layer_sizes=(256, 256), activation="leakyrelu",
+                pzx_activation="identity",
+                reconstruction_distribution=(
+                    BernoulliReconstructionDistribution(
+                        activation="sigmoid"))))
+            .pretrain(True).backprop(False).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def held_vae(net, x: torch.Tensor, gen_seed: int) -> tuple:
+    """(the pretrain loss on ``x`` with fixed draws, the mean of
+    ``reconstruction_log_probability`` over VAE_LOGP_SAMPLES samples)."""
+    from deeplearning4j_tpu_torch.nn.layers.pretrain import make_draws
+    layer = net.layers[0]
+    p = {k: v.float() for k, v in net.params[0].items()}
+    gen = torch.Generator(device=x.device).manual_seed(gen_seed)
+    with torch.no_grad():
+        draws = make_draws(layer.pretrain_draw_specs(x.shape[0]), gen,
+                           x.device, torch.float32)
+        loss = float(layer.pretrain_loss(p, x, draws))
+        gen.manual_seed(gen_seed + 1)
+        logp = layer.reconstruction_log_probability(p, x, VAE_LOGP_SAMPLES,
+                                                    gen=gen)
+    return loss, float(logp.mean()), bool(torch.isfinite(logp).all())
+
+
+def pre_vae(N, data) -> dict:
+    """(b) the MNIST VAE at full width: VAE_EPOCHS epochs of VAE_BATCHES
+    batches of 128 (the first through ``fit``, which pretrains, the rest
+    through ``pretrain_layer``), then card vs CPU on one fp32 step's score
+    and gradients."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.layers.pretrain import \
+        host_pretrain_draws
+    x = data["binary"]
+    batches = [DataSet(x[i:i + VAE_BATCH], x[i:i + VAE_BATCH])
+               for i in range(0, VAE_BATCHES * VAE_BATCH, VAE_BATCH)]
+    xh = torch.as_tensor(x[-VAE_BATCH:], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    net = mnist_vae(N)
+    loss0, logp0, _ = held_vae(net, xh, 7)
+    clock = StepClock()
+    net.set_listeners(clock)
+    clock.start()
+    net.fit(batches)
+    net.pretrain_layer(0, batches, epochs=VAE_EPOCHS - 1)
+    steps = VAE_EPOCHS * VAE_BATCHES
+    ms = step_ms(clock, 2, steps - 1)
+    loss1, logp1, finite = held_vae(net, xh, 7)
+    first = float(np.mean(clock.scores[:20]))
+    last = float(np.mean(clock.scores[-20:]))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[pretrain] MNIST VAE ({steps} pretrain steps, batch {VAE_BATCH}, "
+        f"{net._pol().name}): {spread(ms)['median']:.3f} ms a step (median, "
+        f"min {min(ms):.3f}, max {max(ms):.3f}); ELBO loss, mean of the "
+        f"first and last 20 steps {first:.3f} -> {last:.3f}; held-out "
+        f"loss {loss0:.3f} -> {loss1:.3f}; held-out "
+        f"reconstruction_log_probability ({VAE_LOGP_SAMPLES} samples) "
+        f"{logp0:.3f} -> {logp1:.3f}; peak {peak / 2**20:.1f} MiB")
+    if not (last < first and loss1 < loss0 and logp1 > logp0 and finite):
+        raise RuntimeError("the MNIST VAE did not learn")
+    # card vs CPU, fp32: one step's score and gradients on the same
+    # params and draws (rmsprop's first step divides each gradient by its
+    # own size, so a gradient near 0 would turn the f32 sums' order into
+    # a step of up to 4.5 lr; the update rules are held by the CPU tests)
+    card, cpu = (mnist_vae(N, device, "float32") for device in ("cuda",
+                                                                "cpu"))
+    cpu.set_flat_params(card.get_flat_params())
+    got = {}
+    for net_ in (card, cpu):
+        net_.pretrain_draw_source = host_pretrain_draws(11)
+        with torch.no_grad():
+            xin = net_._pretrain_input(0, net_._pretrain_features(
+                batches[0]))
+        draws = net_._pretrain_draws(net_.layers[0], xin, 0)
+        got[net_.device.type] = net_.layers[0].pretrain_grads(
+            net_.params[0], xin, draws)
+    (s_card, g_card), (s_cpu, g_cpu) = got["cuda"], got["cpu"]
+    rel = max(float((g_card[k].cpu() - g_cpu[k]).abs().max()
+                    / g_cpu[k].abs().max()) for k in g_cpu)
+    s_rel = abs(float(s_card) - float(s_cpu)) / abs(float(s_cpu))
+    log(f"[pretrain] MNIST VAE one fp32 step card vs CPU on the same params "
+        f"and draws: gradients rel={rel:.2e} (worst param, of its "
+        f"max|CPU|), score rel={s_rel:.2e} (tol {REF_RTOL:g})")
+    if not (rel <= REF_RTOL and s_rel <= REF_RTOL):
+        raise RuntimeError("the VAE step disagrees between card and CPU")
+    return {"steps": steps, "batch": VAE_BATCH, "step_ms": spread(ms),
+            "score_first20": first, "score_last20": last,
+            "held_loss": [loss0, loss1], "held_logp": [logp0, logp1],
+            "peak_memory_bytes": peak,
+            "card_vs_cpu": {"grads_rel": rel, "score_rel": s_rel}}
+
+
+def center_lenet(N, compute_dtype=None):
+    """LeNet-5 (BASELINE config #1, ``models/lenet.py``) with its output
+    layer a CenterLossOutputLayer at the JAX defaults (alpha 0.05, lambda
+    2e-4)."""
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.layers.convolution import (
+        ConvolutionLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
+    from deeplearning4j_tpu_torch.nn.layers.training import \
+        CenterLossOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    b = (N.NeuralNetConfiguration.builder().seed(123).updater("adam")
+         .learning_rate(1e-3).weight_init("xavier").activation("identity"))
+    if compute_dtype:
+        b = b.compute_dtype(compute_dtype)
+    conf = (b.list()
+            .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5),
+                                    stride=(1, 1), activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5),
+                                    stride=(1, 1), activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(CenterLossOutputLayer(n_out=10, activation="softmax",
+                                         loss="mcxent"))
+            .set_input_type(inputs.convolutional_flat(28, 28, 1)).build())
+    return MultiLayerNetwork(conf).init()
+
+
+def center_delta(net, ds) -> tuple:
+    """(cL before, the reference cL after one step on ``ds``): alpha *
+    sum over a class's examples of (center - feature) / (count + 1)
+    subtracted, the features the Dense layer's output."""
+    layer = net.layers[-1]
+    with torch.no_grad():
+        feats = net.feed_forward(ds.features)[-2].double()
+        lab = torch.as_tensor(ds.labels, device="cuda").double()
+        c = net.params[-1]["cL"].double()
+        counts = lab.sum(0)
+        pull = lab.T @ feats - counts[:, None] * c
+        want = c + layer.alpha * pull / (counts[:, None] + 1.0)
+    return c, want
+
+
+def pre_center_loss(N, data) -> dict:
+    """(c) center loss on LeNet-5 at batch 256: the cL step against the
+    reference delta in fp32 per batch and on the captured step; then
+    CL_EPOCHS epochs under mixed_bf16 per batch and from the epoch cache,
+    the same params within GOLDEN_BF16_ATOL, ms a step of each."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.dataset import attach_wire, wire_of
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    src = data["lenet"]._ds
+    u8, fmt = wire_of(src)
+    one = attach_wire(DataSet(src.features[:CL_BATCH],
+                              src.labels[:CL_BATCH]), u8[:CL_BATCH], fmt)
+    out = {"delta": {}}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        for path in ("batch", "cache"):
+            net = center_lenet(N, "float32")
+            c0, want = center_delta(net, one)
+            net.fit(ListDataSetIterator(one, CL_BATCH), ingest=path)
+            if path == "cache" and not net._graphs:
+                raise RuntimeError("the center-loss cache path did not "
+                                   "capture")
+            got = net.params[-1]["cL"].double()
+            err = float((got - want).abs().max() / want.abs().max())
+            moved = float((want - c0).abs().max())
+            log(f"[pretrain] center loss, one fp32 step ({path}): cL "
+                f"against the reference delta rel={err:.2e} (tol "
+                f"{REF_RTOL:g}), the delta's max {moved:.4e}")
+            if not (err <= REF_RTOL and moved > 0):
+                raise RuntimeError(f"the center-loss cL step ({path}) is "
+                                   "not the reference delta")
+            out["delta"][path] = err
+        it = data["lenet"]
+        runs = {}
+        for path in ("batch", "cache"):
+            net = center_lenet(N)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(ListDataSetIterator(it._ds, CL_BATCH), ingest=path)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            net.fit(ListDataSetIterator(it._ds, CL_BATCH),
+                    epochs=CL_EPOCHS - 1, ingest=path)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (
+                (CL_EPOCHS - 1) * CL_BATCHES)
+            runs[path] = (net, ms, warm_s)
+        err = same_state("center-loss LeNet mixed_bf16, cache vs per batch",
+                         flat_state(runs["cache"][0]),
+                         flat_state(runs["batch"][0]), GOLDEN_BF16_ATOL)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    score = runs["cache"][0].score()
+    log(f"[pretrain] center-loss LeNet-5 at batch {CL_BATCH} "
+        f"({runs['batch'][0]._pol().name}): {runs['batch'][1]:.3f} ms a "
+        f"step per batch, {runs['cache'][1]:.3f} ms from the epoch cache "
+        f"(epochs 2-{CL_EPOCHS} of {CL_BATCHES} steps); score {score:.4f}")
+    if not np.isfinite(score):
+        raise RuntimeError("the center-loss LeNet score is not finite")
+    out.update({"batch": CL_BATCH, "steps_per_epoch": CL_BATCHES,
+                "epochs": CL_EPOCHS, "batch_step_ms": runs["batch"][1],
+                "cache_step_ms": runs["cache"][1],
+                "first_epoch_s": {p: r[2] for p, r in runs.items()},
+                "cache_vs_batch_max_diff": err, "score": score})
+    return out
+
+
+def card_cpu_pair(build, seed: int = 21):
+    """``build(device)`` on the card and on the CPU, the CPU net on the
+    card's weights, both drawing from one CPU stream."""
+    from deeplearning4j_tpu_torch.nn.layers.pretrain import \
+        host_pretrain_draws
+    card, cpu = build("cuda"), build("cpu")
+    cpu.set_flat_params(card.get_flat_params())
+    for net in (card, cpu):
+        net.pretrain_draw_source = host_pretrain_draws(seed)
+    return card, cpu
+
+
+def hold_pair(what: str, card, cpu) -> float:
+    got, want = card.get_flat_params(), cpu.get_flat_params()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"[pretrain] {what}: card vs CPU params rel={rel:.2e} (tol "
+        f"{REF_RTOL:g}), iteration {card.iteration}")
+    if not (rel <= REF_RTOL and card.iteration == cpu.iteration > 0):
+        raise RuntimeError(f"{what}: the card disagrees with the CPU")
+    return rel
+
+
+def pre_small(N) -> dict:
+    """(d) small checks, card against CPU in fp32 at REF_RTOL, the
+    gradient check of a card-trained VAE, a zip from the card restored on
+    the CPU, and the mixed_bf16 masters rule on the card."""
+    import io
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.curves import \
+        CurvesDataSetIterator
+    from deeplearning4j_tpu_torch.gradientcheck import \
+        check_pretrain_gradients
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.pretrain import AutoEncoder, RBM
+    from deeplearning4j_tpu_torch.nn.layers.training import \
+        CenterLossOutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.variational import (
+        BernoulliReconstructionDistribution,
+        CompositeReconstructionDistribution,
+        GaussianReconstructionDistribution, VariationalAutoencoder)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.utils import model_serializer as ms
+    out = {}
+
+    def mln(layers, dtype="float32", updater="sgd", lr=0.1,
+            pretrain=False):
+        # sgd: Adam's normalised step would magnify the order of the f32
+        # sums into the update of a near-zero gradient
+        def build(device):
+            b = (N.NeuralNetConfiguration.builder().seed(3).updater(updater)
+                 .learning_rate(lr).activation("sigmoid"))
+            b = b.dtype(dtype) if dtype == "float64" else \
+                b.compute_dtype(dtype)
+            b = b.list()
+            for layer in layers():
+                b.layer(layer)
+            return MultiLayerNetwork(b.pretrain(pretrain).build(),
+                                     device=device).init()
+        return build
+
+    card, cpu = card_cpu_pair(mln(lambda: [
+        AutoEncoder(n_in=784, n_out=64, corruption_level=0.3)]))
+    for net in (card, cpu):
+        net.pretrain(CurvesDataSetIterator(100, 500), epochs=2)
+    out["autoencoder_curves"] = hold_pair("AutoEncoder on curves", card,
+                                          cpu)
+    rng = np.random.RandomState(5)
+    g = DataSet(rng.randn(64, 16).astype(np.float32),
+                np.zeros((64, 1), np.float32))
+    card, cpu = card_cpu_pair(mln(lambda: [
+        RBM(n_in=16, n_out=8, visible_unit="gaussian", k=2)]))
+    for net in (card, cpu):
+        net.pretrain(g, epochs=5)
+    out["rbm_gaussian"] = hold_pair("gaussian-visible RBM (k=2)", card, cpu)
+
+    def composite_vae():
+        return [VariationalAutoencoder(
+            n_in=16, n_out=3, encoder_layer_sizes=(12,),
+            decoder_layer_sizes=(12,), num_samples=2, activation="tanh",
+            reconstruction_distribution=CompositeReconstructionDistribution(
+                parts=((10, GaussianReconstructionDistribution()),
+                       (6, BernoulliReconstructionDistribution()))))]
+    xv = rng.rand(64, 16).astype(np.float32)
+    xv[:, 10:] = (xv[:, 10:] > 0.5)
+    v = DataSet(xv, np.zeros((64, 1), np.float32))
+    card, cpu = card_cpu_pair(mln(composite_vae))
+    for net in (card, cpu):
+        net.pretrain(v, epochs=5)
+    out["vae_composite"] = hold_pair("VAE with a composite distribution",
+                                     card, cpu)
+    # the gradient check of the card-trained VAE, copied to the CPU in f64
+    f64 = mln(composite_vae, dtype="float64")("cpu")
+    f64.set_flat_params(card.get_flat_params().astype(np.float64))
+    ok = check_pretrain_gradients(f64, v, 0)
+    log(f"[pretrain] check_pretrain_gradients of the card-trained VAE on "
+        f"the CPU in f64: {ok}")
+    if not ok:
+        raise RuntimeError("the card-trained VAE fails its gradient check")
+    out["gradient_check"] = ok
+
+    def graph(device):
+        conf = (N.NeuralNetConfiguration.builder().seed(4).updater("sgd")
+                .learning_rate(0.1).activation("sigmoid")
+                .compute_dtype("float32").graph_builder().add_inputs("in")
+                .add_layer("ae", AutoEncoder(n_in=16, n_out=8,
+                                             corruption_level=0.2), "in")
+                .add_layer("out", OutputLayer(n_in=8, n_out=3), "ae")
+                .set_outputs("out").pretrain(True).build())
+        return ComputationGraph(conf, device=device).init()
+    yg = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 64)]
+    gd = DataSet(rng.rand(64, 16).astype(np.float32), yg)
+    card, cpu = card_cpu_pair(graph)
+    for net in (card, cpu):
+        net.fit(gd, epochs=3)
+    out["graph_pretrained_vertex"] = hold_pair(
+        "ComputationGraph with a pretrained vertex", card, cpu)
+    # a zip written on the card, restored on the CPU
+    every = mln(lambda: [
+        VariationalAutoencoder(n_in=16, n_out=6, encoder_layer_sizes=(8,),
+                               decoder_layer_sizes=(8,)),
+        AutoEncoder(n_in=6, n_out=5, corruption_level=0.1),
+        RBM(n_in=5, n_out=4),
+        CenterLossOutputLayer(n_in=4, n_out=3)], pretrain=True)("cuda")
+    every.fit(DataSet(xv, yg))
+    buf = io.BytesIO()
+    ms.write_model(every, buf)
+    back = ms.restore_multi_layer_network(io.BytesIO(buf.getvalue()),
+                                          device="cpu")
+    same = (np.array_equal(back.get_flat_params(), every.get_flat_params())
+            and np.array_equal(back.get_flat_updater_state(),
+                               every.get_flat_updater_state())
+            and back._pretrain_done and back.iteration == every.iteration)
+    orel = float((back.output(xv) - every.output(xv).cpu()).abs().max())
+    log(f"[pretrain] a zip of VAE + AutoEncoder + RBM + center loss written "
+        f"on the card, restored on the CPU: params and updater state "
+        f"bitwise {same}, outputs max |diff| {orel:.2e}")
+    if not (same and orel <= REF_RTOL):
+        raise RuntimeError("the card's zip does not restore on the CPU")
+    out["zip_card_to_cpu"] = {"bitwise": same, "output_max_diff": orel}
+    # the mixed_bf16 masters rule on the card
+    xm = rng.rand(32, 8).astype(np.float32)
+    ym = np.eye(2, dtype=np.float32)[rng.randint(0, 2, 32)]
+    out["masters"] = {}
+    for updater, lr in (("sgd", 0.5), ("adam", 0.05)):
+        net = MultiLayerNetwork(
+            N.NeuralNetConfiguration.builder().seed(1).updater(updater)
+            .learning_rate(lr).activation("sigmoid").list()
+            .layer(AutoEncoder(n_in=8, n_out=6, corruption_level=0.0))
+            .layer(OutputLayer(n_in=6, n_out=2)).build()).init()
+        init_w = net.params[0]["W"].float().clone()
+        net.pretrain_layer(0, DataSet(xm, ym), epochs=20)
+        pre_w = net.params[0]["W"].float().clone()
+        exact = torch.equal(net.params[0]["W"], net.updater_state[0][
+            "_master"]["W"].to(torch.bfloat16))
+        net.fit(DataSet(xm, ym))
+        moved = float((pre_w - init_w).abs().max())
+        step = float((net.params[0]["W"].float() - pre_w).abs().max())
+        log(f"[pretrain] mixed_bf16 {updater}: pretraining moved W by "
+            f"{moved:.4f}, the first fit step by {step:.4f}; params == "
+            f"bf16(masters) {exact}")
+        if not (exact and step < 0.2 * moved):
+            raise RuntimeError("a mixed_bf16 fine-tune does not start from "
+                               "the pretrained weights")
+        out["masters"][updater] = {"pretrain_moved": moved,
+                                   "first_step": step}
+    return out
+
+
+def pre_chaos() -> dict:
+    """(e) the kill/resume harness with its children on the card."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.resilience import chaos
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        report = chaos.run_chaos(workdir=tmp, device="cuda")
+        seconds = time.perf_counter() - t0
+    report.pop("workdir")
+    log(f"[pretrain] chaos on the card: victim rc "
+        f"{report['victim_returncode']}, {report['score_mismatches']} score "
+        f"mismatches over {report['steps_compared']} steps, params match "
+        f"{report['params_match']}, device {report['device']} "
+        f"({seconds:.1f} s for the three children)")
+    if not (report["parity"] and report["victim_returncode"] == -9
+            and report["device"].startswith("cuda")):
+        raise RuntimeError(f"the kill/resume harness failed on the card: "
+                           f"{report}")
+    report["seconds"] = seconds
+    return report
+
+
+def phase_pretrain(A, N=None) -> dict:
+    """Phase 17: the pretraining families (the ``pretrain`` path of the
+    kernels line: it launches none of K1-K4)."""
+    if N is None:
+        from deeplearning4j_tpu_torch.nn.conf import \
+            neural_net_configuration as N
+    torch.cuda.synchronize()
+    A.reset_launches()            # counts of the main path's run only
+    data = pre_mnist()
+    result, seconds = {}, {"data": data["seconds"]}
+    for name, part in (("deep_autoencoder", lambda: pre_deep_ae(N, data)),
+                       ("vae", lambda: pre_vae(N, data)),
+                       ("center_loss", lambda: pre_center_loss(N, data)),
+                       ("small", lambda: pre_small(N)),
+                       ("chaos", pre_chaos)):
+        t0 = time.perf_counter()
+        result[name] = part()
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+    result["seconds"] = seconds
+    log(f"[pretrain] seconds by part {seconds}")
+    result["launches"] = dict(A.LAUNCHES)
+    log(f"[pretrain] launches {result['launches']}")
+    if any(result["launches"].values()):
+        raise RuntimeError("the pretrain path launched a flash kernel")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4329,6 +5028,8 @@ def main(argv=None) -> int:
     embeddings = phase_embeddings(A)
     torch.cuda.empty_cache()
     deepwalk = phase_deepwalk(A, N)
+    torch.cuda.empty_cache()
+    pretrain = phase_pretrain(A, N)
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -4342,7 +5043,8 @@ def main(argv=None) -> int:
              "harness": harness["launches"], "graph": graph["launches"],
              "fused": fused["launches"], "transfer": transfer["launches"],
              "embeddings": embeddings["launches"],
-             "deepwalk": deepwalk["launches"]}
+             "deepwalk": deepwalk["launches"],
+             "pretrain": pretrain["launches"]}
     csrc = "deeplearning4j_tpu_torch/ops/csrc/"
     bodies = {"flash_fwd": csrc + "flash_fwd_sm90.cuh",
               "flash_fwd_partials": csrc + "flash_fwd_sm90.cuh",
@@ -4362,6 +5064,7 @@ def main(argv=None) -> int:
                       "harness": harness, "graph": graph, "fused": fused,
                       "transfer": transfer, "embeddings": embeddings,
                       "deepwalk": deepwalk}))
+    print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -412,8 +412,11 @@ class DeepWalk(GraphVectors):
     def _fit_device_walks(self, walk_length: int, epochs: int) -> None:
         """Epochs of device walks: draws, walks, the pair grid and the
         chunk loop all on the model's device; the one loss read after the
-        epoch loop is the completion barrier."""
+        epoch loop is the completion barrier.  Zero epochs leave the model
+        as it was."""
         self._ensure_csr_device()
+        if epochs < 1:
+            return
         n = int(self.syn0.shape[0])
         B = self._chunk_size()
         base = (self.seed if self.seed is not None

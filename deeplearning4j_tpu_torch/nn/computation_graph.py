@@ -37,10 +37,9 @@ The fused training runtime is shared with the ``MultiLayerNetwork``
 CUDA graph per step on the card), windowed staging over
 ``MultiDataSet``s, ``fit_scan``, the health guard and checkpoint/resume;
 the graph supplies only how a batch's per-input lists become its
-``_loss_fn`` arguments and how a window stacks.
-
-Not ported yet: ``pretrain``/``pretrain_layer`` (A6), which raise
-``NotImplementedError`` naming the item.
+``_loss_fn`` arguments and how a window stacks.  So is layer-wise
+pretraining (``pretrain`` in topological order, ``pretrain_layer`` by
+vertex name): the graph supplies a vertex's input.
 """
 
 from __future__ import annotations
@@ -204,14 +203,31 @@ class ComputationGraph(_Network):
                  per_example: bool = False):
         """Data loss summed over the output vertices (in
         ``network_outputs`` order), new layer state and new carries;
-        ``per_example`` sums the unreduced (batch,) score vectors."""
+        ``per_example`` sums the unreduced (batch,) score vectors.  An
+        output with ``NEEDS_INPUT_FOR_SCORE`` (center loss) scores against
+        its input activation, after its preprocessor and its dropout."""
         acts, new_state, new_carries = self._forward(
             params, net_state, features, train=train, rng=rng,
             input_masks=self._input_masks(features_masks),
             preoutput_outputs=True, carries=carries)
         total = None
         for i, out_name in enumerate(self.conf.network_outputs):
-            layer = self.vertices[out_name].layer
+            v = self.vertices[out_name]
+            layer = v.layer
+            if getattr(layer, "NEEDS_INPUT_FOR_SCORE", False):
+                x = acts[v.inputs[0]]
+                if v.preprocessor is not None:
+                    x = v.preprocessor(x)
+                if rng is not None:
+                    x = layer.apply_dropout(x, train, rng)
+                lmask = None if labels_masks is None else labels_masks[i]
+                loss = (layer.compute_score_examples_with_input(
+                    params[out_name], labels[i], x, lmask) if per_example
+                    else layer.compute_score_with_input(
+                        params[out_name], labels[i], x, lmask,
+                        average=self.conf.conf.mini_batch))
+                total = loss if total is None else total + loss
+                continue
             if not hasattr(layer, "compute_score"):
                 raise ValueError(
                     f"Output vertex '{out_name}' is not an output layer")
@@ -261,16 +277,17 @@ class ComputationGraph(_Network):
     def _window_wires(self, items, n_in: int, pin: bool):
         return _ingest.multi_window_wire(items, n_in, pin)
 
-    def pretrain(self, data, epochs: int = 1):
-        """Layer-wise pretraining: waits for ROADMAP A6."""
-        raise NotImplementedError(
-            "ComputationGraph.pretrain is not ported yet (ROADMAP A6)")
+    def _pretrain_features(self, ds):
+        return tuple(self._tensor(f) for f in _as_multi(ds).features)
 
-    def pretrain_layer(self, name: str, data, epochs: int = 1):
-        """Pretraining of one vertex: waits for ROADMAP A6."""
-        raise NotImplementedError(
-            "ComputationGraph.pretrain_layer is not ported yet "
-            "(ROADMAP A6)")
+    def _pretrain_input(self, key, features) -> Tensor:
+        """The vertex's first input after its preprocessor, from a whole
+        inference forward (as the JAX package's step takes it)."""
+        v = self.vertices[key]
+        acts, _, _ = self._forward(self.params, self.net_state, features,
+                                   train=False, rng=None)
+        x = acts[v.inputs[0]]
+        return v.preprocessor(x) if v.preprocessor is not None else x
 
     # ---------------------------------------------------------------- tBPTT
     def _fit_tbptt(self, features, labels, fmasks, lmasks) -> None:

@@ -7,9 +7,9 @@ The dataclasses and serde type names are the JAX package's, so
 writes, and ``to_json`` writes the same bytes.  Shape inference sets each
 layer's ``n_in`` and auto-inserts the preprocessor at each family boundary
 (ff <-> rnn <-> cnn), as the JAX package does.  ``graph_builder()``
-starts a ComputationGraph configuration (:mod:`.computation_graph`).  A
-layer type that is not ported yet raises ``NotImplementedError`` naming
-its ROADMAP item.
+starts a ComputationGraph configuration (:mod:`.computation_graph`).
+Every layer type of the JAX package is ported; ``not_ported`` is the error
+a type listed in ``_NOT_PORTED`` would raise, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,11 +29,8 @@ from . import serde
 InputType = _inputs.InputType
 
 # serde type names of the JAX package that the port does not read yet, and
-# the ROADMAP item that ports each
-_NOT_PORTED = {
-    "autoencoder": "A6", "rbm": "A6", "variational_autoencoder": "A6",
-    "center_loss_output": "A6",
-}
+# the ROADMAP item that ports each (none left)
+_NOT_PORTED: Dict[str, str] = {}
 
 
 def not_ported(kind) -> NotImplementedError:
@@ -302,6 +299,12 @@ class ListBuilder:
 
     def backprop(self, flag: bool) -> "ListBuilder":
         self._mlc.backprop = flag
+        return self
+
+    def pretrain(self, flag: bool) -> "ListBuilder":
+        """Layer-wise unsupervised pretraining before the first ``fit``'s
+        backprop."""
+        self._mlc.pretrain = flag
         return self
 
     def backprop_type(self, kind: str) -> "ListBuilder":

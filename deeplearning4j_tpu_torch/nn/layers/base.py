@@ -82,6 +82,12 @@ class BaseLayerConfig:
                 mask: Optional[Tensor] = None) -> Tuple[Tensor, StateTree]:
         raise NotImplementedError
 
+    def direct_update_params(self) -> tuple[str, ...]:
+        """Param names whose gradient is applied as it is (``p -= g``),
+        around l1/l2, gradient normalization and the updater rule, and
+        which carry no updater state (the center-loss centers)."""
+        return ()
+
     # ---- regularization wiring ------------------------------------------
     def l1_by_param(self) -> Dict[str, float]:
         return {k: (self.l1_bias if k == "b" else self.l1) or 0.0

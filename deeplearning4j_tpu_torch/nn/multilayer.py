@@ -54,7 +54,16 @@ when ``monitor.health.in_step()`` asks for them;
 ``nn/ingest.py`` for the deliberate difference in the cache path's
 shuffle.
 
-Not ported yet: pretraining (A6).
+Layer-wise unsupervised pretraining (``pretrain``/``pretrain_layer``, and
+``fit`` when the configuration says ``pretrain(True)``, once, ahead of
+backprop): each step forwards the batch to the layer's input in inference
+mode without gradient, takes the layer's ``pretrain_grads`` on the draws
+of ``_pretrain_draws`` and applies them through ``apply_layer_updates``
+(l1/l2, normalization, the rule).  Under a policy with fp32 masters that
+updates the masters and re-derives the params by one cast, so the updater
+state keeps its tree and a later ``fit`` starts from the pretrained
+weights; the JAX package's pretrain step subtracts from the bf16 params
+and leaves the masters at their init (a deliberate difference).
 """
 
 from __future__ import annotations
@@ -84,6 +93,7 @@ from . import precision as _precision
 from . import step_graph as _step_graph
 from . import updaters as _updaters
 from .conf.neural_net_configuration import MultiLayerConfiguration
+from .layers import pretrain as _pretrain
 from .layers.recurrent import BaseRecurrentLayer
 
 Tensor = torch.Tensor
@@ -122,6 +132,11 @@ class _Network:
         self._graphs: Dict[tuple, _step_graph.CapturedGatherStep] = {}
         self._graph_pool = None
         self._stage_stream = None
+        # None, or ``source(layer, iteration, specs)`` giving a pretrain
+        # step's draws (``pretrain_draw_specs`` order, arrays or tensors)
+        # in place of the network's own stream: parity tests feed the JAX
+        # package's, card-against-CPU checks one CPU stream
+        self.pretrain_draw_source = None
 
     # ---- the container's layout ------------------------------------------
     def _slots(self):
@@ -178,9 +193,11 @@ class _Network:
             [(key, layer.init_state(pol.param_dtype, self.device))
              for key, layer in slots])
         self.updater_state = self._trees(
-            [(key, _updaters.init_state(self._updater_conf(key),
-                                        self.params[key], policy=pol))
-             for key, _ in slots])
+            [(key, _updaters.init_state(
+                self._updater_conf(key),
+                _updaters.updatable_params(layer, self.params[key]),
+                policy=pol))
+             for key, layer in slots])
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self._init_done = True
         return self
@@ -623,6 +640,9 @@ class _Network:
         self.init()
         if self.conf.backprop_type == "tbptt":
             raise ValueError("fit_scan does not support tBPTT; use fit()")
+        if self.conf.pretrain and not self._pretrain_done:
+            raise ValueError("fit_scan does not run pretraining; call "
+                             "pretrain() (or fit()) first")
         if self.conf.conf.num_iterations != 1:
             raise ValueError("fit_scan runs one update per batch; "
                              "num_iterations > 1 must use fit()")
@@ -696,6 +716,10 @@ class _Network:
         path's example order is ``ingest.epoch_permutation``'s, not the
         iterator's.
 
+        With ``pretrain(True)`` in the configuration the first call
+        pretrains every pretrainable layer once (one epoch) before
+        backprop; with ``backprop(False)`` only pretraining runs.
+
         ``checkpoint=`` (a ``resilience.CheckpointManager`` or a
         directory) saves checkpoints at the manager's step or time
         cadence (epoch boundaries by default); ``resume_from=``
@@ -712,12 +736,20 @@ class _Network:
         self.init()
         ckpt, start_step, epochs = self._resolve_resilience(
             checkpoint, resume_from, epochs)
-        if not self.conf.backprop:
-            return self
         batches = self._batches(data, labels)
         single = labels is not None or isinstance(data,
                                                   (DataSet, MultiDataSet))
         try:
+            if self.conf.pretrain and not self._pretrain_done:
+                if not single and not hasattr(batches, "reset"):
+                    # a one-shot iterable, materialised once so that each
+                    # layer and the supervised phase see all of it; the
+                    # list then trains per batch, as in the JAX package
+                    batches = list(batches)
+                    ingest = "batch"
+                self.pretrain(batches)
+            if not self.conf.backprop:
+                return self
             if (not single and ingest != "batch" and self._solver is None
                     and self.conf.backprop_type != "tbptt"
                     and self.conf.conf.num_iterations == 1):
@@ -747,6 +779,95 @@ class _Network:
             return self
         finally:
             finalize_listeners(self.listeners)
+
+    # -------------------------------------------------------------- pretrain
+    def _pretrain_features(self, ds):
+        """A batch's features as ``_pretrain_input`` takes them."""
+        raise NotImplementedError
+
+    def _pretrain_input(self, key, features) -> Tensor:
+        """The input of layer ``key`` (its preprocessor applied) in
+        inference mode."""
+        raise NotImplementedError
+
+    def _pretrain_draws(self, layer, x: Tensor, iteration: int):
+        """The draws of one pretrain step of ``layer`` on input ``x``: from
+        ``pretrain_draw_source`` when set, else from a generator on the
+        network's device seeded by the seed and the iteration."""
+        specs = layer.pretrain_draw_specs(int(x.shape[0]))
+        dtype = _pretrain.draw_dtype(x.dtype)
+        if self.pretrain_draw_source is None:
+            gen = torch.Generator(device=self.device).manual_seed(
+                _pretrain.pretrain_seed(self.conf.conf.seed, iteration))
+            return _pretrain.make_draws(specs, gen, self.device, dtype)
+        draws = [None if d is None else torch.as_tensor(
+            np.array(d) if not isinstance(d, Tensor) else d).to(
+                self.device) for d in self.pretrain_draw_source(
+                    layer, iteration, specs)]
+        _pretrain.check_draws(specs, draws, "pretrain_draw_source")
+        return draws
+
+    def _pretrain_step(self, key, x: Tensor, iteration: int):
+        """One unsupervised step of layer ``key`` on its input ``x``:
+        ``(new_params, new_updater_state, score)``.  The layer computes in
+        ``x``'s dtype; without fp32 masters the gradients are cast to the
+        params' dtypes, with them the update runs on the masters."""
+        layer = self._layer_at(key)
+        params, ustate = self.params[key], self.updater_state[key]
+        draws = self._pretrain_draws(layer, x, iteration)
+        work = {k: p.to(x.dtype) if p.is_floating_point() else p
+                for k, p in params.items()}
+        score, grads = layer.pretrain_grads(work, x, draws)
+        with torch.no_grad():
+            if _updaters.MASTER_KEY not in ustate:
+                grads = {k: g.to(params[k].dtype) for k, g in grads.items()}
+            new_p, new_u = _updaters.apply_layer_updates(
+                self._updater_conf(key), layer, params, ustate, grads,
+                iteration)
+            score = score.detach() + _updaters.regularization_score(
+                params, layer.l1_by_param(), layer.l2_by_param())
+        return new_p, new_u, score
+
+    def pretrain(self, data, epochs: int = 1):
+        """Greedy layer-wise unsupervised pretraining of every pretrainable
+        layer (AutoEncoder, RBM, VariationalAutoencoder) in order (a
+        graph's in topological order); marks pretraining done, so ``fit``
+        does not run it again (the flag travels in model zips and
+        checkpoints)."""
+        self.init()
+        if not isinstance(data, (DataSet, MultiDataSet)) \
+                and not hasattr(data, "reset"):
+            data = list(data)  # one-shot iterable: each layer needs a pass
+        for key, layer in self._slots():
+            if getattr(layer, "IS_PRETRAINABLE", False):
+                self.pretrain_layer(key, data, epochs)
+        self._pretrain_done = True
+        return self
+
+    def pretrain_layer(self, key, data, epochs: int = 1):
+        """Pretrain one layer (an index, or a vertex name) for ``epochs``
+        passes over ``data``; a layer that cannot pretrain, or is frozen,
+        is skipped.  One step per batch: the iteration advances and the
+        listeners fire."""
+        self.init()
+        layer = self._layer_at(key)
+        if not getattr(layer, "IS_PRETRAINABLE", False) \
+                or getattr(layer, "frozen", False):
+            return self
+        batches = [data] if isinstance(data, (DataSet, MultiDataSet)) \
+            else data
+        for _ in range(epochs):
+            if hasattr(batches, "reset"):
+                batches.reset()
+            for ds in batches:
+                with torch.no_grad():
+                    x = self._pretrain_input(
+                        key, self._pretrain_features(ds))
+                (self.params[key], self.updater_state[key],
+                 self._score) = self._pretrain_step(key, x, self.iteration)
+                self.iteration += 1
+                self._fire_listeners()
+        return self
 
     # --------------------------------------------------------------- carries
     def _require_carry_support(self, what: str) -> None:
@@ -1082,8 +1203,27 @@ class MultiLayerNetwork(_Network):
         """Data loss, new layer state and new carries.  Regularization is
         added to the reported score only, and to the gradient by the
         updater, in DL4J order.  ``from_layer`` scores a mid-stack
-        activation through the remaining layers (the tBPTT suffix)."""
+        activation through the remaining layers (the tBPTT suffix).  A
+        head with ``NEEDS_INPUT_FOR_SCORE`` (center loss) scores against
+        its input, after its preprocessor and its dropout."""
         out_layer = self.layers[-1]
+        if getattr(out_layer, "NEEDS_INPUT_FOR_SCORE", False):
+            n = len(self.layers)
+            x, new_state, new_carries = self._forward(
+                params, net_state, features, train=train, rng=rng,
+                mask=features_mask, carries=carries, to_layer=n - 2,
+                from_layer=from_layer)
+            if (n - 1) in self.conf.input_preprocessors:
+                x = self.conf.input_preprocessors[n - 1](x)
+            x = out_layer.apply_dropout(x, train, rng)
+            if per_example:
+                loss = out_layer.compute_score_examples_with_input(
+                    params[n - 1], labels, x, labels_mask)
+            else:
+                loss = out_layer.compute_score_with_input(
+                    params[n - 1], labels, x, labels_mask,
+                    average=self.conf.conf.mini_batch)
+            return loss, new_state, new_carries
         if not hasattr(out_layer, "compute_score"):
             raise ValueError("Last layer must be an output/loss layer to "
                              "fit()")
@@ -1131,6 +1271,16 @@ class MultiLayerNetwork(_Network):
     def _window_wires(self, items, n_in: int, pin: bool):
         u8, spec = _ingest.window_wire(items, pin)
         return (None, None) if u8 is None else ([u8], [spec])
+
+    def _pretrain_features(self, ds):
+        return self._tensor(ds.features)
+
+    def _pretrain_input(self, key, features) -> Tensor:
+        x, _, _ = self._forward(self.params, self.net_state, features,
+                                train=False, rng=None, to_layer=key - 1)
+        if key in self.conf.input_preprocessors:
+            x = self.conf.input_preprocessors[key](x)
+        return x
 
     # ---------------------------------------------------------------- tBPTT
     @staticmethod

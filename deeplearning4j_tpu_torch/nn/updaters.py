@@ -361,17 +361,30 @@ def regularization_score(params: ParamTree, l1_by_param: Dict[str, float],
     return sum(terms) if terms else 0.0
 
 
+def updatable_params(layer, params: ParamTree) -> ParamTree:
+    """The params of a layer that go through the updater: all but its
+    ``direct_update_params``, which carry no updater state (so a flat
+    updater vector keeps the JAX package's length)."""
+    direct = set(layer.direct_update_params())
+    if not direct:
+        return params
+    return {k: v for k, v in params.items() if k not in direct}
+
+
 def apply_layer_updates(uconf: UpdaterConfig, layer, params: ParamTree,
                         state: dict, grads: ParamTree, iteration: int,
                         scalars: Optional[Dict[str, Any]] = None):
     """Full DL4J-order update of one layer: returns ``(new_params,
     new_state)``.  With fp32 masters in ``state`` every step of the
     updater math runs on the masters in fp32 and the storage params are
-    re-derived by one cast.  ``scalars``: see :func:`compute_update`."""
+    re-derived by one cast.  The layer's ``direct_update_params`` go
+    around all of it as ``p -= g`` (in fp32 for sub-fp32 storage).
+    ``scalars``: see :func:`compute_update`."""
     if getattr(layer, "frozen", False):
         return dict(params), state
     masters = state.get(MASTER_KEY)
     g = dict(grads)
+    g_direct = {k: g.pop(k) for k in layer.direct_update_params() if k in g}
     if masters is not None:
         work = {k: masters[k] for k in g}
         g = {k: v.float() for k, v in g.items()}
@@ -395,4 +408,10 @@ def apply_layer_updates(uconf: UpdaterConfig, layer, params: ParamTree,
     else:
         for k, u in updates.items():
             new_params[k] = params[k] - u
+    for k, gd in g_direct.items():
+        p = params[k]
+        if p.element_size() < 4:
+            new_params[k] = (p.float() - gd.float()).to(p.dtype)
+        else:
+            new_params[k] = p - gd
     return new_params, new_state

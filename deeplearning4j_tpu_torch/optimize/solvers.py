@@ -165,7 +165,10 @@ class Solver:
     The configured updater is not applied: the line search picks the step
     (the reference's step-function path); regularization enters through
     the loss as on the SGD path.  Params of frozen layers get a zero
-    gradient, so no direction, trial or step moves them.  After each step
+    gradient, so no direction, trial or step moves them.  A layer's
+    ``direct_update_params`` (the center-loss centers) stay out of the
+    search and step by ``p -= g`` at the step's start point, as on the
+    updater path (the JAX package's solvers search them with the rest).  After each step
     one train-mode forward at the new params refreshes ``net_state``
     (batch-norm statistics), as the SGD path does; the fp32 masters
     follow the new params."""
@@ -215,17 +218,26 @@ class Solver:
         return self.net._trees([(key, out[key])
                                 for key, _ in self.net._items(params)])
 
-    def _trainable_mask(self, flat: Tensor) -> Tensor:
-        """1 for each trainable param, 0 for a param of a frozen layer."""
+    def _masks(self, flat: Tensor):
+        """``(searched, direct)``: 1 in ``searched`` for each param the
+        line search moves, 1 in ``direct`` for each of a layer's
+        ``direct_update_params`` (stepped by ``p -= g`` instead); both 0
+        for a param of a frozen layer."""
         net = self.net
-        chunks = [torch.full((p.numel(),),
-                             0.0 if getattr(net._layer_at(key), "frozen",
-                                            False) else 1.0,
-                             dtype=flat.dtype, device=flat.device)
-                  for key, leaves in zip(self._keys(net.params),
-                                         self._leaves(net.params))
-                  for p in leaves]
-        return torch.cat(chunks)
+        searched, direct = [], []
+        for key in self._keys(net.params):
+            layer = net._layer_at(key)
+            frozen = getattr(layer, "frozen", False)
+            own = set(layer.direct_update_params())
+            for name in sorted(net.params[key]):
+                n = net.params[key][name].numel()
+                is_direct = not frozen and name in own
+                for chunks, on in ((searched, not frozen and not is_direct),
+                                   (direct, is_direct)):
+                    chunks.append(torch.full((n,), float(on),
+                                             dtype=flat.dtype,
+                                             device=flat.device))
+        return torch.cat(searched), torch.cat(direct)
 
     def _flat_loss(self, features, labels, fmask, lmask):
         """loss(flat_w) on the current batch, test-mode forward (the line
@@ -249,9 +261,10 @@ class Solver:
         loss = self._flat_loss(features, labels, fmask, lmask)
         w = flat_w.detach().requires_grad_(True)
         f0 = loss(w)
-        g, = torch.autograd.grad(f0, w)
+        g_all, = torch.autograd.grad(f0, w)
         f0 = f0.detach()
-        g = g * self._trainable_mask(flat_w)
+        searched, direct = self._masks(flat_w)
+        g = g_all * searched
         # a scale-free first trial for steepest-descent searches: a unit
         # step along a large raw gradient overshoots every backtrack level
         sd_init = torch.clamp_max(
@@ -277,7 +290,7 @@ class Solver:
             alpha_sd, _ = _backtrack(loss, flat_w, f0, g, -g, self.max_ls,
                                      sd_init, 1e-4, 0.5, syncs)
             step_vec, used_dir = -alpha_sd * g, -g
-        new_w = flat_w + step_vec
+        new_w = flat_w + step_vec - g_all * direct
         self._state = state._replace(prev_grad=g, prev_dir=used_dir,
                                      prev_w=flat_w,
                                      step_num=state.step_num + 1)

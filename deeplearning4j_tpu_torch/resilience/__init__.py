@@ -10,19 +10,21 @@ resilience``):
   epoch-cache path;
 - :mod:`.faults` — deterministic fault injection (``die_at_step`` /
   ``corrupt_checkpoint`` / ``drop_connection`` / ``slow_worker_ms``)
-  behind the ``DL4J_TPU_FAULT_*`` variables.
+  behind the ``DL4J_TPU_FAULT_*`` variables;
+- :mod:`.chaos` — the kill/resume parity harness: a training child
+  SIGKILLed mid-epoch and resumed, held bitwise against an uninterrupted
+  run (``python -m deeplearning4j_tpu_torch.resilience.chaos``).
 
-The JAX package's pod checkpoints (ROADMAP A9) and its kill/resume
-harness ``chaos.py`` (A7) are not ported yet.
+The JAX package's pod checkpoints (ROADMAP A9) are not ported yet.
 """
 
-from . import faults
+from . import chaos, faults
 from .checkpoint import (CheckpointCorruptError, CheckpointManager,
                          ResumeState, as_manager, list_checkpoints, restore,
                          verify_checkpoint)
 
 __all__ = [
     "CheckpointCorruptError", "CheckpointManager", "ResumeState",
-    "as_manager", "faults", "list_checkpoints", "restore",
+    "as_manager", "chaos", "faults", "list_checkpoints", "restore",
     "verify_checkpoint",
 ]

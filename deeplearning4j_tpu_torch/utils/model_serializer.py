@@ -11,8 +11,9 @@ restores in the other:
   order (``MultiLayerNetwork.get_flat_updater_state``), float32 LE;
 - ``state.bin``: layer state (batch-norm running mean/var), float32 LE,
   present when a layer has state;
-- ``manifest.json``: counts, iteration, epoch, the ``state.bin`` layout by
-  leaf path and offset, and each entry's sha256 and size.
+- ``manifest.json``: counts, iteration, epoch, whether pretraining is
+  done, the ``state.bin`` layout by leaf path and offset, and each
+  entry's sha256 and size.
 
 ``write_model`` takes a ``MultiLayerNetwork`` or a ``ComputationGraph``;
 ``restore_multi_layer_network`` and ``restore_computation_graph`` read
@@ -72,7 +73,9 @@ def write_model(net, path, save_updater: bool = True) -> None:
         "num_updater_values": int(ustate.size),
         "iteration": int(net.iteration),
         "epoch": int(net.epoch),
-        "pretrain_done": False,
+        # a restored pretrain(True) model must not pretrain again over its
+        # fine-tuned weights
+        "pretrain_done": bool(net._pretrain_done),
         "state": state_manifest,
         "entries": _entry_digests(payload),
     }
@@ -192,6 +195,7 @@ def _restore_into(net, zf: zipfile.ZipFile, load_updater: bool) -> None:
     if manifest:
         net.iteration = int(manifest.get("iteration", 0))
         net.epoch = int(manifest.get("epoch", 0))
+        net._pretrain_done = bool(manifest.get("pretrain_done", False))
         if STATE_BIN in names and manifest.get("state"):
             sflat = _floats(STATE_BIN, _read_entry(zf, STATE_BIN, entries))
             smax = max((int(e["offset"]) + int(np.prod(e["shape"]))

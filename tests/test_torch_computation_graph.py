@@ -37,6 +37,7 @@ from deeplearning4j_tpu.nn.conf.neural_net_configuration import \
 from deeplearning4j_tpu.nn.layers import attention as jatt
 from deeplearning4j_tpu.nn.layers import core as jcore
 from deeplearning4j_tpu.nn.layers import normalization as jnorm
+from deeplearning4j_tpu.nn.layers import pretrain as jpretrain
 from deeplearning4j_tpu.nn.layers import convolution as jconvl
 from deeplearning4j_tpu.nn.layers import recurrent as jrec
 from deeplearning4j_tpu.optimize.listeners.listeners import \
@@ -815,15 +816,30 @@ def test_clone_copies_the_training_state():
 
 
 def test_unported_routes_raise_naming_their_item(tmp_path):
-    """Pretraining (A6) still raises, naming its item; the fused runtime's
-    routes (every ``ingest`` value, ``fit_scan``, ``checkpoint=``) run."""
-    _, pnet = _pair(_classifier_conf())
+    """No route is left unported: ``pretrain`` and ``pretrain_layer`` run
+    and match the JAX package (an AutoEncoder vertex, f64, 1e-10), and the
+    fused runtime's routes (every ``ingest`` value, ``fit_scan``,
+    ``checkpoint=``) run."""
     rng = np.random.RandomState(0)
-    ds = DataSet(rng.randn(4, 4), np.eye(3)[rng.randint(0, 3, 4)])
-    for call, item in ((lambda: pnet.pretrain(ds), "A6"),
-                       (lambda: pnet.pretrain_layer("h", ds), "A6")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    x, y = rng.randn(4, 4), np.eye(3)[rng.randint(0, 3, 4)]
+    ds = DataSet(x, y)
+    jpre_net, ppre_net = _pair(
+        _builder().add_inputs("x")
+        .add_layer("h", jpretrain.AutoEncoder(
+            n_out=8, corruption_level=0.0, activation="sigmoid",
+            loss="mse"), "x")
+        .add_layer("out", jcore.OutputLayer(n_out=3), "h")
+        .set_outputs("out").set_input_types(jin.feed_forward(4)).build())
+    for net, data in ((jpre_net, JaxDataSet(x, y)), (ppre_net, ds)):
+        net.pretrain(data, epochs=2)
+        net.pretrain_layer("h", data)
+        net.pretrain_layer("out", data)     # not pretrainable: skipped
+    assert ppre_net.iteration == jpre_net.iteration == 3
+    assert ppre_net._pretrain_done and jpre_net._pretrain_done
+    want = np.asarray(jpre_net.get_flat_params())
+    np.testing.assert_allclose(ppre_net.get_flat_params(), want, rtol=0,
+                               atol=1e-10 * np.abs(want).max())
+    _, pnet = _pair(_classifier_conf())
     with pytest.raises(ValueError, match="unknown ingest"):
         pnet.fit(ds, ingest="stream")
     pnet.fit(ds, ingest="cache")

@@ -486,3 +486,23 @@ def test_unfit_model_raises_and_defaults_to_the_card():
             pdw.DeepWalk()
         with pytest.raises(RuntimeError, match="CUDA"):
             pdw.DeepWalk.Builder().build()
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_zero_epochs_leave_the_model_as_jax_does(monkeypatch, route):
+    """``fit(graph, epochs=0)`` trains nothing on either route, as in the
+    JAX package: the tables, the pass count, the summed loss and the walk
+    statistics stay as ``initialize`` left them."""
+    monkeypatch.setenv("DL4J_TPU_DEVICE_WALKS",
+                       "1" if route == "device" else "0")
+    gj, gp, j, p = models()
+    s0, s1 = p.syn0.clone(), p.syn1.clone()
+    with jax.enable_x64(False):
+        j.fit(gj, walk_length=10, epochs=0)
+    p.fit(gp, walk_length=10, epochs=0)
+    assert torch.equal(p.syn0, s0) and torch.equal(p.syn1, s1)
+    assert np.array_equal(p.syn0.numpy(), np.asarray(j.syn0))
+    assert np.array_equal(p.syn1.numpy(), np.asarray(j.syn1))
+    assert p._walk_passes == j._walk_passes == 0
+    assert p._cum_loss == j._cum_loss == 0.0
+    assert p._walk_stats == {}

@@ -1382,3 +1382,139 @@ def test_deepwalk_defaults_to_the_card(cuda):
     assert dw.syn0.device.type == "cuda" and dw._walk_stats["route"] == \
         "device"
     assert DeepWalk.Builder().build().device.type == "cuda"
+
+
+def _pretrain_pair(build, seed=21):
+    """``build(device)`` on the card and on the CPU, the CPU net on the
+    card's weights, both drawing from one CPU stream."""
+    from deeplearning4j_tpu_torch.nn.layers.pretrain import \
+        host_pretrain_draws
+    card, cpu = build("cuda"), build("cpu")
+    cpu.set_flat_params(card.get_flat_params())
+    for net in (card, cpu):
+        net.pretrain_draw_source = host_pretrain_draws(seed)
+    return card, cpu
+
+
+@pytest.mark.parametrize("case", ["autoencoder", "rbm_gaussian",
+                                  "vae_composite", "graph"])
+def test_pretraining_on_the_card_matches_the_cpu(cuda, case):
+    """The pretraining layers, fp32, card against CPU on the same draws:
+    params within 1e-5 of max|CPU| after a few pretrain steps (and, for
+    the graph, a pretrain(True) fit)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import pretrain as P
+    from deeplearning4j_tpu_torch.nn.layers import variational as V
+    from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    rng = np.random.RandomState(5)
+    x = rng.rand(32, 12).astype(np.float32)
+    x[:, 8:] = x[:, 8:] > 0.5
+    y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 32)]
+    layers = {
+        "autoencoder": P.AutoEncoder(n_in=12, n_out=6, corruption_level=0.3,
+                                     sparsity=0.1),
+        "rbm_gaussian": P.RBM(n_in=12, n_out=6, visible_unit="gaussian",
+                              k=2),
+        "vae_composite": V.VariationalAutoencoder(
+            n_in=12, n_out=3, encoder_layer_sizes=(8,),
+            decoder_layer_sizes=(8,), num_samples=2,
+            reconstruction_distribution=V.CompositeReconstructionDistribution(
+                parts=((8, V.GaussianReconstructionDistribution()),
+                       (4, V.BernoulliReconstructionDistribution())))),
+    }
+
+    def build(device):
+        # sgd: Adam's normalised step would magnify the f32 sums' order
+        # into the update of a near-zero gradient; sigmoid: the
+        # AutoEncoder's xent reconstruction clamps p at 1e-7, so a tanh
+        # output near 0 would flip between clamped and a 1/p gradient
+        b = (NeuralNetConfiguration.builder().seed(3).updater("sgd")
+             .learning_rate(0.1).activation("sigmoid")
+             .compute_dtype("float32"))
+        if case == "graph":
+            conf = (b.graph_builder().add_inputs("in")
+                    .add_layer("ae", P.AutoEncoder(n_in=12, n_out=6),
+                               "in")
+                    .add_layer("out", OutputLayer(n_in=6, n_out=3), "ae")
+                    .set_outputs("out").pretrain(True).build())
+            return ComputationGraph(conf, device=device).init()
+        return MultiLayerNetwork(b.list().layer(layers[case]).build(),
+                                 device=device).init()
+
+    card, cpu = _pretrain_pair(build)
+    for net in (card, cpu):
+        if case == "graph":
+            net.fit(DataSet(x, y), epochs=2)
+        else:
+            net.pretrain(DataSet(x, y), epochs=4)
+    want = cpu.get_flat_params()
+    assert card.iteration == cpu.iteration > 0
+    np.testing.assert_allclose(card.get_flat_params(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_center_loss_captured_step_equals_the_eager_steps(cuda):
+    """A center-loss MLP, fp32: 4 steps from the epoch cache (captured) equal
+    4 eager per-batch steps bit for bit, and one step moves cL by the
+    reference delta on both paths."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer
+    from deeplearning4j_tpu_torch.nn.layers.training import \
+        CenterLossOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    def build():
+        return MultiLayerNetwork(
+            NeuralNetConfiguration.builder().seed(2).updater("adam")
+            .learning_rate(0.01).activation("relu").compute_dtype("float32")
+            .list().layer(DenseLayer(n_in=10, n_out=16))
+            .layer(CenterLossOutputLayer(n_in=16, n_out=4, alpha=0.2,
+                                         lambda_=0.01)).build()).init()
+
+    rng = np.random.RandomState(1)
+    ds = DataSet(rng.randn(64, 10).astype(np.float32),
+                 np.eye(4, dtype=np.float32)[rng.randint(0, 4, 64)])
+    first = DataSet(ds.features[:16], ds.labels[:16])
+    for path in ("batch", "cache"):
+        net = build()
+        feats = net.feed_forward(first.features)[-2].double().cpu().numpy()
+        c0 = net.params[-1]["cL"].double().cpu().numpy()
+        net.fit(ListDataSetIterator(first, 16), ingest=path)
+        lab = first.labels.astype(np.float64)
+        counts = lab.sum(0)
+        want = c0 + 0.2 * (lab.T @ feats - counts[:, None] * c0) / (
+            counts[:, None] + 1.0)
+        np.testing.assert_allclose(net.params[-1]["cL"].double().cpu()
+                                   .numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+    eager, captured = build(), build()
+    eager.fit(ListDataSetIterator(ds, 16), ingest="batch")
+    captured.fit(ListDataSetIterator(ds, 16), ingest="cache")
+    assert captured._graphs
+    np.testing.assert_array_equal(captured.get_flat_params(),
+                                  eager.get_flat_params())
+    np.testing.assert_array_equal(captured.get_flat_updater_state(),
+                                  eager.get_flat_updater_state())
+
+
+def test_chaos_harness_on_the_card(cuda, tmp_path):
+    """The kill/resume harness with its children on the card
+    (deterministic algorithms): the victim killed, every score bitwise,
+    the same final params."""
+    from deeplearning4j_tpu_torch.resilience import chaos
+    report = chaos.run_chaos(workdir=str(tmp_path), device="cuda")
+    assert report["victim_returncode"] == -9, report
+    assert report["score_mismatches"] == 0 and report["coverage_ok"], report
+    assert report["params_match"] and report["parity"], report
+    assert report["device"].startswith("cuda")

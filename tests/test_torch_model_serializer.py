@@ -443,7 +443,8 @@ def test_graph_state_manifest_orders_vertices_as_jax_does():
 
 def test_every_jax_serde_type_is_ported_or_named():
     """Each type the JAX package's serde registry knows is registered in
-    the port or raises NotImplementedError naming its ROADMAP item."""
+    the port (the reconstruction distributions included): nothing is left
+    to name a ROADMAP item."""
     from deeplearning4j_tpu.nn.conf import serde as jserde
     from deeplearning4j_tpu_torch.nn.conf import serde
     from deeplearning4j_tpu_torch.nn.conf import neural_net_configuration as N
@@ -454,11 +455,9 @@ def test_every_jax_serde_type_is_ported_or_named():
     ported = set(serde.registry())
     missing = {k for k, cls in jserde.registry().items()
                if k not in ported
-               and cls.__module__.startswith("deeplearning4j_tpu.")
-               and not k.endswith("_reconstruction")}
-    assert missing == set(N._NOT_PORTED)
-    for kind in missing:
-        assert "ROADMAP A" in str(N.not_ported(kind))
+               and cls.__module__.startswith("deeplearning4j_tpu.")}
+    assert missing == set(N._NOT_PORTED) == set()
+    assert "is not ported yet" in str(N.not_ported("x"))
     assert {"dense", "output", "loss", "activation", "dropout_layer",
             "embedding", "convolution", "subsampling", "zero_padding",
             "global_pooling", "batch_norm", "lrn", "cnn_to_ff", "ff_to_cnn",
@@ -469,7 +468,11 @@ def test_every_jax_serde_type_is_ported_or_named():
             "vertex_stack", "vertex_unstack", "vertex_scale", "vertex_shift",
             "vertex_preprocessor", "vertex_l2", "vertex_l2_normalize",
             "vertex_last_time_step",
-            "vertex_duplicate_to_time_series"} <= ported
+            "vertex_duplicate_to_time_series", "autoencoder", "rbm",
+            "variational_autoencoder", "center_loss_output",
+            "gaussian_reconstruction", "bernoulli_reconstruction",
+            "exponential_reconstruction", "loss_wrapper_reconstruction",
+            "composite_reconstruction"} <= ported
 
 
 def test_atomic_write_replaces_whole_or_not_at_all(tmp_path):

@@ -177,3 +177,48 @@ def test_default_device_raises_without_a_card():
     meta = torch.zeros(1, 4, 1, 8, device="meta")
     with pytest.raises(ValueError, match="asked for"):
         flash_attention(meta, meta, meta, device="cpu")
+
+
+#: the pretraining families and the kill/resume harness (ROADMAP A6, A7)
+PRETRAIN_MODULES = [
+    "deeplearning4j_tpu_torch.nn.layers.pretrain",
+    "deeplearning4j_tpu_torch.nn.layers.variational",
+    "deeplearning4j_tpu_torch.nn.layers.training",
+    "deeplearning4j_tpu_torch.gradientcheck",
+    "deeplearning4j_tpu_torch.resilience.chaos",
+]
+
+
+def test_pretraining_modules_import_with_jax_blocked():
+    """The pretraining layers, the gradient checker and the harness
+    import, and an RBM + VAE + center-loss stack pretrains and takes a
+    step, with every import of ``jax`` or the JAX package refused."""
+    run = _BLOCKED_IMPORT + """
+import numpy as np
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
+    NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.layers.pretrain import RBM
+from deeplearning4j_tpu_torch.nn.layers.training import CenterLossOutputLayer
+from deeplearning4j_tpu_torch.nn.layers.variational import (
+    VariationalAutoencoder)
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.resilience import chaos
+conf = (NeuralNetConfiguration.builder().seed(1).list()
+        .layer(RBM(n_in=5, n_out=4))
+        .layer(VariationalAutoencoder(n_in=4, n_out=3,
+                                      encoder_layer_sizes=(4,),
+                                      decoder_layer_sizes=(4,)))
+        .layer(CenterLossOutputLayer(n_in=3, n_out=2))
+        .pretrain(True).build())
+net = MultiLayerNetwork(conf, device="cpu").init()
+rng = np.random.RandomState(0)
+net.fit(DataSet(rng.rand(6, 5), np.eye(2)[rng.randint(0, 2, 6)]))
+assert net._pretrain_done and net.iteration == 3
+assert chaos.build_net(device="cpu").num_params() > 0
+"""
+    out = subprocess.run([sys.executable, "-c", run] + PRETRAIN_MODULES,
+                         cwd=ROOT, env=_clean_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
