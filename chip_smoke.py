@@ -305,13 +305,46 @@ Phases (each raises on failure; the exit code is non-zero on any):
    the CPU (bitwise); the masters rule under sgd and adam; (e) the
    kill/resume harness (``resilience/chaos.py``) with its children on the
    card: the victim's return code -9, 0 score mismatches, the same final
-   params.  K1-K4 launch 0 times on this path.
+   params.  K1-K4 launch 0 times on this path;
+18. serving v2 and deployment ([serving_v2] and [deploy] lines; no hand
+   kernel on the serving side: the int8 decode is three torch elementwise
+   ops a leaf, the products cuBLAS/cuDNN): (a) phase 8's attention net
+   behind a ``mixed_bf16`` and a ``quantize="int8"`` engine (buckets
+   1024/8192, batch <= 4): model_bytes, probabilities, ms a decoded token
+   at batch 1 and 4; LeNet-5 trained 2 epochs on MNIST behind an fp32 and
+   an int8 engine, held to the JAX package's gates (top-1 agreement >=
+   0.97, accuracy delta <= 0.02, probabilities within 0.02, model_bytes
+   < 0.7x); VGG-16 under int8 (model_bytes against bf16 and f32, a
+   batch's peak with the decoded copy); (b) VGG-16, ResNet-50, LeNet-5,
+   the char-RNN (sessions) and the attention net in one ``ModelRegistry``
+   under a budget of the largest model_bytes plus half the second, three
+   round-robin passes: resident bytes within the budget, page-ins and
+   evictions counted (page-in ms), every answer bitwise the answer
+   before paging (deterministic cuDNN), no bucket callable made, each
+   evict dropping ``memory_allocated`` by ``EVICT_FALL`` of its bytes;
+   (c) ``bench_serving_v2``'s closed-loop sweep over that registry at 4,
+   16 and 48 clients under an SLO of ``S2_SLO_X`` times the unloaded p99
+   (sheds at 48), then ``bench_traffic``'s tenant mix in process (gold,
+   free, public; observe mode: the unfairness gauge, the
+   ``tenant_unfairness`` alert and its bundle; enforce: free shed more
+   than gold); K1-K4 launch 0 times on (a)-(c); (d) LeNet-5 fitting at
+   batch 256 publishes an epoch's weights through a
+   ``DeploymentListener`` into a ``VersionedWeightStore``; a
+   ``RolloutController`` canaries each on a held eval set under a
+   constant client load (at least 2 promotions, 0 failed requests, the
+   served accuracy up, no callable made), rolls back a garbage version
+   (its ``rollout_rollback`` bundle) and refuses a corrupt zip with the
+   engine unchanged; then the attention net's own ``fit`` step (K1-K3
+   once) publishes a version that the rollout promotes, while a decode
+   session opened before stays pinned to the old version, bitwise an
+   engine holding the old weights, and one opened after takes the new.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
 feed-forward/convolutional, recurrent, harness, graph, fused, transfer,
-embeddings and deepwalk results, a ``{"pretrain": ...}`` JSON line, one
-``{"kernels": [...]}`` JSON line, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``.
+embeddings and deepwalk results, a ``{"pretrain": ...}`` JSON line, a
+``{"serving_v2": ..., "deploy": ...}`` JSON line, one ``{"kernels":
+[...]}`` JSON line, the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -4979,6 +5012,1015 @@ def phase_pretrain(A, N=None) -> dict:
         raise RuntimeError("the pretrain path launched a flash kernel")
     return result
 
+# ---- phase 18: serving v2 and deployment ---------------------------------
+# (a) int8: the attention net behind a bf16 and an int8 engine, LeNet-5
+# trained on MNIST behind an fp32 and an int8 engine (the JAX package's
+# gates of tests/test_serving_registry.py), VGG-16 under int8.
+S2_MAX_BATCH = 4
+S2_PREFILL, S2_DECODE_TOKENS = 64, 32
+S2_LENET_TRAIN, S2_LENET_TEST, S2_LENET_EPOCHS = 6400, 2000, 2
+S2_LENET_BATCH = 32                    # the served LeNet's largest batch
+INT8_AGREE, INT8_ACC_DELTA, INT8_PROB_ATOL, INT8_BYTES_RATIO = \
+    0.97, 0.02, 0.02, 0.7
+# (b) the registry: five models under a budget of the largest model_bytes
+# plus half the second largest; three round-robin passes.  After an evict,
+# once in-flight batches let go, memory_allocated must fall by at least
+# EVICT_FALL of the bytes the evict released.
+S2_PASSES = 3
+EVICT_FALL = 0.9
+# (c) admission: bench_serving_v2's closed-loop sweep, then bench_traffic's
+# tenant mix in process (poisson gold at 25% of a capacity probe with a 2x
+# share, bursty free at 2.2x, diurnal public at 10%), observe then enforce.
+S2_SWEEP = (4, 16, 48)
+S2_SWEEP_S, S2_CAL_S = 2.0, 1.5
+S2_SLO_X = 3.0                         # SLO = 3x the unloaded p99
+TR_MAX_BATCH, TR_LATENCY_MS = 8, 2.0
+TR_MIX = {"gold": ("poisson", 0.25), "free": ("bursty", 2.2),
+          "public": ("diurnal", 0.10)}
+TR_DUR = (3.0, 3.0, 4.0)              # calibrate, observe, enforce
+# (d) deployment: LeNet-5 at batch 256, one published version an epoch.
+DP_BATCH, DP_EPOCHS, DP_TRAIN, DP_EVAL = 256, 3, 6400, 512
+
+
+def _mb(n: float) -> float:
+    return n / 2**20
+
+
+def s2_lenet(seed: int):
+    """LeNet-5 (BASELINE config #1) trained S2_LENET_EPOCHS epochs on the
+    procedural MNIST under the card's mixed_bf16, and the test set."""
+    from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    train = MnistDataSetIterator(128, S2_LENET_TRAIN)
+    test = MnistDataSetIterator(500, S2_LENET_TEST, train=False)
+    net = MultiLayerNetwork(lenet()).init()
+    net.fit(train, epochs=S2_LENET_EPOCHS)
+    return net, np.asarray(test._ds.features), \
+        np.argmax(np.asarray(test._ds.labels), axis=1)
+
+
+def s2_predict_all(engine, x, chunk: int) -> np.ndarray:
+    return np.concatenate([engine.predict(x[i:i + chunk], timeout=WAIT_S)
+                           for i in range(0, len(x), chunk)])
+
+
+def s2_decode_ms(engine, rng, batch: int) -> float:
+    """Median host ms a decoded token (one session step of ``batch``
+    rows, synchronized) over S2_DECODE_TOKENS steps after a prefill."""
+    x = rng.randn(batch, S2_PREFILL + S2_DECODE_TOKENS, N_IN).astype(
+        np.float32)
+    sid = f"p18-{batch}"
+    engine.predict_session(sid, x[:, :S2_PREFILL])
+    ms = []
+    for t in range(S2_PREFILL, S2_PREFILL + S2_DECODE_TOKENS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict_session(sid, x[:, t])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    engine.sessions.clear(sid)
+    return float(np.median(ms))
+
+
+def s2_int8_attention(att, rng) -> dict:
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    out = {}
+    with InferenceEngine(att, max_batch_size=S2_MAX_BATCH,
+                         timestep_buckets=SERVE_BUCKETS,
+                         name="p18-att-bf16") as eb, \
+            InferenceEngine(att, max_batch_size=S2_MAX_BATCH,
+                            timestep_buckets=SERVE_BUCKETS,
+                            name="p18-att-int8", quantize="int8") as e8:
+        for eng in (eb, e8):
+            eng.warmup((SEQ, N_IN))
+        for shape in ((2, SERVE_BUCKETS[0]),
+                      (1, SERVE_BUCKETS[0] * 3 // 4)):
+            x = rng.randn(*shape, N_IN).astype(np.float32)
+            pb, p8 = eb.predict(x, timeout=WAIT_S), e8.predict(
+                x, timeout=WAIT_S)
+            if not (np.isfinite(p8).all() and np.abs(
+                    p8.sum(-1) - 1).max() <= ROW_SUM_ATOL):
+                raise RuntimeError("int8 attention probabilities are not "
+                                   "finite softmax rows")
+            out[f"predict_{shape[0]}x{shape[1]}"] = {
+                "max_abs_vs_bf16": float(np.abs(p8 - pb).max()),
+                "signal_max_abs_p_minus_uniform": float(
+                    np.abs(pb - 1.0 / N_OUT).max())}
+        out["decode_ms_per_token"] = {
+            f"batch{b}": {"bf16": s2_decode_ms(eb, rng, b),
+                          "int8": s2_decode_ms(e8, rng, b)}
+            for b in (1, S2_MAX_BATCH)}
+        out["model_bytes"] = {"bf16": eb.model_bytes(),
+                              "int8": e8.model_bytes()}
+    log(f"[serving_v2] attention int8: model_bytes {out['model_bytes']}; "
+        + "; ".join(f"{k} max|p8 - pbf16| {v['max_abs_vs_bf16']:.2e} "
+                    f"(signal {v['signal_max_abs_p_minus_uniform']:.2e})"
+                    for k, v in out.items() if k.startswith("predict"))
+        + f"; ms a decoded token {out['decode_ms_per_token']}")
+    return out
+
+
+def s2_int8_lenet(lenet_net, x, labels) -> dict:
+    """The JAX package's int8 gates on the trained LeNet-5, f32 engine vs
+    int8 engine over the test set."""
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    f32 = fp32_copy(lenet_net)
+    with InferenceEngine(f32, max_batch_size=S2_LENET_BATCH,
+                         max_latency_ms=1.0, name="p18-lenet-f32") as e32, \
+            InferenceEngine(f32, max_batch_size=S2_LENET_BATCH,
+                            max_latency_ms=1.0, name="p18-lenet-int8",
+                            quantize="int8") as e8:
+        y32 = s2_predict_all(e32, x, S2_LENET_BATCH)
+        y8 = s2_predict_all(e8, x, S2_LENET_BATCH)
+        bytes32, bytes8 = e32.model_bytes(), e8.model_bytes()
+    acc32 = float(np.mean(np.argmax(y32, 1) == labels))
+    acc8 = float(np.mean(np.argmax(y8, 1) == labels))
+    agree = float(np.mean(np.argmax(y32, 1) == np.argmax(y8, 1)))
+    prob = float(np.abs(y32 - y8).max())
+    res = {"acc_f32": acc32, "acc_int8": acc8, "agreement": agree,
+           "max_prob_diff": prob, "model_bytes_f32": bytes32,
+           "model_bytes_int8": bytes8}
+    log(f"[serving_v2] LeNet-5 f32 vs int8 on {len(x)} test images: "
+        f"accuracy {acc32:.4f} vs {acc8:.4f} (delta tol {INT8_ACC_DELTA}), "
+        f"top-1 agreement {agree:.4f} (>= {INT8_AGREE}), max |p| diff "
+        f"{prob:.4f} (< {INT8_PROB_ATOL}), model_bytes {bytes32} -> "
+        f"{bytes8} ({bytes8 / bytes32:.3f}x, < {INT8_BYTES_RATIO})")
+    if not (abs(acc32 - acc8) <= INT8_ACC_DELTA and agree >= INT8_AGREE
+            and prob < INT8_PROB_ATOL
+            and bytes8 < INT8_BYTES_RATIO * bytes32):
+        raise RuntimeError(f"LeNet-5 int8 fails the JAX gates: {res}")
+    return res
+
+
+def s2_int8_vgg(vgg, rng) -> dict:
+    """VGG-16 under int8: model_bytes against bf16 and f32, and a batch's
+    transient peak with the decoded copy, beside the bf16 engine's."""
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    x = rng.rand(2, 224, 224, 3).astype(np.float32)
+    f32_bytes = sum(p.numel() * 4 for tree in vgg.params
+                    for p in tree.values())
+    res = {"params": vgg.num_params(), "model_bytes_f32": f32_bytes}
+    outs = {}
+    for mode in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        eng = InferenceEngine(vgg, max_batch_size=2, name=f"p18-vgg-{mode}",
+                              quantize="int8" if mode == "int8" else None)
+        build_s = time.perf_counter() - t0
+        with eng:
+            eng.warmup((224, 224, 3))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            outs[mode] = eng.predict(x, timeout=WAIT_S)
+            torch.cuda.synchronize()
+            res[mode] = {"model_bytes": eng.model_bytes(),
+                         "resident_bytes": eng.resident_bytes(),
+                         "batch2_peak_over_base_bytes":
+                             torch.cuda.max_memory_allocated() - base,
+                         "engine_build_s": build_s}
+        eng.release_device_buffers()
+    res["max_prob_diff"] = float(np.abs(outs["int8"] - outs["bf16"]).max())
+    log(f"[serving_v2] VGG-16 ({res['params']} params) model_bytes: f32 "
+        f"{_mb(f32_bytes):.1f} MiB, bf16 "
+        f"{_mb(res['bf16']['model_bytes']):.1f} MiB, int8 "
+        f"{_mb(res['int8']['model_bytes']):.1f} MiB; a batch of 2's peak "
+        f"over the resident base: bf16 "
+        f"{_mb(res['bf16']['batch2_peak_over_base_bytes']):.1f} MiB, int8 "
+        f"{_mb(res['int8']['batch2_peak_over_base_bytes']):.1f} MiB (the "
+        f"decoded copy); int8 engine build (host quantize) "
+        f"{res['int8']['engine_build_s']:.2f} s; max |p8 - pbf16| "
+        f"{res['max_prob_diff']:.2e}")
+    if not (res["int8"]["model_bytes"] < 0.6 * res["bf16"]["model_bytes"]
+            and np.isfinite(outs["int8"]).all()):
+        raise RuntimeError(f"VGG-16 int8 keeps no fewer bytes: {res}")
+    return res
+
+
+class _PageLog:
+    """Wraps an engine's page-in and evict primitives: page-in ms (the
+    copy, synchronized) and bytes; for each evict, the bytes it released
+    and how far ``torch.cuda.memory_allocated()`` fell once in-flight
+    batches dropped their references."""
+
+    def __init__(self, name, engine):
+        self.name, self.pageins, self.evicts = name, [], []
+        self.engine = engine
+        ensure, release = engine.ensure_resident, \
+            engine.release_device_buffers
+
+        def paged_in():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = ensure()
+            torch.cuda.synchronize()
+            self.pageins.append(((time.perf_counter() - t0) * 1e3, n))
+            return n
+
+        def evicted():
+            before = torch.cuda.memory_allocated()
+            freed = release()
+            t0 = time.perf_counter()
+            fell = before - torch.cuda.memory_allocated()
+            while fell < EVICT_FALL * freed and \
+                    time.perf_counter() - t0 < 2.0:
+                time.sleep(0.005)      # an in-flight batch still holds them
+                fell = before - torch.cuda.memory_allocated()
+            self.evicts.append({"freed": freed, "fell": fell,
+                                "waited_ms": (time.perf_counter() - t0)
+                                * 1e3})
+            return freed
+
+        engine.ensure_resident = paged_in
+        engine.release_device_buffers = evicted
+
+    def restore(self) -> None:
+        del self.engine.ensure_resident, self.engine.release_device_buffers
+
+
+def s2_registry(models, adm, rng) -> tuple:
+    """(b) five models in one ModelRegistry under a budget that never
+    holds VGG-16 and ResNet-50 together; three round-robin passes, every
+    answer bitwise the model's answer before any paging."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  ModelRegistry)
+    specs = {  # name: (net, max batch, timestep buckets, warmup shape, x)
+        "vgg16": (models["vgg16"], 2, None, (224, 224, 3),
+                  rng.rand(1, 224, 224, 3).astype(np.float32)),
+        "resnet50": (models["resnet50"], 2, None, (224, 224, 3),
+                     rng.rand(1, 224, 224, 3).astype(np.float32)),
+        "lenet": (models["lenet"], 16, None, (784,),
+                  rng.rand(2, 784).astype(np.float32)),
+        "char_rnn": (models["char_rnn"], 4, None, None,
+                     np.eye(CHAR_VOCAB, dtype=np.float32)[
+                         rng.randint(0, CHAR_VOCAB, (1, S2_PASSES))]),
+        "attention": (models["attention"], S2_MAX_BATCH, SERVE_BUCKETS,
+                      (SEQ, N_IN),
+                      rng.randn(1, SERVE_BUCKETS[0], N_IN).astype(
+                          np.float32)),
+    }
+    engines, refs = {}, {}
+    for name, (net, mb, tb, shape, x) in specs.items():
+        eng = InferenceEngine(net, max_batch_size=mb, timestep_buckets=tb,
+                              max_latency_ms=2.0, name=name,
+                              admission=adm).start()
+        if shape is not None:
+            eng.warmup(shape)
+        if name == "char_rnn":
+            refs[name] = [eng.predict_session("ref", x[:, t])
+                          for t in range(S2_PASSES)]
+        else:
+            refs[name] = eng.predict(x, timeout=WAIT_S)
+        eng.release_device_buffers()
+        engines[name] = eng
+    sizes = sorted((e.model_bytes() for e in engines.values()),
+                   reverse=True)
+    budget = sizes[0] + sizes[1] // 2
+    logs = {name: _PageLog(name, eng) for name, eng in engines.items()}
+    reg = ModelRegistry(hbm_budget_bytes=budget)
+    for name, eng in engines.items():
+        reg.register(name, eng, start=False)
+
+    def compiles():
+        vals = monitor.snapshot().get("serving_bucket_compiles_total",
+                                      {}).get("values", {})
+        return sum(vals.values())
+
+    c0 = compiles()
+    max_resident, mismatches = reg.resident_bytes(), []
+    for p in range(S2_PASSES):
+        for name, (_, _, _, _, x) in specs.items():
+            if name == "char_rnn":
+                got = reg.predict(name, x[:, p], session="live")
+                want = refs[name][p]
+            else:
+                got = reg.predict(name, x, timeout=WAIT_S)
+                want = refs[name]
+            if not np.array_equal(got, want):
+                mismatches.append((p, name, float(np.abs(got - want).max())))
+            max_resident = max(max_resident, reg.resident_bytes())
+            if reg.resident_bytes() > budget:
+                raise RuntimeError(f"resident {reg.resident_bytes()} over "
+                                   f"the budget {budget}")
+    for lg in logs.values():
+        lg.restore()
+    snap = monitor.snapshot()
+    counts = {m: sum(snap.get(m, {}).get("values", {}).values())
+              for m in ("serving_model_pageins_total",
+                        "serving_model_evictions_total")}
+    evicts = [dict(e, model=n) for n, lg in logs.items() for e in lg.evicts]
+    short = [e for e in evicts if e["fell"] < EVICT_FALL * e["freed"]]
+    pageins = {n: [{"ms": ms, "bytes": b} for ms, b in lg.pageins]
+               for n, lg in logs.items() if lg.pageins}
+    res = {"budget_bytes": budget,
+           "model_bytes": {n: e.model_bytes() for n, e in engines.items()},
+           "max_resident_bytes": max_resident,
+           "pageins_total": counts["serving_model_pageins_total"],
+           "evictions_total": counts["serving_model_evictions_total"],
+           "pageins": pageins, "evicts": evicts,
+           "compiles_moved": compiles() - c0, "mismatches": mismatches}
+    log(f"[serving_v2] registry of 5 (budget {_mb(budget):.1f} MiB, "
+        f"model_bytes MiB {({n: round(_mb(b), 2) for n, b in res['model_bytes'].items()})}): "
+        f"{S2_PASSES} passes, max resident {_mb(max_resident):.1f} MiB, "
+        f"page-ins {counts['serving_model_pageins_total']:g}, evictions "
+        f"{counts['serving_model_evictions_total']:g}; page-in ms "
+        + ", ".join(f"{n} {np.median([p['ms'] for p in v]):.3f} "
+                    f"({_mb(v[0]['bytes']):.1f} MiB)"
+                    for n, v in pageins.items())
+        + f"; every evict: memory_allocated fell by "
+        f"{min((e['fell'] / e['freed'] for e in evicts if e['freed']), default=0):.3f}"
+        f"x of its model_bytes or more (max wait "
+        f"{max((e['waited_ms'] for e in evicts), default=0):.1f} ms); "
+        f"bucket compiles moved {res['compiles_moved']:g}; "
+        f"answers bitwise: {not mismatches}")
+    if mismatches or short or res["compiles_moved"] or not (
+            counts["serving_model_pageins_total"]
+            and counts["serving_model_evictions_total"] >= S2_PASSES):
+        raise RuntimeError(f"the registry check failed: mismatches "
+                           f"{mismatches}, short evicts {short}, {res}")
+    return reg, engines, res
+
+
+def s2_pct(lat, p):
+    return lat[min(len(lat) - 1, int(p * len(lat)))] * 1e3 if lat else None
+
+
+def s2_sweep(reg, adm, rng) -> dict:
+    """bench_serving_v2's closed-loop sweep over the registry: the SLO is
+    S2_SLO_X times the unloaded p99 of one client that cycles through the
+    five models, then S2_SWEEP clients for S2_SWEEP_S each, client i on
+    model i mod 5 (the char-RNN and the attention net by session, the
+    others by predict), every client backing off 2 ms after a shed."""
+    from deeplearning4j_tpu_torch.serving import ServingError
+    xs = {"vgg16": rng.rand(1, 224, 224, 3).astype(np.float32),
+          "resnet50": rng.rand(1, 224, 224, 3).astype(np.float32),
+          "lenet": rng.rand(1, 784).astype(np.float32),
+          "char_rnn": np.eye(CHAR_VOCAB, dtype=np.float32)[[3]],
+          "attention": rng.randn(1, N_IN).astype(np.float32)}
+    names = ("char_rnn", "attention", "lenet", "resnet50", "vgg16")
+
+    def level(clients: int, seconds: float, tag: str,
+              rotate: bool = False) -> dict:
+        lat, sheds, lock = [], [0] * clients, threading.Lock()
+        stop_at = time.perf_counter() + seconds
+        errors = []
+
+        def client(i):
+            n = 0
+            while time.perf_counter() < stop_at:
+                name = names[(i + n if rotate else i) % len(names)]
+                t0 = time.perf_counter()
+                try:
+                    if name in ("char_rnn", "attention"):
+                        # a fresh conversation every 256 tokens
+                        reg.predict(name, xs[name], session=(
+                            f"{tag}-{i}-{n // min(256, SEQ)}"))
+                    else:
+                        reg.predict(name, xs[name], timeout=WAIT_S)
+                except ServingError:
+                    sheds[i] += 1
+                    time.sleep(0.002)
+                    continue
+                except Exception as e:        # a real failure
+                    errors.append(repr(e))
+                    return
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+                n += 1
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(WAIT_S)
+        elapsed = time.perf_counter() - t0
+        if errors:
+            raise RuntimeError(f"sweep clients failed: {errors[:3]}")
+        lat.sort()
+        done = len(lat)
+        return {"clients": clients, "rps": done / elapsed,
+                "admitted_p50_ms": s2_pct(lat, 0.50),
+                "admitted_p99_ms": s2_pct(lat, 0.99), "shed": sum(sheds),
+                "shed_fraction": sum(sheds) / max(1, done + sum(sheds))}
+
+    adm.enforce = False
+    cal = level(1, S2_CAL_S, "cal", rotate=True)
+    slo = S2_SLO_X * cal["admitted_p99_ms"]
+    adm.slo_p99_ms = slo
+    adm.enforce = True
+    levels = []
+    for clients in S2_SWEEP:
+        levels.append(level(clients, S2_SWEEP_S, f"c{clients}"))
+    adm.enforce = False
+    for lv in levels:
+        log(f"[serving_v2] sweep {lv['clients']} clients: "
+            f"{lv['rps']:.1f} rps admitted, p99 {lv['admitted_p99_ms']:.2f}"
+            f" ms (SLO {slo:.2f} ms = {S2_SLO_X:g}x the unloaded p99 "
+            f"{cal['admitted_p99_ms']:.2f} ms), shed "
+            f"{lv['shed_fraction']:.3f}")
+    if levels[-1]["shed"] == 0:
+        raise RuntimeError(f"no shed at {S2_SWEEP[-1]} clients: {levels}")
+    return {"unloaded": cal, "slo_p99_ms": slo, "levels": levels}
+
+
+def tr_arrivals(kind: str, rate: float, duration_s: float, rng) -> list:
+    """``bench.py``'s ``_arrival_times``: a Poisson process, or a thinned
+    nonhomogeneous one (bursty: 3x the mean in a 25% duty cycle; diurnal:
+    one sinusoidal day over the run), all at mean ``rate``."""
+    if rate <= 0 or duration_s <= 0:
+        return []
+    if kind == "poisson":
+        out, t = [], rng.exponential(1.0 / rate)
+        while t < duration_s:
+            out.append(t)
+            t += rng.exponential(1.0 / rate)
+        return out
+    burst_x, duty = 3.0, 0.25
+    period = max(0.5, duration_s / 4.0)
+    base = (1.0 - duty * burst_x) / (1.0 - duty)
+
+    def lam(t):
+        if kind == "bursty":
+            return rate * (burst_x if (t % period) / period < duty
+                           else base)
+        return rate * (1.0 + 0.8 * np.sin(2.0 * np.pi * t / duration_s))
+
+    lam_max = rate * max(burst_x, 1.8)
+    out, t = [], rng.exponential(1.0 / lam_max)
+    while t < duration_s:
+        if rng.rand() * lam_max < lam(t):
+            out.append(t)
+        t += rng.exponential(1.0 / lam_max)
+    return out
+
+
+def tr_open_loop(fire, arrivals, pool_size: int = 96) -> list:
+    """``bench.py``'s ``_open_loop_tagged``: each arrival fires at its
+    scheduled time; its latency is charged from the schedule.  Returns
+    ``[(tag, code, latency_s)]``."""
+    results, rec, nxt, cursor = [], threading.Lock(), threading.Lock(), [0]
+    start = time.perf_counter()
+
+    def runner():
+        while True:
+            with nxt:
+                i = cursor[0]
+                if i >= len(arrivals):
+                    return
+                cursor[0] = i + 1
+            at, tag = arrivals[i]
+            delay = at - (time.perf_counter() - start)
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                code = fire(tag)
+            except Exception:
+                code = -1
+            lat = (time.perf_counter() - start) - at
+            with rec:
+                results.append((tag, code, lat))
+
+    pool = [threading.Thread(target=runner, daemon=True)
+            for _ in range(min(pool_size, len(arrivals) or 1))]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(WAIT_S)
+    return results
+
+
+def s2_traffic(models, rng, flight_dir: str) -> dict:
+    """bench_traffic's tenant mix in process: two LeNet engines and the
+    char-RNN (sessions churning through a 2 s TTL) behind one fair
+    admission controller; calibrate gold alone, overload in observe mode
+    (the unfairness gauge and alert, with its bundle), then enforce."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  ModelRegistry, QueueFull,
+                                                  SloShed)
+    from deeplearning4j_tpu_torch.serving.admission import (
+        SloAdmissionController, publish_tenant_telemetry,
+        reset_tenant_labels)
+    reset_tenant_labels()
+    monitor.alerts.reset()
+    alert_eng = monitor.alerts.engine(interval_s=0.5)
+    adm = SloAdmissionController(
+        1e4, window_s=0.75, min_samples=30, refresh_s=0.02,
+        tenants={"gold": {"share": 2.0}, "free": {"share": 1.0},
+                 "public": {"share": 1.0}},
+        fair=True, enforce=False, penalty_s=15.0)
+    qcap = max(2, TR_MAX_BATCH // 2)
+    engines = {n: InferenceEngine(models["lenet"], max_batch_size=TR_MAX_BATCH,
+                                  max_latency_ms=TR_LATENCY_MS,
+                                  queue_capacity=qcap, name=n, admission=adm)
+               for n in ("t-lenet-a", "t-lenet-b")}
+    engines["t-rnn"] = InferenceEngine(
+        models["char_rnn"], max_batch_size=TR_MAX_BATCH,
+        max_latency_ms=TR_LATENCY_MS, queue_capacity=qcap, name="t-rnn",
+        admission=adm, session_ttl_s=2.0)
+    reg = ModelRegistry()
+    for n, eng in engines.items():
+        reg.register(n, eng)
+    x_dense = rng.rand(1, 784).astype(np.float32)
+    x_step = np.eye(CHAR_VOCAB, dtype=np.float32)[[5]]
+    engines["t-lenet-a"].warmup((784,))
+    engines["t-lenet-b"].warmup((784,))
+    engines["t-rnn"].predict_session("_warm", x_step)
+    models_ = ["t-lenet-a", "t-lenet-b", "t-rnn"]
+    pools = {"gold": models_[:2], "free": models_, "public": models_}
+    pool_w = {}
+    for tn, ms in pools.items():
+        w = np.array([1.0 / (k + 1) ** 1.2 for k in range(len(ms))])
+        pool_w[tn] = w / w.sum()
+
+    def tag_for(tenant, t, r):
+        ms = pools[tenant]
+        m = ms[int(r.choice(len(ms), p=pool_w[tenant]))]
+        sess = (f"{tenant}-{int(t)}-{int(r.randint(4))}"
+                if m == "t-rnn" else None)
+        return (tenant, m, sess, t)
+
+    def fire(tag) -> int:
+        tenant, model, sess = tag[:3]
+        try:
+            reg.predict(model, x_step if model == "t-rnn" else x_dense,
+                        session=sess, timeout=20.0, block=False,
+                        tenant=tenant)
+            return 200
+        except SloShed:
+            return 503
+        except QueueFull:
+            return 429
+
+    def schedule(specs, seed):
+        merged = []
+        for tenant, kind, rate, dur in specs:
+            r = np.random.RandomState(seed + sum(ord(c) for c in tenant))
+            for t in tr_arrivals(kind, rate, dur, r):
+                merged.append((t, tag_for(tenant, t, r)))
+        merged.sort(key=lambda p: p[0])
+        return merged
+
+    # capacity probe: closed-loop batched throughput on one LeNet engine
+    probe_stop = time.perf_counter() + 0.8
+    counts = [0] * (3 * TR_MAX_BATCH)
+
+    def prober(i):
+        while time.perf_counter() < probe_stop:
+            engines["t-lenet-a"].predict(x_dense, timeout=5.0)
+            counts[i] += 1
+
+    run_threads([lambda i=i: prober(i) for i in range(len(counts))], [])
+    probed = min(500.0, max(50.0, sum(counts) / 0.8))
+    mix = {tn: (kind, f * probed) for tn, (kind, f) in TR_MIX.items()}
+    dur1, dur2, dur3 = TR_DUR
+    res1 = tr_open_loop(fire, schedule([("gold",) + mix["gold"] + (dur1,)],
+                                       101))
+    lat1 = sorted(l for tg, c, l in res1 if c == 200 and tg[3] > 0.3)
+    unloaded = max(s2_pct(lat1, 0.99) or 5.0, 5.0)
+    slo = max(1.2 * unloaded, unloaded + 1.5)
+    adm.slo_p99_ms = slo
+    adm.configure_tenant("gold", slo_p99_ms=slo, share=2.0)
+    # observe: the offender crosses unshed; a watcher publishes the tenant
+    # gauges and evaluates the alert rules while the overload is live
+    monitor.flight_recorder.reset_rate_limit()
+    peak, firing, stop = {"ratio": 0.0}, set(), threading.Event()
+
+    def watcher():
+        while not stop.is_set():
+            publish_tenant_telemetry(adm, "t-lenet-a")
+            u = adm.unfairness()
+            if u["ratio"] > peak["ratio"]:
+                peak.clear()
+                peak.update(u)
+            if "tenant_unfairness" not in firing:
+                for s in alert_eng.evaluate_once():
+                    if s["state"] == "firing":
+                        firing.add(s["name"])
+            stop.wait(0.2)
+
+    wt = threading.Thread(target=watcher, daemon=True)
+    wt.start()
+    res2 = tr_open_loop(fire, schedule(
+        [(tn,) + mix[tn] + (dur2,) for tn in mix], 202))
+    stop.set()
+    wt.join(WAIT_S)
+    gauge = monitor.gauge("serving_tenant_unfairness").value(
+        engine="t-lenet-a")
+    bundles = sorted(os.listdir(flight_dir))
+    alert_bundle = [b for b in bundles if "alert_tenant_unfairness" in b]
+    gold2 = sorted(l for tg, c, l in res2 if tg[0] == "gold" and c == 200)
+    # enforce: the same mix; the offender's excess goes first
+    time.sleep(adm.window_s + 0.3)
+    adm.enforce = True
+    res3 = tr_open_loop(fire, schedule(
+        [(tn,) + mix[tn] + (dur3,) for tn in mix], 303))
+    adm.enforce = False
+    ramp = dur3 / 3.0
+    gold3 = sorted(l for tg, c, l in res3
+                   if tg[0] == "gold" and c == 200 and tg[3] > ramp)
+
+    def shed_frac(tenant):
+        mine = [c for tg, c, _ in res3 if tg[0] == tenant]
+        return (sum(1 for c in mine if c in (429, 503)) / len(mine)
+                if mine else 0.0)
+
+    errors = sum(1 for r in (res1, res2, res3) for _, c, _ in r if c == -1)
+    admitted = sorted(l for _, c, l in res3 if c == 200)
+    res = {"probed_rps": probed, "unloaded_gold_p99_ms": unloaded,
+           "slo_p99_ms": slo, "observe_gold_p99_ms": s2_pct(gold2, 0.99),
+           "observe_unfairness_peak": peak,
+           "unfairness_gauge_after": gauge, "alerts_firing": sorted(firing),
+           "alert_bundle": alert_bundle,
+           "tenant_slo_violation_bundles": sum(
+               "tenant_slo_violation" in b for b in bundles),
+           "enforce_gold_p99_ms": s2_pct(gold3, 0.99),
+           "enforce_admitted_p99_ms": s2_pct(admitted, 0.99),
+           "enforce_shed_fraction": {tn: shed_frac(tn) for tn in mix},
+           "errors": errors,
+           "requests": [len(res1), len(res2), len(res3)]}
+    log(f"[serving_v2] traffic (capacity probe {probed:.0f} rps): gold "
+        f"unloaded p99 {unloaded:.2f} ms, SLO {slo:.2f} ms; observe: gold "
+        f"p99 {res['observe_gold_p99_ms']} ms, unfairness peak "
+        f"{peak.get('ratio')} (victim {peak.get('victim')}, offender "
+        f"{peak.get('offender')}), alerts firing {sorted(firing)}, bundle "
+        f"{alert_bundle[:1]}; enforce: gold p99 "
+        f"{res['enforce_gold_p99_ms']} ms ({(res['enforce_gold_p99_ms'] or 0) / unloaded:.2f}x"
+        f" unloaded), admitted p99 {res['enforce_admitted_p99_ms']} ms "
+        f"vs SLO {slo:.2f}, shed fraction {res['enforce_shed_fraction']}; "
+        f"requests {res['requests']}, errors {errors}")
+    sf = res["enforce_shed_fraction"]
+    if errors or not (peak["ratio"] > 0 and "tenant_unfairness" in firing
+                      and alert_bundle and sf["free"] > 0
+                      and sf["free"] > sf["gold"]):
+        raise RuntimeError(f"the tenant mix failed its checks: {res}")
+    reg.stop_all()
+    monitor.alerts.reset()
+    return res
+
+
+def phase_serving_v2(N, A, seed: int) -> tuple:
+    """Phase 18, the ``serving_v2`` path: (a) int8, (b) the registry,
+    (c) admission.  Returns (models, result) for the deploy path."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.keras.trained_models import vgg16
+    from deeplearning4j_tpu_torch.models.resnet import resnet50
+    from deeplearning4j_tpu_torch.nn.computation_graph import \
+        ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving.admission import \
+        SloAdmissionController
+    rng = np.random.RandomState(seed + 18)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()            # counts of the serving_v2 path only
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    tmp = tempfile.TemporaryDirectory(prefix="p18_flight_")
+    flight = tmp.name
+    old_flight = os.environ.get("DL4J_TPU_FLIGHT_DIR")
+    os.environ["DL4J_TPU_FLIGHT_DIR"] = flight
+    seconds, result = {}, {}
+    try:
+        t0 = time.perf_counter()
+        att = build_net(N, A, seed=seed + 18, n_in=N_IN, hidden=HIDDEN,
+                        heads=HEADS, n_out=N_OUT, cache_len=SEQ)
+        lenet_net, xt, yt = s2_lenet(seed)
+        models = {"attention": att, "lenet": lenet_net,
+                  "vgg16": MultiLayerNetwork(vgg16()).init(),
+                  "resnet50": ComputationGraph(resnet50()).init(),
+                  "char_rnn": char_rnn(N)}
+        for name, net in models.items():
+            if net._pol().name != "mixed_bf16":
+                raise RuntimeError(f"{name} serves under {net._pol().name}")
+        seconds["models"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["int8"] = {"attention": s2_int8_attention(att, rng),
+                          "lenet": s2_int8_lenet(lenet_net, xt, yt),
+                          "vgg16": s2_int8_vgg(models["vgg16"], rng)}
+        seconds["int8"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        adm = SloAdmissionController(1e4, window_s=1.0, min_samples=30,
+                                     refresh_s=0.02, enforce=False)
+        reg, engines, result["registry"] = s2_registry(models, adm, rng)
+        seconds["registry"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["sweep"] = s2_sweep(reg, adm, rng)
+        reg.stop_all()
+        for eng in engines.values():
+            eng.release_device_buffers()
+        del reg, engines
+        result["traffic"] = s2_traffic(models, rng, flight)
+        seconds["admission"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+        if old_flight is None:
+            os.environ.pop("DL4J_TPU_FLIGHT_DIR", None)
+        else:
+            os.environ["DL4J_TPU_FLIGHT_DIR"] = old_flight
+        tmp.cleanup()
+    torch.cuda.synchronize()
+    result["launches"] = dict(A.LAUNCHES)
+    result["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    result["seconds"] = dict(seconds, total=time.perf_counter() - t_phase)
+    log(f"[serving_v2] launches {result['launches']}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; seconds "
+        f"{result['seconds']}")
+    if any(result["launches"].values()):
+        raise RuntimeError("the serving_v2 path launched a flash kernel")
+    monitor.reset()
+    return models, result
+
+
+def dp_corrupt(path: str) -> None:
+    """Rewrite flat.bin of a snapshot with one byte flipped under its
+    (now stale) manifest."""
+    import io
+    import zipfile
+    with zipfile.ZipFile(path) as zf:
+        entries = {n: zf.read(n) for n in zf.namelist()}
+    data = bytearray(entries["flat.bin"])
+    data[len(data) // 2] ^= 0xFF
+    entries["flat.bin"] = bytes(data)
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as zf:
+        for n, b in entries.items():
+            zf.writestr(n, b)
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())
+
+
+def dp_lenet(tmp: str, seed: int) -> dict:
+    """(d) LeNet-5 fits at batch 256, a DeploymentListener publishes an
+    epoch's weights, a RolloutController canaries each on a held eval set
+    while a client sends a constant load; then a garbage version and a
+    corrupt zip."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.deploy import (DeploymentListener,
+                                                 RolloutController,
+                                                 VersionedWeightStore,
+                                                 WeightStoreCorruptError)
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  ModelRegistry)
+    train = MnistDataSetIterator(DP_BATCH, DP_TRAIN)
+    test = MnistDataSetIterator(500, S2_LENET_TEST, train=False)
+    xt = np.asarray(test._ds.features)
+    yt = np.argmax(np.asarray(test._ds.labels), axis=1)
+    xe, ye = xt[:DP_EVAL], np.asarray(test._ds.labels)[:DP_EVAL]
+    server = MultiLayerNetwork(lenet()).init()
+    trainer = MultiLayerNetwork(lenet()).init()
+    store = VersionedWeightStore(os.path.join(tmp, "lenet"))
+    reg = ModelRegistry()
+    eng = reg.register("lenet-deploy", InferenceEngine(
+        server, max_batch_size=16, max_latency_ms=2.0,
+        name="lenet-deploy"), warmup_shape=(784,))
+    alert_eng = monitor.alerts.engine(interval_s=60.0)
+
+    def compiles():
+        return monitor.counter("serving_bucket_compiles_total").value(
+            engine="lenet-deploy")
+
+    acc0 = float(np.mean(np.argmax(s2_predict_all(eng, xt, 16), 1) == yt))
+    c0 = compiles()
+    ctl = RolloutController(reg, "lenet-deploy", store, canary_fraction=0.2,
+                            eval_features=xe, eval_labels=ye,
+                            min_probe_rounds=2)
+    stop, stats, failures = threading.Event(), {"ok": 0}, []
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            try:
+                reg.predict("lenet-deploy", xt[i % len(xt)][None],
+                            timeout=WAIT_S)
+                stats["ok"] += 1
+            except Exception as e:
+                failures.append(repr(e))
+            i += 1
+            time.sleep(0.001)
+
+    def settle(limit: int = 40) -> list:
+        actions = []
+        for _ in range(limit):
+            alert_eng.evaluate_once()
+            a = ctl.step()
+            actions.append(a)
+            if a in ("promote", "rollback") or (a == "noop"
+                                               and ctl.state == "idle"):
+                break
+        return actions
+
+    ct = threading.Thread(target=client, daemon=True)
+    ct.start()
+    trainer.set_listeners(DeploymentListener(store, every_n_iterations=0))
+    actions, verdicts = [], []
+    for _ in range(DP_EPOCHS):
+        trainer.fit(train, epochs=1, ingest="batch")
+        acts = settle()
+        actions += acts
+    promotions = actions.count("promote")
+    n = trainer.num_params()
+    garbage = store.publish(np.random.RandomState(seed).randn(n).astype(
+        np.float32) * 100.0, source="garbage")
+    g_actions = settle()
+    bundle = ctl.last_bundle
+    good = store.publish(trainer.get_flat_params(), source="corrupted")
+    dp_corrupt(os.path.join(store.directory,
+                            "weights-v%010d.zip" % good))
+    before = (eng.versions(), eng.active_version, eng.canary_version)
+    try:
+        ctl.push(good)
+        corrupt_raised = False
+    except WeightStoreCorruptError:
+        corrupt_raised = True
+    after = (eng.versions(), eng.active_version, eng.canary_version)
+    stop.set()
+    ct.join(WAIT_S)
+    acc1 = float(np.mean(np.argmax(s2_predict_all(eng, xt, 16), 1) == yt))
+    swap = monitor.histogram("deploy_swap_seconds").stats(
+        model="lenet-deploy")
+    res = {"actions": actions, "promotions": promotions,
+           "garbage_version": garbage, "garbage_actions": g_actions,
+           "rollback_bundle": bundle, "corrupt_raised": corrupt_raised,
+           "versions_unchanged": before == after, "served_ok": stats["ok"],
+           "failures": len(failures), "acc_untrained": acc0,
+           "acc_served": acc1, "compiles_moved": compiles() - c0,
+           "active_version": eng.active_version,
+           "deploy_swap_ms": {"count": swap["count"],
+                              "p50": swap["p50"] * 1e3,
+                              "max": swap["max"] * 1e3},
+           "history": ctl.history}
+    log(f"[deploy] LeNet-5 rollout: actions {actions}, {promotions} "
+        f"promotions (active v{eng.active_version}); garbage v{garbage}: "
+        f"{g_actions}, bundle {os.path.basename(bundle or '')}; corrupt zip "
+        f"raised {corrupt_raised}, versions unchanged {before == after}; "
+        f"client {stats['ok']} answers, {len(failures)} failures; served "
+        f"accuracy {acc0:.4f} -> {acc1:.4f}; compiles moved "
+        f"{res['compiles_moved']:g}; deploy_swap_seconds p50 "
+        f"{res['deploy_swap_ms']['p50']:.3f} ms, max "
+        f"{res['deploy_swap_ms']['max']:.3f} ms over {swap['count']}")
+    if not (promotions >= 2 and acc1 > acc0 + 0.2 and not failures
+            and res["compiles_moved"] == 0 and "rollback" in g_actions
+            and bundle and os.path.isdir(bundle)
+            and "rollout_rollback" in bundle and corrupt_raised
+            and before == after):
+        raise RuntimeError(f"the LeNet-5 rollout failed its checks: "
+                           f"{ {k: v for k, v in res.items() if k != 'history'} }"
+                           f" failures {failures[:3]}")
+    reg.stop_all()
+    return res
+
+
+def dp_attention(N, A, tmp: str, seed: int) -> dict:
+    """(d) the attention net at full width: its own fit step publishes a
+    version, the rollout promotes it; a decode session opened before the
+    promote keeps its pinned version, bitwise an engine that holds only
+    the old weights; a session opened after uses the new one."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.deploy import (DeploymentListener,
+                                                 RolloutController,
+                                                 VersionedWeightStore)
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  ModelRegistry)
+
+    def net():
+        return build_net(N, A, seed=seed + 19, n_in=N_IN, hidden=HIDDEN,
+                         heads=HEADS, n_out=N_OUT, cache_len=SEQ)
+
+    server, trainer, old = net(), net(), net()
+    for other in (trainer, old):
+        other.set_flat_params(server.get_flat_params())
+    rng = np.random.RandomState(seed + 19)
+    x = rng.randn(1, S2_PREFILL + 2 * S2_DECODE_TOKENS, N_IN).astype(
+        np.float32)
+    store = VersionedWeightStore(os.path.join(tmp, "attention"))
+    reg = ModelRegistry()
+    opts = dict(max_batch_size=2, timestep_buckets=SERVE_BUCKETS,
+                max_latency_ms=2.0)
+    eng = reg.register("att-deploy", InferenceEngine(
+        server, name="att-deploy", **opts), warmup_shape=(SEQ, N_IN))
+    ref = InferenceEngine(old, name="att-old", **opts).start()
+    gauge = monitor.gauge("serving_session_version_pinned")
+    mism = []
+
+    def both(sid, xs):
+        a, b = eng.predict_session(sid, xs), ref.predict_session(sid, xs)
+        if not np.array_equal(a, b):
+            mism.append((sid, float(np.abs(a - b).max())))
+
+    both("old", x[:, :S2_PREFILL])
+    ds = make_batch(seed + 19, BATCH, SEQ, N_IN, N_OUT)
+    trainer.set_listeners(DeploymentListener(store, every_n_iterations=1,
+                                             publish_on_epoch_end=False))
+    trainer.fit(ds)
+    fit_steps = trainer.iteration
+    ctl = RolloutController(reg, "att-deploy", store,
+                            eval_features=rng.randn(
+                                2, SERVE_BUCKETS[0], N_IN).astype(
+                                np.float32),
+                            min_agreement=0.0, min_probe_rounds=1)
+    actions = [ctl.step(), ctl.step()]
+    pinned_after_promote = gauge.value(model="att-deploy")
+    for t in range(S2_PREFILL, S2_PREFILL + S2_DECODE_TOKENS):
+        both("old", x[:, t])
+    old_version = eng.sessions.session_version("old")
+    snap = store.load(store.latest())
+    new = net()
+    new.set_flat_params(snap.flat)
+    with InferenceEngine(new, name="att-new", **opts) as new_eng:
+        a = eng.predict_session("new", x[:, :S2_PREFILL])
+        b = new_eng.predict_session("new", x[:, :S2_PREFILL])
+        new_equal = bool(np.array_equal(a, b))
+        moved = float(np.abs(a - ref.predict_session(
+            "probe", x[:, :S2_PREFILL])).max())
+    new_version = eng.sessions.session_version("new")
+    eng.sessions.clear("old")
+    pinned_after_close = gauge.value(model="att-deploy")
+    ref.stop()
+    res = {"fit_steps": fit_steps, "published": store.versions(),
+           "actions": actions, "active_version": eng.active_version,
+           "old_session_version": old_version,
+           "new_session_version": new_version,
+           "old_session_bitwise": not mism, "mismatches": mism,
+           "new_session_bitwise": new_equal,
+           "new_vs_old_max_abs": moved,
+           "pinned_gauge": [pinned_after_promote, pinned_after_close]}
+    log(f"[deploy] attention net: {fit_steps} fit step(s) published "
+        f"{store.versions()}; rollout {actions} (active "
+        f"v{eng.active_version}); the session opened before the promote "
+        f"stays on v{old_version}, bitwise the old-weights engine over "
+        f"{S2_DECODE_TOKENS} more tokens: {not mism}; a new session on "
+        f"v{new_version}, bitwise the new weights: {new_equal} (moved "
+        f"{moved:.2e} from the old); serving_session_version_pinned "
+        f"{pinned_after_promote:g} -> {pinned_after_close:g}")
+    if not (actions == ["push", "promote"] and not mism and new_equal
+            and old_version == 0 and new_version == eng.active_version == 1
+            and pinned_after_promote == 1 and pinned_after_close == 0
+            and moved > 0):
+        raise RuntimeError(f"the attention rollout failed its checks: "
+                           f"{res}")
+    reg.stop_all()
+    return res
+
+
+def phase_deploy(N, A, seed: int) -> dict:
+    """Phase 18, the ``deploy`` path: (d) the LeNet-5 rollout and the
+    attention net's pinned sessions across a promote (K1-K3 launch once
+    per attention fit step, K4 never)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch import monitor
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    monitor.reset()
+    A.reset_launches()            # counts of the deploy path only
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    old_flight = os.environ.get("DL4J_TPU_FLIGHT_DIR")
+    result = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="p18_deploy_") as tmp:
+            os.environ["DL4J_TPU_FLIGHT_DIR"] = os.path.join(tmp, "flight")
+            result["lenet"] = dp_lenet(tmp, seed)
+            result["attention"] = dp_attention(N, A, tmp, seed)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+        if old_flight is None:
+            os.environ.pop("DL4J_TPU_FLIGHT_DIR", None)
+        else:
+            os.environ["DL4J_TPU_FLIGHT_DIR"] = old_flight
+        monitor.alerts.reset()
+    torch.cuda.synchronize()
+    result["launches"] = dict(A.LAUNCHES)
+    result["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    result["seconds"] = time.perf_counter() - t_phase
+    steps = result["attention"]["fit_steps"]
+    expected = {"flash_fwd": steps, "flash_fwd_partials": 0,
+                "flash_bwd_dkdv": steps, "flash_bwd_dq": steps}
+    log(f"[deploy] launches {result['launches']} (expected {expected}); "
+        f"peak memory {result['peak_mem_bytes'] / 2**30:.3f} GiB; "
+        f"{result['seconds']:.1f} s")
+    if result["launches"] != expected:
+        raise RuntimeError(f"deploy path launches {result['launches']}, "
+                           f"expected {expected}")
+    return result
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5030,6 +6072,13 @@ def main(argv=None) -> int:
     deepwalk = phase_deepwalk(A, N)
     torch.cuda.empty_cache()
     pretrain = phase_pretrain(A, N)
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    _, serving_v2 = phase_serving_v2(N, A, args.seed)
+    torch.cuda.empty_cache()
+    deploy = phase_deploy(N, A, args.seed)
+    torch.cuda.empty_cache()
+    log(f"[deploy] phase 18 in {time.perf_counter() - t18:.1f} s; {card}")
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -5044,7 +6093,9 @@ def main(argv=None) -> int:
              "fused": fused["launches"], "transfer": transfer["launches"],
              "embeddings": embeddings["launches"],
              "deepwalk": deepwalk["launches"],
-             "pretrain": pretrain["launches"]}
+             "pretrain": pretrain["launches"],
+             "serving_v2": serving_v2["launches"],
+             "deploy": deploy["launches"]}
     csrc = "deeplearning4j_tpu_torch/ops/csrc/"
     bodies = {"flash_fwd": csrc + "flash_fwd_sm90.cuh",
               "flash_fwd_partials": csrc + "flash_fwd_sm90.cuh",
@@ -5065,6 +6116,8 @@ def main(argv=None) -> int:
                       "transfer": transfer, "embeddings": embeddings,
                       "deepwalk": deepwalk}))
     print(json.dumps({"pretrain": pretrain}))
+    print(json.dumps({"serving_v2": serving_v2, "deploy": deploy},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

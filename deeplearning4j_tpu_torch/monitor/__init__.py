@@ -1,13 +1,15 @@
-"""Runtime telemetry of the port (port of the metrics and health parts of
-``deeplearning4j_tpu/monitor``): a process-global registry of counters,
-gauges and histograms (:mod:`.metrics`), the device-side training health
-layer with its ``train_health_*`` series and divergence guard
-(:mod:`.health`), and the lock factory of the threaded subsystems
+"""Runtime telemetry of the port (port of ``deeplearning4j_tpu/monitor``):
+a process-global registry of counters, gauges and histograms with trace
+exemplars (:mod:`.metrics`), W3C-propagated trace spans in a ring buffer
+(:mod:`.tracing`), the incident flight recorder (:mod:`.flight_recorder`),
+the declarative alert engine (:mod:`.alerts`), the device-side training
+health layer with its ``train_health_*`` series and divergence guard
+(:mod:`.health`), the lock factory of the threaded subsystems
 (:mod:`.locks`), and the host phase attribution of the training loop
 (:func:`observe_phase`, :func:`phase_breakdown`).  Call sites resolve
-metrics by name through :func:`registry` at call time.  Tracing, alerts,
-the flight recorder and the compile watch of the JAX package are not
-ported yet (ROADMAP A11), so ``phase_breakdown``'s compile fields stay 0.
+metrics by name through :func:`registry` at call time.  The JAX package's
+compile watch and step-time attributor are not ported yet (ROADMAP A11),
+so ``phase_breakdown``'s compile fields stay 0.
 """
 
 from __future__ import annotations
@@ -15,13 +17,30 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from . import health
-from .health import TrainingDivergedError
+from .health import (TrainingDivergedError, disable as disable_health,
+                     enable as enable_health, enabled as health_enabled,
+                     snapshot as health_snapshot)
+from . import flight_recorder
+from .flight_recorder import incident_dir, record_incident
+from . import alerts
+from .alerts import (AlertEngine, Rule, default_rules,
+                     status as alert_status)
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry, registry
+from .tracing import (TraceContext, Tracer, attach, current_context,
+                      current_trace_hex, detach, new_trace_id,
+                      parse_traceparent, span, tracer)
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "TrainingDivergedError", "counter", "gauge", "health",
-           "histogram", "observe_phase", "phase_breakdown",
-           "prometheus_text", "registry", "reset", "snapshot"]
+__all__ = [
+    "AlertEngine", "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "Rule", "TraceContext", "Tracer", "TrainingDivergedError",
+    "alert_status", "alerts", "attach", "counter", "current_context",
+    "current_trace_hex", "default_rules", "detach", "disable_health",
+    "enable_health", "flight_recorder", "gauge", "health",
+    "health_enabled", "health_snapshot", "histogram", "incident_dir",
+    "new_trace_id", "observe_phase", "parse_traceparent",
+    "phase_breakdown", "prometheus_text", "record_incident", "registry",
+    "reset", "snapshot", "span", "trace_chrome_json", "trace_jsonl",
+    "tracer"]
 
 # host wall-clock phases of one training loop: "data" = host batch prep
 # and transfer, "step" = the train step's dispatch, "listener" = the
@@ -96,7 +115,25 @@ def prometheus_text() -> str:
     return registry().prometheus_text()
 
 
+def trace_jsonl(trace_id=None, name=None, limit=None) -> str:
+    """One Chrome trace event per line (wrap the lines in ``[...]`` to
+    load them in Perfetto or chrome://tracing), filtered by trace id,
+    name prefix and a keep-newest limit."""
+    return tracer().to_jsonl(trace_id=trace_id, name=name, limit=limit)
+
+
+def trace_chrome_json(trace_id=None, name=None, limit=None) -> str:
+    """A ready-to-load JSON array of Chrome trace events."""
+    return tracer().to_chrome_json(trace_id=trace_id, name=name,
+                                   limit=limit)
+
+
 def reset() -> None:
-    """Clear every metric and the health layer's overrides and state."""
+    """Clear every metric and trace event, return the health layer to its
+    env-configured default state, forget the flight recorder's rate
+    limits and drop the global alert engine (test isolation)."""
     registry().clear()
+    tracer().clear()
     health.reset()
+    flight_recorder.reset_rate_limit()
+    alerts.reset()

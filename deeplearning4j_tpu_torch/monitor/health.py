@@ -31,8 +31,8 @@ and the guard only when :func:`in_step` says so (health enabled, or policy
 ``skip_update``); otherwise it skips both, and :func:`record_dispatch`
 only stamps the dispatch time.
 
-The JAX package also dumps a flight-recorder bundle on divergence; that
-recorder waits for ROADMAP A11.
+A divergence dumps a ``divergence`` flight-recorder bundle
+(:mod:`.flight_recorder`) before the policy acts, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -366,6 +366,13 @@ def record_dispatch(model, stack, first_iteration: int) -> None:
         msg = (f"training diverged at step {step} (layer {layer}: "
                f"{reason}); {n_bad}/{arr.shape[0]} steps in this "
                f"dispatch flagged, policy={cfg.policy}")
+        # the bundle captures spans and metrics as they are at the moment
+        # of divergence, before an abort unwinds (lazy import: the
+        # recorder imports this module)
+        from . import flight_recorder as _flight
+        _flight.record_incident("divergence", dict(
+            snap["diverged_at"], policy=cfg.policy,
+            flagged_steps=n_bad, loss=snap["loss"]))
         if cfg.policy == "abort":
             raise TrainingDivergedError(msg, step=step, layer=layer)
         if cfg.policy == "skip_update":

@@ -15,7 +15,8 @@ from __future__ import annotations
 import threading
 
 
-def make_lock(name: str):
+def make_lock(name: str, rlock: bool = False):
     """A lock for the call site named ``name`` (``"package.role"``
-    convention, e.g. ``"serving.engine.placed"``)."""
-    return threading.Lock()
+    convention, e.g. ``"serving.engine.placed"``); reentrant with
+    ``rlock=True``."""
+    return threading.RLock() if rlock else threading.Lock()

@@ -13,10 +13,15 @@ Two read paths:
   and reports;
 - :meth:`MetricsRegistry.prometheus_text`: the text exposition format
   (histograms render as summaries, quantile series plus ``_sum`` and
-  ``_count``, and classic cumulative ``_bucket`` series).
+  ``_count``, and classic cumulative ``_bucket`` series carrying
+  OpenMetrics *exemplars*: the trace id of a recent observation that
+  landed in that bucket).
 
-The JAX package's trace exemplars on histogram buckets wait for the port
-of its tracing module.
+Exemplars are captured automatically: when :meth:`Histogram.observe` runs
+under an active trace context (:mod:`.tracing`), the ambient trace id is
+recorded against the bucket the value falls in (the last
+``EXEMPLARS_PER_BUCKET`` per bucket); callers crossing a thread boundary
+pass ``exemplar="<32-hex trace id>"`` explicitly.
 """
 
 from __future__ import annotations
@@ -24,8 +29,11 @@ from __future__ import annotations
 import bisect
 import math
 import threading
+import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
+
+from .tracing import current_context as _current_trace_context
 
 RESERVOIR_SIZE = 2048
 
@@ -35,6 +43,7 @@ RESERVOIR_SIZE = 2048
 BUCKET_BOUNDS: Tuple[float, ...] = (
     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
     100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0, 10000.0)
+EXEMPLARS_PER_BUCKET = 4
 
 LabelKey = Tuple[Tuple[str, str], ...]
 
@@ -121,7 +130,8 @@ class Gauge(_Valued):
 
 
 class _HistogramSeries:
-    __slots__ = ("count", "sum", "min", "max", "reservoir", "buckets")
+    __slots__ = ("count", "sum", "min", "max", "reservoir", "buckets",
+                 "exemplars")
 
     def __init__(self):
         self.count = 0
@@ -130,8 +140,11 @@ class _HistogramSeries:
         self.max = float("-inf")
         self.reservoir = deque(maxlen=RESERVOIR_SIZE)
         self.buckets = [0] * (len(BUCKET_BOUNDS) + 1)
+        # bucket index -> deque of (trace_id hex, value, unix ts)
+        self.exemplars: Dict[int, deque] = {}
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float,
+                exemplar: Optional[str] = None) -> None:
         self.count += 1
         self.sum += value
         if value < self.min:
@@ -139,7 +152,14 @@ class _HistogramSeries:
         if value > self.max:
             self.max = value
         self.reservoir.append(value)
-        self.buckets[bisect.bisect_left(BUCKET_BOUNDS, value)] += 1
+        idx = bisect.bisect_left(BUCKET_BOUNDS, value)
+        self.buckets[idx] += 1
+        if exemplar:
+            dq = self.exemplars.get(idx)
+            if dq is None:
+                dq = self.exemplars[idx] = deque(
+                    maxlen=EXEMPLARS_PER_BUCKET)
+            dq.append((exemplar, value, time.time()))
 
     @staticmethod
     def _quantile(q: float, res: List[float]) -> float:
@@ -150,7 +170,7 @@ class _HistogramSeries:
 
     def stats(self) -> Dict:
         res = sorted(self.reservoir)
-        return {
+        out = {
             "count": self.count,
             "sum": self.sum,
             "min": self.min if self.count else 0.0,
@@ -163,6 +183,12 @@ class _HistogramSeries:
             # reservoir percentiles above are recency-biased
             "buckets": list(self.buckets),
         }
+        if self.exemplars:
+            out["exemplars"] = {
+                _le_str(idx): [{"trace_id": t, "value": v, "ts": ts}
+                               for t, v, ts in dq]
+                for idx, dq in sorted(self.exemplars.items())}
+        return out
 
 
 class Histogram(_Metric):
@@ -176,13 +202,21 @@ class Histogram(_Metric):
         super().__init__(name, help)
         self._series: Dict[LabelKey, _HistogramSeries] = {}
 
-    def observe(self, value: float, **labels) -> None:
+    def observe(self, value: float, exemplar: Optional[str] = None,
+                **labels) -> None:
+        """Record ``value``.  ``exemplar`` is a 32-hex trace id to pin to
+        the bucket this value lands in; when omitted, the ambient trace
+        context of the calling thread (if any) supplies it."""
+        if exemplar is None:
+            ctx = _current_trace_context()
+            if ctx is not None:
+                exemplar = f"{ctx.trace_id:032x}"
         key = _label_key(labels)
         with self._lock:
             series = self._series.get(key)
             if series is None:
                 series = self._series[key] = _HistogramSeries()
-            series.observe(float(value))
+            series.observe(float(value), exemplar)
 
     def stats(self, **labels) -> Dict:
         with self._lock:
@@ -201,9 +235,11 @@ class Histogram(_Metric):
         lines = [f"# HELP {self.name} {self.help}".rstrip(),
                  f"# TYPE {self.name} summary"]
         with self._lock:
-            items = sorted(((k, s.stats()) for k, s in self._series.items()),
-                           key=lambda t: t[0])
-        for key, st in items:
+            items = sorted(
+                ((k, s.stats(), {i: list(dq) for i, dq in
+                                 s.exemplars.items()})
+                 for k, s in self._series.items()), key=lambda t: t[0])
+        for key, st, exemplars in items:
             for q, field in ((0.5, "p50"), (0.95, "p95"), (0.99, "p99"),
                              (0.999, "p999")):
                 qkey = key + (("quantile", str(q)),)
@@ -213,7 +249,13 @@ class Histogram(_Metric):
             for idx, n in enumerate(st["buckets"]):
                 cum += n
                 bkey = key + (("le", _le_str(idx)),)
-                lines.append(f"{self.name}_bucket{_label_str(bkey)} {cum}")
+                line = f"{self.name}_bucket{_label_str(bkey)} {cum}"
+                dq = exemplars.get(idx)
+                if dq:
+                    trace_id, val, ts = dq[-1]
+                    line += (f' # {{trace_id="{trace_id}"}} '
+                             f"{_fmt(val)} {ts:.3f}")
+                lines.append(line)
             lines.append(f"{self.name}_sum{_label_str(key)} "
                          f"{_fmt(st['sum'])}")
             lines.append(f"{self.name}_count{_label_str(key)} "

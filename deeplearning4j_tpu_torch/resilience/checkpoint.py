@@ -180,8 +180,17 @@ def verify_checkpoint(path: str) -> Dict[str, Any]:
     """Verify ``path`` against its own manifest (entry presence, exact
     sizes, SHA-256) and return the manifest.  Raises
     :class:`CheckpointCorruptError` with a diagnostic naming the first
-    failing entry.  (The JAX package also dumps a flight-recorder bundle
-    here; the recorder waits for ROADMAP A11.)"""
+    failing entry, after dumping a ``checkpoint_corrupt`` flight-recorder
+    bundle (corruption is rare and always worth a post-mortem)."""
+    try:
+        return _verify_checkpoint(path)
+    except CheckpointCorruptError as e:
+        _monitor.record_incident("checkpoint_corrupt",
+                                 {"path": path, "error": str(e)})
+        raise
+
+
+def _verify_checkpoint(path: str) -> Dict[str, Any]:
     try:
         with zipfile.ZipFile(path, "r") as zf:
             names = set(zf.namelist())

@@ -31,11 +31,15 @@ Thread safety: the cache map has its own lock; each session serializes
 its steps on a per-session lock (state is a chain: two concurrent steps
 of one session would fork it) while distinct sessions step concurrently.
 
-Weight versions: each session records the engine's weight version at
-creation (``version_fn``) and every later step resolves that version's
-weights (``weights_fn``; ``None`` means the network's live weights).  The
-engine serves version 0, the live weights, until weight versions are
-ported.
+Version pinning: a session's state tree is a function of the weights that
+produced it, so advancing old state with new weights after a swap would
+chain two models' dynamics.  Each session records the engine's active
+weight version at creation (``version_fn``) and every later step resolves
+that same version's weights (``weights_fn``; ``None`` means the network's
+live weights) until the session ends or its TTL expires; the engine keeps
+a retired version's tree while any session pins it
+(:meth:`SessionCache.pinned_versions`).  ``serving_session_version_pinned``
+gauges how many live sessions are pinned behind the active version.
 
 Error contract: a batch-size or state-structure mismatch raises
 :class:`SessionStateError` naming the offending leaf path, and only
@@ -152,11 +156,16 @@ class SessionCache:
     ``decode_step`` and ring capacity follows a powers-of-two bucket
     ladder up to the layers' ``cache_len``; a session decoding past the
     top of the ladder raises :class:`SessionError`.
+
+    ``step_fn`` overrides the network's step (the int8 engine passes its
+    quantized decode): the signature of the container's step
+    (``(carries, x, **kw)``, or ``(carries, *xs, **kw)`` for a graph),
+    returning ``(out, new_carries)``.
     """
 
     def __init__(self, model, *, ttl_s: float = 300.0,
                  max_sessions: int = 1024, name: str = "default",
-                 version_fn=None, weights_fn=None):
+                 version_fn=None, weights_fn=None, step_fn=None):
         from ..nn.computation_graph import ComputationGraph
         model.init()
         model._require_carry_support("SessionCache")
@@ -174,6 +183,7 @@ class SessionCache:
         # (params, net_state) (None = the network's live weights)
         self._version_fn = version_fn
         self._weights_fn = weights_fn
+        self._step_fn = step_fn
         # decode tier: KV-ring models step through decode_step and ladder
         # their ring capacity
         self._decode = bool(model.has_kv_ring())
@@ -195,6 +205,21 @@ class SessionCache:
             "(RNN carries + KV-cache rings)").set(
             sum(s.state_bytes for s in self._sessions.values()),
             model=self._name)
+        if self._version_fn is not None:
+            active = self._version_fn()
+            pinned = sum(1 for s in self._sessions.values()
+                         if s.version is not None and s.version != active)
+            _monitor.gauge(
+                "serving_session_version_pinned",
+                "live sessions pinned to a non-active weight version"
+            ).set(pinned, model=self._name)
+
+    def refresh_gauges(self) -> None:
+        """Re-publish the session gauges outside a set change: the pinned
+        count moves when the engine's active version flips (``promote``,
+        ``swap_weights``), not when the session set does."""
+        with self._lock:
+            self._observe_active()
 
     def _count_eviction(self, reason: str) -> None:
         _monitor.counter("serving_session_evictions_total",
@@ -302,8 +327,8 @@ class SessionCache:
         """One step of the session's state tree: ``(out, new_carries)``,
         ``out`` a list for a graph with several outputs."""
         model = self._model
-        step = model.decode_step if self._decode else \
-            model.rnn_stateless_step
+        step = self._step_fn or (model.decode_step if self._decode
+                                 else model.rnn_stateless_step)
         try:
             if not self._is_graph:
                 return step(carries, xs[0], **kw)
@@ -387,6 +412,20 @@ class SessionCache:
             self._sessions.clear()
             self._observe_active()
 
+    def pinned_versions(self):
+        """Weight versions pinned by at least one live session: what the
+        engine consults before discarding a retired tree."""
+        with self._lock:
+            return {s.version for s in self._sessions.values()
+                    if s.version is not None}
+
+    def session_version(self, session_id: str) -> Optional[int]:
+        """The weight version ``session_id`` is pinned to (None for unknown
+        sessions or a cache without versions)."""
+        with self._lock:
+            sess = self._sessions.get(session_id)
+            return None if sess is None else sess.version
+
     def get_carries(self, session_id: str):
         """The session's state tree (device tensors), or None."""
         with self._lock:
@@ -430,4 +469,7 @@ class SessionCache:
                          self._sessions.values()), default=0.0), 3),
                 "total_steps": sum(s.steps
                                    for s in self._sessions.values()),
+                "pinned_versions": sorted(
+                    {s.version for s in self._sessions.values()
+                     if s.version is not None}),
             }

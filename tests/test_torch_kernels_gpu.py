@@ -1518,3 +1518,150 @@ def test_chaos_harness_on_the_card(cuda, tmp_path):
     assert report["score_mismatches"] == 0 and report["coverage_ok"], report
     assert report["params_match"] and report["parity"], report
     assert report["device"].startswith("cuda")
+
+
+# ---- serving v2 and deployment on the card (chip_smoke.py phase 18) -------
+
+def _dense_net(seed, device, width=256, dtype="float32"):
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer, \
+        OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.builder().seed(seed)
+            .compute_dtype(dtype).list()
+            .layer(DenseLayer(n_out=width)).layer(OutputLayer(n_out=10))
+            .set_input_type(inputs.feed_forward(64)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def test_int8_decode_on_the_card_is_the_host_twin(cuda):
+    """The three-op decode on the card is bitwise numpy's wire decode,
+    and the int8 engine on the card answers within 1e-5 of the int8
+    engine on the CPU (the same uint8 weights; f32 sums in another
+    order)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    from deeplearning4j_tpu_torch.serving import quantize as Q
+    card = _dense_net(3, "cuda")
+    cpu = _dense_net(3, "cpu")
+    cpu.set_flat_params(card.get_flat_params())
+    qtree, specs = Q.quantize_tree(card.params)
+    dev = Q._leaves(Q.dequantize_tree(qtree, specs))
+    host = Q._leaves(Q.dequantize_host(qtree, specs))
+    for got, want in zip(dev, host):
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    x = np.random.RandomState(0).randn(4, 64).astype(np.float32)
+    with InferenceEngine(card, max_batch_size=4, quantize="int8",
+                         name="q-card") as ec, \
+            InferenceEngine(cpu, max_batch_size=4, quantize="int8",
+                            name="q-cpu") as eh:
+        got, want = ec.predict(x), eh.predict(x)
+        assert ec._placed_params(0)[0][0]["W"].device.type == "cuda"
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_registry_paging_on_the_card_frees_the_evicted_bytes(cuda):
+    """Two nets under a budget of one and a half: every request pages one
+    in and evicts the other, each evict drops memory_allocated by its
+    model_bytes, and every answer is bitwise the answer before paging."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  ModelRegistry)
+    torch.backends.cudnn.deterministic = True
+    engines = {f"m{s}": InferenceEngine(_dense_net(s, "cuda", 2048),
+                                        max_batch_size=2, name=f"m{s}")
+               for s in (1, 2)}
+    x = np.random.RandomState(1).randn(2, 64).astype(np.float32)
+    refs = {}
+    for n, e in engines.items():
+        e.start()
+        refs[n] = e.predict(x)
+        e.release_device_buffers()
+    per = engines["m1"].model_bytes()
+    reg = ModelRegistry(hbm_budget_bytes=per + per // 2)
+    try:
+        for n, e in engines.items():
+            reg.register(n, e, start=False)
+        for i in range(4):
+            n = f"m{1 + i % 2}"
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            got = reg.predict(n, x)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(got, refs[n])
+            # one copy paged in, one released: the net change is ~0, and
+            # never a second resident copy
+            assert abs(torch.cuda.memory_allocated() - before) < 0.1 * per
+            assert reg.resident_bytes() <= per + per // 2
+        other = engines["m1"]
+        before = torch.cuda.memory_allocated()
+        freed = other.release_device_buffers()
+        assert before - torch.cuda.memory_allocated() >= 0.9 * freed
+    finally:
+        reg.stop_all()
+
+
+def test_pinned_session_and_rollout_on_the_card(cuda, tmp_path):
+    """A session opened before a promote keeps stepping its version,
+    bitwise an engine holding the old weights; the rollout controller
+    promotes a good version from the store and rolls back a garbage one
+    with its bundle."""
+    import os
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.deploy import (RolloutController,
+                                                 VersionedWeightStore)
+    from deeplearning4j_tpu_torch.nn.conf import inputs
+    from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        GravesLSTM, RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  ModelRegistry)
+    os.environ["DL4J_TPU_FLIGHT_DIR"] = str(tmp_path / "flight")
+
+    def lstm(seed):
+        conf = (NeuralNetConfiguration.builder().seed(seed)
+                .compute_dtype("float32").list()
+                .layer(GravesLSTM(n_out=32, activation="tanh"))
+                .layer(RnnOutputLayer(n_out=5, activation="softmax",
+                                      loss="mcxent"))
+                .set_input_type(inputs.recurrent(8, 6)).build())
+        return MultiLayerNetwork(conf, device="cuda").init()
+
+    server, old, new = lstm(1), lstm(1), lstm(2)
+    old.set_flat_params(server.get_flat_params())
+    xs = np.random.RandomState(0).randn(2, 6, 8).astype(np.float32)
+    store = VersionedWeightStore(str(tmp_path / "store"))
+    reg = ModelRegistry()
+    eng = reg.register("pin", InferenceEngine(server, max_batch_size=2,
+                                              name="pin"))
+    try:
+        with InferenceEngine(old, max_batch_size=2, name="pin-old") as ref:
+            for t in range(2):
+                np.testing.assert_array_equal(
+                    eng.predict_session("s", xs[:, t]),
+                    ref.predict_session("s", xs[:, t]))
+            store.publish(new.get_flat_params())
+            ctl = RolloutController(reg, "pin", store, eval_features=xs,
+                                    min_agreement=0.0, min_probe_rounds=1)
+            assert [ctl.step(), ctl.step()] == ["push", "promote"]
+            for t in range(2, 6):
+                np.testing.assert_array_equal(
+                    eng.predict_session("s", xs[:, t]),
+                    ref.predict_session("s", xs[:, t]))
+        assert eng.sessions.session_version("s") == 0
+        with InferenceEngine(new, max_batch_size=2, name="pin-new") as ne:
+            np.testing.assert_array_equal(eng.predict(xs), ne.predict(xs))
+        store.publish(np.random.RandomState(3).randn(
+            new.num_params()).astype(np.float32) * 100)
+        ctl.min_agreement = 0.98
+        assert [ctl.step(), ctl.step()] == ["push", "rollback"]
+        assert "rollout_rollback" in ctl.last_bundle
+        assert eng.active_version == 1
+    finally:
+        reg.stop_all()
+        os.environ.pop("DL4J_TPU_FLIGHT_DIR", None)
