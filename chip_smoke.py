@@ -339,10 +339,47 @@ Phases (each raises on failure; the exit code is non-zero on any):
    session opened before stays pinned to the old version, bitwise an
    engine holding the old weights, and one opened after takes the new.
 
+19. the serving fleet ([fleet] lines; no hand kernel: the fleet's
+   ``FLEET_SPECS["lstm"]`` (2 x GravesLSTM(256), n_in 32, n_out 16, batch
+   buckets 1/2/4/8 x timestep buckets 8/16/32) runs cuBLAS and elementwise
+   kernels in worker processes, each with its own CUDA context on this
+   card): (a) a worker spawned against an empty build-cache namespace,
+   terminated, and its replacement in the same namespace (both ready
+   lines: boot, model build, warmup, first reply, serve-ready seconds,
+   the device); (b) on the warm worker, 20 session steps over 4 sessions
+   and one request in each of the two smallest timestep buckets through
+   ``POST /predict``: all 200, ``serving_bucket_compiles_total`` (its
+   ``/metrics``) unmoved after warmup, every answer within ``FL_ATOL``
+   (expected bitwise) of an in-process engine on the same store weights;
+   /predict p50/p99 through HTTP beside the in-process engine's; (c) K=1
+   then K=3 workers behind ``FleetRouter.serve()``: a closed-loop probe
+   of each (K=1's fixes the offered rate at 2.5x its rps, >= 20), then
+   5 s of open-loop Poisson session load over 32 sessions on each
+   (admitted rps over the window's wall time, p99, the send lag, shed
+   fraction, unanswered requests, ``workers_healthy``, this process's
+   CPU seconds: router and clients share its GIL), ``speedup_x`` and
+   the closed-loop ratio K=3/K=1 (neither is the fleet's capacity: SLO
+   shedding and this process's GIL set them); on each K an ill-shaped
+   session step answers 400 with every worker healthy; (d) on K=3,
+   before its load, a SIGKILL of a session's home under a closed-loop
+   session load: no non-200 answer, the worker respawned at its rank,
+   the session home again; (e) K=3 scaled in to K=2, a ``FleetCanary``
+   ramps w1 0.05 -> 1.0 to done, a second aborts on a p99 limit below
+   the router's; (f) ``bench_deploy``'s HTTP half: LeNet-5 fits while a
+   client loads ``POST /predict`` and an operator loop posts
+   ``/deploy/lenet`` steps through the port's UIServer (at least 2
+   promotions, 0 5xx, no callable made), then a corrupt snapshot pushed
+   over HTTP answers 4xx with the engine unchanged; (g) every worker
+   process terminated and reaped (its pid gone).  K1-K4 launch 0 times
+   on this path: the count is this process's plus each worker's own,
+   from the exit line a cleanly stopped worker prints (every worker but
+   the SIGKILLed one must report).
+
 Prints a JSON line of the reference, training, inference, ring, serving,
 feed-forward/convolutional, recurrent, harness, graph, fused, transfer,
 embeddings and deepwalk results, a ``{"pretrain": ...}`` JSON line, a
-``{"serving_v2": ..., "deploy": ...}`` JSON line, one ``{"kernels":
+``{"serving_v2": ..., "deploy": ...}`` JSON line, a ``{"fleet": ...}``
+JSON line, one ``{"kernels":
 [...]}`` JSON line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -6022,6 +6059,736 @@ def phase_deploy(N, A, seed: int) -> dict:
     return result
 
 
+# ---- phase 19: the serving fleet (A8's rest) --------------------------------
+
+FL_MODEL = "lstm"            # FLEET_SPECS["lstm"]: 2 x GravesLSTM(256)
+FL_SPAWN_S = 60.0            # wait_ready bound: a hung worker fails fast
+FL_CAL_STEPS, FL_CAL_SESSIONS = 20, 4
+FL_LAT_N = 100               # sequential requests a side, HTTP vs in-process
+FL_PROBE_S, FL_PROBE_THREADS = 1.5, 4
+FL_LOAD_S, FL_SESSIONS = 5.0, 32          # bench_fleet --smoke
+FL_KILL_AT_S, FL_KILL_AFTER_S = 1.0, 2.0
+FL_CANARY = (0.05, 0.25, 0.5, 1.0)
+FL_CANARY_TICK_S = 0.3
+FL_DRAIN_S = 60.0
+
+
+def fl_post(url: str, payload: dict, timeout: float = 15.0) -> tuple:
+    """``POST /predict``: (status, body); status -1 on a transport
+    error."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url + "/predict", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read().decode())
+    except urllib.error.HTTPError as e:
+        try:
+            return e.code, json.loads(e.read().decode() or "{}")
+        except ValueError:
+            return e.code, {}
+    except Exception:
+        return -1, {}
+
+
+def fl_metric(url: str, name: str) -> float:
+    """Sum of one series of a server's ``/metrics``."""
+    import urllib.request
+    with urllib.request.urlopen(url + "/metrics", timeout=10.0) as resp:
+        text = resp.read().decode()
+    return sum(float(line.rsplit(" ", 1)[-1]) for line in text.splitlines()
+               if line.startswith(name + " ") or line.startswith(name + "{"))
+
+
+def fl_pct(ms: List[float], q: float):
+    ms = sorted(ms)
+    return ms[min(len(ms) - 1, int(q * len(ms)))] if ms else None
+
+
+def fl_open_loop(fire, offered_qps: float, duration_s: float, seed: int,
+                 pool_size: int = 64) -> dict:
+    """``bench.py``'s open-loop generator: Poisson arrivals fixed up
+    front, each latency measured from its scheduled arrival; 200 admitted,
+    429/503 shed, -1 (no answer within ``fl_post``'s timeout, or never
+    sent) unanswered, anything else an error.  Rates are over the
+    window's wall time, from the first arrival to the last answer: when
+    the pool or this process's GIL holds requests back, the window
+    stretches past ``duration_s`` and the send lag (each request's send
+    time past its scheduled arrival) says by how much, and the load was
+    no longer open.  Also the host CPU seconds this process spent over
+    the window (router, client and server threads share its GIL)."""
+    rng = np.random.RandomState(seed)
+    arrivals, t = [], rng.exponential(1.0 / offered_qps)
+    while t < duration_s:
+        arrivals.append(t)
+        t += rng.exponential(1.0 / offered_qps)
+    results, rec, nxt, cursor = [], threading.Lock(), threading.Lock(), [0]
+    cpu0, start = os.times(), time.perf_counter()
+
+    def runner():
+        while True:
+            with nxt:
+                i = cursor[0]
+                if i >= len(arrivals):
+                    return
+                cursor[0] = i + 1
+            delay = arrivals[i] - (time.perf_counter() - start)
+            if delay > 0:
+                time.sleep(delay)
+            late = (time.perf_counter() - start) - arrivals[i]
+            code = fire()
+            lat = (time.perf_counter() - start) - arrivals[i]
+            with rec:
+                results.append((code, lat, late))
+
+    pool = [threading.Thread(target=runner, daemon=True)
+            for _ in range(min(pool_size, len(arrivals) or 1))]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(timeout=120.0)
+    wall = time.perf_counter() - start
+    cpu1 = os.times()
+    with rec:
+        results = list(results)
+    admitted = [lat * 1e3 for code, lat, _ in results if code == 200]
+    shed = sum(1 for code, _, _ in results if code in (429, 503))
+    # -1: no answer in time; a request still unsent when the pool's
+    # threads were given up on never had one
+    unanswered = (sum(1 for code, _, _ in results if code == -1)
+                  + len(arrivals) - len(results))
+    late_ms = [late * 1e3 for _, _, late in results]
+    codes: Dict[int, int] = {}
+    for code, _, _ in results:
+        codes[code] = codes.get(code, 0) + 1
+    return {"offered": len(arrivals), "codes": codes,
+            "offered_qps": len(arrivals) / duration_s,
+            "admitted": len(admitted), "shed": shed,
+            "unanswered": unanswered,
+            "shed_fraction": shed / max(1, len(arrivals)),
+            "errors": len(arrivals) - len(admitted) - shed,
+            "admitted_rps": len(admitted) / wall,
+            "p50_ms": fl_pct(admitted, 0.50),
+            "p99_ms": fl_pct(admitted, 0.99),
+            "send_lag_p50_ms": fl_pct(late_ms, 0.50),
+            "send_lag_p99_ms": fl_pct(late_ms, 0.99),
+            "host_cpu_s": (cpu1.user - cpu0.user) + (cpu1.system
+                                                     - cpu0.system),
+            "nominal_s": duration_s, "wall_s": wall}
+
+
+def fl_probe(url: str, step_row: list) -> float:
+    """Closed-loop capacity: admitted session steps a second from
+    FL_PROBE_THREADS clients over FL_PROBE_S."""
+    counts, stop_at = [0] * FL_PROBE_THREADS, \
+        time.perf_counter() + FL_PROBE_S
+
+    def probe(i):
+        j = i
+        while time.perf_counter() < stop_at:
+            if fl_post(url, {"model": "fleet",
+                             "session": f"conv-{j % FL_SESSIONS}",
+                             "features": step_row})[0] == 200:
+                counts[i] += 1
+            j += FL_PROBE_THREADS
+
+    threads = [threading.Thread(target=probe, args=(i,))
+               for i in range(FL_PROBE_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return sum(counts) / FL_PROBE_S
+
+
+def fl_router_class():
+    """``FleetRouter`` that records every worker process it starts, so
+    the teardown can check each was reaped, and every exit line its
+    workers print (``reports``: their hand-kernel launches)."""
+    from deeplearning4j_tpu_torch.serving.fleet import FleetRouter
+
+    class TrackedRouter(FleetRouter):
+        spawned: List = []
+        reports: List = []
+
+        def stop(self):
+            super().stop()
+            TrackedRouter.reports.extend(self.exit_reports)
+
+        def _spawn(self, rank):
+            proc = super()._spawn(rank)
+            TrackedRouter.spawned.append(proc)
+            return proc
+    return TrackedRouter
+
+
+def fl_respawn(common: dict, spawned: list, reports: list) -> tuple:
+    """(a) One worker against an empty namespace, terminated (its exit
+    line into ``reports``); then its replacement in the same namespace,
+    kept as the warm worker."""
+    from deeplearning4j_tpu_torch.serving.fleet import (WorkerHandle,
+                                                        spawn_worker,
+                                                        wait_ready)
+    ready, warm = [], None
+    for i in range(2):
+        proc = spawn_worker(0, **common)
+        spawned.append(proc)
+        handle = WorkerHandle(0, proc, wait_ready(proc, FL_SPAWN_S))
+        handle.start_drains()
+        ready.append(handle.ready)
+        log(f"[fleet] {('cold', 'warm')[i]} spawn ready line: "
+            f"{json.dumps(handle.ready)}")
+        if i == 0:
+            reports.append(handle.terminate())
+        else:
+            warm = handle
+    return warm, ready
+
+
+def fl_serving(warm, common: dict, store, rng) -> dict:
+    """(b) Session steps and the two smallest timestep buckets through the
+    warm worker's ``POST /predict``: all 200, no bucket callable made
+    after warmup, the answers those of an in-process engine on the same
+    store weights; then /predict p50/p99 through HTTP beside the engine's
+    in-process p50/p99."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    from deeplearning4j_tpu_torch.serving.fleet import (FLEET_SPECS,
+                                                        build_fleet_conf)
+    spec = FLEET_SPECS[common["model"]]
+    conf, kw, warm_shape = build_fleet_conf(common["model"])
+    ref = InferenceEngine(MultiLayerNetwork(conf, device=common["device"])
+                          .init(), max_latency_ms=2.0, name="fleet-ref",
+                          **kw).start()
+    try:
+        ref.warm_from_store(store)
+        ref.warmup(warm_shape)
+        url = warm.url
+        c0 = fl_metric(url, "serving_bucket_compiles_total")
+        rows = rng.randn(FL_CAL_STEPS, 1, spec["n_in"]).astype(np.float32)
+        seqs = [rng.randn(1, tb, spec["n_in"]).astype(np.float32)
+                for tb in spec["timestep_buckets"][:2]]
+        codes, cal_ms, diffs = [], [], []
+        for i in range(FL_CAL_STEPS):
+            sid = f"cal-{i % FL_CAL_SESSIONS}"
+            t0 = time.perf_counter()
+            code, body = fl_post(url, {"model": "fleet", "session": sid,
+                                       "features": rows[i].tolist()})
+            cal_ms.append((time.perf_counter() - t0) * 1e3)
+            codes.append(code)
+            want = ref.predict_session(sid, rows[i])
+            diffs.append(float(np.max(np.abs(
+                np.asarray(body.get("output", np.nan), np.float32)
+                - want))))
+        for seq in seqs:
+            code, body = fl_post(url, {"model": "fleet",
+                                       "features": seq.tolist()})
+            codes.append(code)
+            diffs.append(float(np.max(np.abs(
+                np.asarray(body.get("output", np.nan), np.float32)
+                - ref.predict(seq)))))
+        c1 = fl_metric(url, "serving_bucket_compiles_total")
+        http_ms, local_ms = [], []
+        for _ in range(FL_LAT_N):
+            t0 = time.perf_counter()
+            code, _ = fl_post(url, {"model": "fleet",
+                                    "features": seqs[0].tolist()})
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+            codes.append(code)
+        for _ in range(FL_LAT_N):
+            t0 = time.perf_counter()
+            ref.predict(seqs[0])
+            local_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ref.stop()
+    res = {"codes_200": sum(c == 200 for c in codes),
+           "requests": len(codes),
+           "bucket_compiles": [c0, c1],
+           "after_warmup_ready": warm.ready["bucket_compiles_after_warmup"],
+           "max_abs_diff": max(diffs), "bitwise": max(diffs) == 0.0,
+           "cal_p50_ms": fl_pct(cal_ms, 0.5),
+           "http_p50_ms": fl_pct(http_ms, 0.5),
+           "http_p99_ms": fl_pct(http_ms, 0.99),
+           "in_process_p50_ms": fl_pct(local_ms, 0.5),
+           "in_process_p99_ms": fl_pct(local_ms, 0.99)}
+    log(f"[fleet] serving after warmup: {res['codes_200']}/"
+        f"{res['requests']} answered 200; serving_bucket_compiles_total "
+        f"{c0:g} -> {c1:g} (ready line {res['after_warmup_ready']:g}); "
+        f"answers vs the in-process engine max|diff| "
+        f"{res['max_abs_diff']:.3e} (bitwise {res['bitwise']}); /predict "
+        f"T={spec['timestep_buckets'][0]} p50/p99 through HTTP "
+        f"{res['http_p50_ms']:.3f}/{res['http_p99_ms']:.3f} ms, in process "
+        f"{res['in_process_p50_ms']:.3f}/{res['in_process_p99_ms']:.3f} ms")
+    if not (res["codes_200"] == len(codes) and c1 == c0
+            and c0 == res["after_warmup_ready"]
+            and res["max_abs_diff"] <= FL_ATOL):
+        raise RuntimeError(f"fleet serving after warmup failed: {res}")
+    return res
+
+
+FL_ATOL = 1e-5       # the expected gap is 0: the same card, the same ops
+
+
+def fl_failover(router, url: str, step_row: list) -> dict:
+    """(d) SIGKILL a session's home worker under a closed-loop session
+    load of 2 clients: no 5xx (no non-200 at all), the victim back at its
+    rank, the session home again."""
+    import signal
+    sessions = [f"fo-{i}" for i in range(8)]
+    home = router.pick(sessions[0]).name
+    victim = router._workers[home]
+    codes, stop = [], threading.Event()
+
+    def client(i):
+        j = i
+        while not stop.is_set():
+            codes.append(fl_post(url, {"model": "fleet",
+                                       "session": sessions[j % 8],
+                                       "features": step_row})[0])
+            j += 2
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(2)]
+    for th in threads:
+        th.start()
+    time.sleep(FL_KILL_AT_S)
+    os.kill(victim.proc.pid, signal.SIGKILL)
+    t_kill = time.perf_counter()
+    time.sleep(FL_KILL_AFTER_S)
+    stop.set()
+    for th in threads:
+        th.join(timeout=30.0)
+    respawn_s = None
+    while time.perf_counter() - t_kill < FL_SPAWN_S + 10.0:
+        h = router._workers.get(home)
+        if h is not None and h.generation > 0 and h.healthy:
+            respawn_s = time.perf_counter() - t_kill
+            break
+        time.sleep(0.1)
+    back = router._workers.get(home)
+    code_home = fl_post(url, {"model": "fleet", "session": sessions[0],
+                              "features": step_row})[0]
+    res = {"victim": home, "victim_pid": victim.proc.pid,
+           "requests": len(codes), "non_200": sum(c != 200 for c in codes),
+           "5xx": sum(c >= 500 for c in codes),
+           "transport_errors": sum(c == -1 for c in codes),
+           "respawn_s": respawn_s,
+           "generation": back.generation if back else None,
+           "home_again": router.pick(sessions[0]).name == home,
+           "code_after": code_home,
+           "ready": back.ready if back else None}
+    log(f"[fleet] failover: SIGKILL {home} (pid {victim.proc.pid}) under "
+        f"{len(codes)} session requests: {res['non_200']} non-200, "
+        f"{res['5xx']} 5xx; respawned at its rank in {respawn_s} s "
+        f"(generation {res['generation']}), session home again "
+        f"{res['home_again']} ({code_home})")
+    if not (res["non_200"] == 0 and respawn_s is not None
+            and res["home_again"] and code_home == 200):
+        raise RuntimeError(f"fleet failover failed: {res}")
+    return res
+
+
+def fl_canary(router, url: str, seq: list) -> dict:
+    """(e) On the live K=2 fleet under sessionless load: a FleetCanary
+    ramps w1 through FL_CANARY to done (w1's share of sessionless traffic
+    at each notch); a second one with its p99 limit at half the router's
+    windowed p99 aborts back to fraction 0."""
+    from deeplearning4j_tpu_torch.deploy import FleetCanary
+    stop, codes = threading.Event(), []
+
+    def client():
+        while not stop.is_set():
+            codes.append(fl_post(url, {"model": "fleet",
+                                       "features": seq})[0])
+
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    try:
+        c1 = FleetCanary(router, "w1", schedule=FL_CANARY)
+        actions, shares = [], []
+        for _ in range(len(FL_CANARY) + 2):
+            act = c1.step()
+            actions.append(act)
+            if act != "ramp":
+                break
+            time.sleep(FL_CANARY_TICK_S)
+            served = {n: h.served for n, h in router._workers.items()}
+            shares.append(served.get("w1", 0) / max(1, sum(served.values())))
+        observed = router.window_p99_ms()
+        c2 = FleetCanary(router, "w1", schedule=(0.05, 1.0),
+                         max_p99_ms=0.5 * observed)
+        abort = c2.step()
+        fraction_after = router._workers["w1"].route_fraction
+    finally:
+        stop.set()
+        th.join(timeout=30.0)
+    res = {"actions": actions, "w1_shares": shares,
+           "window_p99_ms": observed, "abort_limit_ms": 0.5 * observed,
+           "second": abort, "fraction_after_abort": fraction_after,
+           "requests": len(codes), "non_200": sum(c != 200 for c in codes),
+           "codes": {c: codes.count(c) for c in sorted(set(codes))}}
+    log(f"[fleet] canary on K=2: {actions}, w1's sessionless share at "
+        f"each notch {[round(s, 3) for s in shares]}; a second canary "
+        f"with max_p99 {0.5 * observed:.2f} ms (router p99 "
+        f"{observed:.2f}) -> {abort}, w1 fraction {fraction_after}; "
+        f"{len(codes)} requests, {res['non_200']} non-200 (codes "
+        f"{res['codes']})")
+    if not (actions == ["ramp"] * len(FL_CANARY) + ["done"]
+            and abort == "abort" and fraction_after == 0.0):
+        raise RuntimeError(f"fleet canary failed: {res}")
+    return res
+
+
+def fl_fleets(common: dict, Router, step_row: list, seq: list,
+              slo_p99_ms: float) -> dict:
+    """(c) K=1 then K=3 behind ``FleetRouter.serve()`` under the same
+    open-loop Poisson session load (the rate fixed at 2.5x the K=1
+    closed-loop capacity, at least 20 rps); (d) failover and (e) the
+    canaries on the K=3 fleet (scaled in to K=2 for (e))."""
+    import itertools
+    res, offered = {}, None
+
+    def fire_for(url):
+        counter = itertools.count()
+
+        def fire():
+            j = next(counter) % FL_SESSIONS
+            return fl_post(url, {"model": "fleet", "session": f"conv-{j}",
+                                 "features": step_row})[0]
+        return fire
+
+    for k in (1, 3):
+        t0 = time.perf_counter()
+        router = Router(k, slo_p99_ms=slo_p99_ms,
+                        health_interval_s=0.25 if k == 3 else 1.0,
+                        spawn_timeout_s=FL_SPAWN_S, **common)
+        router.start()
+        start_s = time.perf_counter() - t0
+        ui = router.serve()
+        url = f"http://127.0.0.1:{ui.port}"
+        try:
+            healthy = router.status()["healthy"]
+            ready = [h.ready for h in router._workers.values()]
+            log(f"[fleet] K={k}: {healthy} of {k} workers ready in "
+                f"{start_s:.1f} s on {sorted({r['device'] for r in ready})}")
+            if healthy != k:
+                raise RuntimeError(f"K={k}: status()['healthy'] = "
+                                   f"{healthy}")
+            out = {"start_s": start_s, "ready": ready}
+            # an ill-shaped session step answers 400 and marks no worker
+            # down (the router fails over on transport errors only)
+            code, body = fl_post(url, {"model": "fleet", "session": "bad",
+                                       "features": [step_row[0][:-1]]})
+            out["ill_shaped"] = {"code": code,
+                                 "healthy": router.status()["healthy"]}
+            log(f"[fleet] K={k}: an ill-shaped session step answers {code} "
+                f"({body.get('error')}); {out['ill_shaped']['healthy']} of "
+                f"{k} workers healthy")
+            if out["ill_shaped"] != {"code": 400, "healthy": k}:
+                raise RuntimeError(
+                    f"K={k}: ill-shaped step {out['ill_shaped']}")
+            if k == 3:
+                out["failover"] = fl_failover(router, url, step_row)
+                if router.status()["healthy"] != 3:
+                    raise RuntimeError("K=3 not whole after the respawn")
+            out["closed_loop_rps"] = fl_probe(url, step_row)
+            if k == 1:
+                offered = max(20.0, 2.5 * out["closed_loop_rps"])
+            log(f"[fleet] K={k} closed-loop probe: "
+                f"{out['closed_loop_rps']:.1f} rps over {FL_PROBE_S} s "
+                f"with {FL_PROBE_THREADS} threads; offered rate "
+                f"{offered:.1f} rps")
+            load = fl_open_loop(fire_for(url), offered, FL_LOAD_S, seed=k)
+            load["workers_healthy"] = router.status()["healthy"]
+            out["load"] = load
+            log(f"[fleet] K={k} open loop {FL_LOAD_S} s of arrivals at "
+                f"{load['offered_qps']:.1f} rps over {FL_SESSIONS} sessions, "
+                f"answered over {load['wall_s']:.2f} s of wall time: "
+                f"admitted {load['admitted']} = {load['admitted_rps']:.1f} "
+                f"rps, p50/p99 {load['p50_ms']}/{load['p99_ms']} ms from "
+                f"the scheduled arrival, send lag p50/p99 "
+                f"{load['send_lag_p50_ms']}/{load['send_lag_p99_ms']} ms, "
+                f"shed fraction {load['shed_fraction']:.3f}, unanswered "
+                f"{load['unanswered']}, errors {load['errors']} "
+                f"(codes {load['codes']}), "
+                f"workers_healthy {load['workers_healthy']}; this process "
+                f"(router, clients) used {load['host_cpu_s']:.2f} CPU s")
+            if k == 3:
+                victim = router.scale_in()
+                out["scaled_in"] = victim
+                out["canary"] = fl_canary(router, url, seq)
+            out["status"] = {key: router.status()[key]
+                             for key in ("healthy", "ring", "scale_events",
+                                         "window_p99_ms")}
+            res[k] = out
+        finally:
+            ui.stop()
+            router.stop()
+    res["offered_qps"] = offered
+    # neither ratio is the fleet's capacity: the open loop's admitted
+    # rates are set by the workers' SLO controllers and, like the closed
+    # loop's, by this process's GIL (router and clients)
+    res["speedup_x"] = (res[3]["load"]["admitted_rps"]
+                        / max(res[1]["load"]["admitted_rps"], 1e-9))
+    res["closed_loop_speedup_x"] = (res[3]["closed_loop_rps"]
+                                    / max(res[1]["closed_loop_rps"], 1e-9))
+    log(f"[fleet] K=3 vs K=1: open loop admitted (over wall time) "
+        f"{res[3]['load']['admitted_rps']:.1f} / "
+        f"{res[1]['load']['admitted_rps']:.1f} = speedup_x "
+        f"{res['speedup_x']:.2f} (SLO shedding); closed loop "
+        f"{res[3]['closed_loop_rps']:.1f} / {res[1]['closed_loop_rps']:.1f}"
+        f" = {res['closed_loop_speedup_x']:.2f}x (this process's GIL)")
+    return res
+
+
+def fl_deploy_http(tmp: str, device: str, train_n: int = DP_TRAIN) -> dict:
+    """(f) ``bench_deploy``'s HTTP half on LeNet-5: a ``fit`` publishes an
+    epoch's weights while a client loads ``POST /predict`` and an operator
+    loop drives ``POST /deploy/lenet {"action": "step"}`` through the
+    port's UIServer (``attach_registry`` + ``attach_deployment``): at
+    least 2 promotions, 0 5xx; then a corrupt snapshot pushed over HTTP is
+    refused with a 4xx and the engine unchanged."""
+    import urllib.error
+    import urllib.request
+
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.deploy import (DeploymentListener,
+                                                 RolloutController,
+                                                 VersionedWeightStore)
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  ModelRegistry)
+    from deeplearning4j_tpu_torch.ui import UIServer
+    train = MnistDataSetIterator(DP_BATCH, train_n)
+    test = MnistDataSetIterator(500, S2_LENET_TEST, train=False)
+    xt = np.asarray(test._ds.features)
+    yt = np.argmax(np.asarray(test._ds.labels), axis=1)
+    xe, ye = xt[:DP_EVAL], np.asarray(test._ds.labels)[:DP_EVAL]
+    server = MultiLayerNetwork(lenet(), device=device).init()
+    trainer = MultiLayerNetwork(lenet(), device=device).init()
+    store = VersionedWeightStore(os.path.join(tmp, "lenet-http"))
+    reg = ModelRegistry()
+    eng = reg.register("lenet", InferenceEngine(
+        server, max_batch_size=16, max_latency_ms=2.0, name="lenet"),
+        warmup_shape=(784,))
+    ctl = RolloutController(reg, "lenet", store, canary_fraction=0.2,
+                            eval_features=xe, eval_labels=ye,
+                            min_probe_rounds=2)
+    ui = UIServer(port=0).attach_registry(reg).attach_deployment(ctl)
+    ui.start()
+    base = f"http://127.0.0.1:{ui.port}"
+
+    def compiles():
+        return monitor.counter("serving_bucket_compiles_total").value(
+            engine="lenet")
+
+    def deploy(payload):
+        req = urllib.request.Request(
+            base + "/deploy/lenet", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, json.loads(r.read().decode())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read().decode() or "{}")
+
+    acc0 = float(np.mean(np.argmax(s2_predict_all(eng, xt, 16), 1) == yt))
+    c0 = compiles()
+    client_codes, step_codes, actions = {}, {}, []
+    stop, stop_roller = threading.Event(), threading.Event()
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            code = fl_post(base, {"model": "lenet",
+                                  "features": xt[i % len(xt)][None]
+                                  .tolist()})[0]
+            client_codes[code] = client_codes.get(code, 0) + 1
+            i += 1
+            time.sleep(0.002)
+
+    def roller():
+        while not stop_roller.is_set():
+            code, body = deploy({"action": "step"})
+            step_codes[code] = step_codes.get(code, 0) + 1
+            if body.get("action") not in (None, "noop"):
+                actions.append(body["action"])
+            time.sleep(0.01)
+
+    def drain():
+        deadline = time.perf_counter() + FL_DRAIN_S
+        while time.perf_counter() < deadline:
+            head = store.latest()
+            if ctl.state == "idle" and head is not None and (
+                    eng.active_version >= head or head in ctl.quarantined):
+                return
+            time.sleep(0.05)
+
+    threads = [threading.Thread(target=client, daemon=True),
+               threading.Thread(target=roller, daemon=True)]
+    for th in threads:
+        th.start()
+    try:
+        trainer.set_listeners(DeploymentListener(store,
+                                                 every_n_iterations=0))
+        for _ in range(DP_EPOCHS):
+            trainer.fit(train, epochs=1, ingest="batch")
+            drain()
+        stop_roller.set()
+        threads[1].join(timeout=30.0)
+        promotions = sum(1 for h in ctl.history if h["action"] == "promote")
+        bad = store.publish(trainer.get_flat_params(), source="corrupted")
+        dp_corrupt(os.path.join(store.directory, "weights-v%010d.zip" % bad))
+        before = (eng.versions(), eng.active_version, eng.canary_version)
+        corrupt_code, corrupt_body = deploy({"action": "push",
+                                             "version": bad})
+        after = (eng.versions(), eng.active_version, eng.canary_version)
+    finally:
+        stop.set()
+        stop_roller.set()
+        for th in threads:
+            th.join(timeout=30.0)
+        ui.stop()
+    acc1 = float(np.mean(np.argmax(s2_predict_all(eng, xt, 16), 1) == yt))
+    moved = compiles() - c0
+    reg.stop_all()
+    n5xx = sum(v for c, v in list(client_codes.items())
+               + list(step_codes.items()) if c >= 500 or c == -1)
+    res = {"promotions": promotions, "actions": actions,
+           "client_codes": client_codes, "step_codes": step_codes,
+           "5xx": n5xx, "corrupt_code": corrupt_code,
+           "corrupt_flag": corrupt_body.get("corrupt"),
+           "engine_unchanged": before == after, "acc_untrained": acc0,
+           "acc_served": acc1, "compiles_moved": moved,
+           "active_version": eng.active_version}
+    log(f"[fleet] deploy over HTTP: {promotions} promotions ({actions}); "
+        f"client codes {client_codes}, /deploy step codes {step_codes}: "
+        f"{n5xx} 5xx; corrupt v{bad} pushed over HTTP -> {corrupt_code} "
+        f"(corrupt {res['corrupt_flag']}), engine unchanged "
+        f"{before == after}; served accuracy {acc0:.4f} -> {acc1:.4f}; "
+        f"compiles moved {moved:g}")
+    if not (promotions >= 2 and n5xx == 0 and 400 <= corrupt_code < 500
+            and before == after and moved == 0 and acc1 > acc0 + 0.2):
+        raise RuntimeError(f"deploy over HTTP failed: {res}")
+    return res
+
+
+def phase_fleet(A, seed: int, device: str = "cuda", model: str = FL_MODEL,
+                lenet_train: int = DP_TRAIN) -> dict:
+    """Phase 19, the ``fleet`` path: (a) respawn, (b) serving after
+    warmup through HTTP, (c) K=1 vs K=3, (d) failover, (e) FleetCanary,
+    (f) deploy over HTTP, (g) every worker reaped.  The fleet's model
+    launches no hand kernel; the LeNet-5 of (f) neither."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.deploy import VersionedWeightStore
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving.fleet import (FLEET_SPECS,
+                                                        build_fleet_conf)
+    t_phase = time.perf_counter()
+    monitor.reset()
+    A.reset_launches()            # counts of the fleet path only
+    rng = np.random.RandomState(seed + 19)
+    spec = FLEET_SPECS[model]
+    Router = fl_router_class()
+    spawned: List = Router.spawned
+    reports: List = Router.reports
+    old_flight = os.environ.get("DL4J_TPU_FLIGHT_DIR")
+    result, warm = {}, None
+    tmp = tempfile.TemporaryDirectory(prefix="p19_fleet_")
+    try:
+        os.environ["DL4J_TPU_FLIGHT_DIR"] = os.path.join(tmp.name, "flight")
+        conf, _, _ = build_fleet_conf(model, seed=seed + 19)
+        net = MultiLayerNetwork(conf, device=device).init()
+        store = VersionedWeightStore(os.path.join(tmp.name, "store"))
+        result["store_version"] = store.publish_model(net, source="p19")
+        result["params"] = net.num_params()
+        del net
+        common = dict(model=model, store_dir=store.directory,
+                      cache_root=os.path.join(tmp.name, "cache"),
+                      device=device)
+        warm, result["respawn"] = fl_respawn(common, spawned, reports)
+        result["serving"] = fl_serving(warm, common, store, rng)
+        reports.append(warm.terminate())
+        slo = max(50.0, 10.0 * result["serving"]["cal_p50_ms"])
+        step_row = rng.randn(1, spec["n_in"]).round(4).tolist()
+        seq = rng.randn(1, spec["timestep_buckets"][0],
+                        spec["n_in"]).round(4).tolist()
+        result["slo_p99_ms"] = slo
+        result["fleets"] = fl_fleets(common, Router, step_row, seq, slo)
+        result["deploy_http"] = fl_deploy_http(tmp.name, device,
+                                               lenet_train)
+    finally:
+        if warm is not None:
+            warm.terminate()
+        for proc in spawned:        # (g) terminate and reap every worker
+            if proc.poll() is None:
+                proc.terminate()
+            try:
+                proc.wait(timeout=10.0)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10.0)
+        alive = [p.pid for p in spawned if p.poll() is None]
+        for p in spawned:
+            try:
+                os.kill(p.pid, 0)
+                alive.append(p.pid)
+            except ProcessLookupError:
+                pass
+        if old_flight is None:
+            os.environ.pop("DL4J_TPU_FLIGHT_DIR", None)
+        else:
+            os.environ["DL4J_TPU_FLIGHT_DIR"] = old_flight
+        tmp.cleanup()
+    result["workers_spawned"] = len(spawned)
+    result["pids"] = [p.pid for p in spawned]
+    readies = (result["respawn"] + result["fleets"][1]["ready"]
+               + result["fleets"][3]["ready"]
+               + [result["fleets"][3]["failover"]["ready"]])
+    devices = sorted({r["device"] for r in readies})
+    result["devices"] = devices
+    if alive:
+        raise RuntimeError(f"fleet workers still alive: {alive}")
+    if device == "cuda" and not all(d.startswith("cuda:") for d in devices):
+        raise RuntimeError(f"a fleet worker not on the card: {devices}")
+    # the path's launches: this process's (the router, the in-process
+    # engines of (b) and (f)) and each worker's from its exit line.  The
+    # SIGKILLed worker cannot report, nor can one the router's health
+    # tick replaced and had to kill; those are listed
+    reports = [r for r in reports if r is not None]
+    killed = result["fleets"][3]["failover"]["victim_pid"]
+    unreported = sorted({p.pid for p in spawned}
+                        - {r["pid"] for r in reports})
+    if killed not in unreported or len(unreported) == len(spawned):
+        raise RuntimeError(f"worker exit lines do not add up: unreported "
+                           f"{unreported}, SIGKILLed {killed}")
+    result["launches_front_door"] = dict(A.LAUNCHES)
+    result["launches_workers"] = {
+        name: sum(r["launches"][name] for r in reports)
+        for name in A.LAUNCHES}
+    result["worker_reports"] = len(reports)
+    result["unreported_pids"] = unreported
+    result["launches"] = {name: result["launches_front_door"][name]
+                          + result["launches_workers"][name]
+                          for name in A.LAUNCHES}
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"[fleet] {len(spawned)} worker processes started, every pid "
+        f"reaped; worker devices {devices}; launches {result['launches']} "
+        f"(this process {result['launches_front_door']}, "
+        f"{len(reports)} worker exit lines {result['launches_workers']}, "
+        f"unreported {unreported}, of which SIGKILLed {killed}); phase 19 "
+        f"in {result['seconds']:.1f} s")
+    if any(result["launches"].values()):
+        raise RuntimeError(f"fleet path launches {result['launches']}")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6079,6 +6846,9 @@ def main(argv=None) -> int:
     deploy = phase_deploy(N, A, args.seed)
     torch.cuda.empty_cache()
     log(f"[deploy] phase 18 in {time.perf_counter() - t18:.1f} s; {card}")
+    fleet = phase_fleet(A, args.seed)
+    torch.cuda.empty_cache()
+    log(f"[fleet] phase 19 in {fleet['seconds']:.1f} s; {card}")
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -6095,7 +6865,7 @@ def main(argv=None) -> int:
              "deepwalk": deepwalk["launches"],
              "pretrain": pretrain["launches"],
              "serving_v2": serving_v2["launches"],
-             "deploy": deploy["launches"]}
+             "deploy": deploy["launches"], "fleet": fleet["launches"]}
     csrc = "deeplearning4j_tpu_torch/ops/csrc/"
     bodies = {"flash_fwd": csrc + "flash_fwd_sm90.cuh",
               "flash_fwd_partials": csrc + "flash_fwd_sm90.cuh",
@@ -6118,6 +6888,7 @@ def main(argv=None) -> int:
     print(json.dumps({"pretrain": pretrain}))
     print(json.dumps({"serving_v2": serving_v2, "deploy": deploy},
                      default=str))
+    print(json.dumps({"fleet": fleet}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

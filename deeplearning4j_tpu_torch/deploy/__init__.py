@@ -16,15 +16,18 @@ pure data motion:
   promotes (an atomic pointer flip) or rolls back with a
   ``rollout_rollback`` flight-recorder bundle.
 
-The JAX package's ``FleetCanary`` waits for the serving fleet
-(ROADMAP A8).
+- :class:`~deeplearning4j_tpu_torch.deploy.rollout.FleetCanary`: the
+  canary across processes, ramping one fleet worker's share of
+  sessionless traffic while it stays healthy and the router's p99 holds.
 """
 
-from .rollout import CANARY, IDLE, RolloutController, RolloutError
+from .rollout import (CANARY, IDLE, FleetCanary, RolloutController,
+                      RolloutError)
 from .store import (DeploymentListener, ParamServerPoller,
                     VersionedWeightStore, WeightSnapshot,
                     WeightStoreCorruptError, tree_from_flat)
 
-__all__ = ["CANARY", "DeploymentListener", "IDLE", "ParamServerPoller",
+__all__ = ["CANARY", "DeploymentListener", "FleetCanary", "IDLE",
+           "ParamServerPoller",
            "RolloutController", "RolloutError", "VersionedWeightStore",
            "WeightSnapshot", "WeightStoreCorruptError", "tree_from_flat"]

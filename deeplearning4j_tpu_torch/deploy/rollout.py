@@ -1,7 +1,8 @@
 """Canary rollout control: page version N+1 in alongside N, measure,
-then promote or auto-roll-back (port of the in-process half of
-``deeplearning4j_tpu/deploy/rollout.py``; its ``FleetCanary`` waits for
-the serving fleet, ROADMAP A8).
+then promote or auto-roll-back (port of
+``deeplearning4j_tpu/deploy/rollout.py``); and :class:`FleetCanary`, the
+same ramp over a serving fleet's per-worker route fractions
+(``serving/fleet.py``).
 
 The state machine::
 
@@ -351,3 +352,78 @@ class RolloutController:
             "quarantined": sorted(self.quarantined),
             "history": self.history[-10:],
         }
+
+
+class FleetCanary:
+    """Per-worker route-fraction canary: the fleet-level generalization
+    of the engine's in-process ``canary_fraction``.
+
+    One worker — typically freshly respawned so it warmed the newest
+    store version — starts at a small fraction of the router's
+    sessionless traffic and ramps through ``schedule`` one ``step()``
+    at a time, as long as the worker stays healthy and the router's
+    windowed p99 stays under ``max_p99_ms``.  Any breach drops the
+    worker back to ``fallback_fraction`` and pins the canary ABORTED
+    (a new ``FleetCanary`` restarts the ramp).  Session traffic is
+    untouched: affinity is a correctness contract, not a dial.
+    """
+
+    RAMPING, DONE, ABORTED = "ramping", "done", "aborted"
+
+    def __init__(self, router, worker: str,
+                 schedule=(0.05, 0.25, 0.5, 1.0),
+                 max_p99_ms: Optional[float] = None,
+                 fallback_fraction: float = 0.0):
+        if not schedule:
+            raise ValueError("schedule must not be empty")
+        self.router = router
+        self.worker = str(worker)
+        self.schedule = tuple(float(f) for f in schedule)
+        self.max_p99_ms = max_p99_ms
+        self.fallback_fraction = float(fallback_fraction)
+        self.state = self.RAMPING
+        self._idx = -1
+        self.history: List[Dict[str, Any]] = []
+
+    def _healthy(self) -> bool:
+        view = {w["name"]: w for w in self.router.status()["workers"]}
+        return bool(view.get(self.worker, {}).get("healthy"))
+
+    def step(self) -> str:
+        """One ramp tick: ``"ramp"`` (advanced one schedule notch),
+        ``"done"`` (full fraction reached), or ``"abort"`` (health or
+        p99 breach — fraction dropped to the fallback)."""
+        if self.state == self.ABORTED:
+            return "abort"
+        p99 = self.router.window_p99_ms()
+        breach = (not self._healthy()
+                  or (self.max_p99_ms is not None and p99 is not None
+                      and p99 > self.max_p99_ms))
+        if breach:
+            self.state = self.ABORTED
+            self.router.set_route_fraction(self.worker,
+                                           self.fallback_fraction)
+            _monitor.counter(
+                "fleet_canary_aborts_total",
+                "fleet route-fraction canaries rolled back").inc(
+                worker=self.worker)
+            self.history.append({"action": "abort", "p99_ms": p99})
+            return "abort"
+        if self._idx + 1 >= len(self.schedule):
+            self.state = self.DONE
+            return "done"
+        self._idx += 1
+        fraction = self.schedule[self._idx]
+        self.router.set_route_fraction(self.worker, fraction)
+        self.history.append({"action": "ramp", "fraction": fraction,
+                             "p99_ms": p99})
+        return "ramp"
+
+    def status(self) -> Dict[str, Any]:
+        return {"worker": self.worker, "state": self.state,
+                "fraction": (self.schedule[self._idx]
+                             if 0 <= self._idx < len(self.schedule)
+                             else None),
+                "schedule": list(self.schedule),
+                "max_p99_ms": self.max_p99_ms,
+                "history": self.history[-10:]}

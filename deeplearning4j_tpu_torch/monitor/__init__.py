@@ -6,10 +6,13 @@ the declarative alert engine (:mod:`.alerts`), the device-side training
 health layer with its ``train_health_*`` series and divergence guard
 (:mod:`.health`), the lock factory of the threaded subsystems
 (:mod:`.locks`), and the host phase attribution of the training loop
-(:func:`observe_phase`, :func:`phase_breakdown`).  Call sites resolve
-metrics by name through :func:`registry` at call time.  The JAX package's
-compile watch and step-time attributor are not ported yet (ROADMAP A11),
-so ``phase_breakdown``'s compile fields stay 0.
+(:func:`observe_phase`, :func:`phase_breakdown`), the compile watch
+(:mod:`.jit_watch`: bucket callables, step-graph captures, decode growth
+and the kernel library, counted per signature) that feeds
+``phase_breakdown``'s compile fields, and the step-time attributor
+(:mod:`.attribution`: per-step wall-time decomposition and EWMA + MAD
+slow-step detection, ticked by the alert engine).  Call sites resolve
+metrics by name through :func:`registry` at call time.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ from .flight_recorder import incident_dir, record_incident
 from . import alerts
 from .alerts import (AlertEngine, Rule, default_rules,
                      status as alert_status)
+from . import attribution
+from .attribution import StepAttributor, breakdown as wall_breakdown
+from . import jit_watch
+from .jit_watch import WatchedCall
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry, registry
 from .tracing import (TraceContext, Tracer, attach, current_context,
                       current_trace_hex, detach, new_trace_id,
@@ -32,15 +39,16 @@ from .tracing import (TraceContext, Tracer, attach, current_context,
 
 __all__ = [
     "AlertEngine", "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "Rule", "TraceContext", "Tracer", "TrainingDivergedError",
-    "alert_status", "alerts", "attach", "counter", "current_context",
+    "Rule", "StepAttributor", "TraceContext", "Tracer",
+    "TrainingDivergedError", "WatchedCall", "alert_status", "alerts",
+    "attach", "attribution", "counter", "current_context",
     "current_trace_hex", "default_rules", "detach", "disable_health",
     "enable_health", "flight_recorder", "gauge", "health",
     "health_enabled", "health_snapshot", "histogram", "incident_dir",
     "new_trace_id", "observe_phase", "parse_traceparent",
     "phase_breakdown", "prometheus_text", "record_incident", "registry",
     "reset", "snapshot", "span", "trace_chrome_json", "trace_jsonl",
-    "tracer"]
+    "jit_watch", "tracer", "wall_breakdown"]
 
 # host wall-clock phases of one training loop: "data" = host batch prep
 # and transfer, "step" = the train step's dispatch, "listener" = the

@@ -58,13 +58,13 @@ ring with trace exemplars, and the rule's verdict — the post-mortem
 starts at the moment of detection.  ``deploy/rollout.py`` consults
 :func:`gating_alerts` as an extra canary gate.
 
-Three default rules read series that the port emits only once the
+Two default rules read series that the port emits only once the
 matching JAX tools are ported (ROADMAP A11): ``sanitizer_violation``
-(``sanitizer_violations_total``), ``lockgraph_cycle``
-(``lockgraph_cycles_total``) and ``slow_step_anomalies``
-(``train_step_anomalies_total``, the step-time attributor's).  They are
-kept and stay quiet until then.  For the same reason an engine has no
-step-time attributor unless one is passed.
+(``sanitizer_violations_total``) and ``lockgraph_cycle``
+(``lockgraph_cycles_total``).  They are kept and stay quiet until then.
+``slow_step_anomalies`` reads ``train_step_anomalies_total``, which the
+step-time attributor (:mod:`.attribution`) counts: an engine builds one
+by default, as the JAX package's does, and ticks it after each pass.
 
 The evaluation cadence of the background thread is
 ``DL4J_TPU_ALERT_INTERVAL_S`` (default 5 s).
@@ -259,8 +259,10 @@ class AlertEngine:
             except ValueError:
                 interval_s = DEFAULT_INTERVAL_S
         self.interval_s = max(0.05, float(interval_s))
-        # an object with ``tick(now=)`` run after each pass (the JAX
-        # package's step-time attributor; none by default here)
+        if attributor is None:
+            from . import attribution as _attribution
+            attributor = _attribution.StepAttributor()
+        # an object with ``tick(now=)`` run after each pass
         self.attributor = attributor
         self._states: Dict[str, _RuleState] = {
             r.name: _RuleState() for r in rules}

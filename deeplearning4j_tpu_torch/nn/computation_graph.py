@@ -44,10 +44,12 @@ vertex name): the graph supplies a vertex's input.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from .. import monitor as _monitor
 from ..datasets.dataset import DataSet, MultiDataSet, wire_of
 from ..device import DeviceLike
 from . import ingest as _ingest
@@ -55,7 +57,8 @@ from .conf.computation_graph import (ComputationGraphConfiguration,
                                      DuplicateToTimeSeriesVertex,
                                      LastTimeStepVertex, LayerVertex)
 from .layers.recurrent import BaseRecurrentLayer
-from .multilayer import _detached, _host, _Network
+from .multilayer import (_detached, _host, _Network,
+                         check_feature_width, feature_widths)
 
 Tensor = torch.Tensor
 
@@ -423,6 +426,7 @@ class ComputationGraph(_Network):
                 raise ValueError(
                     f"{what} expects (batch, time, features) inputs, got "
                     f"shape {tuple(x.shape)}")
+        self._check_feature_shapes([tuple(x.shape) for x in xs])
         if carries is None:
             carries = self._init_carries(int(xs[0].shape[0]))
         return self._carried_step(
@@ -431,13 +435,22 @@ class ComputationGraph(_Network):
 
     def grow_decode_carries(self, carries, cache_len: int):
         """Pad every KV ring in ``carries`` up to ``cache_len`` slots
-        (other carries pass through): the serving cache-len bucket hop."""
+        (other carries pass through): the serving cache-len bucket hop,
+        watched as ``cg.decode_grow`` (see ``MultiLayerNetwork.
+        grow_decode_carries``)."""
         self.init()
-        with torch.inference_mode():
-            return {n: (self.vertices[n].layer.grow_carry(c, int(cache_len))
-                        if getattr(self.vertices[n].layer, "HAS_KV_RING",
-                                   False) else c)
-                    for n, c in carries.items()}
+        return self._decode_grow(carries, int(cache_len))
+
+    @functools.cached_property
+    def _decode_grow(self):
+        def grow(carries, cache_len):
+            with torch.inference_mode():
+                return {n: (self.vertices[n].layer.grow_carry(c, cache_len)
+                            if getattr(self.vertices[n].layer,
+                                       "HAS_KV_RING", False) else c)
+                        for n, c in carries.items()}
+        return _monitor.jit_watch.WatchedCall(grow, name="cg.decode_grow",
+                                          static_argnums=(1,))
 
     def rnn_get_previous_state(self, vertex_name: str):
         """Carry of one recurrent vertex (reference
@@ -480,12 +493,38 @@ class ComputationGraph(_Network):
         with a tuple of arrays of exactly ``feature_shapes`` and a tuple
         of masks of ``mask_shapes`` (``None`` iff ``mask_shapes`` was
         ``None``); it returns the list of outputs on the device of
-        ``params``."""
+        ``params``.  Each callable made counts once as ``cg.output`` in
+        the compile watch."""
         self.init()
         shapes = [tuple(int(d) for d in s) for s in feature_shapes]
         mshapes = (None if mask_shapes is None else
                    [None if s is None else tuple(int(d) for d in s)
                     for s in mask_shapes])
+        with _monitor.jit_watch.compiling(
+                "cg.output", signature=f"features={shapes}; masks={mshapes}"):
+            self._check_feature_shapes(shapes)
+            return self._bucket_callable(shapes, mshapes, params)
+
+    def _check_feature_shapes(self, shapes) -> None:
+        """Raise ``TypeError`` when an input of ``shapes`` (one per
+        network input) cannot feed the layers it goes to: the widths of
+        its input type, else the ``n_in`` of each layer vertex that takes
+        it alone (``multilayer.feature_widths``).  Bucket callables and
+        session steps both check, so a serving request answers 400 on
+        either path, as in the JAX package."""
+        types = self.conf.input_types
+        for i, (name, shape) in enumerate(zip(self.conf.network_inputs,
+                                              shapes)):
+            it = types[i] if types is not None and i < len(types) else None
+            if it is not None:
+                check_feature_width(shape, feature_widths(it, None, False))
+                continue
+            for v in self.vertices.values():
+                if isinstance(v, LayerVertex) and list(v.inputs) == [name]:
+                    check_feature_width(shape, feature_widths(
+                        None, v.layer, v.preprocessor is not None))
+
+    def _bucket_callable(self, shapes, mshapes, params):
         ref = next((p for tree in (params if params is not None
                                    else self.params).values()
                     for p in tree.values()), None)

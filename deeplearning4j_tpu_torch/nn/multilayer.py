@@ -94,6 +94,7 @@ from . import step_graph as _step_graph
 from . import updaters as _updaters
 from .conf.neural_net_configuration import MultiLayerConfiguration
 from .layers import pretrain as _pretrain
+from .layers.core import EmbeddingLayer
 from .layers.recurrent import BaseRecurrentLayer
 
 Tensor = torch.Tensor
@@ -1407,11 +1408,30 @@ class MultiLayerNetwork(_Network):
         the output tensor on the device of ``params``.  ``params``/
         ``net_state`` here only fix that device (default: the network's);
         each call passes its own, so one callable serves any copy of the
-        weights on that device."""
+        weights on that device.  Each callable made counts once in
+        ``jit_compiles_total{fn="mln.output"}`` (``monitor.jit_watch``),
+        as each of the JAX package's bucket executables does."""
         self.init()
         shape = tuple(int(d) for d in feature_shape)
         mshape = (None if mask_shape is None
                   else tuple(int(d) for d in mask_shape))
+        with _monitor.jit_watch.compiling(
+                "mln.output", signature=f"features={shape}; mask={mshape}"):
+            self._check_feature_shape(shape)
+            return self._bucket_callable(shape, mshape, params)
+
+    def _check_feature_shape(self, shape) -> None:
+        """Raise ``TypeError`` when features of ``shape`` cannot feed the
+        first layer (see :func:`feature_widths`).  Bucket callables and
+        session steps both check, so a serving request of that shape
+        answers 400 on either path, as the JAX package's does (XLA's
+        ``dot_general`` check when a bucket is lowered, the LSTM einsum's
+        ``ValueError`` in a step)."""
+        check_feature_width(shape, feature_widths(
+            self.conf.input_type, self.layers[0],
+            0 in self.conf.input_preprocessors))
+
+    def _bucket_callable(self, shape, mshape, params):
         ref = next((p for tree in (params if params is not None
                                    else self.params) for p in tree.values()),
                    None)
@@ -1500,6 +1520,7 @@ class MultiLayerNetwork(_Network):
         if x.dim() != 3:
             raise ValueError(f"{what} expects (batch, time, features), got "
                              f"shape {tuple(x.shape)}")
+        self._check_feature_shape(tuple(x.shape))
         if carries is None:
             carries = self._init_carries(int(x.shape[0]))
         return self._carried_step(
@@ -1510,12 +1531,22 @@ class MultiLayerNetwork(_Network):
         """Pad every KV ring in ``carries`` up to ``cache_len`` slots
         (other carries pass through): the serving cache-len bucket hop.
         Slots past the cursor are masked to exact zeros, so growth never
-        changes results."""
+        changes results.  The first growth at each (carry shapes,
+        cache_len) counts as a build of ``mln.decode_grow`` in the compile
+        watch, later ones as cache hits."""
         self.init()
-        with torch.inference_mode():
-            return [layer.grow_carry(carries[i], int(cache_len))
-                    if getattr(layer, "HAS_KV_RING", False) else carries[i]
-                    for i, layer in enumerate(self.layers)]
+        return self._decode_grow(carries, int(cache_len))
+
+    @functools.cached_property
+    def _decode_grow(self):
+        def grow(carries, cache_len):
+            with torch.inference_mode():
+                return [layer.grow_carry(carries[i], cache_len)
+                        if getattr(layer, "HAS_KV_RING", False)
+                        else carries[i]
+                        for i, layer in enumerate(self.layers)]
+        return _monitor.jit_watch.WatchedCall(grow, name="mln.decode_grow",
+                                          static_argnums=(1,))
 
     def rnn_get_previous_state(self, layer: int):
         """Carry of one layer (reference ``rnnGetPreviousState``)."""
@@ -1619,6 +1650,33 @@ def _mask_presence(item, which: str):
                 else item.labels_mask) is not None
     masks = getattr(item, which)
     return None if masks is None else tuple(m is not None for m in masks)
+
+
+def feature_widths(input_type, layer, preprocessed: bool):
+    """The last-axis widths a network input may have: those of its input
+    type, else the ``n_in`` of the layer it feeds when no preprocessor
+    stands between them; ``None`` when neither says (no type and no
+    ``n_in``, or an embedding, whose indices carry no width)."""
+    if input_type is not None:
+        return {"ff": (input_type.flat_size(),),
+                "recurrent": (input_type.flat_size(),),
+                "cnn": (getattr(input_type, "channels", 0),),
+                "cnn_flat": (input_type.flat_size(),
+                             getattr(input_type, "channels", 0))
+                }.get(input_type.kind)
+    n_in = int(getattr(layer, "n_in", 0) or 0)
+    if preprocessed or n_in <= 0 or isinstance(layer, EmbeddingLayer):
+        return None
+    return (n_in,)
+
+
+def check_feature_width(shape, widths) -> None:
+    """Raise ``TypeError`` unless ``shape``'s last axis is one of
+    ``widths`` (``None``: nothing to check)."""
+    if widths is not None and (len(shape) < 2 or shape[-1] not in widths):
+        raise TypeError(
+            f"features of shape {tuple(shape)} cannot feed the network: "
+            f"the last axis must be {' or '.join(map(str, widths))}")
 
 
 def _host(a) -> np.ndarray:

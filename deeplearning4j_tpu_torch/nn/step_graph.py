@@ -49,6 +49,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..monitor import jit_watch as _jit_watch
+
 #: warm-up steps on a side stream before a capture (autograd and the
 #: library handles initialise there, outside the graph)
 WARMUP_STEPS = 2
@@ -177,6 +179,16 @@ class CapturedGatherStep:
             self.ctr.add_(1)
 
     def _capture(self, net, pool) -> torch.cuda.CUDAGraph:
+        # the warm-up steps and the capture are this step's build: one
+        # compile of "<mln|cg>.gather_train_step" in the compile watch
+        name = ("cg" if type(net).__name__ == "ComputationGraph"
+                else "mln") + ".gather_train_step"
+        with _jit_watch.compiling(name, signature=(
+                f"rows={tuple(self.rows.shape)}; "
+                f"health={self.health is not None}")):
+            return self._capture_graph(net, pool)
+
+    def _capture_graph(self, net, pool) -> torch.cuda.CUDAGraph:
         # the graphs and pools of dropped networks go first, with the card
         # idle: released during a capture, they invalidate it
         gc.collect()

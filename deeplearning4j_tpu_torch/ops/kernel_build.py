@@ -3,10 +3,15 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes``.  Builds happen at first use, into ``build/kernels/`` beside the
-package (git-ignored); the library name carries a hash of every file under
-``csrc/`` (the sources and the headers they include) and of the flags, so
-an edited source or header is rebuilt and a stale library is never
-loaded.  Nothing is compiled at import.
+package (git-ignored), or into the directory :func:`set_build_dir` names
+(the serving fleet's compile cache points it at a per-model namespace, so a
+respawned worker loads the library instead of running ``nvcc`` again); the
+library name carries a hash of every file under ``csrc/`` (the sources and
+the headers they include) and of the flags, so an edited source or header
+is rebuilt and a stale library is never loaded.  Nothing is compiled at
+import.  Each :func:`build` counts in the compile watch as
+``kernels.build``: a compile when ``nvcc`` runs, a cache hit when the
+library is already there.
 """
 
 from __future__ import annotations
@@ -19,9 +24,13 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional, Union
+
+from ..monitor import jit_watch as _jit_watch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("flash_attention.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -41,6 +50,15 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found on PATH or under CUDA_HOME")
 
 
+def set_build_dir(path: Optional[Union[str, Path]]) -> Path:
+    """Build into (and load from) ``path``; ``None`` restores the default
+    ``build/kernels/``.  Libraries already loaded stay loaded.  Returns
+    the directory now in use."""
+    global BUILD_DIR
+    BUILD_DIR = DEFAULT_BUILD_DIR if path is None else Path(path)
+    return BUILD_DIR
+
+
 def library_path(source: str) -> Path:
     digest = hashlib.sha256(source.encode() + b"\0")
     for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
@@ -55,19 +73,22 @@ def build(source: str) -> Path:
     Raises :class:`KernelBuildError` with nvcc's output on a failure."""
     final = library_path(source)
     if final.exists():
+        _jit_watch.cache_hit("kernels.build")
         return final
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                        str(CSRC / source)], check=True,
-                       capture_output=True, text=True)
-    except subprocess.CalledProcessError as e:
-        os.unlink(tmp)
-        raise KernelBuildError(f"nvcc failed on {source} (rc {e.returncode})"
-                               f":\n{e.stdout}{e.stderr}") from None
-    os.replace(tmp, final)         # atomic: a reader sees all or nothing
+    with _jit_watch.compiling("kernels.build", signature=final.name):
+        final.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=final.parent)
+        os.close(fd)
+        try:
+            subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                            str(CSRC / source)], check=True,
+                           capture_output=True, text=True)
+        except subprocess.CalledProcessError as e:
+            os.unlink(tmp)
+            raise KernelBuildError(
+                f"nvcc failed on {source} (rc {e.returncode}):\n"
+                f"{e.stdout}{e.stderr}") from None
+        os.replace(tmp, final)     # atomic: a reader sees all or nothing
     return final
 
 

@@ -264,6 +264,26 @@ class SloAdmissionController:
             st.lat.append((now, float(latency_ms)))
             self._prune_deque(st.lat, now)
 
+    def reset_windows(self) -> None:
+        """Forget every observation and decision: the global and
+        per-tenant latency windows, the admit/shed times, the cached
+        quantiles, baselines and penalties.  Configuration (SLOs, tenants
+        and their shares) stays.  ``InferenceEngine.end_warmup`` calls it
+        so that warmup's first-call latencies are never shed evidence (a
+        port addition; the JAX controller has no counterpart)."""
+        with self._lock:
+            self._lat.clear()
+            self._cached_p99, self._cached_at = None, float("-inf")
+            self._cached_rates, self._rates_at = {}, float("-inf")
+            for st in self._tenants.values():
+                st.lat.clear()
+                st.admits.clear()
+                st.sheds.clear()
+                st.cached_p50 = st.cached_p99 = None
+                st.cached_at = float("-inf")
+                st.baseline_p99 = None
+                st.penalty_until = 0.0
+
     def _prune_locked(self, now: float) -> None:
         self._prune_deque(self._lat, now)
 

@@ -593,6 +593,19 @@ class InferenceEngine:
                    for bb in self._policy.batch_buckets
                    for widx in range(len(self._devices)))
 
+    def end_warmup(self) -> None:
+        """Close warmup: the SLO admission windows restart empty
+        (``SloAdmissionController.reset_windows``; the tenants and their
+        SLOs stay), so the first-call latencies of requests sent to warm
+        the engine (a session step, a first reply: lazy CUDA module loads,
+        first allocations) never become the window's p99.  Below 100
+        samples that p99 is the window's maximum, so one such sample would
+        shed every request until it aged out.  Call it once the warm
+        requests are done; a no-op without an SLO.  The JAX engine has no
+        counterpart and keeps them (ROADMAP C)."""
+        if self._admission is not None:
+            self._admission.reset_windows()
+
     def warmup_decode(self, example_shape, chunk_lens=(1,)) -> int:
         """Run the decode step once at every (batch bucket, chunk,
         cache_len) shape, and the grow to the next cache-len bucket, so

@@ -157,6 +157,29 @@ def test_engine_sheds_with_its_own_metric_payload_and_incident(tmp_path):
     assert any("_slo_shed_" in b for b in bundles)
 
 
+def test_end_warmup_empties_the_windows_and_keeps_the_tenants():
+    """``InferenceEngine.end_warmup`` (a port addition): a latched engine
+    admits again, from empty windows, with the same controller, SLO and
+    configured tenants."""
+    _, pnet = pair(dense_conf(seed=3))
+    rng = np.random.RandomState(12)
+    with InferenceEngine(pnet, max_batch_size=4, max_latency_ms=1.0,
+                         name="warm-eng", slo_p99_ms=0.0001,
+                         tenants=TENANTS) as eng:
+        ctl = eng._admission
+        with pytest.raises(SloShed):
+            for _ in range(200):
+                eng.predict(rng.randn(1, 4), timeout=WAIT, tenant="gold")
+        eng.end_warmup()
+        assert eng._admission is ctl
+        snap = ctl.snapshot()
+        assert (snap["window_samples"], snap["window_p99_ms"]) == (0, None)
+        assert ctl.tenant_names() == ("gold", "free")
+        assert ctl.tenant_snapshot()["gold"]["slo_p99_ms"] == 30.0
+        assert eng.predict(rng.randn(1, 4), timeout=WAIT,
+                           tenant="gold").shape == (1, 3)
+
+
 def test_queue_full_carries_retry_after_and_an_incident(tmp_path):
     _, pnet = pair(dense_conf(seed=3))
     eng = InferenceEngine(pnet, max_batch_size=2, queue_capacity=2,

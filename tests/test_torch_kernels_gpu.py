@@ -1665,3 +1665,84 @@ def test_pinned_session_and_rollout_on_the_card(cuda, tmp_path):
     finally:
         reg.stop_all()
         os.environ.pop("DL4J_TPU_FLIGHT_DIR", None)
+
+
+# ---- the serving fleet on the card (chip_smoke.py phase 19) ----------------
+
+def test_live_fleet_of_two_workers_on_the_card(cuda, tmp_path):
+    """K=2 ``lstm-small`` workers on the card behind the router's HTTP
+    front door, warmed from one store: each ready line names the card,
+    answers equal an in-process engine's on the card bitwise (one request
+    at a time: the same bucket, the same ops), a SIGKILL costs no 5xx and
+    the victim returns at its rank, every pid is reaped at the end."""
+    import json
+    import os
+    import signal
+    import time
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.deploy.store import VersionedWeightStore
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    from deeplearning4j_tpu_torch.serving.fleet import (FLEET_SPECS,
+                                                        FleetRouter,
+                                                        build_fleet_conf)
+    conf, kw, _ = build_fleet_conf("lstm-small", seed=5)
+    store = VersionedWeightStore(str(tmp_path / "store"))
+    store.publish_model(MultiLayerNetwork(conf, device="cuda").init())
+    spec = FLEET_SPECS["lstm-small"]
+    x = np.random.RandomState(0).randn(1, 4, spec["n_in"]).astype(
+        np.float32)
+    with InferenceEngine(MultiLayerNetwork(build_fleet_conf(
+            "lstm-small")[0], device="cuda").init(), **kw) as ref:
+        ref.warm_from_store(store)
+        want = ref.predict(x)
+
+    def post(url, payload):
+        req = urllib.request.Request(
+            url + "/predict", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, {}
+
+    router = FleetRouter(2, model="lstm-small", device="cuda",
+                         store_dir=str(tmp_path / "store"),
+                         cache_root=str(tmp_path / "cache"),
+                         health_interval_s=0.2, spawn_timeout_s=120)
+    router.start()
+    ui = router.serve()
+    url = f"http://127.0.0.1:{ui.port}"
+    procs = []
+    try:
+        assert router.status()["healthy"] == 2
+        assert all(h.ready["device"].startswith("cuda:")
+                   for h in router._workers.values())
+        code, body = post(url, {"model": "fleet", "features": x.tolist()})
+        assert code == 200
+        np.testing.assert_array_equal(np.asarray(body["output"],
+                                                 np.float32), want)
+        home = router.pick("conv").name
+        os.kill(router._workers[home].proc.pid, signal.SIGKILL)
+        codes = [post(url, {"model": "fleet", "session": "conv",
+                            "features": x[:, 0].tolist()})[0]
+                 for _ in range(10)]
+        assert codes == [200] * 10
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            h = router._workers.get(home)
+            if h is not None and h.generation > 0 and h.healthy:
+                break
+            time.sleep(0.2)
+        assert router._workers[home].generation > 0
+        assert router.pick("conv").name == home
+    finally:
+        ui.stop()
+        procs = [h.proc for h in router._workers.values()]
+        router.stop()
+    assert all(p.poll() is not None for p in procs)

@@ -222,3 +222,84 @@ assert chaos.build_net(device="cpu").num_params() > 0
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+#: the serving fleet, its build cache, the HTTP tier, the launcher and
+#: the compile watch and step-time attributor (ROADMAP A8)
+FLEET_MODULES = [
+    "deeplearning4j_tpu_torch.serving.fleet",
+    "deeplearning4j_tpu_torch.serving.compile_cache",
+    "deeplearning4j_tpu_torch.ui", "deeplearning4j_tpu_torch.ui.storage",
+    "deeplearning4j_tpu_torch.ui.stats_listener",
+    "deeplearning4j_tpu_torch.ui.server",
+    "deeplearning4j_tpu_torch.parallel.main",
+    "deeplearning4j_tpu_torch.monitor.attribution",
+    "deeplearning4j_tpu_torch.monitor.jit_watch",
+]
+
+
+def test_fleet_modules_import_with_jax_blocked():
+    """The fleet tier imports, a router picks, a UIServer answers and a
+    canary ramps, with every import of ``jax`` or the JAX package
+    refused."""
+    run = _BLOCKED_IMPORT + """
+import json, urllib.request
+from deeplearning4j_tpu_torch.deploy import FleetCanary
+from deeplearning4j_tpu_torch.monitor import AlertEngine, StepAttributor
+from deeplearning4j_tpu_torch.serving.fleet import FleetRouter, HashRing
+from deeplearning4j_tpu_torch.ui import UIServer
+ring = HashRing()
+ring.add("w0")
+assert ring.lookup("s") == "w0"
+assert isinstance(AlertEngine().attributor, StepAttributor)
+ui = UIServer(port=0).start()
+doc = json.loads(urllib.request.urlopen(
+    f"http://127.0.0.1:{ui.port}/healthz").read())
+ui.stop()
+assert doc["status"] == "ok"
+router = FleetRouter(k=1, model="mlp", device="cpu")
+assert router.status()["running"] is False
+"""
+    out = subprocess.run([sys.executable, "-c", run] + FLEET_MODULES,
+                         cwd=ROOT, env=_clean_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+_WORKER_CHILD = _BLOCKED_IMPORT + """
+import runpy
+sys.argv = ["main", "--fleet-worker", "--device", "cpu", "--model", "mlp"]
+runpy.run_module("deeplearning4j_tpu_torch.parallel.main",
+                 run_name="__main__")
+"""
+
+
+def test_fleet_worker_child_loads_no_jax(tmp_path):
+    """A fleet worker started as the router starts it, with every import
+    of ``jax`` or the JAX package refused, becomes ready (its ready line
+    names the CPU) and exits cleanly when its stdin closes; the launcher's
+    other modes raise ``NotImplementedError``."""
+    import json
+    env = _clean_env()
+    env["DL4J_TPU_FLEET_COMPILE_CACHE"] = str(tmp_path / "cache")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _WORKER_CHILD],
+        cwd=ROOT, env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        from deeplearning4j_tpu_torch.serving.fleet import wait_ready
+        ready = wait_ready(proc, timeout=60)
+        assert ready["fleet_worker_ready"] and ready["device"] == "cpu"
+        assert ready["warmup_buckets"] == 5 and \
+            ready["bucket_compiles_after_warmup"] == 5
+        assert ready["cache_dir"].startswith(str(tmp_path / "cache"))
+        proc.stdin.close()
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    from deeplearning4j_tpu_torch.parallel import main as launcher
+    with pytest.raises(NotImplementedError, match="A9"):
+        launcher.main(["--spawn-local", "2"])
