@@ -360,8 +360,9 @@ Phases (each raises on failure; the exit code is non-zero on any):
    CPU seconds: router and clients share its GIL), ``speedup_x`` and
    the closed-loop ratio K=3/K=1 (neither is the fleet's capacity: SLO
    shedding and this process's GIL set them); on each K an ill-shaped
-   session step answers 400 with every worker healthy; (d) on K=3,
-   before its load, a SIGKILL of a session's home under a closed-loop
+   session step answers 400 with every worker healthy; (d) on a K=2
+   fleet of its own whose workers hold no SLO (as the reference's live
+   failover test), a SIGKILL of a session's home under a closed-loop
    session load: no non-200 answer, the worker respawned at its rank,
    the session home again; (e) K=3 scaled in to K=2, a ``FleetCanary``
    ramps w1 0.05 -> 1.0 to done, a second aborts on a p99 limit below
@@ -374,12 +375,39 @@ Phases (each raises on failure; the exit code is non-zero on any):
    on this path: the count is this process's plus each worker's own,
    from the exit line a cleanly stopped worker prints (every worker but
    the SIGKILLed one must report).
+20. the parallel tier ([parallel] lines, its results on a
+   ``{"parallel": ...}`` JSON line; every slot on cuda:0, which the slot
+   list names several times): (a) LeNet-5 at full width under
+   ``ParallelWrapper(workers=4, averaging_frequency=2)`` (adam, 64 rows a
+   worker, ``PAR_ROUNDS`` rounds) in f64, card vs CPU within
+   ``PAR_F64_RTOL`` (in fp32 adam turns the rounding noise of near-zero
+   gradients into steps of +-lr); ``workers=1`` bitwise the per-batch
+   ``fit`` (deterministic algorithms); samples/s at workers 1 and 4 (one card time-sliced: no
+   scaling number) beside the plain per-batch fit at 64 rows and phase
+   9's, the ms a round's mean over the workers costs, and
+   ``collective_overhead_report``; (b) phase 5's attention net under 2
+   workers averaging every step, 2 rounds: K1-K3 launch 4 times each, all
+   on their Hopper bodies (``launches_by_path.parallel``), every leaf
+   of params, updater state and net state bitwise the two replicas
+   stepped by hand and averaged leaf by leaf; ms a round, peak memory;
+   (c) ZeRO over 4 slots of LeNet-5 in f64 against the big-batch fit
+   within ``PAR_F64_RTOL``, ``ceil(total/4)``
+   state elements a tensor a slot, a slot's bytes a quarter; ms a step
+   against the plain step under ``mixed_bf16`` (the masters in the
+   shard); (d) the deep autoencoder's widths as dense layers in 4
+   stages x 8 microbatches of a 1000-row batch, fp32 against the serial
+   step within ``REF_RTOL``; ms a step against the serial step; (e) the
+   pod over NCCL, K = min(2, cards) ranks (one on a one-card machine)
+   over a data=2 mesh: scores and param SHA-256 bitwise the 1-process
+   run and the wrapper in this process, a SIGKILL at step 4 and a resume
+   from the newest pod checkpoint bitwise, ``measure_collectives``, every
+   worker reaped.  (c)-(e) launch no flash kernel.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
 feed-forward/convolutional, recurrent, harness, graph, fused, transfer,
 embeddings and deepwalk results, a ``{"pretrain": ...}`` JSON line, a
 ``{"serving_v2": ..., "deploy": ...}`` JSON line, a ``{"fleet": ...}``
-JSON line, one ``{"kernels":
+JSON line, a ``{"parallel": ...}`` JSON line, one ``{"kernels":
 [...]}`` JSON line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -387,6 +415,7 @@ JSON line, one ``{"kernels":
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import json
 import os
@@ -6339,14 +6368,18 @@ def fl_failover(router, url: str, step_row: list) -> dict:
     sessions = [f"fo-{i}" for i in range(8)]
     home = router.pick(sessions[0]).name
     victim = router._workers[home]
-    codes, stop = [], threading.Event()
+    codes, refusals, stop = [], [], threading.Event()
 
     def client(i):
         j = i
         while not stop.is_set():
-            codes.append(fl_post(url, {"model": "fleet",
+            code, body = fl_post(url, {"model": "fleet",
                                        "session": sessions[j % 8],
-                                       "features": step_row})[0])
+                                       "features": step_row})
+            codes.append(code)
+            if code != 200:       # what answered, for the failure's record
+                refusals.append(f"{code} shed={body.get('shed')} "
+                                f"{str(body.get('error'))[:80]}")
             j += 2
 
     threads = [threading.Thread(target=client, args=(i,), daemon=True)
@@ -6374,6 +6407,7 @@ def fl_failover(router, url: str, step_row: list) -> dict:
            "requests": len(codes), "non_200": sum(c != 200 for c in codes),
            "5xx": sum(c >= 500 for c in codes),
            "transport_errors": sum(c == -1 for c in codes),
+           "refusals": dict(collections.Counter(refusals)),
            "respawn_s": respawn_s,
            "generation": back.generation if back else None,
            "home_again": router.pick(sessions[0]).name == home,
@@ -6388,6 +6422,34 @@ def fl_failover(router, url: str, step_row: list) -> dict:
             and res["home_again"] and code_home == 200):
         raise RuntimeError(f"fleet failover failed: {res}")
     return res
+
+
+def fl_failover_fleet(common: dict, Router, step_row: list) -> dict:
+    """(d) on a K=2 fleet of its own whose workers hold no SLO, as the
+    reference's live test runs it (``tests/test_fleet.py``
+    ``test_live_fleet_affinity_sigkill_failover``).  A worker that holds
+    an SLO answers a breach of its p99 with a shed (503, ``shed``) by
+    design, and a SIGKILL beside it on the shared card can breach it:
+    that answer is the admission controller's, which (c) measures, not
+    the router's failover, which must cost no non-200 at all."""
+    router = Router(2, slo_p99_ms=None, health_interval_s=0.25,
+                    spawn_timeout_s=FL_SPAWN_S, **common)
+    router.start()
+    ui = router.serve()
+    try:
+        healthy = router.status()["healthy"]
+        if healthy != 2:
+            raise RuntimeError(f"failover fleet: status()['healthy'] = "
+                               f"{healthy}")
+        ready = [h.ready for h in router._workers.values()]
+        res = fl_failover(router, f"http://127.0.0.1:{ui.port}", step_row)
+        if router.status()["healthy"] != 2:
+            raise RuntimeError("K=2 not whole after the respawn")
+        res["fleet_ready"] = ready
+        return res
+    finally:
+        ui.stop()
+        router.stop()
 
 
 def fl_canary(router, url: str, seq: list) -> dict:
@@ -6445,8 +6507,8 @@ def fl_fleets(common: dict, Router, step_row: list, seq: list,
               slo_p99_ms: float) -> dict:
     """(c) K=1 then K=3 behind ``FleetRouter.serve()`` under the same
     open-loop Poisson session load (the rate fixed at 2.5x the K=1
-    closed-loop capacity, at least 20 rps); (d) failover and (e) the
-    canaries on the K=3 fleet (scaled in to K=2 for (e))."""
+    closed-loop capacity, at least 20 rps); (e) the canaries on the K=3
+    fleet scaled in to K=2."""
     import itertools
     res, offered = {}, None
 
@@ -6489,10 +6551,6 @@ def fl_fleets(common: dict, Router, step_row: list, seq: list,
             if out["ill_shaped"] != {"code": 400, "healthy": k}:
                 raise RuntimeError(
                     f"K={k}: ill-shaped step {out['ill_shaped']}")
-            if k == 3:
-                out["failover"] = fl_failover(router, url, step_row)
-                if router.status()["healthy"] != 3:
-                    raise RuntimeError("K=3 not whole after the respawn")
             out["closed_loop_rps"] = fl_probe(url, step_row)
             if k == 1:
                 offered = max(20.0, 2.5 * out["closed_loop_rps"])
@@ -6680,7 +6738,8 @@ def fl_deploy_http(tmp: str, device: str, train_n: int = DP_TRAIN) -> dict:
 def phase_fleet(A, seed: int, device: str = "cuda", model: str = FL_MODEL,
                 lenet_train: int = DP_TRAIN) -> dict:
     """Phase 19, the ``fleet`` path: (a) respawn, (b) serving after
-    warmup through HTTP, (c) K=1 vs K=3, (d) failover, (e) FleetCanary,
+    warmup through HTTP, (c) K=1 vs K=3, (d) failover on a K=2 fleet
+    without an SLO, (e) FleetCanary,
     (f) deploy over HTTP, (g) every worker reaped.  The fleet's model
     launches no hand kernel; the LeNet-5 of (f) neither."""
     import tempfile
@@ -6721,6 +6780,7 @@ def phase_fleet(A, seed: int, device: str = "cuda", model: str = FL_MODEL,
                         spec["n_in"]).round(4).tolist()
         result["slo_p99_ms"] = slo
         result["fleets"] = fl_fleets(common, Router, step_row, seq, slo)
+        result["failover"] = fl_failover_fleet(common, Router, step_row)
         result["deploy_http"] = fl_deploy_http(tmp.name, device,
                                                lenet_train)
     finally:
@@ -6750,7 +6810,8 @@ def phase_fleet(A, seed: int, device: str = "cuda", model: str = FL_MODEL,
     result["pids"] = [p.pid for p in spawned]
     readies = (result["respawn"] + result["fleets"][1]["ready"]
                + result["fleets"][3]["ready"]
-               + [result["fleets"][3]["failover"]["ready"]])
+               + result["failover"]["fleet_ready"]
+               + [result["failover"]["ready"]])
     devices = sorted({r["device"] for r in readies})
     result["devices"] = devices
     if alive:
@@ -6762,7 +6823,7 @@ def phase_fleet(A, seed: int, device: str = "cuda", model: str = FL_MODEL,
     # SIGKILLed worker cannot report, nor can one the router's health
     # tick replaced and had to kill; those are listed
     reports = [r for r in reports if r is not None]
-    killed = result["fleets"][3]["failover"]["victim_pid"]
+    killed = result["failover"]["victim_pid"]
     unreported = sorted({p.pid for p in spawned}
                         - {r["pid"] for r in reports})
     if killed not in unreported or len(unreported) == len(spawned):
@@ -6789,10 +6850,519 @@ def phase_fleet(A, seed: int, device: str = "cuda", model: str = FL_MODEL,
     return result
 
 
+# ------------------------------------------------------------ phase 20
+# The parallel tier on one card: every slot names cuda:0 (NCCL refuses
+# two ranks on one card, so the pod runs one rank a card).  LeNet-5 (BASELINE
+# config #1) under ParallelWrapper(4 workers, averaging every 2 steps, 64
+# rows a worker) for PAR_ROUNDS rounds, card vs CPU in f64 at PAR_F64_RTOL;
+# the attention net of phase 5 under 2 workers for PAR_ATTN_ROUNDS rounds
+# (K1-K3 once a worker step), bitwise the replicas averaged by hand; ZeRO
+# over 4 slots of LeNet-5 in f64 against the big-batch fit; the DL4J deep
+# autoencoder's widths as dense layers in a 4-stage pipeline of 8
+# microbatches of 125 rows; the pod scenario over NCCL.
+PAR_WORKERS, PAR_AVG, PAR_BATCH, PAR_ROUNDS = 4, 2, 64, 4
+PAR_TIMED_ROUNDS, PAR_PLAIN_STEPS = 8, 24
+PAR_ATTN_WORKERS, PAR_ATTN_ROUNDS = 2, 2
+ZERO_SLOTS, ZERO_STEPS, ZERO_TIMED = 4, 3, 12
+PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_STEPS, PIPE_TIMED = \
+    4, 8, 1000, 3, 8
+POD_STEPS, POD_DIE_AT, POD_TIMEOUT_S = 6, 4, 300.0
+# (a) and (c) in f64: the card and the CPU, or ZeRO and the big-batch fit,
+# add in other orders, ~1e-14 of max apart; the port's CPU tests hold f64
+# nets at 1e-10
+PAR_F64_RTOL = 1e-10
+# the device of (a) and (c)-(e); "cpu" runs them here on the CPU (gloo
+# pods) as a dry run of the phase: the verify skill shows how
+PAR_DEV = "cuda"
+
+
+def par_sync() -> None:
+    if PAR_DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def par_ms(fn, reps: int) -> List[float]:
+    """Synchronized wall ms of each of ``reps`` calls of ``fn``."""
+    out = []
+    for _ in range(reps):
+        par_sync()
+        t0 = time.perf_counter()
+        fn()
+        par_sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def par_rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def par_lenet(device, dtype=None):
+    """LeNet-5 (``models/lenet.py``: adam 1e-3, seed 123) on ``device``,
+    under the device's default policy, or in ``dtype`` (``"float32"``
+    computes in fp32, ``"float64"`` keeps and computes everything in f64)."""
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = lenet()
+    if dtype == "float64":
+        conf.conf.dtype = "float64"
+    elif dtype is not None:
+        conf.conf.compute_dtype = dtype
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def par_lenet_batches(seed: int) -> list:
+    """phase 9's LeNet batches cut into PAR_BATCH-row batches (32 of
+    them: PAR_ROUNDS rounds of PAR_WORKERS x PAR_AVG)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    return [DataSet(b.features[i:i + PAR_BATCH], b.labels[i:i + PAR_BATCH])
+            for b in lenet_data(seed)
+            for i in range(0, LENET_BATCH, PAR_BATCH)]
+
+
+class cudnn_deterministic:
+    """cuDNN's deterministic algorithms inside the block, no autotune."""
+
+    def __enter__(self):
+        self.prev = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = self.prev
+
+
+def par_wrapper_lenet(seed: int, ffcnn: dict) -> dict:
+    """(a) LeNet-5 under ParallelWrapper on one card named 4 times."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.mesh import tree_to
+    from deeplearning4j_tpu_torch.parallel.scaling import \
+        collective_overhead_report
+    batches = par_lenet_batches(seed)
+    per_round = PAR_WORKERS * PAR_AVG
+    out = {"workers": PAR_WORKERS, "averaging_frequency": PAR_AVG,
+           "batch_per_worker": PAR_BATCH, "rounds": PAR_ROUNDS}
+    # card vs CPU: the same rounds from the same init, in f64: in fp32,
+    # adam turns the rounding noise of near-zero gradients into steps of
+    # +-lr (its first step is about lr * sign(g)), which no tolerance on
+    # the params can hold; f64 leaves that noise far below adam's eps
+    card, cpu = par_lenet(PAR_DEV, "float64"), par_lenet("cpu", "float64")
+    if not np.array_equal(card.get_flat_params(), cpu.get_flat_params()):
+        raise RuntimeError("LeNet's init differs between card and CPU")
+    scores = {}
+    for name, net, devices in (("card", card, [PAR_DEV] * PAR_WORKERS),
+                               ("cpu", cpu, ["cpu"] * PAR_WORKERS)):
+        pw = ParallelWrapper(net, workers=PAR_WORKERS,
+                             averaging_frequency=PAR_AVG, devices=devices,
+                             report_score=True)
+        scores[name] = []
+        for r in range(PAR_ROUNDS):
+            pw.fit(batches[r * per_round:(r + 1) * per_round])
+            scores[name].append(pw.last_score)
+    rel = par_rel(card.get_flat_params(), cpu.get_flat_params())
+    s_rel = abs(scores["card"][-1] - scores["cpu"][-1]) / abs(
+        scores["cpu"][-1])
+    log(f"[parallel] (a) LeNet-5 4 workers x avg 2, {PAR_ROUNDS} rounds "
+        f"f64: scores card {scores['card']} cpu {scores['cpu']}; params "
+        f"rel {rel:.3e}, score rel {s_rel:.3e} (tol {PAR_F64_RTOL:g})")
+    if not (rel <= PAR_F64_RTOL and s_rel <= PAR_F64_RTOL):
+        raise RuntimeError("the wrapper's LeNet disagrees card vs CPU")
+    if not scores["card"][-1] < scores["card"][0]:
+        raise RuntimeError(f"the wrapper's LeNet did not train: {scores}")
+    out.update(card_vs_cpu_rel=rel, score_rel=s_rel, scores=scores["card"])
+    # workers=1 is the per-batch fit, bitwise (the default policy)
+    with deterministic(), cudnn_deterministic():
+        one, ref = par_lenet(PAR_DEV), par_lenet(PAR_DEV)
+        ParallelWrapper(one, workers=1, devices=[PAR_DEV]).fit(
+            batches[:per_round])
+        for ds in batches[:per_round]:
+            ref.fit(ds)
+        same = (np.array_equal(one.get_flat_params(),
+                               ref.get_flat_params())
+                and np.array_equal(one.get_flat_updater_state(),
+                                   ref.get_flat_updater_state())
+                and one.score() == ref.score()
+                and one.iteration == ref.iteration)
+    log(f"[parallel] (a) workers=1 vs fit over {per_round} batches: "
+        f"bitwise {same}")
+    if not same:
+        raise RuntimeError("ParallelWrapper(workers=1) is not the per-batch "
+                           "fit")
+    out["workers1_bitwise_fit"] = True
+    # samples/s at workers 1 and 4 against the plain per-batch fit
+    timed = (batches * 4)[:PAR_TIMED_ROUNDS * per_round]
+    rates = {}
+    for workers in (1, PAR_WORKERS):
+        net = par_lenet(PAR_DEV)
+        pw = ParallelWrapper(net, workers=workers,
+                             averaging_frequency=PAR_AVG,
+                             devices=[PAR_DEV] * workers)
+        n = PAR_TIMED_ROUNDS * workers * PAR_AVG
+        pw.fit(timed[:workers * PAR_AVG])                  # warm
+        ms = par_ms(lambda: (pw.fit(timed[:n]), net.score()), 3)
+        best = min(ms)
+        rates[workers] = {"samples_per_s": n * PAR_BATCH * 1e3 / best,
+                          "ms_per_round": best / PAR_TIMED_ROUNDS,
+                          "fit_ms": ms}
+    net = par_lenet(PAR_DEV)
+    for ds in timed[:2]:
+        net.fit(ds)
+    step_ms = par_ms(lambda: (net.fit(timed[0]), net.score()),
+                     PAR_PLAIN_STEPS)
+    plain = float(np.median(step_ms))
+    # what averaging costs a round: the one mean over the workers' trees
+    pw = ParallelWrapper(net, workers=PAR_WORKERS,
+                         devices=[PAR_DEV] * PAR_WORKERS)
+    score = torch.zeros((), device=PAR_DEV)
+    trees = [(tree_to(net.params, d), net.updater_state, net.net_state,
+              score, None) for d in pw.devices]
+    mean_ms = par_ms(lambda: pw.runtime.mean_trees(trees), 10)
+    overhead = collective_overhead_report(
+        lambda: par_lenet(PAR_DEV), batch_size=PAR_BATCH,
+        feature_shape=(784,), n_classes=10, steps=10, trials=3, pipeline=2)
+    out.update(rates={str(k): v for k, v in rates.items()},
+               plain_step_ms=plain,
+               plain_samples_per_s=PAR_BATCH * 1e3 / plain,
+               phase9_samples_per_s=ffcnn["lenet"]["samples_per_s"],
+               averaging_ms=float(np.median(mean_ms)),
+               collective_overhead=overhead)
+    log(f"[parallel] (a) samples/s: workers=1 "
+        f"{rates[1]['samples_per_s']:.1f}, workers={PAR_WORKERS} "
+        f"{rates[PAR_WORKERS]['samples_per_s']:.1f} (one card, "
+        f"time-sliced), plain fit at {PAR_BATCH} "
+        f"{PAR_BATCH * 1e3 / plain:.1f} ({plain:.3f} ms a step), phase 9 "
+        f"at {LENET_BATCH} {ffcnn['lenet']['samples_per_s']:.1f}; ms a "
+        f"round {rates[PAR_WORKERS]['ms_per_round']:.3f}; averaging "
+        f"{out['averaging_ms']:.3f} ms a round; overhead {overhead}")
+    return out
+
+
+def par_attention(N, A, seed: int) -> tuple:
+    """(b) phase 5's net under ParallelWrapper(2 workers, averaging every
+    step) on one card; returns (result, launches of the wrapper's run)."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.mesh import (tree_leaves,
+                                                        tree_unflatten)
+    net = build_net(N, A, seed=seed, n_in=N_IN, hidden=HIDDEN, heads=HEADS,
+                    n_out=N_OUT, cache_len=SEQ)
+    hand = [net.clone() for _ in range(PAR_ATTN_WORKERS)]
+    w = PAR_ATTN_WORKERS
+    batches = [make_batch(seed + 200 + i, BATCH, SEQ, N_IN, N_OUT)
+               for i in range(PAR_ATTN_ROUNDS * w)]
+    pw = ParallelWrapper(net, workers=w, averaging_frequency=1,
+                         devices=["cuda:0"] * w, prefetch_size=0)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()            # the parallel path's counts
+    round_ms, scores = [], []
+    for r in range(PAR_ATTN_ROUNDS):
+        t0 = time.perf_counter()
+        pw.fit(batches[r * w:(r + 1) * w])
+        scores.append(net.score())
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(A.LAUNCHES)
+    bodies = hopper_bodies(A, "parallel")
+    peak = torch.cuda.max_memory_allocated()
+    expected = {name: PAR_ATTN_ROUNDS * w for name in KERNELS}
+    expected["flash_fwd_partials"] = 0
+    if launches != expected:
+        raise RuntimeError(f"parallel launches {launches}, expected "
+                           f"{expected}")
+    # by hand: each replica steps its batch, then every leaf is averaged
+    # in its own dtype, (a + b) / 2, as the wrapper's mean does
+    for r in range(PAR_ATTN_ROUNDS):
+        for i, rep in enumerate(hand):
+            rep.fit(batches[r * w + i])
+        for name in ("params", "updater_state", "net_state"):
+            leaves = [tree_leaves(getattr(rep, name)) for rep in hand]
+            mean = [(a + b) / 2 if a.is_floating_point() else a
+                    for a, b in zip(*leaves)]
+            for rep in hand:
+                setattr(rep, name, tree_unflatten(getattr(rep, name), mean))
+    # bitwise: every leaf of params, updater state (the fp32 masters
+    # included) and net state, in its own dtype
+    got, want = ([t for name in ("params", "updater_state", "net_state")
+                  for t in tree_leaves(getattr(rep, name))]
+                 for rep in (net, hand[0]))
+    unequal = [i for i, (a, b) in enumerate(zip(got, want))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+    err = max(float((a.double() - b.double()).abs().max()) if a.numel()
+              else 0.0 for a, b in zip(got, want))
+    log(f"[parallel] (b) attention net B={BATCH} T={SEQ} under "
+        f"{w} workers: scores {scores}; ms a round {round_ms}; peak memory "
+        f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} held before); "
+        f"launches {launches}, by body {bodies}; params, updater and net "
+        f"state vs by hand: {len(got)} leaves, {len(unequal)} unequal, "
+        f"max|err| {err:.3e}")
+    if len(got) != len(want) or unequal:
+        raise RuntimeError(f"the wrapper's attention net is not bitwise the "
+                           f"replicas averaged by hand: leaves {unequal}")
+    if not all(np.isfinite(scores)):
+        raise RuntimeError(f"non-finite parallel scores: {scores}")
+    return ({"workers": w, "rounds": PAR_ATTN_ROUNDS, "scores": scores,
+             "round_ms": round_ms, "peak_mem_bytes": peak,
+             "mem_before_bytes": held,
+             "vs_by_hand": {"leaves": len(got), "bitwise": True,
+                            "max_abs_err": err},
+             "body_launches": bodies}, launches)
+
+
+def par_zero(seed: int) -> dict:
+    """(c) ZeRO over 4 slots of one card, LeNet-5."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn import updaters as U
+    from deeplearning4j_tpu_torch.parallel import ZeroShardedParallelWrapper
+    batches = par_lenet_batches(seed)
+    n = ZERO_SLOTS
+
+    def big(group):
+        return DataSet(np.concatenate([b.features for b in group]),
+                       np.concatenate([b.labels for b in group]))
+
+    z, ref = par_lenet(PAR_DEV, "float64"), par_lenet(PAR_DEV, "float64")
+    zw = ZeroShardedParallelWrapper(z, workers=n, devices=[PAR_DEV] * n)
+    for s in range(ZERO_STEPS):
+        group = batches[s * n:(s + 1) * n]
+        zw.fit(group)
+        ref.fit(big(group))
+    rel = par_rel(z.get_flat_params(), ref.get_flat_params())
+    total = z.num_params()
+    shard = -(-total // n)
+    per_slot = zw.state_elements_per_replica()
+    slot_bytes = sum(t.numel() * t.element_size()
+                     for t in zw._state[0].values())
+    full_bytes = sum(t.numel() * t.element_size()
+                     for layer in ref.updater_state
+                     for key in layer for t in layer[key].values())
+    log(f"[parallel] (c) ZeRO x{n} LeNet-5 f64, {ZERO_STEPS} steps vs the "
+        f"big-batch fit: params rel {rel:.3e} (tol {PAR_F64_RTOL:g}); state "
+        f"elements a slot {per_slot} (2 x ceil({total}/{n}) = {2 * shard}); "
+        f"bytes a slot {slot_bytes} of {full_bytes} "
+        f"({slot_bytes / full_bytes:.4f})")
+    if not rel <= PAR_F64_RTOL:
+        raise RuntimeError("ZeRO disagrees with the big-batch fit")
+    if per_slot != 2 * shard:
+        raise RuntimeError(f"ZeRO holds {per_slot} state elements a slot")
+    if not 0.25 <= slot_bytes / full_bytes <= 0.25 * (1 + n / total) + 1e-9:
+        raise RuntimeError("a slot's state is not a quarter")
+    # timed under the card's default policy (the masters in the shard)
+    zt = par_lenet(PAR_DEV)
+    zwt = ZeroShardedParallelWrapper(zt, workers=n, devices=[PAR_DEV] * n)
+    if PAR_DEV == "cuda" and U.MASTER_KEY not in zwt.state_tree():
+        raise RuntimeError("mixed_bf16 ZeRO keeps no master slice")
+    group = batches[:n]
+    zwt.fit(group)
+    zero_ms = par_ms(lambda: (zwt.fit(group), zt.score()), ZERO_TIMED)
+    pt = par_lenet(PAR_DEV)
+    whole = big(group)
+    pt.fit(whole)
+    plain_ms = par_ms(lambda: (pt.fit(whole), pt.score()), ZERO_TIMED)
+    out = {"slots": n, "steps": ZERO_STEPS, "params_rel": rel,
+           "params": total, "state_elements_per_slot": per_slot,
+           "state_bytes_per_slot": slot_bytes,
+           "state_bytes_replicated": full_bytes,
+           "mixed_state_elements_per_slot":
+               zwt.state_elements_per_replica(),
+           "step_ms": float(np.median(zero_ms)),
+           "plain_step_ms": float(np.median(plain_ms)),
+           "batch": n * PAR_BATCH}
+    log(f"[parallel] (c) ZeRO step {out['step_ms']:.3f} ms (median of "
+        f"{ZERO_TIMED}) vs the plain step {out['plain_step_ms']:.3f} ms at "
+        f"batch {n * PAR_BATCH}, mixed_bf16 (masters in the shard, "
+        f"{out['mixed_state_elements_per_slot']} elements a slot)")
+    return out
+
+
+def par_dae(N, device, fp32: bool):
+    """The DL4J deep autoencoder's widths as dense layers (784-1000-500-
+    250-100-30-100-250-500-1000, sigmoid) and an OutputLayer back to 784
+    (mse, sigmoid), sgd 0.1, seed 123."""
+    from deeplearning4j_tpu_torch.nn.layers.core import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    b = (N.NeuralNetConfiguration.builder().seed(123).updater("sgd")
+         .learning_rate(0.1).activation("sigmoid").weight_init("xavier"))
+    if fp32:
+        b = b.compute_dtype("float32")
+    b = b.list()
+    for n_in, n_out in zip(DAE_WIDTHS[:-1], DAE_WIDTHS[1:]):
+        b = b.layer(DenseLayer(n_in=n_in, n_out=n_out))
+    b = b.layer(OutputLayer(n_in=DAE_WIDTHS[-1], n_out=DAE_WIDTHS[0],
+                            loss="mse", activation="sigmoid"))
+    return MultiLayerNetwork(b.build(), device=device).init()
+
+
+def par_pipeline(N, seed: int) -> dict:
+    """(d) 4 stages x 8 microbatches of the deep autoencoder's widths."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import PipelineParallel
+    rng = np.random.RandomState(seed + 7)
+    data = [(rng.rand(PIPE_BATCH, DAE_WIDTHS[0]) > 0.5).astype(np.float32)
+            for _ in range(PIPE_STEPS)]
+    pp_net, ref = par_dae(N, PAR_DEV, True), par_dae(N, PAR_DEV, True)
+    pp = PipelineParallel(pp_net, stages=PIPE_STAGES,
+                          microbatches=PIPE_MICRO,
+                          devices=[PAR_DEV] * PIPE_STAGES)
+    for x in data:
+        pp.fit([DataSet(x, x)])
+        ref.fit(DataSet(x, x))
+    rel = par_rel(pp_net.get_flat_params(), ref.get_flat_params())
+    s_rel = abs(pp_net.score() - ref.score()) / abs(ref.score())
+    log(f"[parallel] (d) pipeline {PIPE_STAGES} stages {pp.ranges} x "
+        f"{PIPE_MICRO} microbatches, batch {PIPE_BATCH}, fp32, "
+        f"{PIPE_STEPS} steps vs serial: params rel {rel:.3e}, score rel "
+        f"{s_rel:.3e} (tol {REF_RTOL:g})")
+    if not (rel <= REF_RTOL and s_rel <= REF_RTOL):
+        raise RuntimeError("the pipeline disagrees with the serial step")
+    timed = par_dae(N, PAR_DEV, False)
+    ppt = PipelineParallel(timed, stages=PIPE_STAGES,
+                           microbatches=PIPE_MICRO,
+                           devices=[PAR_DEV] * PIPE_STAGES)
+    ds = DataSet(data[0], data[0])
+    ppt.fit([ds])
+    pipe_ms = par_ms(lambda: (ppt.fit([ds]), timed.score()), PIPE_TIMED)
+    serial = par_dae(N, PAR_DEV, False)
+    serial.fit(ds)
+    serial_ms = par_ms(lambda: (serial.fit(ds), serial.score()), PIPE_TIMED)
+    out = {"stages": PIPE_STAGES, "microbatches": PIPE_MICRO,
+           "batch": PIPE_BATCH, "ranges": pp.ranges,
+           "params": pp_net.num_params(), "params_rel": rel,
+           "score_rel": s_rel, "step_ms": float(np.median(pipe_ms)),
+           "serial_step_ms": float(np.median(serial_ms))}
+    log(f"[parallel] (d) pipeline step {out['step_ms']:.3f} ms vs serial "
+        f"{out['serial_step_ms']:.3f} ms (median of {PIPE_TIMED}, "
+        f"mixed_bf16)")
+    return out
+
+
+def par_pod(seed: int) -> dict:
+    """(e) the pod over NCCL: K = min(2, cards) ranks, the mesh data=2."""
+    import tempfile
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel import main as pm
+    cards = torch.cuda.device_count() if PAR_DEV == "cuda" else 0
+    k = min(2, cards) if PAR_DEV == "cuda" else 2
+    backend = "nccl" if PAR_DEV == "cuda" else "gloo"
+    common = dict(k=k, data=2, mode="dp", steps=POD_STEPS, device=PAR_DEV,
+                  timeout=POD_TIMEOUT_S)
+    t0 = time.perf_counter()
+    pod = pm.run_pod(measure_collectives=True, **common)
+    pod_s = time.perf_counter() - t0
+
+    def ok(result, what):
+        if result["returncodes"] != [0] * k:
+            raise RuntimeError(f"{what}: rcs {result['returncodes']}: "
+                               f"{result['stderr_tail']}")
+        if any(r["backend"] != backend for r in result["reports"]):
+            raise RuntimeError(f"{what}: not on {backend}: "
+                               f"{result['reports']}")
+
+    ok(pod, "pod")
+    # the 1-process run of the same mesh: a K=1 pod where K is 2, and the
+    # wrapper in this process (no process group) always
+    single = pod if k == 1 else pm.run_pod(**dict(common, k=1))
+    if k > 1:
+        if single["returncodes"] != [0]:
+            raise RuntimeError(f"1-process pod: {single['stderr_tail']}")
+    with deterministic():
+        net = pm.build_pod_net(seed=11, device=PAR_DEV)
+        pw = ParallelWrapper(net, workers=2, prefetch_size=0,
+                             devices=[PAR_DEV] * 2)
+        scores = []
+        for step in range(POD_STEPS):
+            pw.fit(pm.make_pod_batches(step, 2, 16, 100))
+            scores.append(float(np.float32(float(net._score))))
+    in_process = {"scores": scores, "param_sha": pm.param_sha(net)}
+    for name, other in (("1-process pod", single),
+                        ("wrapper in process", in_process)):
+        if (other["scores"] != pod["scores"]
+                or other["param_sha"] != pod["param_sha"]):
+            raise RuntimeError(f"the K={k} pod differs from the {name}: "
+                               f"{pod['scores']} vs {other['scores']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        inter = pm.run_pod(checkpoint_dir=tmp, checkpoint_every=2,
+                           die_at=(k - 1, POD_DIE_AT), relaunch=True,
+                           **common)
+        kill_s = time.perf_counter() - t1
+    resumed = inter["resumed"]
+    ok(resumed, "resumed pod")
+    if inter["returncodes"][k - 1] != -9:
+        raise RuntimeError(f"the victim was not killed: "
+                           f"{inter['returncodes']}")
+    if (resumed["reports"][0]["start_step"] != POD_DIE_AT
+            or resumed["scores"] != pod["scores"]
+            or resumed["param_sha"] != pod["param_sha"]):
+        raise RuntimeError(f"kill/resume differs: {resumed['scores']} vs "
+                           f"{pod['scores']}")
+    reaped = all(r["reaped"] for r in (pod, single, inter, resumed))
+    pids = sorted({p for r in (pod, single, inter, resumed)
+                   for p in r["pids"]})
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except OSError:
+            pass
+    if not reaped or alive:
+        raise RuntimeError(f"pod workers left running: {alive}")
+    out = {"k": k, "cards": cards, "backend": backend, "data": 2,
+           "steps": POD_STEPS, "scores": pod["scores"],
+           "param_sha": pod["param_sha"],
+           "devices": [r["device"] for r in pod["reports"]],
+           "backends": [r["backend"] for r in pod["reports"]],
+           "collectives_s": pod["reports"][0]["collectives"],
+           "worker_elapsed_s": [r["elapsed_s"] for r in pod["reports"]],
+           "pod_wall_s": pod_s, "kill_resume_wall_s": kill_s,
+           "resumed_from": resumed["reports"][0]["resumed_from"],
+           "workers_reaped": len(pids),
+           "ran_at_k1": (["pod", "kill_resume"] if k == 1 else [])}
+    log(f"[parallel] (e) pod K={k} on {cards} card(s) over {backend} "
+        f"{out['devices']}: bitwise the 1-process run and the wrapper in "
+        f"process; kill at step {POD_DIE_AT} and resume from "
+        f"{out['resumed_from']} bitwise; collectives {out['collectives_s']}"
+        f"; pod {pod_s:.1f} s, kill+resume {kill_s:.1f} s; "
+        f"{len(pids)} workers reaped; ran at K=1: {out['ran_at_k1']}")
+    return out
+
+
+def phase_parallel(N, A, seed: int, ffcnn: dict) -> dict:
+    """Phase 20: the parallel tier on the card ((a)-(e)); K1-K3 launch on
+    (b) only, every launch on its Hopper body."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    A.reset_launches()            # the parallel path's counts
+    result = {"wrapper_lenet": par_wrapper_lenet(seed, ffcnn)}
+    if any(A.LAUNCHES.values()):
+        raise RuntimeError("LeNet under the wrapper launched a flash kernel")
+    result["attention"], launches = par_attention(N, A, seed)
+    torch.cuda.empty_cache()
+    A.reset_launches()
+    result["zero"] = par_zero(seed)
+    result["pipeline"] = par_pipeline(N, seed)
+    result["pod"] = par_pod(seed)
+    if any(A.LAUNCHES.values()):
+        raise RuntimeError(f"ZeRO, the pipeline or the pod launched a flash "
+                           f"kernel: {A.LAUNCHES}")
+    result["launches"] = launches
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    # bitwise checks (phase 20's pods, workers=1 against fit) need the
+    # deterministic cuBLAS workspace from the first CUDA call on; it is
+    # the card's default size, so no earlier phase changes
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the card only")
         return 2
@@ -6849,6 +7419,9 @@ def main(argv=None) -> int:
     fleet = phase_fleet(A, args.seed)
     torch.cuda.empty_cache()
     log(f"[fleet] phase 19 in {fleet['seconds']:.1f} s; {card}")
+    parallel = phase_parallel(N, A, args.seed, ffcnn)
+    torch.cuda.empty_cache()
+    log(f"[parallel] phase 20 in {parallel['seconds']:.1f} s; {card}")
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -6865,7 +7438,8 @@ def main(argv=None) -> int:
              "deepwalk": deepwalk["launches"],
              "pretrain": pretrain["launches"],
              "serving_v2": serving_v2["launches"],
-             "deploy": deploy["launches"], "fleet": fleet["launches"]}
+             "deploy": deploy["launches"], "fleet": fleet["launches"],
+             "parallel": parallel["launches"]}
     csrc = "deeplearning4j_tpu_torch/ops/csrc/"
     bodies = {"flash_fwd": csrc + "flash_fwd_sm90.cuh",
               "flash_fwd_partials": csrc + "flash_fwd_sm90.cuh",
@@ -6889,6 +7463,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serving_v2": serving_v2, "deploy": deploy},
                      default=str))
     print(json.dumps({"fleet": fleet}, default=str))
+    print(json.dumps({"parallel": parallel}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -86,12 +86,19 @@ class EarlyStoppingTrainer:
 
 
 class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
-    """Early stopping over ParallelWrapper epochs: waits for the
-    ParallelWrapper (ROADMAP A9)."""
+    """Early stopping over data-parallel epochs (reference
+    ``EarlyStoppingParallelTrainer.java``): an epoch is one
+    ``ParallelWrapper.fit`` over the iterator.  ``devices`` lists one
+    device a worker (default: every visible card)."""
 
     def __init__(self, config: EarlyStoppingConfiguration, net, iterator,
                  workers=None, averaging_frequency: int = 1,
-                 average_updaters: bool = True):
-        raise NotImplementedError(
-            "EarlyStoppingParallelTrainer needs the ParallelWrapper, which "
-            "is not ported yet (ROADMAP A9)")
+                 average_updaters: bool = True, devices=None):
+        super().__init__(config, net, iterator)
+        from ..parallel.parallel_wrapper import ParallelWrapper
+        self.wrapper = ParallelWrapper(
+            net, workers=workers, averaging_frequency=averaging_frequency,
+            average_updaters=average_updaters, devices=devices)
+
+    def _fit_one_epoch(self) -> None:
+        self.wrapper.fit(self.iterator)

@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
 from .vocab import VocabCache
 
 
@@ -30,14 +31,16 @@ class InMemoryLookupTable:
 
     def __init__(self, vocab: VocabCache, vector_length: int = 100,
                  seed: int = 42, use_hs: bool = True, negative: float = 0.0,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device: DeviceLike = None):
         self.vocab = vocab
         self.vector_length = vector_length
         self.seed = seed
         self.use_hs = use_hs
         self.negative = negative
         self.dtype = dtype
-        self.device = torch.device(device)
+        # the card unless the caller asks for the CPU, as every entry
+        # point of the port (raises when there is no card)
+        self.device = resolve_device(device)
         self.syn0: Optional[torch.Tensor] = None
         self.syn1: Optional[torch.Tensor] = None
         self.syn1neg: Optional[torch.Tensor] = None

@@ -238,25 +238,9 @@ class _Network:
         ``health.in_step()`` asks for them (else ``hvec`` is None);
         ``scalars`` (per layer key) replaces the iteration's updater
         scalars (a captured step reads them from the device)."""
-        # a frozen layer's gradient is read only by the health vector (the
-        # updater and the solvers skip the layer), so without it the
-        # layer's params stay out of autograd, and so does every layer
-        # below a frozen trunk; the layer then takes a zero gradient
-        need = self._grad_keys(health and _health.in_step())
-        leaves = self._trees(
-            [(key, {k: p.detach().requires_grad_(
-                p.is_floating_point() and key in need)
-                for k, p in tree.items()})
-             for key, tree in self._items(params)])
-        data_loss, new_state, new_carries = loss_fn(leaves, net_state)
-        flat = [p for _, tree in self._items(leaves) for p in tree.values()]
-        wanted = [p for p in flat if p.requires_grad]
-        got = iter(torch.autograd.grad(data_loss, wanted, allow_unused=True)
-                   if wanted else ())
-        grads = [next(got) if p.requires_grad else None for p in flat]
+        data_loss, new_state, new_carries, grads = self._loss_and_grads(
+            params, net_state, loss_fn, health and _health.in_step())
         with torch.no_grad():
-            grads = [torch.zeros_like(leaf) if g is None else g
-                     for g, leaf in zip(grads, flat)]
             score = data_loss.detach() + self._reg_score(params)
             new_params, new_ustate = self._updated(
                 params, updater_state, grads, iteration, scalars)
@@ -271,6 +255,33 @@ class _Network:
                     bad, (new_params, new_ustate, new_state),
                     (params, updater_state, net_state))
         return new_params, new_ustate, new_state, score, hvec, new_carries
+
+    def _loss_and_grads(self, params, net_state, loss_fn,
+                        all_layers: bool):
+        """``loss_fn(leaves, net_state) -> (loss, new_state, new_carries)``
+        on fresh leaves of ``params`` and its gradient: returns ``(loss,
+        new_state, new_carries, grads)``, the grads in flat-parameter
+        order.  A frozen layer's gradient is read only by the health
+        vector (the updater and the solvers skip the layer), so unless
+        ``all_layers`` the layer's params stay out of autograd, and so does
+        every layer below a frozen trunk; the layer then takes a zero
+        gradient."""
+        need = self._grad_keys(all_layers)
+        leaves = self._trees(
+            [(key, {k: p.detach().requires_grad_(
+                p.is_floating_point() and key in need)
+                for k, p in tree.items()})
+             for key, tree in self._items(params)])
+        data_loss, new_state, new_carries = loss_fn(leaves, net_state)
+        flat = [p for _, tree in self._items(leaves) for p in tree.values()]
+        wanted = [p for p in flat if p.requires_grad]
+        got = iter(torch.autograd.grad(data_loss, wanted, allow_unused=True)
+                   if wanted else ())
+        grads = [next(got) if p.requires_grad else None for p in flat]
+        with torch.no_grad():
+            grads = [torch.zeros_like(leaf) if g is None else g
+                     for g, leaf in zip(grads, flat)]
+        return data_loss, new_state, new_carries, grads
 
     def _grad_keys(self, all_layers: bool) -> set:
         """The layer keys whose params take part in autograd: every layer
@@ -528,27 +539,31 @@ class _Network:
             if t is not None:
                 t.record_stream(cur)     # the allocator waits for our use
 
-    def _multi_steps(self, fs, ls, fms, lms, wires):
-        """One step per leading row of the stacked per-input device
-        tensors (the JAX package's scan over a window), on the network's
-        own trees.  Returns the (S,) scores and the (S, 2+3L) health stack
-        (None when the steps computed none)."""
+    def _row_batch(self, fs, ls, fms, lms, wires, j: int):
+        """``_loss_fn``'s batch from row ``j`` of stacked per-input device
+        tensors: the wire decoded, labels in the label dtype, masks in
+        float32."""
         ldt = self._label_dtype()
 
-        def row(ts, j, dtype=None):
+        def row(ts, dtype=None):
             if ts is None:
                 return None
             return [None if t is None else
                     (t[j] if dtype is None or not t.is_floating_point()
                      else t[j].to(dtype)) for t in ts]
 
+        f = [_ingest.device_decode(x, w) for x, w in zip(row(fs), wires)]
+        return self._step_batch(f, row(ls, ldt), row(fms, torch.float32),
+                                row(lms, torch.float32))
+
+    def _multi_steps(self, fs, ls, fms, lms, wires):
+        """One step per leading row of the stacked per-input device
+        tensors (the JAX package's scan over a window), on the network's
+        own trees.  Returns the (S,) scores and the (S, 2+3L) health stack
+        (None when the steps computed none)."""
         scores, hs = [], []
         for j in range(fs[0].shape[0]):
-            f = [_ingest.device_decode(x, w) for x, w in zip(row(fs, j),
-                                                              wires)]
-            batch = self._step_batch(f, row(ls, j, ldt),
-                                     row(fms, j, torch.float32),
-                                     row(lms, j, torch.float32))
+            batch = self._row_batch(fs, ls, fms, lms, wires, j)
             (self.params, self.updater_state, self.net_state, score, hvec,
              _) = self._train_step(
                 self.params, self.updater_state, self.net_state,
@@ -558,12 +573,12 @@ class _Network:
             hs.append(hvec)
         return torch.stack(scores), _stacked(hs)
 
-    def _staged_window(self, items, pin: bool):
-        """Stack a window on the host (into pinned memory on the card),
-        ship the uint8 wire where every batch has one, else cast float32
-        features to a bf16 compute dtype on the host, and start the copy.
-        Returns what :meth:`_train_window` takes."""
-        _faults.slow_worker()
+    def _host_window(self, items, pin: bool):
+        """A window stacked on the host (into pinned memory with ``pin``):
+        per-input (features, labels, features masks or None, labels masks
+        or None) and the wire specs.  Features are the uint8 wire where
+        every batch has one, else float32 cast on the host to a bf16
+        compute dtype."""
         fs, ls, fms, lms = self._window_stack(items, pin)
         u8s, wires = self._window_wires(items, len(fs), pin)
         cdt = self._pol().compute_dtype
@@ -571,6 +586,15 @@ class _Network:
               else _ingest.cast_for_transfer(f, cdt)
               for i, f in enumerate(fs)]
         wires = tuple(wires) if wires is not None else (None,) * len(fs)
+        return fs, ls, fms, lms, wires
+
+    def _staged_window(self, items, pin: bool):
+        """Stack a window on the host (into pinned memory on the card),
+        ship the uint8 wire where every batch has one, else cast float32
+        features to a bf16 compute dtype on the host, and start the copy.
+        Returns what :meth:`_train_window` takes."""
+        _faults.slow_worker()
+        fs, ls, fms, lms, wires = self._host_window(items, pin)
         parts = [fs, ls, fms or [], lms or []]
         dev, done = self._stage([t for part in parts for t in part])
         _monitor.gauge("ingest_staged_bytes", _ingest._STAGED_HELP).set(

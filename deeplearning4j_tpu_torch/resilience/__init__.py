@@ -13,18 +13,24 @@ resilience``):
   behind the ``DL4J_TPU_FAULT_*`` variables;
 - :mod:`.chaos` — the kill/resume parity harness: a training child
   SIGKILLed mid-epoch and resumed, held bitwise against an uninterrupted
-  run (``python -m deeplearning4j_tpu_torch.resilience.chaos``).
-
-The JAX package's pod checkpoints (ROADMAP A9) are not ported yet.
+  run (``python -m deeplearning4j_tpu_torch.resilience.chaos``);
+- the pod checkpoints of a multi-process mesh (``pod_save``,
+  ``pod_restore``, ``verify_pod_checkpoint``, ``list_pod_checkpoints``,
+  ``prune_pod_checkpoints``): one shard zip a process, the manifest
+  written last, in the JAX package's layout.
 """
 
 from . import chaos, faults
 from .checkpoint import (CheckpointCorruptError, CheckpointManager,
-                         ResumeState, as_manager, list_checkpoints, restore,
-                         verify_checkpoint)
+                         ResumeState, as_manager, list_checkpoints,
+                         list_pod_checkpoints, pod_checkpoint_dir,
+                         pod_restore, pod_save, prune_pod_checkpoints,
+                         restore, verify_checkpoint, verify_pod_checkpoint)
 
 __all__ = [
     "CheckpointCorruptError", "CheckpointManager", "ResumeState",
-    "as_manager", "chaos", "faults", "list_checkpoints", "restore",
-    "verify_checkpoint",
+    "as_manager", "chaos", "faults", "list_checkpoints",
+    "list_pod_checkpoints", "pod_checkpoint_dir", "pod_restore",
+    "pod_save", "prune_pod_checkpoints", "restore", "verify_checkpoint",
+    "verify_pod_checkpoint",
 ]

@@ -1,6 +1,6 @@
-"""Preemption-safe checkpointing for ``fit()`` (port of
-``deeplearning4j_tpu/resilience/checkpoint.py``, without the pod
-checkpoints of a multi-process mesh, which wait for ROADMAP A9).
+"""Preemption-safe checkpointing for ``fit()`` and the sharded pod
+checkpoints of a ``parallel.mesh.MeshRuntime`` (port of
+``deeplearning4j_tpu/resilience/checkpoint.py``).
 
 A checkpoint here is a *superset* of the ``utils/model_serializer.py``
 zip (same ``configuration.json`` / ``coefficients.bin`` /
@@ -53,10 +53,11 @@ import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import monitor as _monitor
 from ..monitor.locks import make_lock
-from ..utils.fileio import atomic_write
+from ..utils.fileio import atomic_write, atomic_write_bytes
 from ..utils.model_serializer import (COEFFICIENTS_BIN, CONFIG_JSON,
                                       MANIFEST_JSON, STATE_BIN, UPDATER_BIN,
                                       ModelSerializationError, _flatten_state,
@@ -674,3 +675,286 @@ def resolve_fit_resilience(net, checkpoint, resume_from, epochs):
             start_step = rs.step_in_epoch
             epochs = max(0, int(epochs) - rs.epoch)
     return ckpt, start_step, epochs
+
+
+# ======================================================================
+# Pod (multi-process, sharded) checkpoints
+#
+# A pod checkpoint is a DIRECTORY ``pod-<step>/`` under the checkpoint
+# root, written cooperatively by every process of a
+# ``parallel.mesh.MeshRuntime`` pod, in the JAX package's layout:
+#
+# - each process atomically writes ``shard-<pid>.zip`` holding its
+#   pieces of every leaf (raw bytes under ``data/<tree>/<leaf>/<shard>``,
+#   leaves in ``jax.tree_util`` order, plus a ``shards.json`` table with
+#   global shape / dtype / index windows / SHA-256 / size per entry);
+# - all processes barrier;
+# - process 0 writes ``pod-manifest.json`` LAST (atomic rename), stamping
+#   the mesh topology and the SHA-256 of every shard file;
+# - all processes barrier again.
+#
+# The manifest-last ordering is the kill-safety invariant: a manifest
+# implies every shard is durable, so a SIGKILL at any instant leaves
+# either a valid pod checkpoint or an ignorable partial directory.
+# Restore refuses a topology mismatch and re-verifies every hash.  A
+# tensor leaf is written whole (a replicated value); a
+# ``parallel.mesh.Sharded`` leaf (per-slot state) as its distinct pieces,
+# so for the same values and topology the shard entries are byte for
+# byte the JAX package's and a pod checkpoint crosses between them.
+# ======================================================================
+
+POD_PREFIX = "pod-"
+POD_MANIFEST = "pod-manifest.json"
+POD_SHARDS_JSON = "shards.json"
+
+
+def pod_checkpoint_dir(directory: str, step: int) -> str:
+    return os.path.join(directory, f"{POD_PREFIX}{int(step):010d}")
+
+
+def _pod_step_of(name: str) -> Optional[int]:
+    if not name.startswith(POD_PREFIX):
+        return None
+    try:
+        return int(name[len(POD_PREFIX):])
+    except ValueError:
+        return None
+
+
+def list_pod_checkpoints(directory: str) -> List[str]:
+    """Pod checkpoint directories under ``directory`` that have a manifest
+    (i.e. completed the two-phase write), newest first."""
+    try:
+        names = os.listdir(directory)
+    except FileNotFoundError:
+        return []
+    out = [(st, os.path.join(directory, n)) for n in names
+           if (st := _pod_step_of(n)) is not None
+           and os.path.exists(os.path.join(directory, n, POD_MANIFEST))]
+    return [p for _, p in sorted(out, reverse=True)]
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).rsplit(".", 1)[-1]
+    return str(np.dtype(dtype))
+
+
+def _host_bytes(t) -> bytes:
+    """Raw little-endian bytes of a tensor or array (bfloat16 as its
+    16-bit pattern, which is what the JAX package writes)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy().tobytes()
+    return np.ascontiguousarray(t).tobytes()
+
+
+def _leaf_shards(leaf):
+    """(global_shape, dtype name, [(windows, piece), ...]) of one leaf:
+    a tensor or array whole, a ``Sharded`` leaf's distinct pieces."""
+    from ..parallel.mesh import Sharded
+    if isinstance(leaf, Sharded):
+        return (leaf.global_shape, _dtype_name(leaf.dtype),
+                leaf.distinct_pieces())
+    shape = tuple(leaf.shape)
+    return shape, _dtype_name(leaf.dtype), [
+        (tuple((0, d) for d in shape), leaf)]
+
+
+def pod_save(runtime, directory: str, step: int, trees: Dict[str, Any],
+             extra: Optional[Dict[str, Any]] = None) -> str:
+    """Write one pod checkpoint of ``trees`` (a dict of named trees:
+    params, updater state, ...) at ``step``.  Collective: EVERY process of
+    the pod must call this with the same arguments.  Returns the pod
+    directory."""
+    import io
+    from ..parallel.mesh import tree_leaves
+    pdir = pod_checkpoint_dir(directory, step)
+    os.makedirs(pdir, exist_ok=True)
+    pid = runtime.process_index
+    table: List[Dict[str, Any]] = []
+    payload: List[Tuple[str, bytes]] = []
+    for name in sorted(trees):
+        for li, leaf in enumerate(tree_leaves(trees[name])):
+            shape, dtype, shards = _leaf_shards(leaf)
+            for si, (windows, piece) in enumerate(shards):
+                entry = f"data/{name}/{li}/{si}"
+                data = _host_bytes(piece)
+                payload.append((entry, data))
+                table.append({
+                    "key": name, "leaf": li, "entry": entry,
+                    "global_shape": list(shape), "dtype": dtype,
+                    "windows": [list(w) for w in windows],
+                    "sha256": _sha256(data), "size": len(data),
+                })
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+        for entry, data in payload:
+            zf.writestr(entry, data)
+        zf.writestr(POD_SHARDS_JSON, json.dumps(
+            {"process": pid, "shards": table}, indent=2))
+    atomic_write_bytes(os.path.join(pdir, f"shard-{pid:05d}.zip"),
+                       buf.getvalue())
+    # every shard durable before the manifest stamps the set complete
+    runtime.barrier(f"pod_save:{step}")
+    if pid == 0:
+        files = {}
+        for i in range(runtime.process_count):
+            fname = f"shard-{i:05d}.zip"
+            with open(os.path.join(pdir, fname), "rb") as fh:
+                data = fh.read()
+            files[fname] = {"sha256": _sha256(data), "size": len(data)}
+        manifest = {
+            "framework": "deeplearning4j_tpu_torch",
+            "kind": "pod_checkpoint",
+            "step": int(step),
+            "topology": runtime.topology(),
+            "trees": sorted(trees),
+            "extra": extra or {},
+            "wall_time": time.time(),
+            "files": files,
+        }
+        atomic_write_bytes(os.path.join(pdir, POD_MANIFEST),
+                           json.dumps(manifest, indent=2).encode("utf-8"))
+        _monitor.counter(WRITES_TOTAL, _HELP[WRITES_TOTAL]).inc()
+        _monitor.gauge(BYTES_GAUGE, _HELP[BYTES_GAUGE]).set(
+            sum(f["size"] for f in files.values()))
+    # no process may go on (or prune) until the manifest is durable
+    runtime.barrier(f"pod_manifest:{step}")
+    return pdir
+
+
+def verify_pod_checkpoint(pdir: str,
+                          topology: Optional[Dict[str, int]] = None
+                          ) -> Dict[str, Any]:
+    """Verify a pod checkpoint directory: manifest present, every shard
+    file present with matching SHA-256/size, and (when ``topology`` is
+    given) an exact mesh-shape match.  Returns the manifest."""
+    mpath = os.path.join(pdir, POD_MANIFEST)
+    if not os.path.exists(mpath):
+        raise CheckpointCorruptError(
+            f"{pdir}: no {POD_MANIFEST} — incomplete pod checkpoint "
+            "(a process died before the manifest was stamped)")
+    try:
+        with open(mpath, "rb") as fh:
+            manifest = json.loads(fh.read())
+    except ValueError as e:
+        raise CheckpointCorruptError(
+            f"{pdir}: unreadable {POD_MANIFEST}: {e}") from e
+    if topology is not None and manifest.get("topology") != topology:
+        raise CheckpointCorruptError(
+            f"{pdir}: checkpoint topology {manifest.get('topology')} != "
+            f"this pod's {topology}; refusing to misassemble — relaunch "
+            "with the recorded mesh shape")
+    for fname, ent in manifest.get("files", {}).items():
+        fpath = os.path.join(pdir, fname)
+        if not os.path.exists(fpath):
+            raise CheckpointCorruptError(
+                f"{pdir}: manifest lists {fname} but it is missing")
+        with open(fpath, "rb") as fh:
+            data = fh.read()
+        if len(data) != int(ent["size"]) or _sha256(data) != ent["sha256"]:
+            raise CheckpointCorruptError(
+                f"{pdir}: {fname} fails size/SHA-256 verification — torn "
+                "write or bit rot; refusing to load")
+    return manifest
+
+
+def _host_array(data: bytes, dtype: str, shape) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.frombuffer(bytearray(data), dtype=torch.int16).view(
+            torch.bfloat16).reshape(shape)
+    return torch.from_numpy(np.frombuffer(data, np.dtype(dtype)).copy()
+                            ).reshape(shape)
+
+
+def pod_restore(runtime, directory: str, templates: Dict[str, Any],
+                step: Optional[int] = None
+                ) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
+    """Restore the newest (or ``step``'s) pod checkpoint under
+    ``directory`` into host trees shaped like ``templates`` (the names and
+    tree structures given to :func:`pod_save`).  Every process reads all
+    shard files and reassembles the whole global arrays as CPU tensors;
+    the caller places them on its slots.  Returns ``(trees, manifest)``,
+    or ``None`` when no completed pod checkpoint of this topology exists
+    (a cold start)."""
+    from ..parallel.mesh import tree_leaves, tree_unflatten
+    if step is not None:
+        candidates = [pod_checkpoint_dir(directory, step)]
+        if not os.path.exists(os.path.join(candidates[0], POD_MANIFEST)):
+            raise FileNotFoundError(
+                f"no completed pod checkpoint at step {step} under "
+                f"{directory}")
+    else:
+        candidates = list_pod_checkpoints(directory)
+    for pdir in candidates:
+        try:
+            manifest = verify_pod_checkpoint(pdir, runtime.topology())
+        except CheckpointCorruptError:
+            _monitor.counter(CORRUPT_SKIPPED, _HELP[CORRUPT_SKIPPED]).inc()
+            if step is not None:
+                raise
+            continue
+        bufs: Dict[Tuple[str, int], torch.Tensor] = {}
+        filled: Dict[Tuple[str, int], int] = {}
+        for fname in sorted(manifest["files"]):
+            with zipfile.ZipFile(os.path.join(pdir, fname), "r") as zf:
+                table = json.loads(zf.read(POD_SHARDS_JSON))["shards"]
+                for ent in table:
+                    k = (ent["key"], int(ent["leaf"]))
+                    windows = [tuple(w) for w in ent["windows"]]
+                    data = zf.read(ent["entry"])
+                    if _sha256(data) != ent["sha256"]:
+                        raise CheckpointCorruptError(
+                            f"{pdir}/{fname}: {ent['entry']} SHA-256 "
+                            "mismatch")
+                    piece = _host_array(data, ent["dtype"],
+                                        [b - a for a, b in windows])
+                    if k not in bufs:
+                        bufs[k] = torch.empty(
+                            tuple(ent["global_shape"]), dtype=piece.dtype)
+                        filled[k] = 0
+                    bufs[k][tuple(slice(a, b) for a, b in windows)] = piece
+                    filled[k] += piece.numel()
+        trees: Dict[str, Any] = {}
+        for name in sorted(templates):
+            count = len(tree_leaves(templates[name]))
+            out = []
+            for li in range(count):
+                k = (name, li)
+                if k not in bufs:
+                    raise CheckpointCorruptError(
+                        f"{pdir}: checkpoint has no data for "
+                        f"{name}/leaf{li} — tree structure mismatch with "
+                        "the saving run")
+                if filled[k] < bufs[k].numel():
+                    raise CheckpointCorruptError(
+                        f"{pdir}: {name}/leaf{li} only "
+                        f"{filled[k]}/{bufs[k].numel()} elements present "
+                        "— a shard file is missing coverage")
+                out.append(bufs[k])
+            trees[name] = tree_unflatten(templates[name], out)
+        _monitor.counter(RESTORES_TOTAL, _HELP[RESTORES_TOTAL]).inc()
+        return trees, manifest
+    return None
+
+
+def prune_pod_checkpoints(runtime, directory: str,
+                          keep_last: int = 2) -> int:
+    """Delete all but the ``keep_last`` newest completed pod checkpoints
+    (process 0 only; returns how many were removed)."""
+    if runtime.process_index != 0:
+        return 0
+    import shutil
+    pruned = 0
+    for pdir in list_pod_checkpoints(directory)[max(1, keep_last):]:
+        try:
+            shutil.rmtree(pdir)
+            pruned += 1
+        except OSError:
+            pass
+    if pruned:
+        _monitor.counter(PRUNED_TOTAL, _HELP[PRUNED_TOTAL]).inc(pruned)
+    return pruned

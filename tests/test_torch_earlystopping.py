@@ -268,8 +268,58 @@ def test_a_malformed_zip_is_refused_by_both_restores(tmp_path):
 
 
 def test_parallel_trainer_waits_for_a9():
-    _, pnet = _pair()
-    train, _ = _iterators("port")
-    with pytest.raises(NotImplementedError, match="A9"):
-        pes.EarlyStoppingParallelTrainer(
-            pes.EarlyStoppingConfiguration.builder().build(), pnet, train)
+    """The parallel trainer, which waited for the ParallelWrapper (ROADMAP
+    A9), now trains: ``tests/test_eval_earlystopping.py``'s
+    ``test_early_stopping_parallel_trainer`` (4 workers, averaging every
+    step, adam, 4 epochs of one round) gives the same epochs, best epoch
+    and scores in both packages, on the same weights (rtol 2e-5: float32
+    adam steps averaged over 4 workers, sums in another order)."""
+    from deeplearning4j_tpu.earlystopping import savers as jsv
+    from deeplearning4j_tpu.earlystopping.trainer import \
+        EarlyStoppingParallelTrainer as JParallel
+
+    def toy(pkg, seed=0):
+        rng = np.random.RandomState(seed)
+        x = rng.randn(128, 4)
+        y = np.eye(3)[(x.sum(1) > 0).astype(int)]
+        return (JaxList(JaxDataSet(x, y), 32) if pkg == "jax"
+                else ListDataSetIterator(DataSet(x, y), 32))
+
+    conf = (JaxConf.builder().seed(1).updater("adam").learning_rate(0.05)
+            .activation("relu").weight_init("xavier").list()
+            .layer(jcore.DenseLayer(n_in=4, n_out=16))
+            .layer(jcore.OutputLayer(n_in=16, n_out=3)).build())
+    jnet = JaxNet(conf).init()
+    pnet = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+        conf.to_json()), device="cpu").init()
+    pnet.set_flat_params(np.asarray(jnet.get_flat_params()))
+
+    def config(m, saver, pkg):
+        return (m.EarlyStoppingConfiguration.builder()
+                .epoch_termination_conditions(
+                    (jterm if pkg == "jax" else pes)
+                    .MaxEpochsTerminationCondition(4))
+                .score_calculator((jscore if pkg == "jax" else pes)
+                                  .DataSetLossCalculator(toy(pkg, seed=9)))
+                .model_saver(saver).build())
+
+    jres = JParallel(config(jconfig, jsv.InMemoryModelSaver(), "jax"),
+                     jnet, toy("jax"), workers=4,
+                     averaging_frequency=1).fit()
+    pres = pes.EarlyStoppingParallelTrainer(
+        config(pes, pes.InMemoryModelSaver(), "port"), pnet, toy("port"),
+        workers=4, averaging_frequency=1, devices=["cpu"] * 4).fit()
+    assert pres.total_epochs == jres.total_epochs == 4
+    assert pres.best_model_epoch == jres.best_model_epoch
+    assert pres.best_model_score < 2.0
+    np.testing.assert_allclose(pres.best_model_score, jres.best_model_score,
+                               rtol=2e-5)
+    assert sorted(pres.score_vs_epoch) == sorted(jres.score_vs_epoch)
+    np.testing.assert_allclose(
+        [pres.score_vs_epoch[e] for e in sorted(pres.score_vs_epoch)],
+        [jres.score_vs_epoch[e] for e in sorted(jres.score_vs_epoch)],
+        rtol=2e-5)
+    assert pnet.iteration == jnet.iteration == 4
+    np.testing.assert_allclose(pnet.get_flat_params(),
+                               np.asarray(jnet.get_flat_params()),
+                               rtol=2e-5, atol=2e-6)

@@ -298,3 +298,32 @@ def test_cnn_sentence_iterator_matches_jax(models, fmt):
             assert a.features_mask is None
         else:
             np.testing.assert_array_equal(a.features_mask, b.features_mask)
+
+
+def test_c11_lookup_table_defaults_to_the_card():
+    """C11: ``InMemoryLookupTable(vocab)`` took the CPU unless asked for
+    the card.  Now ``device=None`` resolves as every entry point does: the
+    card, or ``RuntimeError`` without one; ``device="cpu"`` builds the
+    tables bitwise as before (syn0 ~ U(-0.5, 0.5) / dim from a CPU
+    generator seeded by ``seed``, syn1 and syn1neg zero)."""
+    from deeplearning4j_tpu_torch.nlp.lookup_table import \
+        InMemoryLookupTable
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabCache, VocabWord
+    vocab = VocabCache()
+    for i, w in enumerate(("a", "b", "c", "d")):
+        vocab.add_token(VocabWord(w, float(4 - i)))
+    vocab.finalize_vocab()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            InMemoryLookupTable(vocab, 6)
+    else:
+        assert InMemoryLookupTable(vocab, 6).device.type == "cuda"
+    table = InMemoryLookupTable(vocab, 6, seed=3, negative=1.0,
+                                device="cpu")
+    table.reset_weights()
+    assert table.device.type == "cpu"
+    u = torch.rand((vocab.num_words(), 6),
+                   generator=torch.Generator().manual_seed(3))
+    assert torch.equal(table.syn0, (u - 0.5) / 6)
+    assert torch.equal(table.syn1, torch.zeros(vocab.num_words() - 1, 6))
+    assert torch.equal(table.syn1neg, torch.zeros(vocab.num_words(), 6))

@@ -267,6 +267,74 @@ assert router.status()["running"] is False
     assert out.stdout.strip() == "ok"
 
 
+_POD_CHILD = _BLOCKED_IMPORT + """
+import runpy
+import os
+sys.argv = ["main", "--pod-worker", "--device", "cpu", "--coordinator",
+            "127.0.0.1:" + os.environ["POD_PORT"], "--num-processes", "1",
+            "--process-id", "0", "--data", "2", "--steps", "2"]
+try:
+    runpy.run_module("deeplearning4j_tpu_torch.parallel.main",
+                     run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu")))
+"""
+
+#: the parallel tier (ROADMAP A9)
+PARALLEL_MODULES = [
+    "deeplearning4j_tpu_torch.parallel.mesh",
+    "deeplearning4j_tpu_torch.parallel.parallel_wrapper",
+    "deeplearning4j_tpu_torch.parallel.zero",
+    "deeplearning4j_tpu_torch.parallel.pipeline",
+    "deeplearning4j_tpu_torch.parallel.scaling",
+    "deeplearning4j_tpu_torch.parallel.main",
+    "deeplearning4j_tpu_torch.resilience.checkpoint",
+]
+
+
+def test_parallel_modules_import_with_jax_blocked():
+    """The parallel tier imports, and a wrapper round, a ZeRO step and a
+    pipelined step run on the CPU, with every import of ``jax`` or the
+    JAX package refused; without a card its entry points refuse to run
+    unless the caller asks for the CPU."""
+    run = _BLOCKED_IMPORT + """
+import numpy as np
+import torch
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.parallel import (MeshRuntime, ParallelWrapper,
+                                               PipelineParallel,
+                                               ZeroShardedParallelWrapper)
+from deeplearning4j_tpu_torch.parallel.main import build_pod_net
+rng = np.random.RandomState(0)
+batches = [DataSet(rng.randn(4, 4).astype(np.float32),
+                   np.eye(3, dtype=np.float32)[rng.randint(0, 3, 4)])
+           for _ in range(2)]
+net = build_pod_net(device="cpu")
+ParallelWrapper(net, workers=2, devices=["cpu"] * 2).fit(batches)
+ZeroShardedParallelWrapper(net, workers=2, devices=["cpu"] * 2).fit(batches)
+PipelineParallel(net, stages=2, microbatches=2,
+                 devices=["cpu"] * 2).fit(batches)
+assert net.iteration == 4
+if not torch.cuda.is_available():
+    for make in (lambda: MeshRuntime.local(data=1),
+                 lambda: ParallelWrapper(net, workers=1),
+                 lambda: build_pod_net()):
+        try:
+            make()
+        except RuntimeError as e:
+            assert "CUDA" in str(e)
+        else:
+            raise AssertionError("ran without a card")
+"""
+    out = subprocess.run([sys.executable, "-c", run] + PARALLEL_MODULES,
+                         cwd=ROOT, env=_clean_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 _WORKER_CHILD = _BLOCKED_IMPORT + """
 import runpy
 sys.argv = ["main", "--fleet-worker", "--device", "cpu", "--model", "mlp"]
@@ -278,8 +346,9 @@ runpy.run_module("deeplearning4j_tpu_torch.parallel.main",
 def test_fleet_worker_child_loads_no_jax(tmp_path):
     """A fleet worker started as the router starts it, with every import
     of ``jax`` or the JAX package refused, becomes ready (its ready line
-    names the CPU) and exits cleanly when its stdin closes; the launcher's
-    other modes raise ``NotImplementedError``."""
+    names the CPU) and exits cleanly when its stdin closes; and a pod
+    worker, the launcher's other mode, trains with neither ``jax`` nor
+    the JAX package in ``sys.modules``."""
     import json
     env = _clean_env()
     env["DL4J_TPU_FLEET_COMPILE_CACHE"] = str(tmp_path / "cache")
@@ -300,6 +369,15 @@ def test_fleet_worker_child_loads_no_jax(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    from deeplearning4j_tpu_torch.parallel import main as launcher
-    with pytest.raises(NotImplementedError, match="A9"):
-        launcher.main(["--spawn-local", "2"])
+    from deeplearning4j_tpu_torch.parallel.mesh import pick_coordinator_port
+    env = _clean_env()
+    env["POD_PORT"] = str(pick_coordinator_port())
+    out = subprocess.run(
+        [sys.executable, "-c", _POD_CHILD], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    report = json.loads(lines[-2])
+    assert report["device"] == "cpu" and report["backend"] == "gloo"
+    assert len(report["scores"]) == 2 and report["param_sha"]
+    assert lines[-1] == "[]"
