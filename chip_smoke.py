@@ -402,12 +402,44 @@ Phases (each raises on failure; the exit code is non-zero on any):
    run and the wrapper in this process, a SIGKILL at step 4 and a resume
    from the newest pod checkpoint bitwise, ``measure_collectives``, every
    worker reaped.  (c)-(e) launch no flash kernel.
+21. the cluster-training tier ([scaleout] lines, its results on a
+   ``{"scaleout": ...}`` JSON line): (a) LeNet-5 at full width under
+   ``ClusterMultiLayer(ParameterAveragingTrainingMaster(num_workers=4,
+   batch_size_per_worker=64, averaging_frequency=5))`` on the procedural
+   MNIST (256 rows a step, ``SO_SPLITS`` splits), through the Direct and
+   the Export approach: ms a split, the fold's ms, samples/s beside
+   phase 9's, peak memory; the distributed ``evaluate``'s confusion
+   matrix equal to ``net.evaluate``'s; ``workers=1`` bitwise the
+   per-batch ``fit`` (deterministic algorithms); f64 card vs CPU within
+   ``PAR_F64_RTOL``; (b) phase 5's attention net under 2 workers
+   averaging every batch, 2 splits: K1-K3 launch 4 times each from the
+   master's pool threads, all on their Hopper bodies
+   (``launches_by_path.scaleout``), and every leaf of params, updater
+   state and net state ``torch.equal`` to the last split's replicas
+   folded by hand on the host; (c) ``ParameterServerParallelWrapper`` on
+   LeNet-5 in process, 4 workers: the held-out score falls, one fp32
+   worker bitwise the sequential fit, the ms of a store pull and push
+   and of a replica's host-to-device and device-to-host copies; (d)
+   ``bench_scaleout``'s configuration (bench.py:1525-1615) through the
+   port: K=3 worker processes on the card against the TCP parameter
+   server, 40 rounds, sync DP, async topk8 and f32, a SIGKILL of rank 2,
+   the straggler pair at 250 ms on rank 1: both async accuracies and the
+   kill's inside the 0.08 band of sync, ``wire_reduction_x`` >= 3, the
+   victim's rc -9 with 2 survivors, every worker reaped; the crossover,
+   staleness and each worker's ready seconds are readings; (e)
+   ``ClusterWord2Vec`` (4 workers, layer 24, window 3, negative 5,
+   minimum frequency 2; ``SO_W2V_EPOCHS`` epochs) with its tables on the
+   card: the vocab the serial ``TextPipeline``'s, the last epoch's fold
+   ``torch.equal`` to a host float64 fold of the workers' tables; (f)
+   ``run_multi_host_training`` in a 1-rank NCCL group bitwise the master
+   alone.  (a) and (c)-(f) launch no flash kernel.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
 feed-forward/convolutional, recurrent, harness, graph, fused, transfer,
 embeddings and deepwalk results, a ``{"pretrain": ...}`` JSON line, a
 ``{"serving_v2": ..., "deploy": ...}`` JSON line, a ``{"fleet": ...}``
-JSON line, a ``{"parallel": ...}`` JSON line, one ``{"kernels":
+JSON line, a ``{"parallel": ...}`` JSON line, a ``{"scaleout": ...}``
+JSON line, one ``{"kernels":
 [...]}`` JSON line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -7355,6 +7387,558 @@ def phase_parallel(N, A, seed: int, ffcnn: dict) -> dict:
     return result
 
 
+# ------------------------------------------------------------ phase 21
+# The cluster-training tier on one card.  (a) LeNet-5 (BASELINE config #1)
+# under ParameterAveragingTrainingMaster(4 workers x 64 rows, averaging
+# every 5 batches): 4 x 64 = 256 rows a step, SO_SPLITS splits through the
+# Direct and the Export approach on the procedural MNIST; workers=1
+# bitwise the plain fit; f64 card vs CPU; the distributed evaluate.  (b)
+# phase 5's attention net under 2 workers averaging every batch.  (c)
+# ParameterServerParallelWrapper on LeNet-5 in process.  (d)
+# bench_scaleout's configuration (bench.py:1525-1615): K=3 worker
+# processes on the card against the TCP parameter server.  (e)
+# ClusterWord2Vec at examples/word2vec_text.py's widths.  (f)
+# run_multi_host_training in a 1-rank NCCL group.
+SO_WORKERS, SO_BATCH, SO_AVG, SO_SPLITS = 4, 64, 5, 5
+SO_F64_AVG, SO_F64_SPLITS = 2, 2
+SO_EVAL_BATCH, SO_EVAL_ROWS = 256, 2048
+SO_ATTN_WORKERS, SO_ATTN_SPLITS = 2, 2
+SO_PS_WORKERS, SO_PS_BATCHES = 4, 64
+SO_K, SO_ROUNDS, SO_DURATION, SO_STRAGGLER = 3, 40, 4.0, (1, 250.0)
+SO_BAND, SO_WIRE_X = 0.08, 3.0
+SO_W2V_WORKERS, SO_W2V_EPOCHS = 4, 10
+# the device of every sub-phase; "cpu" runs (a) and (c)-(e) here on the
+# CPU as a dry run of the phase, as PAR_DEV does for phase 20
+SO_DEV = "cuda"
+
+
+def so_sync() -> None:
+    if SO_DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def so_mnist(n: int, batch: int, train: bool = True) -> list:
+    """``n`` procedural MNIST images in batches of ``batch`` (phase 11's
+    generator; flat 784-vectors with their u8 wire)."""
+    from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+    return list(MnistDataSetIterator(batch, n, train=train, shuffle=False))
+
+
+def so_leaves(net) -> list:
+    from deeplearning4j_tpu_torch.parallel.mesh import tree_leaves
+    return [t for name in ("params", "updater_state", "net_state")
+            for t in tree_leaves(getattr(net, name))]
+
+
+def so_equal(a, b) -> bool:
+    """Every leaf of params, updater state and net state ``torch.equal``,
+    and the iteration and score the same."""
+    la, lb = so_leaves(a), so_leaves(b)
+    return (len(la) == len(lb)
+            and all(x.dtype == y.dtype and torch.equal(x, y)
+                    for x, y in zip(la, lb))
+            and a.iteration == b.iteration and a.score() == b.score())
+
+
+def so_data() -> tuple:
+    """(train batches of SO_BATCH rows for SO_SPLITS splits, test batches,
+    the seconds their generation took)."""
+    t0 = time.perf_counter()
+    batches = so_mnist(SO_SPLITS * SO_WORKERS * SO_AVG * SO_BATCH, SO_BATCH)
+    test = so_mnist(SO_EVAL_ROWS, SO_EVAL_BATCH, train=False)
+    return batches, test, time.perf_counter() - t0
+
+
+def so_master_lenet(batches, test, gen_s: float, ffcnn: dict) -> dict:
+    """(a) LeNet-5 under the averaging master at full width."""
+    import tempfile
+    from deeplearning4j_tpu_torch.scaleout import (
+        ClusterMultiLayer, ParameterAveragingTrainingMaster)
+    split_rows = SO_WORKERS * SO_AVG * SO_BATCH
+    out = {"workers": SO_WORKERS, "batch_per_worker": SO_BATCH,
+           "averaging_frequency": SO_AVG, "rows_per_step":
+           SO_WORKERS * SO_BATCH, "splits": SO_SPLITS,
+           "mnist_generate_s": gen_s}
+    if SO_DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for approach in ("direct", "export"):
+            net = par_lenet(SO_DEV)
+            master = ParameterAveragingTrainingMaster(
+                num_workers=SO_WORKERS, batch_size_per_worker=SO_BATCH,
+                averaging_frequency=SO_AVG,
+                export_dir=tmp if approach == "export" else None)
+            front = ClusterMultiLayer(net, master)
+            s0 = net.score(batches[0])
+            so_sync()
+            t1 = time.perf_counter()
+            front.fit(batches)
+            score = net.score()
+            so_sync()
+            total = time.perf_counter() - t1
+            split_ms = [s["wall_time_sec"] * 1e3 for s in master.stats]
+            fold_ms = [s["fold_time_sec"] * 1e3 for s in master.stats]
+            steady = sum(split_ms[1:]) / 1e3
+            runs[approach] = {
+                "split_ms": split_ms, "fold_ms": fold_ms,
+                "fit_s": total, "score_before": s0, "score": score,
+                "samples_per_s": (len(split_ms) - 1) * split_rows / steady,
+                "iteration": net.iteration}
+            log(f"[scaleout] (a) {approach}: {len(split_ms)} splits of "
+                f"{split_rows} rows; ms a split {split_ms[0]:.1f} (first, "
+                f"replicas built) then median "
+                f"{float(np.median(split_ms[1:])):.1f}; fold median "
+                f"{float(np.median(fold_ms)):.3f} ms; "
+                f"{runs[approach]['samples_per_s']:.1f} samples/s (splits "
+                f"2-{len(split_ms)}); score {s0:.4f} -> {score:.4f}")
+            if len(split_ms) != SO_SPLITS or net.iteration != \
+                    SO_SPLITS * SO_AVG:
+                raise RuntimeError(f"(a) {approach}: {len(split_ms)} splits,"
+                                   f" iteration {net.iteration}")
+            if not (np.isfinite(score) and score < s0):
+                raise RuntimeError(f"(a) {approach} did not train: {s0} -> "
+                                   f"{score}")
+    out["runs"] = runs
+    if SO_DEV == "cuda":
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        out["mem_before_bytes"] = held
+    out["phase9_samples_per_s"] = ffcnn["lenet"]["samples_per_s"]
+    log(f"[scaleout] (a) samples/s Direct "
+        f"{runs['direct']['samples_per_s']:.1f}, Export "
+        f"{runs['export']['samples_per_s']:.1f}, beside phase 9's plain "
+        f"LeNet-5 step at {LENET_BATCH} rows "
+        f"{out['phase9_samples_per_s']:.1f}; peak memory "
+        + (f"{out['peak_mem_bytes'] / 2**30:.3f} GiB ("
+           f"{out['mem_before_bytes'] / 2**30:.3f} held before)"
+           if SO_DEV == "cuda" else "not measured (cpu)"))
+    # the distributed evaluate folds 4 partitions' Evaluations by merge()
+    ev = ClusterMultiLayer(net, master).evaluate(test)
+    local = net.evaluate(test)
+    same_cm = bool(np.array_equal(ev.confusion.matrix,
+                                  local.confusion.matrix))
+    out["evaluate"] = {"accuracy": ev.accuracy(), "rows": SO_EVAL_ROWS,
+                       "confusion_equal": same_cm}
+    log(f"[scaleout] (a) distributed evaluate over {SO_WORKERS} "
+        f"partitions: accuracy {ev.accuracy():.4f}, confusion matrix "
+        f"equal to net.evaluate: {same_cm}")
+    if not same_cm:
+        raise RuntimeError("the distributed evaluate differs from "
+                           "net.evaluate")
+    # workers=1 is the per-batch fit, bitwise (deterministic algorithms)
+    one_n = 2 * SO_AVG
+    with deterministic(), cudnn_deterministic():
+        one, ref = par_lenet(SO_DEV), par_lenet(SO_DEV)
+        ClusterMultiLayer(one, ParameterAveragingTrainingMaster(
+            num_workers=1, batch_size_per_worker=SO_BATCH,
+            averaging_frequency=SO_AVG)).fit(batches[:one_n])
+        for ds in batches[:one_n]:
+            ref.fit(ds)
+        same = so_equal(one, ref)
+    log(f"[scaleout] (a) workers=1 vs fit over {one_n} batches: bitwise "
+        f"{same}")
+    if not same:
+        raise RuntimeError("the master with one worker is not the "
+                           "per-batch fit")
+    out["workers1_bitwise_fit"] = True
+    # f64: the same splits on the card and on the CPU
+    f64_n = SO_F64_SPLITS * SO_WORKERS * SO_F64_AVG
+    card = par_lenet(SO_DEV, "float64")
+    cpu = par_lenet("cpu", "float64")
+    if not np.array_equal(card.get_flat_params(), cpu.get_flat_params()):
+        raise RuntimeError("LeNet's init differs between card and CPU")
+    for net in (card, cpu):
+        ClusterMultiLayer(net, ParameterAveragingTrainingMaster(
+            num_workers=SO_WORKERS, batch_size_per_worker=SO_BATCH,
+            averaging_frequency=SO_F64_AVG)).fit(batches[:f64_n])
+    rel = par_rel(card.get_flat_params(), cpu.get_flat_params())
+    s_rel = abs(card.score() - cpu.score()) / abs(cpu.score())
+    log(f"[scaleout] (a) f64 {SO_F64_SPLITS} splits of {SO_WORKERS} x "
+        f"{SO_F64_AVG} card vs CPU: params rel {rel:.3e}, score rel "
+        f"{s_rel:.3e} (tol {PAR_F64_RTOL:g})")
+    if not (rel <= PAR_F64_RTOL and s_rel <= PAR_F64_RTOL):
+        raise RuntimeError("the master's LeNet disagrees card vs CPU in f64")
+    out["f64_card_vs_cpu"] = {"params_rel": rel, "score_rel": s_rel,
+                              "splits": SO_F64_SPLITS}
+    return out
+
+
+def so_attention(N, A, seed: int) -> tuple:
+    """(b) phase 5's net under the master, 2 workers averaging every
+    batch; returns (result, the launches of the master's run)."""
+    from deeplearning4j_tpu_torch.scaleout import (
+        ClusterMultiLayer, ParameterAveragingTrainingMaster)
+    from deeplearning4j_tpu_torch.scaleout.param_avg import \
+        ParameterAveragingTrainingWorker
+    results = []
+
+    class Recording(ParameterAveragingTrainingWorker):
+        def process_partition(self, partition):
+            r = super().process_partition(partition)
+            results.append(r)
+            return r
+
+    net = build_net(N, A, seed=seed, n_in=N_IN, hidden=HIDDEN, heads=HEADS,
+                    n_out=N_OUT, cache_len=SEQ)
+    w = SO_ATTN_WORKERS
+    batches = [make_batch(seed + 300 + i, BATCH, SEQ, N_IN, N_OUT)
+               for i in range(SO_ATTN_SPLITS * w)]
+    master = ParameterAveragingTrainingMaster(
+        num_workers=w, batch_size_per_worker=BATCH, averaging_frequency=1,
+        worker_factory=Recording)
+    front = ClusterMultiLayer(net, master)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()            # the scaleout path's counts
+    split_ms = []
+    before = None
+    for s in range(SO_ATTN_SPLITS):
+        if s == SO_ATTN_SPLITS - 1:
+            before = net.clone()
+            del results[:]
+        t0 = time.perf_counter()
+        front.fit(batches[s * w:(s + 1) * w])
+        net.score()
+        torch.cuda.synchronize()
+        split_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(A.LAUNCHES)
+    bodies = hopper_bodies(A, "scaleout")
+    peak = torch.cuda.max_memory_allocated()
+    expected = {name: SO_ATTN_SPLITS * w for name in KERNELS}
+    expected["flash_fwd_partials"] = 0
+    if launches != expected:
+        raise RuntimeError(f"scaleout launches {launches}, expected "
+                           f"{expected}")
+    # the last split's fold by hand: the replicas' flat vectors averaged
+    # in float64 on the host in worker order, written into the master as
+    # it stood before the split
+    if len(results) != w:
+        raise RuntimeError(f"{len(results)} results in the last split")
+    wts = np.array([r.batches_processed for r in results], np.float64)
+    p = np.zeros_like(results[0].params, np.float64)
+    u = np.zeros_like(results[0].updater_state, np.float64)
+    for wt, r in zip(wts, results):
+        p += wt * r.params.astype(np.float64)
+        u += wt * r.updater_state.astype(np.float64)
+    before.set_flat_params((p / wts.sum()).astype(results[0].params.dtype))
+    before.set_flat_updater_state((u / wts.sum()).astype(
+        results[0].updater_state.dtype))
+    before.iteration += int(wts.max())
+    got, want = so_leaves(net), so_leaves(before)
+    unequal = [i for i, (a, b) in enumerate(zip(got, want))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+    log(f"[scaleout] (b) attention net B={BATCH} T={SEQ} under {w} workers "
+        f"x {SO_ATTN_SPLITS} splits: ms a split {split_ms}; peak memory "
+        f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} held before); launches "
+        f"{launches}, by body {bodies}; params, updater and net state vs "
+        f"the host fold: {len(got)} leaves, {len(unequal)} unequal; "
+        f"iteration {net.iteration} (by hand {before.iteration})")
+    if len(got) != len(want) or unequal or net.iteration != before.iteration:
+        raise RuntimeError(f"the master's attention net is not the host "
+                           f"fold of its replicas: leaves {unequal}")
+    if not np.isfinite(net.score()):
+        raise RuntimeError("non-finite score under the master")
+    return ({"workers": w, "splits": SO_ATTN_SPLITS, "split_ms": split_ms,
+             "peak_mem_bytes": peak, "mem_before_bytes": held,
+             "vs_host_fold": {"leaves": len(got), "bitwise": True},
+             "body_launches": bodies}, launches)
+
+
+def so_timed(fn, into: list):
+    """``fn`` wrapped to append each call's synchronized ms to ``into``."""
+    def wrapped(*a, **kw):
+        so_sync()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        so_sync()
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapped
+
+
+def so_ps_wrapper(batches, test) -> dict:
+    """(c) ParameterServerParallelWrapper on LeNet-5 in process, on
+    (a)'s MNIST batches; the score on (a)'s first test batch."""
+    from deeplearning4j_tpu_torch.scaleout.param_server import \
+        ParameterServerParallelWrapper
+    batches = batches[:SO_PS_BATCHES]
+    held_out = test[0]
+    net = par_lenet(SO_DEV)
+    pw = ParameterServerParallelWrapper(net, num_workers=SO_PS_WORKERS)
+    ms = {"pull": [], "push": [], "set_params": [], "get_params": []}
+    pw.server.pull = so_timed(pw.server.pull, ms["pull"])
+    pw.server.push = so_timed(pw.server.push, ms["push"])
+    for rep in pw._replicas:
+        rep.set_flat_params = so_timed(rep.set_flat_params,
+                                       ms["set_params"])
+        rep.get_flat_params = so_timed(rep.get_flat_params,
+                                       ms["get_params"])
+    s0 = net.score(held_out)
+    t0 = time.perf_counter()
+    pw.fit(batches)
+    so_sync()
+    fit_s = time.perf_counter() - t0
+    s1 = net.score(held_out)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"[scaleout] (c) PS wrapper LeNet-5 {SO_PS_WORKERS} workers, "
+        f"{len(batches)} batches of {SO_BATCH}: held-out score {s0:.4f} -> "
+        f"{s1:.4f}, {pw.server.pushes} pushes in {fit_s:.2f} s; median ms: "
+        f"store pull {med['pull']:.3f}, push {med['push']:.3f}, HtoD "
+        f"set_flat_params {med['set_params']:.3f}, DtoH get_flat_params "
+        f"{med['get_params']:.3f} ({net.num_params()} params)")
+    if not (np.isfinite(s1) and s1 < s0):
+        raise RuntimeError(f"the PS wrapper did not converge: {s0} -> {s1}")
+    if pw.server.pushes != len(batches):
+        raise RuntimeError(f"{pw.server.pushes} pushes for {len(batches)}")
+    # one worker, fp32 (no masters re-derived from bf16 params at each
+    # pull): the sequential fit, bitwise
+    with deterministic(), cudnn_deterministic():
+        one, ref = par_lenet(SO_DEV, "float32"), par_lenet(SO_DEV, "float32")
+        ParameterServerParallelWrapper(one, num_workers=1).fit(batches[:8])
+        for ds in batches[:8]:
+            ref.fit(ds)
+        same = bool(np.array_equal(one.get_flat_params(),
+                                   ref.get_flat_params()))
+    log(f"[scaleout] (c) one worker vs the sequential fit over 8 batches "
+        f"(fp32): bitwise {same}")
+    if not same:
+        raise RuntimeError("the PS wrapper with one worker is not the "
+                           "sequential fit")
+    return {"workers": SO_PS_WORKERS, "batches": len(batches),
+            "score_before": s0, "score": s1, "fit_s": fit_s,
+            "pushes": pw.server.pushes, "median_ms": med,
+            "params": net.num_params(), "one_worker_bitwise_fit": True}
+
+
+def so_reaped(pids) -> list:
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except OSError:
+            pass
+    return alive
+
+
+def so_async() -> dict:
+    """(d) bench_scaleout's configuration through the port, on SO_DEV."""
+    from deeplearning4j_tpu_torch.scaleout import async_trainer as at
+    k, rounds, dev = SO_K, SO_ROUNDS, SO_DEV
+    t0 = time.perf_counter()
+    runs = {}
+
+    def note(tag, rec):
+        slim = {kk: vv for kk, vv in rec.items() if kk != "workers"}
+        slim["ready_s"] = [w.get("ready_s") for w in rec.get("workers", [])]
+        runs[tag] = slim
+        log(f"[scaleout] (d) {tag}: accuracy {rec['accuracy']:.4f}, "
+            f"{rec['samples_per_sec']} samples/s, wall {rec['wall_s']} s"
+            + (f", rcs {rec['returncodes']}, wire {rec['wire_bytes']:.0f} "
+               f"B, staleness max {rec['staleness_max']}, ready s "
+               f"{slim['ready_s']}" if rec["mode"] == "async" else ""))
+        return rec
+
+    sync = note("sync_dp", at.run_sync_dp(k=k, rounds=rounds, device=dev))
+    topk = note("async_topk8", at.run_async(k=k, codec="topk8",
+                                            rounds=rounds, device=dev))
+    f32 = note("async_f32", at.run_async(k=k, codec="f32", rounds=rounds,
+                                         device=dev))
+    kill = note("async_kill", at.run_async(
+        k=k, codec="topk8", rounds=rounds,
+        die_at_round=(k - 1, max(2, rounds // 3)), device=dev))
+    a_thr = note("async_straggler", at.run_async(
+        k=k, codec="topk8", rounds=rounds, duration=SO_DURATION,
+        straggler=SO_STRAGGLER, device=dev))
+    s_thr = note("sync_straggler", at.run_sync_dp(
+        k=k, rounds=rounds, duration=SO_DURATION, straggler=SO_STRAGGLER,
+        device=dev))
+    crossover = (a_thr["samples_per_sec"] / s_thr["samples_per_sec"]
+                 if s_thr["samples_per_sec"] else None)
+    wire_x = (f32["wire_bytes"] / topk["wire_bytes"]
+              if topk["wire_bytes"] else None)
+    async_runs = (topk, f32, kill, a_thr)
+    alive = so_reaped([p for r in async_runs for p in r["pids"]])
+    out = {"k": k, "rounds": rounds, "device": dev,
+           "straggler": list(SO_STRAGGLER), "duration_s": SO_DURATION,
+           "acc_sync": sync["accuracy"], "acc_topk8": topk["accuracy"],
+           "acc_f32": f32["accuracy"], "acc_kill": kill["accuracy"],
+           "wire_bytes_f32": f32["wire_bytes"],
+           "wire_bytes_topk8": topk["wire_bytes"], "wire_reduction_x": wire_x,
+           "crossover_x": crossover,
+           "async_samples_per_s": a_thr["samples_per_sec"],
+           "sync_samples_per_s": s_thr["samples_per_sec"],
+           "staleness_max": topk["staleness_max"],
+           "staleness_bound": topk["staleness_bound"],
+           "kill_returncodes": kill["returncodes"],
+           "workers_reaped": len({p for r in async_runs for p in r["pids"]}),
+           "seconds": time.perf_counter() - t0, "runs": runs}
+    log(f"[scaleout] (d) K={k} x {rounds} rounds on {dev}: accuracy sync "
+        f"{sync['accuracy']:.4f}, topk8 {topk['accuracy']:.4f}, f32 "
+        f"{f32['accuracy']:.4f}, kill {kill['accuracy']:.4f} (band "
+        f"{SO_BAND}); wire f32/topk8 {wire_x}; crossover async/sync under "
+        f"the straggler {crossover} ({a_thr['samples_per_sec']} vs "
+        f"{s_thr['samples_per_sec']} samples/s); staleness max "
+        f"{topk['staleness_max']} (bound {topk['staleness_bound']}); "
+        f"{out['workers_reaped']} workers reaped, alive {alive}; "
+        f"{out['seconds']:.1f} s")
+    for tag, rec in (("topk8", topk), ("f32", f32), ("kill", kill)):
+        if abs(rec["accuracy"] - sync["accuracy"]) > SO_BAND:
+            raise RuntimeError(f"async {tag} accuracy {rec['accuracy']} "
+                               f"outside the band of sync "
+                               f"{sync['accuracy']}")
+    for tag, rec in (("topk8", topk), ("f32", f32)):
+        if rec["returncodes"] != [0] * k:
+            raise RuntimeError(f"async {tag}: rcs {rec['returncodes']}: "
+                               f"{rec['stderr_tails']}")
+    if not (wire_x and wire_x >= SO_WIRE_X):
+        raise RuntimeError(f"wire reduction {wire_x} < {SO_WIRE_X}")
+    if kill["returncodes"][k - 1] != -9 or kill["survivors"] != k - 1:
+        raise RuntimeError(f"the kill run: rcs {kill['returncodes']}, "
+                           f"{kill['survivors']} survivors: "
+                           f"{kill['stderr_tails']}")
+    if alive:
+        raise RuntimeError(f"async workers left running: {alive}")
+    return out
+
+
+def so_recording_w2v():
+    """A ClusterWord2Vec class that keeps its workers, so that their
+    tables (each worker's last epoch) can be folded by hand."""
+    from deeplearning4j_tpu_torch.scaleout.nlp import ClusterWord2Vec
+
+    class Recording(ClusterWord2Vec):
+        def _make_worker(self, seed):
+            w = super()._make_worker(seed)
+            self.kept = getattr(self, "kept", []) + [w]
+            return w
+    return Recording
+
+
+def so_word2vec() -> dict:
+    """(e) ClusterWord2Vec at examples/word2vec_text.py's widths."""
+    from deeplearning4j_tpu_torch.scaleout.data import partition_evenly
+    from deeplearning4j_tpu_torch.scaleout.nlp import TextPipeline
+    Recording = so_recording_w2v()
+    so_sync()
+    t0 = time.perf_counter()
+    w2v = Recording(num_workers=SO_W2V_WORKERS, min_word_frequency=2,
+                    layer_size=24, window_size=3, seed=1,
+                    epochs=SO_W2V_EPOCHS, negative=5, batch_size=128,
+                    device=SO_DEV).fit(W2V_SENTENCES)
+    so_sync()
+    secs = time.perf_counter() - t0
+    model = w2v.model
+    serial = TextPipeline(num_workers=1, min_word_frequency=2)
+    scache = serial.build_vocab_cache(W2V_SENTENCES)
+
+    def words(cache):
+        return [(v.word, v.index, v.element_frequency)
+                for v in cache.vocab_words()]
+
+    same_vocab = words(model.vocab) == words(scache)
+    # the last epoch's fold by hand: float64 host average in worker order,
+    # weighted by the words each worker trained
+    parts = partition_evenly(serial.sequences, SO_W2V_WORKERS)
+    n = np.array([max(sum(len(s) for s in p) * model.iterations, 1)
+                  for p in parts], np.float64)
+    n /= n.sum()
+    folded = {}
+    for name in ("syn0", "syn1", "syn1neg"):
+        mats = [getattr(w.lookup_table, name) for w in w2v.kept]
+        if mats[0] is None:
+            continue
+        acc = np.zeros(tuple(mats[0].shape), np.float64)
+        for m, wt in zip(mats, n):
+            acc += wt * m.cpu().numpy().astype(np.float64)
+        want = torch.from_numpy(acc.astype(np.float32))
+        got = getattr(model.lookup_table, name)
+        folded[name] = bool(got.device.type == SO_DEV
+                            and torch.equal(got.cpu(), want))
+    nearest = model.words_nearest("king", top_n=3)
+    log(f"[scaleout] (e) ClusterWord2Vec {SO_W2V_WORKERS} workers x "
+        f"{SO_W2V_EPOCHS} epochs (layer 24, window 3, negative 5, min "
+        f"frequency 2) on {model.lookup_table.syn0.device}: {secs:.2f} s; "
+        f"vocab bitwise the serial TextPipeline's {same_vocab}; fold by "
+        f"hand equal {folded}; nearest to 'king' {nearest}")
+    if not same_vocab:
+        raise RuntimeError("the cluster vocab differs from the serial one")
+    if not folded or not all(folded.values()):
+        raise RuntimeError(f"the Word2VecChange fold differs: {folded}")
+    return {"workers": SO_W2V_WORKERS, "epochs": SO_W2V_EPOCHS,
+            "fit_s": secs, "vocab_bitwise": True, "fold_bitwise": folded,
+            "nearest_king": nearest}
+
+
+def so_multi_host(seed: int) -> dict:
+    """(f) run_multi_host_training in a 1-rank NCCL group: the master
+    alone over the same paths, bitwise.  In fp32: the loop writes the
+    mean back through ``set_flat_params``, which re-derives the fp32
+    masters of a ``mixed_bf16`` net from its bf16 params."""
+    import tempfile
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import mesh
+    from deeplearning4j_tpu_torch.scaleout import (
+        ParameterAveragingTrainingMaster, batch_and_export)
+    from deeplearning4j_tpu_torch.scaleout.dcn import run_multi_host_training
+    batches = par_lenet_batches(seed)[:2 * SO_WORKERS * 2]
+    kw = dict(num_workers=SO_WORKERS, batch_size_per_worker=PAR_BATCH,
+              averaging_frequency=2)
+    port = mesh.pick_coordinator_port()
+    with tempfile.TemporaryDirectory() as tmp, deterministic(), \
+            cudnn_deterministic():
+        paths = batch_and_export(batches, tmp)
+        alone = par_lenet(SO_DEV, "float32")
+        ParameterAveragingTrainingMaster(**kw).execute_training_paths(
+            alone, paths)
+        mesh.ensure_distributed(f"127.0.0.1:{port}", 1, 0, device=SO_DEV,
+                                group_of_one=True)
+        try:
+            backend = dist.get_backend()
+            net = par_lenet(SO_DEV, "float32")
+            shard = run_multi_host_training(
+                net, ParameterAveragingTrainingMaster(**kw), paths)
+        finally:
+            mesh._reset_bootstrap_for_tests()
+        same = so_equal(net, alone)
+    log(f"[scaleout] (f) run_multi_host_training in a 1-rank {backend} "
+        f"group over {len(shard)} of {len(paths)} paths: bitwise the master "
+        f"alone {same}")
+    if len(shard) != len(paths) or not same:
+        raise RuntimeError("run_multi_host_training in a group of one is not "
+                           "the master alone")
+    if SO_DEV == "cuda" and backend != "nccl":
+        raise RuntimeError(f"the group ran on {backend}, not nccl")
+    return {"backend": backend, "paths": len(paths), "bitwise": True}
+
+
+def phase_scaleout(N, A, seed: int, ffcnn: dict) -> dict:
+    """Phase 21: the cluster-training tier on the card ((a)-(f)); K1-K3
+    launch on (b) only, every launch on its Hopper body."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    A.reset_launches()
+    batches, test, gen_s = so_data()
+    result = {"master_lenet": so_master_lenet(batches, test, gen_s, ffcnn)}
+    if any(A.LAUNCHES.values()):
+        raise RuntimeError("LeNet under the master launched a flash kernel")
+    result["attention"], launches = so_attention(N, A, seed)
+    torch.cuda.empty_cache()
+    A.reset_launches()
+    result["ps_wrapper"] = so_ps_wrapper(batches, test)
+    result["async"] = so_async()
+    result["word2vec"] = so_word2vec()
+    result["multi_host"] = so_multi_host(seed)
+    if any(A.LAUNCHES.values()):
+        raise RuntimeError(f"(c)-(f) launched a flash kernel: {A.LAUNCHES}")
+    result["launches"] = launches
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7422,6 +8006,9 @@ def main(argv=None) -> int:
     parallel = phase_parallel(N, A, args.seed, ffcnn)
     torch.cuda.empty_cache()
     log(f"[parallel] phase 20 in {parallel['seconds']:.1f} s; {card}")
+    scaleout = phase_scaleout(N, A, args.seed, ffcnn)
+    torch.cuda.empty_cache()
+    log(f"[scaleout] phase 21 in {scaleout['seconds']:.1f} s; {card}")
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -7439,7 +8026,8 @@ def main(argv=None) -> int:
              "pretrain": pretrain["launches"],
              "serving_v2": serving_v2["launches"],
              "deploy": deploy["launches"], "fleet": fleet["launches"],
-             "parallel": parallel["launches"]}
+             "parallel": parallel["launches"],
+             "scaleout": scaleout["launches"]}
     csrc = "deeplearning4j_tpu_torch/ops/csrc/"
     bodies = {"flash_fwd": csrc + "flash_fwd_sm90.cuh",
               "flash_fwd_partials": csrc + "flash_fwd_sm90.cuh",
@@ -7464,6 +8052,7 @@ def main(argv=None) -> int:
                      default=str))
     print(json.dumps({"fleet": fleet}, default=str))
     print(json.dumps({"parallel": parallel}, default=str))
+    print(json.dumps({"scaleout": scaleout}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

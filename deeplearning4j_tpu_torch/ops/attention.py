@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -87,14 +88,26 @@ FWD_KEY_TILES = {"scalar": TILE, "tc": TILE, "sm90": 128}
 # (TILE; TcCfg::BS; SM90_DQ_BK_D64 and SM90_DQ_BK_D128)
 DQ_KEY_TILES = {"scalar": (TILE, TILE), "tc": (64, 32), "sm90": (128, 64)}
 _TMA_ENCODE_FAILED = 100000      # + the CUresult, from any entry point
+# guards the counts (replicas launch from several threads of one process,
+# as the cluster tier's pool threads do) and the library's first load
+_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    for counts in BODY_LAUNCHES.values():
-        for body in counts:
-            counts[body] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        for counts in BODY_LAUNCHES.values():
+            for body in counts:
+                counts[body] = 0
+
+
+def count_launch(name: str, body: str) -> None:
+    """Add one launch of kernel ``name`` on ``body`` to the counts (what
+    every wrapper does after its kernel launched; safe from any thread)."""
+    with _LOCK:
+        LAUNCHES[name] += 1
+        BODY_LAUNCHES[name][body] += 1
 
 
 def _check_head_dim(d: int) -> None:
@@ -137,12 +150,14 @@ def _lib():
     """The kernel library with every C function's signature declared."""
     global _bound
     if _bound is None:
-        lib = kernel_build.load(_SOURCE)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _bound = lib
+        with _LOCK:
+            if _bound is None:
+                lib = kernel_build.load(_SOURCE)
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _bound = lib
     return _bound
 
 
@@ -163,8 +178,7 @@ def _launch(name: str, fn: str, device: torch.device, *args,
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: CUDA "
                            f"error {rc}")
-    LAUNCHES[name] += 1
-    BODY_LAUNCHES[name][body] += 1
+    count_launch(name, body)
 
 
 def fwd_route(q: Tensor, k: Tensor, v: Tensor) -> str:

@@ -696,3 +696,46 @@ def test_library_hash_covers_every_csrc_file_and_the_flags(tmp_path,
     monkeypatch.setattr(kernel_build, "NVCC_FLAGS",
                         kernel_build.NVCC_FLAGS + ("-lineinfo",))
     assert kernel_build.library_path("k.cu") != third
+
+
+def test_launch_counts_are_exact_from_eight_threads():
+    """The wrappers' counting path (``count_launch``, what every launch
+    calls) from 8 threads at once, as the cluster tier's pool threads
+    launch: no count is lost, in ``LAUNCHES`` nor in ``BODY_LAUNCHES``."""
+    import threading
+    saved = (dict(port.LAUNCHES),
+             {k: dict(v) for k, v in port.BODY_LAUNCHES.items()})
+    port.reset_launches()
+    n, threads = 20000, 8
+    names = list(port.LAUNCHES)
+    start = threading.Barrier(threads)
+
+    def hammer(i):
+        start.wait()
+        name = names[i % len(names)]
+        body = port.FWD_BODIES[i % len(port.FWD_BODIES)]
+        for _ in range(n):
+            port.count_launch(name, body)
+
+    try:
+        pool = [threading.Thread(target=hammer, args=(i,))
+                for i in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+        want = {name: n * sum(1 for i in range(threads)
+                              if names[i % len(names)] == name)
+                for name in names}
+        assert port.LAUNCHES == want
+        bodies = {name: dict.fromkeys(port.FWD_BODIES, 0) for name in names}
+        for i in range(threads):
+            bodies[names[i % len(names)]][
+                port.FWD_BODIES[i % len(port.FWD_BODIES)]] += n
+        assert port.BODY_LAUNCHES == bodies
+        port.reset_launches()
+        assert not any(port.LAUNCHES.values())
+    finally:
+        port.LAUNCHES.update(saved[0])
+        for k, v in saved[1].items():
+            port.BODY_LAUNCHES[k].update(v)

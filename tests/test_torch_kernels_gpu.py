@@ -1746,3 +1746,39 @@ def test_live_fleet_of_two_workers_on_the_card(cuda, tmp_path):
         procs = [h.proc for h in router._workers.values()]
         router.stop()
     assert all(p.poll() is not None for p in procs)
+
+
+def test_kernels_from_two_pool_threads_equal_the_serial_launches(cuda):
+    """K1-K3 launched from 2 pool threads sharing the card's default
+    stream, as the cluster tier's replicas launch them: every output and
+    gradient bitwise the same calls made one after another, and the
+    counts exact (one K1, K2 and K3 a call, all on the Hopper body)."""
+    from concurrent.futures import ThreadPoolExecutor
+    reps, shape = 8, (2, 256, 2, 64)
+    inputs = [_inputs(shape, torch.bfloat16, cuda, seed=40 + i)
+              for i in range(2)]
+
+    def run(qkvg):
+        outs = []
+        for _ in range(reps):
+            q, k, v = (x.clone().requires_grad_() for x in qkvg[:3])
+            out = A.flash_attention(q, k, v, causal=True)
+            out.backward(qkvg[3])
+            outs.append([out.detach(), q.grad, k.grad, v.grad])
+        return outs
+
+    serial = [run(x) for x in inputs]
+    torch.cuda.synchronize()
+    A.reset_launches()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        threaded = list(pool.map(run, inputs))
+    torch.cuda.synchronize()
+    n = 2 * reps
+    assert A.LAUNCHES == {"flash_fwd": n, "flash_fwd_partials": 0,
+                          "flash_bwd_dkdv": n, "flash_bwd_dq": n}
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        assert A.BODY_LAUNCHES[name] == {"scalar": 0, "tc": 0, "sm90": n}
+    for want, got in zip(serial, threaded):
+        for a_rep, b_rep in zip(want, got):
+            for a, b in zip(a_rep, b_rep):
+                assert torch.equal(a, b)

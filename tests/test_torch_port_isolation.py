@@ -381,3 +381,121 @@ def test_fleet_worker_child_loads_no_jax(tmp_path):
     assert report["device"] == "cpu" and report["backend"] == "gloo"
     assert len(report["scores"]) == 2 and report["param_sha"]
     assert lines[-1] == "[]"
+
+
+#: the cluster-training tier (ROADMAP A11's scaleout)
+SCALEOUT_MODULES = [
+    "deeplearning4j_tpu_torch.scaleout",
+    "deeplearning4j_tpu_torch.scaleout.api",
+    "deeplearning4j_tpu_torch.scaleout.data",
+    "deeplearning4j_tpu_torch.scaleout.param_avg",
+    "deeplearning4j_tpu_torch.scaleout.frontend",
+    "deeplearning4j_tpu_torch.scaleout.dcn",
+    "deeplearning4j_tpu_torch.scaleout.compression",
+    "deeplearning4j_tpu_torch.scaleout.param_server",
+    "deeplearning4j_tpu_torch.scaleout.async_trainer",
+    "deeplearning4j_tpu_torch.scaleout.nlp",
+]
+
+
+def test_scaleout_modules_import_with_jax_blocked():
+    """The cluster tier imports, and a master split, a coded push and
+    pull through the TCP server and a cluster Word2Vec run on the CPU,
+    with every import of ``jax`` or the JAX package refused; without a
+    card its entry points refuse to run unless asked for the CPU."""
+    run = _BLOCKED_IMPORT + """
+import numpy as np
+import torch
+from deeplearning4j_tpu_torch.scaleout import (
+    ClusterMultiLayer, ParameterAveragingTrainingMaster)
+from deeplearning4j_tpu_torch.scaleout import async_trainer as at
+from deeplearning4j_tpu_torch.scaleout.nlp import ClusterWord2Vec
+from deeplearning4j_tpu_torch.scaleout.param_server import (
+    ParameterServer, TcpParameterServer, TcpParameterServerClient)
+net = at.build_net(device="cpu")
+ClusterMultiLayer(net, ParameterAveragingTrainingMaster(
+    num_workers=2, averaging_frequency=1)).fit(at.make_batches(4, 8, 0))
+assert net.iteration == 2
+store = ParameterServer(np.zeros(8), chunk_size=4)
+srv = TcpParameterServer(store)
+with TcpParameterServerClient(srv.host, srv.port, codec="topk8") as c:
+    c.push_delta(np.ones(8))
+    assert c.pull_coded().shape == (8,)
+srv.close()
+w2v = ClusterWord2Vec(num_workers=2, layer_size=4, min_word_frequency=1,
+                      device="cpu").fit(["a b c a b", "c a b c"] * 2)
+assert w2v.model.lookup_table.syn0.shape == (3, 4)
+if not torch.cuda.is_available():
+    for make in (at.build_net, lambda: at.run_sync_dp(k=1, rounds=1),
+                 lambda: ClusterWord2Vec(num_workers=2)):
+        try:
+            make()
+        except RuntimeError as e:
+            assert "CUDA" in str(e)
+        else:
+            raise AssertionError("ran without a card")
+"""
+    out = subprocess.run([sys.executable, "-c", run] + SCALEOUT_MODULES,
+                         cwd=ROOT, env=_clean_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _scaleout_child(module, *args):
+    """A child running ``python -m module args`` with ``jax`` and the JAX
+    package refused, printing the refused roots it loaded at exit."""
+    return _BLOCKED_IMPORT + f"mod, argv = {module!r}, {list(args)!r}" + (
+        _SCALEOUT_CHILD)
+
+
+_SCALEOUT_CHILD = """
+import runpy
+sys.argv = ["child"] + argv
+try:
+    runpy.run_module(mod, run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu")))
+"""
+
+
+def test_async_worker_and_serve_children_load_no_jax():
+    """The parameter server's ``--serve`` child and an async worker
+    child, started as the driver starts them but with every import of
+    ``jax`` or the JAX package refused: the server prints its address,
+    the worker trains against it on the CPU, reports, and neither has
+    ``jax`` or the JAX package in ``sys.modules``."""
+    import json
+    serve = subprocess.Popen(
+        [sys.executable, "-c", _scaleout_child(
+            "deeplearning4j_tpu_torch.scaleout.param_server", "--serve",
+            "--dim", "131", "--chunk-size", "64")],
+        cwd=ROOT, env=_clean_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        assert serve.stdout.readline().strip() == "ok"  # the prelude's
+        addr = json.loads(serve.stdout.readline())
+        worker = subprocess.run(
+            [sys.executable, "-c", _scaleout_child(
+                "deeplearning4j_tpu_torch.scaleout.async_trainer",
+                "--worker", "--device", "cpu", "--host", addr["host"],
+                "--port", str(addr["port"]), "--rank", "0", "--codec",
+                "topk8", "--rounds", "3")],
+            cwd=ROOT, env=_clean_env(), capture_output=True, text=True,
+            timeout=120)
+        assert worker.returncode == 0, worker.stderr
+        lines = worker.stdout.strip().splitlines()
+        report = json.loads(lines[-2])
+        assert report["rounds"] == 3 and report["device"] == "cpu"
+        assert lines[-1] == "[]"
+        # the server child's own modules, printed when it stops
+        serve.send_signal(2)
+        out, err = serve.communicate(timeout=30)
+        assert serve.returncode == 0, err
+        assert out.strip().splitlines()[-1] == "[]"
+    finally:
+        if serve.poll() is None:
+            serve.kill()
+            serve.wait()
