@@ -433,13 +433,50 @@ Phases (each raises on failure; the exit code is non-zero on any):
    ``torch.equal`` to a host float64 fold of the workers' tables; (f)
    ``run_multi_host_training`` in a 1-rank NCCL group bitwise the master
    alone.  (a) and (c)-(f) launch no flash kernel.
+22. clustering and t-SNE ([clustering] lines): (a) ``KMeansClustering(
+   k=10)``, euclidean, on 10,000 procedural-MNIST rows of 784 (config
+   #1's input width): the Lloyd loop's ms an iteration and host reads,
+   peak memory, the assignments equal to the CPU run's from the same
+   seed and the centers within ``CL_CENTER_RTOL``; (b) cosine k-means on
+   phase 15's config-#4 word vectors (10,000 x 128), card vs CPU read;
+   for both, one assignment step from the same centers may differ card vs
+   CPU only at a near tie (``CL_TIE``), and the picks that TF32 distances
+   would flip are read; (c) ``Tsne()`` at its defaults (perplexity 30,
+   1000 iterations) on the word vectors, the tiled path: ms an iteration,
+   peak memory below an (N, N) float32 matrix, KL falling from iteration
+   0, the share of each point's 10 nearest neighbours kept at least
+   ``CL_PRESERVED_X`` times chance, the coordinates published through the
+   port's ``UIServer.set_tsne_data`` and read back from ``GET
+   /tsne/data`` over HTTP, and 10 iterations card vs CPU from the same
+   draws within ``CL_RTOL``; (d) the exact path at N = 4,096 MNIST rows:
+   the same readings, the share of each point's 10 nearest in the
+   embedding sharing its label at least ``CL_PURITY`` of that share in
+   the standardised input; (e) a VP tree and
+   a KD tree over the word vectors, every query held to brute force.
+   Launches no flash kernel.
+23. the streaming tier ([streaming] lines; 22 and 23 on a
+   ``{"clustering": ..., "streaming": ...}`` JSON line): (a) a
+   ``StreamBroker`` on localhost, 8,192 procedural-MNIST records (784
+   features and a label, as CSV) produced to a topic of 4 partitions;
+   (b) LeNet-5 (config #1) behind ``StreamingPipeline(mode="both",
+   batch_size=64)`` over a ``BrokerRecordSource``: records a second,
+   ``streaming_batch_ms`` p50/p99, the idle share of one profiled
+   micro-batch, every micro-batch's predictions bitwise ``net.output`` on
+   its padded rows and the trained params bitwise a plain ``fit`` of the
+   same micro-batches (deterministic algorithms), the group's offsets at
+   the end offsets; (c) at-least-once: a consumer crashes (no commit, no
+   leave) mid-stream, a new one in the same group takes over after the
+   session timeout, every offset processed at least once and the
+   committed offsets at the end offsets; every thread the phase started
+   joined.  Launches no flash kernel.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
 feed-forward/convolutional, recurrent, harness, graph, fused, transfer,
 embeddings and deepwalk results, a ``{"pretrain": ...}`` JSON line, a
 ``{"serving_v2": ..., "deploy": ...}`` JSON line, a ``{"fleet": ...}``
 JSON line, a ``{"parallel": ...}`` JSON line, a ``{"scaleout": ...}``
-JSON line, one ``{"kernels":
+JSON line, a ``{"clustering": ..., "streaming": ...}`` JSON line, one
+``{"kernels":
 [...]}`` JSON line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -3839,6 +3876,7 @@ def emb_fit() -> dict:
     wall_ms, events, by_name, busy_ms = profiled(lambda: sv.fit(seqs))
     last = dict(sv._device_pipeline_stats)
     peak = torch.cuda.max_memory_allocated()
+    EMB_KEPT["vectors"] = sv.lookup_table.syn0.detach().float().cpu().numpy()
     pairs = last["pairs_trained"]
     med = float(np.median(secs))
     first_loss = first["loss_sum"] / first["pairs_trained"]
@@ -7939,6 +7977,668 @@ def phase_scaleout(N, A, seed: int, ffcnn: dict) -> dict:
     return result
 
 
+# ------------------------------------------------------------- phase 22
+#
+# Clustering and t-SNE on the card: k-means on config #1's input width
+# and on config #4's word vectors, t-SNE of those vectors into the UI, the
+# exact t-SNE path at its largest size, the host trees.  CL_DEV = "cpu"
+# rehearses the phase on the CPU (at smaller CL_* sizes).
+
+CL_DEV = "cuda"
+CL_ROWS, CL_K, CL_MAX_ITER, CL_SEED = 10_000, 10, 100, 0
+CL_EXACT_N = 4096            # the exact t-SNE path's largest size
+CL_PARITY_ITERS, CL_PARITY_LR = 10, 10.0
+CL_RTOL = 1e-4               # 10 t-SNE iterations card vs CPU, of max |y|
+CL_CENTER_RTOL = 1e-5        # k-means centers card vs CPU
+CL_TIE = 1e-5                # a relative gap below which a pick may flip
+CL_KNN, CL_QUERIES, CL_KD_QUERIES = 10, 20, 5
+CL_PRESERVED_X = 10.0        # t-SNE kNN kept: at least this times chance
+CL_PURITY = 0.85             # exact t-SNE of MNIST: the same-label share
+                             # of each point's 10-NN, of the input's
+EMB_KEPT: Dict[str, np.ndarray] = {}   # phase 15's trained word vectors
+
+
+def cl_sync() -> None:
+    if CL_DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def cl_reset_peak() -> int:
+    if CL_DEV != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def cl_peak() -> int:
+    return torch.cuda.max_memory_allocated() if CL_DEV == "cuda" else 0
+
+
+def cl_mnist(n: int) -> tuple:
+    """``n`` procedural MNIST rows (784 features in [0, 1]) and labels."""
+    from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+    ds = next(iter(MnistDataSetIterator(n, n, train=True, shuffle=False)))
+    x = np.asarray(ds.features, np.float32).reshape(n, -1)
+    return x, np.argmax(np.asarray(ds.labels), axis=1)
+
+
+def cl_word_vectors() -> np.ndarray:
+    """Phase 15's config-#4 Word2Vec vectors (``emb_fit`` keeps them);
+    trained here when the phase runs alone."""
+    if "vectors" not in EMB_KEPT:
+        emb_fit()
+    return EMB_KEPT["vectors"]
+
+
+def cl_ties(x: np.ndarray, centers: np.ndarray, cosine: bool,
+            idx: np.ndarray) -> float:
+    """The largest relative gap between the best and second-best center
+    (float64 on the host) of the rows ``idx``."""
+    if not len(idx):
+        return 0.0
+    a, c = x[idx].astype(np.float64), centers.astype(np.float64)
+    if cosine:
+        a = a / np.maximum(np.linalg.norm(a, axis=1, keepdims=True), 1e-12)
+        c = c / np.maximum(np.linalg.norm(c, axis=1, keepdims=True), 1e-12)
+        s = np.sort(1.0 - a @ c.T, axis=1)
+        return float(np.max(s[:, 1] - s[:, 0]))
+    d = np.sort(((a[:, None, :] - c[None]) ** 2).sum(-1), axis=1)
+    return float(np.max((d[:, 1] - d[:, 0]) / np.maximum(d[:, 0], 1e-12)))
+
+
+def cl_step_check(what: str, x: np.ndarray, centers: np.ndarray,
+                  cosine: bool) -> dict:
+    """One assignment step from the same centers on CL_DEV and on the
+    CPU: any disagreement must be a near tie (gap <= CL_TIE in float64).
+    Also the reading of TF32 distances: how many picks flip with the
+    matmul precision at "high"."""
+    from deeplearning4j_tpu_torch.clustering import kmeans as K
+    pts = torch.as_tensor(x, device=CL_DEV)
+    c = torch.as_tensor(centers, device=CL_DEV)
+    with K.ieee_f32_matmul():
+        dev = K._assign(pts, c, cosine).cpu().numpy()
+        cpu = K._assign(torch.as_tensor(x), torch.as_tensor(centers),
+                        cosine).numpy()
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = K._assign(pts, c, cosine).cpu().numpy()
+    finally:
+        torch.set_float32_matmul_precision(before)
+    differ = np.nonzero(dev != cpu)[0]
+    gap = cl_ties(x, centers, cosine, differ)
+    out = {"step_differ": int(len(differ)), "step_differ_max_gap": gap,
+           "tf32_flips": int((tf32 != dev).sum())}
+    if gap > CL_TIE:
+        raise RuntimeError(f"{what}: an assignment step differs card vs CPU "
+                           f"off a near tie (gap {gap:.3g})")
+    return out
+
+
+def cl_kmeans(what: str, x: np.ndarray, metric: str,
+              equal_assignments: bool) -> dict:
+    """``KMeansClustering(CL_K)`` on CL_DEV and on the CPU from the same
+    seed, and the Lloyd loop timed alone from the same k-means++
+    centers."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering import kmeans as K
+    cosine = metric == "cosinesimilarity"
+    km = KMeansClustering(CL_K, CL_MAX_ITER, metric, seed=CL_SEED,
+                          device=CL_DEV)
+    if km.device.type != CL_DEV:
+        raise RuntimeError(f"KMeansClustering runs on {km.device}")
+    t0 = time.perf_counter()
+    got = km.apply_to(x)
+    apply_s = time.perf_counter() - t0
+    cpu = KMeansClustering(CL_K, CL_MAX_ITER, metric, seed=CL_SEED,
+                           device="cpu")
+    want = cpu.apply_to(x)
+    pts = torch.as_tensor(x, device=CL_DEV)
+    init = torch.as_tensor(km.seed_centers(x, CL_SEED), device=CL_DEV)
+    held = cl_reset_peak()
+    cl_sync()
+    t0 = time.perf_counter()
+    _, _, iters, reads = K.lloyd(pts, init, CL_K, CL_MAX_ITER, cosine)
+    cl_sync()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    peak = cl_peak()
+    same = int((got.assignments == want.assignments).sum())
+    rel = float(np.max(np.abs(got.centers - want.centers))
+                / max(np.max(np.abs(want.centers)), 1e-30))
+    out = {"rows": int(x.shape[0]), "dim": int(x.shape[1]), "k": CL_K,
+           "metric": metric, "iterations": km.iterations[0],
+           "iterations_cpu": cpu.iterations[0], "host_reads": km.host_reads,
+           "apply_s": apply_s, "lloyd_ms": loop_ms,
+           "ms_per_iteration": loop_ms / max(iters, 1),
+           "lloyd_host_reads": reads, "peak_bytes_over_held": peak - held,
+           "assignments_equal": same, "centers_rel": rel,
+           "cluster_sizes": [c.num_points() for c in got.get_clusters()]}
+    out.update(cl_step_check(what, x, want.centers, cosine))
+    log(f"[clustering] {what}: k-means k={CL_K} {metric} on "
+        f"{x.shape[0]}x{x.shape[1]}: {iters} Lloyd iterations "
+        f"({cpu.iterations[0]} on the CPU), {out['ms_per_iteration']:.4f} "
+        f"ms an iteration, {km.host_reads} host reads, apply_to "
+        f"{apply_s:.3f} s, peak +{(peak - held) / 2**20:.1f} MiB; card vs "
+        f"CPU: {same}/{x.shape[0]} assignments equal, centers "
+        f"{rel:.3g} of max; one step from the CPU's centers: "
+        f"{out['step_differ']} differ (near ties, gap <= "
+        f"{out['step_differ_max_gap']:.3g}); TF32 distances would flip "
+        f"{out['tf32_flips']}")
+    if equal_assignments and same != x.shape[0]:
+        raise RuntimeError(f"{what}: {x.shape[0] - same} assignments differ "
+                           "card vs CPU")
+    if equal_assignments and rel > CL_CENTER_RTOL:
+        raise RuntimeError(f"{what}: centers {rel:.3g} card vs CPU")
+    return out
+
+
+def cl_knn_rows(z: torch.Tensor, k: int, block: int = 1024) -> np.ndarray:
+    """Each row's ``k`` nearest other rows (squared euclidean, blocked)."""
+    n2 = (z * z).sum(1)
+    out = []
+    for s in range(0, z.shape[0], block):
+        d = n2[s:s + block, None] + n2[None] - 2.0 * z[s:s + block] @ z.T
+        d[:, s:s + block].diagonal().fill_(float("inf"))
+        out.append(torch.topk(-d, k, dim=1).indices.cpu())
+    return torch.cat(out).numpy()
+
+
+def cl_preserved(x: np.ndarray, y: np.ndarray) -> float:
+    """The share of each point's CL_KNN nearest neighbours in ``x`` kept
+    among its CL_KNN nearest in the embedding ``y`` (chance is CL_KNN/N)."""
+    from deeplearning4j_tpu_torch.clustering import kmeans as K
+    with K.ieee_f32_matmul():
+        a = cl_knn_rows(torch.as_tensor(x, device=CL_DEV), CL_KNN)
+        b = cl_knn_rows(torch.as_tensor(y, device=CL_DEV), CL_KNN)
+    return float(np.mean([len(np.intersect1d(p, q)) for p, q in zip(a, b)])
+                 / CL_KNN)
+
+
+def cl_purity(z: np.ndarray, labels: np.ndarray) -> float:
+    """The share of each row's CL_KNN nearest rows with its label."""
+    from deeplearning4j_tpu_torch.clustering import kmeans as K
+    with K.ieee_f32_matmul():
+        knn = cl_knn_rows(torch.as_tensor(z, device=CL_DEV), CL_KNN)
+    return float(np.mean(labels[knn] == labels[:, None]))
+
+
+def cl_tsne(what: str, x: np.ndarray, **kw) -> tuple:
+    """``Tsne(**kw)`` on CL_DEV: the fitted object and its readings."""
+    from deeplearning4j_tpu_torch.plot import Tsne
+    t = Tsne(device=CL_DEV, **kw)
+    held = cl_reset_peak()
+    t.fit(x)
+    peak = cl_peak() - held
+    iters = t.max_iter or float("nan")
+    out = {"rows": int(x.shape[0]), "dim": int(x.shape[1]),
+           "path": "exact" if x.shape[0] <= t.tile_threshold else "tiled",
+           "max_iter": t.max_iter, "perplexity": t.perplexity,
+           "affinities_ms": t.phase_ms["affinities"],
+           "ms_per_iteration": t.phase_ms["iterations"] / iters,
+           "host_reads": t.host_reads, "peak_bytes_over_held": peak,
+           "nn_f32_bytes": 4 * x.shape[0] ** 2, "kl": t.kl_divergence}
+    log(f"[clustering] {what}: t-SNE ({out['path']}) of {x.shape[0]}x"
+        f"{x.shape[1]}, perplexity {t.perplexity}, {t.max_iter} "
+        f"iterations: affinities {out['affinities_ms']:.1f} ms, "
+        f"{out['ms_per_iteration']:.4f} ms an iteration, {t.host_reads} "
+        f"host reads, peak +{peak / 2**20:.1f} MiB beside an (N, N) f32 "
+        f"matrix's {out['nn_f32_bytes'] / 2**20:.1f} MiB, KL "
+        f"{t.kl_divergence:.4f}")
+    if not (np.isfinite(t.coords).all() and np.isfinite(t.kl_divergence)):
+        raise RuntimeError(f"{what}: t-SNE gave non-finite values")
+    return t, out
+
+
+def cl_tsne_parity(what: str, x: np.ndarray, **kw) -> dict:
+    """CL_PARITY_ITERS iterations on CL_DEV and on the CPU from the same
+    seeded draws at learning rate CL_PARITY_LR (the default 200 with
+    exaggeration 12 turns float32 rounding into ~1e-3 in 10 steps on any
+    two devices), held at CL_RTOL of the largest coordinate."""
+    from deeplearning4j_tpu_torch.plot import Tsne
+    runs = [Tsne(device=dev, max_iter=CL_PARITY_ITERS,
+                 learning_rate=CL_PARITY_LR, **kw).fit(x)
+            for dev in (CL_DEV, "cpu")]
+    scale = float(np.max(np.abs(runs[1].coords)))
+    err = float(np.max(np.abs(runs[0].coords - runs[1].coords))) / scale
+    kl = abs(runs[0].kl_divergence - runs[1].kl_divergence) / abs(
+        runs[1].kl_divergence)
+    log(f"[clustering] {what}: {CL_PARITY_ITERS} t-SNE iterations card vs "
+        f"CPU {err:.3g} of max |y| ({scale:.4g}), KL {kl:.3g} relative "
+        f"(limit {CL_RTOL})")
+    if not (err <= CL_RTOL and kl <= CL_RTOL):
+        raise RuntimeError(f"{what}: t-SNE card vs CPU {err:.3g}, KL "
+                           f"{kl:.3g}")
+    return {"iterations": CL_PARITY_ITERS, "learning_rate": CL_PARITY_LR,
+            "max_rel": err, "kl_rel": kl}
+
+
+def cl_ui_roundtrip(coords: np.ndarray, labels) -> dict:
+    """Publish through the port's ``UIServer.set_tsne_data`` and read the
+    coordinates back over HTTP from ``GET /tsne/data``."""
+    import urllib.request
+    from deeplearning4j_tpu_torch.ui.server import UIServer
+    srv = UIServer(port=0).start()
+    try:
+        srv.set_tsne_data(coords, labels)
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/tsne/data", timeout=30) as r:
+            body = json.loads(r.read())
+        get_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        srv.stop()
+    got = np.asarray(body["coords"])
+    if not (np.array_equal(got, coords.astype(float))
+            and body["labels"] == [str(l) for l in labels]):
+        raise RuntimeError("GET /tsne/data did not return the coordinates")
+    log(f"[clustering] /tsne/data: {len(got)} points back over HTTP in "
+        f"{get_ms:.1f} ms")
+    return {"points": int(len(got)), "get_ms": get_ms}
+
+
+def cl_trees(v: np.ndarray) -> dict:
+    """A VP tree and a KD tree over the word vectors, each query held to
+    brute force."""
+    from deeplearning4j_tpu_torch.clustering import KDTree, VPTree
+    rng = np.random.RandomState(CL_SEED)
+    queries = (v[rng.choice(len(v), CL_QUERIES, replace=False)]
+               + 0.01 * rng.randn(CL_QUERIES, v.shape[1])).astype(
+                   np.float32)
+    t0 = time.perf_counter()
+    vp = VPTree(v, "euclidean", seed=CL_SEED)
+    vp_build = time.perf_counter() - t0
+    vp_ms = []
+    for q in queries:
+        t0 = time.perf_counter()
+        idx, dist = vp.knn(q, k=CL_KNN)
+        vp_ms.append((time.perf_counter() - t0) * 1e3)
+        brute = np.linalg.norm(v - q, axis=1)
+        order = np.argsort(brute)[:CL_KNN]
+        if not (set(idx.tolist()) == set(order.tolist())
+                and np.allclose(dist, brute[order], rtol=1e-5)):
+            raise RuntimeError("the VP tree's kNN differs from brute force")
+    t0 = time.perf_counter()
+    kd = KDTree(v.shape[1])
+    for row in v:
+        kd.insert(row)
+    kd_build = time.perf_counter() - t0
+    kd_ms = []
+    for q in queries[:CL_KD_QUERIES]:
+        t0 = time.perf_counter()
+        d, p = kd.nn(q)
+        kd_ms.append((time.perf_counter() - t0) * 1e3)
+        brute = np.linalg.norm(v.astype(np.float64) - q, axis=1)
+        if not (abs(d - brute.min()) <= 1e-5 * brute.min()
+                and np.array_equal(p, v[np.argmin(brute)])):
+            raise RuntimeError("the KD tree's nn differs from brute force")
+    out = {"points": int(len(v)), "vp_build_s": vp_build,
+           "vp_knn_ms_median": float(np.median(vp_ms)),
+           "kd_build_s": kd_build, "kd_nn_ms_median": float(np.median(kd_ms)),
+           "queries": [CL_QUERIES, CL_KD_QUERIES]}
+    log(f"[clustering] trees over {len(v)}x{v.shape[1]}: VP build "
+        f"{vp_build:.2f} s, {CL_KNN}-NN {out['vp_knn_ms_median']:.2f} ms; KD "
+        f"build {kd_build:.2f} s, nn {out['kd_nn_ms_median']:.2f} ms; all "
+        "held to brute force")
+    return out
+
+
+def phase_clustering(A) -> dict:
+    """Phase 22: clustering and t-SNE (the ``clustering`` path of the
+    kernels line: it launches none of K1-K4)."""
+    t0 = time.perf_counter()
+    cl_sync()
+    A.reset_launches()
+    x, labels = cl_mnist(CL_ROWS)
+    words = cl_word_vectors()
+    marks = [("data", time.perf_counter())]
+    result = {"kmeans_mnist": cl_kmeans("(a)", x, "euclidean", True)}
+    marks.append(("kmeans_mnist", time.perf_counter()))
+    result["kmeans_words"] = cl_kmeans("(b)", words, "cosinesimilarity",
+                                       False)
+    marks.append(("kmeans_words", time.perf_counter()))
+    t, tiled = cl_tsne("(c)", words)
+    if tiled["path"] != "tiled" or tiled["peak_bytes_over_held"] >= (
+            tiled["nn_f32_bytes"] if CL_DEV == "cuda" else 1):
+        raise RuntimeError(f"(c) took the {tiled['path']} path with peak "
+                           f"{tiled['peak_bytes_over_held']} bytes")
+    start = cl_tsne("(c) at iteration 0", words, max_iter=0)[1]["kl"]
+    tiled["kl_start"] = start
+    tiled["knn_preserved"] = cl_preserved(words, t.coords)
+    tiled["knn_chance"] = CL_KNN / len(words)
+    log(f"[clustering] (c) KL {start:.4f} -> {t.kl_divergence:.4f}; "
+        f"{tiled['knn_preserved']:.4f} of each point's {CL_KNN} nearest "
+        f"kept (chance {tiled['knn_chance']:.4f})")
+    if not (t.kl_divergence < start and tiled["knn_preserved"]
+            >= CL_PRESERVED_X * tiled["knn_chance"]):
+        raise RuntimeError("(c) the t-SNE of the word vectors did not learn")
+    tiled["ui"] = cl_ui_roundtrip(t.coords, [f"w{i}" for i in
+                                             range(len(words))])
+    marks.append(("tsne_words", time.perf_counter()))
+    tiled["card_vs_cpu"] = cl_tsne_parity("(c)", words)
+    marks.append(("tsne_words_card_vs_cpu", time.perf_counter()))
+    result["tsne_words"] = tiled
+    xe, le = x[:CL_EXACT_N], labels[:CL_EXACT_N]
+    t, exact = cl_tsne("(d)", xe)
+    start = cl_tsne("(d) at iteration 0", xe, max_iter=0)[1]["kl"]
+    exact["kl_start"] = start
+    exact["label_purity"] = cl_purity(t.coords, le)
+    # the input as fit sees it: each feature standardised
+    exact["label_purity_input"] = cl_purity(
+        (xe - xe.mean(0)) / np.maximum(xe.std(0), 1e-12), le)
+    log(f"[clustering] (d) KL {start:.4f} -> {t.kl_divergence:.4f}; "
+        f"{exact['label_purity']:.4f} of each point's {CL_KNN} nearest in "
+        f"the embedding share its label "
+        f"({exact['label_purity_input']:.4f} in the standardised input)")
+    if exact["path"] != "exact" or not (
+            t.kl_divergence < start and exact["label_purity"]
+            >= CL_PURITY * exact["label_purity_input"]):
+        raise RuntimeError("(d) the exact t-SNE of MNIST did not learn")
+    marks.append(("tsne_mnist_exact", time.perf_counter()))
+    exact["card_vs_cpu"] = cl_tsne_parity("(d)", xe)
+    marks.append(("tsne_mnist_card_vs_cpu", time.perf_counter()))
+    result["tsne_mnist_exact"] = exact
+    result["trees"] = cl_trees(words)
+    marks.append(("trees", time.perf_counter()))
+    result["launches"] = dict(A.LAUNCHES)
+    if any(result["launches"].values()):
+        raise RuntimeError("the clustering path launched a flash kernel")
+    result["seconds_by_part"] = {
+        name: b - a for (_, a), (name, b) in zip(
+            [("start", t0)] + marks[:-1], marks)}
+    log(f"[clustering] seconds by part {result['seconds_by_part']}")
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
+# ------------------------------------------------------------- phase 23
+#
+# The streaming tier on the card: LeNet-5 (config #1) served and trained
+# online from a broker topic.  ST_DEV = "cpu" rehearses it on the CPU.
+
+ST_DEV = "cuda"
+ST_RECORDS, ST_PARTS, ST_BATCH, ST_CHUNK = 8192, 4, 64, 256
+ST_RESUME_RECORDS, ST_SESSION_S = 2048, 2.0
+ST_WAIT_S = 120.0
+
+
+def st_sync() -> None:
+    if ST_DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def st_rows(n: int, first_id: int = 0) -> list:
+    """``n`` procedural MNIST records as CSV: an id, 784 features, the
+    label."""
+    x, labels = cl_mnist(n)
+    fmt = "%d," + ",".join(["%.4f"] * 784) + ",%d"
+    return [fmt % (first_id + i, *x[i], labels[i]) for i in range(n)]
+
+
+class StLedger:
+    """A CSV converter behind the id column: keeps every delivered id and
+    converted row, in delivery order."""
+
+    def __init__(self):
+        from deeplearning4j_tpu_torch.streaming import CsvRecordConverter
+        self.inner = CsvRecordConverter(label_index=-1, num_classes=10)
+        self.ids, self.rows = [], []
+
+    def convert(self, record):
+        head, _, rest = record.partition(",")
+        row = self.inner.convert(rest)
+        self.ids.append(int(head))
+        self.rows.append(row)
+        return row
+
+
+def st_at_end(broker, group: str, topic: str) -> bool:
+    """Whether the group's committed offsets are the topic's end offsets
+    (a partition never committed counts as offset 0)."""
+    done = broker.committed(group, topic)
+    return all(done.get(p, 0) == end
+               for p, end in broker.end_offsets(topic).items())
+
+
+def st_wait(predicate, what: str) -> float:
+    t0 = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t0 > ST_WAIT_S:
+            raise RuntimeError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def st_produce(broker, topic: str, rows: list) -> float:
+    from deeplearning4j_tpu_torch.streaming import StreamProducer
+    prod = StreamProducer(broker.host, broker.port)
+    try:
+        prod.create_topic(topic, ST_PARTS)
+        t0 = time.perf_counter()
+        for i in range(0, len(rows), ST_CHUNK):
+            prod.produce(topic, rows[i:i + ST_CHUNK])     # round-robin
+        return time.perf_counter() - t0
+    finally:
+        prod.close()
+
+
+def st_replay(twin, ledger: StLedger, outs: list) -> int:
+    """Each micro-batch's predictions are ``twin.output`` on the same
+    padded rows, bitwise, and ``twin`` then fits the same rows cycled to
+    ST_BATCH: afterwards its state must equal the pipeline's network."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    pos = 0
+    for x, out in outs:
+        n = len(x)
+        feats = np.stack([f for f, _ in ledger.rows[pos:pos + n]])
+        ys = np.stack([l for _, l in ledger.rows[pos:pos + n]])
+        if not np.array_equal(feats, x):
+            raise RuntimeError("a micro-batch is not the delivered rows")
+        padded = np.concatenate([feats, np.repeat(feats[-1:], ST_BATCH - n,
+                                                  axis=0)])
+        want = twin.output(padded).detach().cpu().numpy()[:n]
+        if not np.array_equal(out, want):
+            raise RuntimeError(f"micro-batch at row {pos}: predictions are "
+                               "not net.output of its rows")
+        idx = np.arange(ST_BATCH) % n
+        twin.fit(DataSet(feats[idx], ys[idx]))
+        pos += n
+    return pos
+
+
+def st_lenet():
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    return MultiLayerNetwork(lenet(), device=ST_DEV).init()
+
+
+def st_serve_and_train(broker) -> dict:
+    """(a) 8,192 records to a 4-partition topic; (b) LeNet-5 behind
+    ``StreamingPipeline(mode="both", batch_size=64)`` over a
+    ``BrokerRecordSource``: records a second, ``streaming_batch_ms``, and
+    the bitwise replay of every micro-batch."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.streaming import (BrokerRecordSource,
+                                                    StreamConsumer,
+                                                    StreamingPipeline)
+    t0 = time.perf_counter()
+    rows = st_rows(ST_RECORDS)
+    make_s = time.perf_counter() - t0
+    produce_s = st_produce(broker, "mnist", rows)
+    net = st_lenet()
+    twin = net.clone()
+    ledger, outs = StLedger(), []
+    src = BrokerRecordSource(StreamConsumer(broker.host, broker.port,
+                                            "lenet", ["mnist"]),
+                             fetch_size=ST_BATCH)
+    pipe = StreamingPipeline(
+        net, src, ledger, mode="both", batch_size=ST_BATCH,
+        flush_interval=0.5, device=ST_DEV,
+        on_prediction=lambda x, o: outs.append((x, o)))
+    monitor.reset()
+    st_sync()
+    with deterministic(), cudnn_deterministic():
+        pipe.start()
+        try:
+            secs = st_wait(lambda: pipe.batches_processed
+                           >= ST_RECORDS // ST_BATCH, "the micro-batches")
+        finally:
+            pipe.stop(timeout=30.0)
+            src.close()
+        st_sync()
+        stats = monitor.registry().histogram("streaming_batch_ms").stats()
+        if pipe.errors or sorted(ledger.ids) != list(range(ST_RECORDS)):
+            raise RuntimeError(f"(b) errors {pipe.errors[:3]}; delivered "
+                               f"{len(ledger.ids)} of {ST_RECORDS}")
+        replayed = st_replay(twin, ledger, outs)
+        if replayed != ST_RECORDS or not so_equal(net, twin):
+            raise RuntimeError("(b) the trained net is not a plain fit of "
+                               "its micro-batches")
+        profile = st_profiled_batch(twin, ledger)
+    if not st_at_end(broker, "lenet", "mnist"):
+        raise RuntimeError("(b) the group's offsets are not the end offsets")
+    out = {"records": ST_RECORDS, "partitions": ST_PARTS,
+           "batch_size": ST_BATCH, "make_rows_s": make_s,
+           "produce_s": produce_s, "run_s": secs,
+           "records_per_s": ST_RECORDS / secs,
+           "batches": pipe.batches_processed,
+           "streaming_batch_ms": {k: stats[k] for k in
+                                  ("count", "p50", "p99", "max")},
+           "counters": {name: monitor.counter(name).value() for name in
+                        ("streaming_records_total",
+                         "streaming_batches_total")},
+           "profiled_batch": profile}
+    log(f"[streaming] (a) {ST_RECORDS} records of 786 CSV columns made in "
+        f"{make_s:.2f} s, produced to {ST_PARTS} partitions in "
+        f"{produce_s:.2f} s; (b) LeNet-5 mode=both batch {ST_BATCH}: "
+        f"{pipe.batches_processed} micro-batches in {secs:.2f} s "
+        f"({out['records_per_s']:.1f} records/s), streaming_batch_ms p50 "
+        f"{stats['p50']:.3f} p99 {stats['p99']:.3f} max {stats['max']:.3f};"
+        f" predictions and params bitwise a plain replay; one micro-batch "
+        f"profiled: host {profile['wall_ms']:.3f} ms, device busy "
+        f"{profile['device_busy_ms']:.3f} ms, idle share "
+        f"{profile['idle_share']:.3f}")
+    return out
+
+
+def st_profiled_batch(net, ledger: StLedger) -> dict:
+    """One micro-batch (predict, host copy, fit) of a pipeline that is not
+    started, under ``torch.profiler``."""
+    from deeplearning4j_tpu_torch.streaming import (InMemoryRecordSource,
+                                                    StreamingPipeline)
+    pipe = StreamingPipeline(net, InMemoryRecordSource(), ledger.inner,
+                             mode="both", batch_size=ST_BATCH,
+                             device=ST_DEV)
+    feats = [f for f, _ in ledger.rows[:ST_BATCH]]
+    labels = [l for _, l in ledger.rows[:ST_BATCH]]
+    pipe._process(feats, labels)                 # warm
+    if ST_DEV != "cuda":
+        return {"wall_ms": float("nan"), "device_busy_ms": float("nan"),
+                "idle_share": float("nan"), "device_events": 0}
+    wall_ms, events, _, busy_ms = profiled(
+        lambda: pipe._process(feats, labels))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms, "device_events": events}
+
+
+def st_at_least_once() -> dict:
+    """(c) A consumer stops mid-stream without its last commit and
+    without leaving (a crash); a new one in the same group takes over
+    after the session timeout: every offset is processed at least once
+    and the committed offsets end at the end offsets."""
+    from deeplearning4j_tpu_torch.streaming import (BrokerRecordSource,
+                                                    StreamBroker,
+                                                    StreamConsumer,
+                                                    StreamingPipeline)
+
+    class Crashing(BrokerRecordSource):
+        crashed = False
+
+        def on_batch_processed(self):
+            if not self.crashed:
+                super().on_batch_processed()
+
+    broker = StreamBroker(session_timeout=ST_SESSION_S)
+    try:
+        st_produce(broker, "resume", st_rows(ST_RESUME_RECORDS))
+        net = st_lenet()
+
+        def run(src, ledger):
+            return StreamingPipeline(net, src, ledger, mode="both",
+                                     batch_size=ST_BATCH, flush_interval=0.5,
+                                     device=ST_DEV).start()
+
+        first, second = StLedger(), StLedger()
+        src1 = Crashing(StreamConsumer(broker.host, broker.port, "resume",
+                                       ["resume"], heartbeat_interval=0.2),
+                        fetch_size=ST_BATCH)
+        pipe1 = run(src1, first)
+        st_wait(lambda: pipe1.records_processed >= ST_RESUME_RECORDS // 2,
+                "half the records")
+        src1.crashed = True
+        mark = pipe1.batches_processed
+        st_wait(lambda: pipe1.batches_processed > mark, "an uncommitted batch")
+        pipe1.stop(timeout=30.0)
+        src1.consumer.close(leave=False)            # no leave: a crash
+        committed = broker.committed("resume", "resume")
+        src2 = BrokerRecordSource(StreamConsumer(
+            broker.host, broker.port, "resume", ["resume"],
+            heartbeat_interval=0.2), fetch_size=ST_BATCH)
+        pipe2 = run(src2, second)
+        try:
+            secs = st_wait(lambda: st_at_end(broker, "resume", "resume"),
+                           "the committed offsets to reach the end")
+        finally:
+            pipe2.stop(timeout=30.0)
+            src2.close()
+        seen = first.ids + second.ids
+        missing = set(range(ST_RESUME_RECORDS)) - set(seen)
+        out = {"records": ST_RESUME_RECORDS,
+               "first_processed": len(first.ids),
+               "committed_at_crash": sum(committed.values()),
+               "second_processed": len(second.ids),
+               "replayed": len(seen) - ST_RESUME_RECORDS,
+               "takeover_s": secs, "missing": len(missing),
+               "errors": len(pipe1.errors) + len(pipe2.errors)}
+        log(f"[streaming] (c) at-least-once: the first consumer processed "
+            f"{len(first.ids)}, {out['committed_at_crash']} committed at "
+            f"its crash; the second processed {len(second.ids)} and "
+            f"committed the end offsets in {secs:.2f} s; {out['replayed']} "
+            f"replayed, {len(missing)} missing")
+        if missing or out["errors"] or out["replayed"] < ST_BATCH:
+            raise RuntimeError(f"(c) at-least-once failed: {out}")
+        return out
+    finally:
+        broker.close()
+
+
+def phase_streaming(A) -> dict:
+    """Phase 23: the streaming tier (the ``streaming`` path of the
+    kernels line: it launches none of K1-K4).  Every thread the phase
+    starts must be gone when it ends."""
+    from deeplearning4j_tpu_torch.streaming import StreamBroker
+    t0 = time.perf_counter()
+    before = set(threading.enumerate())
+    st_sync()
+    A.reset_launches()
+    broker = StreamBroker()
+    try:
+        result = {"serve_and_train": st_serve_and_train(broker)}
+    finally:
+        broker.close()
+    result["at_least_once"] = st_at_least_once()
+    result["launches"] = dict(A.LAUNCHES)
+    if any(result["launches"].values()):
+        raise RuntimeError("the streaming path launched a flash kernel")
+    left = [t.name for t in set(threading.enumerate()) - before
+            if t.is_alive()]
+    result["threads_left"] = left
+    if left:
+        raise RuntimeError(f"threads still alive after phase 23: {left}")
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8009,6 +8709,13 @@ def main(argv=None) -> int:
     scaleout = phase_scaleout(N, A, args.seed, ffcnn)
     torch.cuda.empty_cache()
     log(f"[scaleout] phase 21 in {scaleout['seconds']:.1f} s; {card}")
+    clustering = phase_clustering(A)
+    EMB_KEPT.clear()
+    torch.cuda.empty_cache()
+    log(f"[clustering] phase 22 in {clustering['seconds']:.1f} s; {card}")
+    streaming = phase_streaming(A)
+    torch.cuda.empty_cache()
+    log(f"[streaming] phase 23 in {streaming['seconds']:.1f} s; {card}")
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -8027,7 +8734,9 @@ def main(argv=None) -> int:
              "serving_v2": serving_v2["launches"],
              "deploy": deploy["launches"], "fleet": fleet["launches"],
              "parallel": parallel["launches"],
-             "scaleout": scaleout["launches"]}
+             "scaleout": scaleout["launches"],
+             "clustering": clustering["launches"],
+             "streaming": streaming["launches"]}
     csrc = "deeplearning4j_tpu_torch/ops/csrc/"
     bodies = {"flash_fwd": csrc + "flash_fwd_sm90.cuh",
               "flash_fwd_partials": csrc + "flash_fwd_sm90.cuh",
@@ -8053,6 +8762,8 @@ def main(argv=None) -> int:
     print(json.dumps({"fleet": fleet}, default=str))
     print(json.dumps({"parallel": parallel}, default=str))
     print(json.dumps({"scaleout": scaleout}, default=str))
+    print(json.dumps({"clustering": clustering, "streaming": streaming},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

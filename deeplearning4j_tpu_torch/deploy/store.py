@@ -35,8 +35,8 @@ Publishers:
   live model every N iterations/epochs (device->host fetch happens only
   on the publish cadence);
 - :class:`ParamServerPoller` — subscribes to a parameter-server client
-  (duck-typed on ``version()``, ``pull()`` and ``pull_coded()``; the TCP
-  client itself is ROADMAP A11's ``scaleout/``), pulling the full flat
+  (duck-typed on ``version()``, ``pull()`` and ``pull_coded()``; e.g.
+  ``scaleout.param_server.TcpParameterServerClient``), pulling the full flat
   vector when its version advances — the learner never needs to know a
   store exists.
 """

@@ -33,7 +33,8 @@ class EarlyStoppingTrainer:
 
         epoch = 0
         while True:
-            self._fit_one_epoch()
+            with _monitor.span("earlystopping/epoch", epoch=epoch):
+                self._fit_one_epoch()
             _monitor.counter("earlystopping_epochs_total",
                              "early-stopping training epochs run").inc()
 

@@ -40,6 +40,7 @@ are those of the per-batch path.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import List, Optional, Tuple
 
@@ -433,21 +434,31 @@ class EpochBoundary:
             self._flush()
             self.ckpt.save(self.model, step_in_epoch=step_in_epoch)
 
-    def start_epoch(self) -> None:
-        for listener in self.model.listeners:
-            if hasattr(listener, "on_epoch_start"):
-                listener.on_epoch_start(self.model)
-
-    def end_epoch(self, count: int = 1) -> None:
-        """``count`` epochs (fused into one dispatch) have ended."""
+    @contextlib.contextmanager
+    def epoch(self, path: str, count: int = 1, fresh: bool = True,
+              **attrs):
+        """One epoch (``count`` epochs fused into one dispatch) inside a
+        ``fit/epoch`` trace span with attrs ``epoch``, ``path`` (the data
+        path: ``"batch"``, ``"window"`` or ``"cache"``) and ``attrs``.
+        The span closes after the listeners' epoch end and the epoch
+        count, before the checkpoint save, as in the JAX package.
+        ``fresh=False`` (a cache epoch resumed mid-way) skips the
+        listeners' epoch start."""
         from ..resilience import faults as _faults
         model = self.model
-        if model.listeners:
-            self._flush()     # waits for the card: exact per-step scores
-        for listener in model.listeners:
-            if hasattr(listener, "on_epoch_end"):
-                listener.on_epoch_end(model)
-        model.epoch += count
+        with _monitor.span("fit/epoch", epoch=model.epoch, path=path,
+                           **attrs):
+            if fresh:
+                for listener in model.listeners:
+                    if hasattr(listener, "on_epoch_start"):
+                        listener.on_epoch_start(model)
+            yield
+            if model.listeners:
+                self._flush()  # waits for the card: exact per-step scores
+            for listener in model.listeners:
+                if hasattr(listener, "on_epoch_end"):
+                    listener.on_epoch_end(model)
+            model.epoch += count
         self.note_steps()
         self.save_if_due(0, epoch_boundary=True)
         _faults.maybe_die(model.iteration)
@@ -514,28 +525,27 @@ def run_device_cached_fit(model, u, epochs: int, dispatch, *,
         if (not model.listeners and tail == 0 and steps > 0 and pos == 0
                 and step_cadence is None):
             fuse = min(epochs - done, fuse_cap)
-        if pos == 0:
-            bound.start_epoch()
-        for _ in range(fuse):
-            consume_epoch(u)
-        if steps and (pos or step_cadence is not None):
-            # a resumed and/or checkpointed epoch: chunks over
-            # [pos, steps), each ending on a save point
-            while pos < steps:
-                run = steps - pos
-                if step_cadence is not None:
-                    run = min(run, ckpt.steps_to_next_save())
-                ran(dispatch(model.epoch, 1, 0, pos, run), run, batch)
-                pos += run
-                if pos < steps:
-                    bound.save_if_due(pos)
-                    _faults.maybe_die(model.iteration)
-        elif steps:
-            ran(dispatch(model.epoch, fuse, 0, 0, steps), fuse * steps,
-                batch)
-        if tail:
-            ran(dispatch(model.epoch, 1, tail, 0, 0), 1, tail)
-        bound.end_epoch(fuse)
+        with bound.epoch("cache", count=fuse, fresh=pos == 0,
+                         fused=fuse, start=pos):
+            for _ in range(fuse):
+                consume_epoch(u)
+            if steps and (pos or step_cadence is not None):
+                # a resumed and/or checkpointed epoch: chunks over
+                # [pos, steps), each ending on a save point
+                while pos < steps:
+                    run = steps - pos
+                    if step_cadence is not None:
+                        run = min(run, ckpt.steps_to_next_save())
+                    ran(dispatch(model.epoch, 1, 0, pos, run), run, batch)
+                    pos += run
+                    if pos < steps:
+                        bound.save_if_due(pos)
+                        _faults.maybe_die(model.iteration)
+            elif steps:
+                ran(dispatch(model.epoch, fuse, 0, 0, steps), fuse * steps,
+                    batch)
+            if tail:
+                ran(dispatch(model.epoch, 1, tail, 0, 0), 1, tail)
         pos = 0
         done += fuse
     bound.finish()

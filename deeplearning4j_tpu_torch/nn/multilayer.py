@@ -631,28 +631,27 @@ class _Network:
         bound = _ingest.EpochBoundary(self, ckpt, replay)
         pin = self.device.type == "cuda"
         for _ in range(epochs):
-            bound.start_epoch()
-            if hasattr(iterator, "reset"):
-                iterator.reset()
-            buf, sig, pending = [], None, None
-            for ds in iterator:
-                item = self._window_item(ds)
-                s = self._window_sig(item)
-                if buf and (s != sig or len(buf) >= window):
+            with bound.epoch("window"):
+                if hasattr(iterator, "reset"):
+                    iterator.reset()
+                buf, sig, pending = [], None, None
+                for ds in iterator:
+                    item = self._window_item(ds)
+                    s = self._window_sig(item)
+                    if buf and (s != sig or len(buf) >= window):
+                        staged = self._staged_window(buf, pin)
+                        if pending is not None:
+                            self._train_window(pending, replay)
+                        pending, buf = staged, []
+                    sig = s
+                    buf.append(item)
+                if buf:
                     staged = self._staged_window(buf, pin)
                     if pending is not None:
                         self._train_window(pending, replay)
-                    pending, buf = staged, []
-                sig = s
-                buf.append(item)
-            if buf:
-                staged = self._staged_window(buf, pin)
+                    pending = staged
                 if pending is not None:
                     self._train_window(pending, replay)
-                pending = staged
-            if pending is not None:
-                self._train_window(pending, replay)
-            bound.end_epoch()
         bound.finish()
         return self
 
@@ -794,12 +793,11 @@ class _Network:
             self._warn_partial_epoch_restart(start_step, "batch")
             bound = _ingest.EpochBoundary(self, ckpt)
             for _ in range(epochs):
-                bound.start_epoch()
-                if hasattr(batches, "reset"):
-                    batches.reset()
-                for ds in batches:
-                    self._fit_batch(ds)
-                bound.end_epoch()
+                with bound.epoch("batch"):
+                    if hasattr(batches, "reset"):
+                        batches.reset()
+                    for ds in batches:
+                        self._fit_batch(ds)
             bound.finish()
             return self
         finally:

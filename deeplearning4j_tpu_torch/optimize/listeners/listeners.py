@@ -10,8 +10,8 @@ the port's serializer).
 
 Listeners run on the host after each update.  A listener that reads
 ``model.score()`` waits for the step to finish on the device: one host
-sync per firing, as in the JAX package.  Not ported yet: the
-``profiler/capture`` trace span (tracing, ROADMAP A11).
+sync per firing, as in the JAX package.  ``ProfilerListener`` records
+its capture window as a ``profiler/capture`` trace span.
 """
 
 from __future__ import annotations
@@ -247,6 +247,8 @@ class ProfilerListener(TrainingListener):
         self.end_iteration = end_iteration
         self._prof = None
         self._started_at: Optional[int] = None
+        self._capture_t0: Optional[float] = None
+        self._capture_ctx = None
         self._last_t: Optional[float] = None
         self.iteration_times_ms: List[float] = []
         self.trace_path: Optional[str] = None
@@ -265,13 +267,18 @@ class ProfilerListener(TrainingListener):
             self._prof = torch.profiler.profile(activities=activities)
             self._prof.__enter__()
             self._started_at = iteration
+            from ... import monitor as _monitor
+            self._capture_t0 = time.time()
+            self._capture_ctx = _monitor.current_context()
         elif self._prof is not None and iteration >= self.end_iteration:
             self._stop_trace(iteration)
 
     def _stop_trace(self, iteration: Optional[int] = None) -> None:
         """Close the capture once and write its trace; a failure while
         closing is logged (on the error path it must not mask the error
-        of ``fit``)."""
+        of ``fit``).  The capture window is also recorded once as a
+        ``profiler/capture`` span (attr ``log_dir``), parented on the
+        context current when the capture started."""
         prof, self._prof = self._prof, None
         if prof is None:
             return
@@ -286,6 +293,19 @@ class ProfilerListener(TrainingListener):
         except (RuntimeError, OSError):
             logger.warning("profiler capture failed to close",
                            exc_info=True)
+        if self._capture_t0 is not None:
+            from ... import monitor as _monitor
+            ctx = self._capture_ctx
+            _monitor.tracer().record_span(
+                "profiler/capture",
+                trace_id=(ctx.trace_id if ctx is not None
+                          else _monitor.new_trace_id()),
+                parent_id=ctx.span_id if ctx is not None else None,
+                ts=self._capture_t0,
+                dur_ms=(time.time() - self._capture_t0) * 1e3,
+                log_dir=self.log_dir)
+            self._capture_t0 = None
+            self._capture_ctx = None
 
     def stop(self) -> None:
         """Close a capture still open (training ended before

@@ -943,9 +943,8 @@ class UIServer:
 
     # ---- t-SNE module (reference ui-parent tsne module) ------------------
     def set_tsne_data(self, coords, labels=None) -> "UIServer":
-        """Publish 2-D embedding coordinates (e.g. from the JAX package's
-        ``plot.tsne.BarnesHutTsne``; t-SNE itself is not ported) for the
-        ``/tsne`` page."""
+        """Publish 2-D embedding coordinates (e.g. ``plot.tsne.Tsne``'s
+        ``get_coordinates()``) for the ``/tsne`` page."""
         import numpy as _np
         coords = _np.asarray(coords, float)
         if coords.size == 0:

@@ -499,3 +499,81 @@ def test_async_worker_and_serve_children_load_no_jax():
         if serve.poll() is None:
             serve.kill()
             serve.wait()
+
+
+#: clustering, t-SNE and the streaming tier (ROADMAP A11.1, A11.2)
+CLUSTERING_STREAMING_MODULES = [
+    "deeplearning4j_tpu_torch.clustering",
+    "deeplearning4j_tpu_torch.clustering.kmeans",
+    "deeplearning4j_tpu_torch.clustering.kdtree",
+    "deeplearning4j_tpu_torch.clustering.vptree",
+    "deeplearning4j_tpu_torch.plot", "deeplearning4j_tpu_torch.plot.tsne",
+    "deeplearning4j_tpu_torch.streaming",
+    "deeplearning4j_tpu_torch.streaming.broker",
+    "deeplearning4j_tpu_torch.streaming.pipeline",
+    "deeplearning4j_tpu_torch.streaming.sources",
+    "deeplearning4j_tpu_torch.streaming.conversion",
+]
+
+
+def test_clustering_and_streaming_modules_import_with_jax_blocked():
+    """Clustering, t-SNE and the streaming tier import, and k-means, a
+    t-SNE and a broker-fed pipeline run on the CPU, with every import of
+    ``jax`` or the JAX package refused; without a card
+    ``KMeansClustering``, ``Tsne`` and ``StreamingPipeline`` refuse to
+    run unless asked for the CPU."""
+    run = _BLOCKED_IMPORT + """
+import time
+import numpy as np
+import torch
+from deeplearning4j_tpu_torch.clustering import KMeansClustering, VPTree
+from deeplearning4j_tpu_torch.plot import Tsne
+from deeplearning4j_tpu_torch.nn.conf import inputs
+from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
+    NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer, OutputLayer
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.streaming import (
+    BrokerRecordSource, CsvRecordConverter, StreamBroker, StreamConsumer,
+    StreamProducer, StreamingPipeline)
+x = np.random.RandomState(0).randn(40, 3).astype(np.float32)
+assert KMeansClustering(2, device="cpu").apply_to(x).cluster_count() == 2
+assert VPTree(x).knn(x[0], k=2)[0][0] == 0
+assert Tsne(perplexity=5.0, max_iter=5, device="cpu").fit(x).coords.shape \\
+    == (40, 2)
+conf = (NeuralNetConfiguration.builder().list()
+        .layer(DenseLayer(n_out=4)).layer(OutputLayer(n_out=2))
+        .set_input_type(inputs.feed_forward(3)).build())
+net = MultiLayerNetwork(conf, device="cpu").init()
+broker = StreamBroker()
+prod = StreamProducer(broker.host, broker.port)
+prod.produce("t", ["%f,%f,%f,%d" % (*r, i % 2) for i, r in enumerate(x)])
+src = BrokerRecordSource(StreamConsumer(broker.host, broker.port, "g",
+                                        ["t"]))
+pipe = StreamingPipeline(net, src, CsvRecordConverter(num_classes=2),
+                         mode="both", batch_size=8, device="cpu").start()
+deadline = time.time() + 20
+while pipe.batches_processed < 5 and time.time() < deadline:
+    time.sleep(0.02)
+pipe.stop()
+assert pipe.batches_processed == 5 and not pipe.errors
+src.close()
+prod.close()
+broker.close()
+if not torch.cuda.is_available():
+    for make in (lambda: KMeansClustering(2), lambda: Tsne(),
+                 lambda: StreamingPipeline(net, src, CsvRecordConverter(
+                     num_classes=2))):
+        try:
+            make()
+        except RuntimeError as e:
+            assert "CUDA" in str(e)
+        else:
+            raise AssertionError("ran without a card")
+"""
+    out = subprocess.run([sys.executable, "-c", run]
+                         + CLUSTERING_STREAMING_MODULES, cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
