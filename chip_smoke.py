@@ -496,6 +496,37 @@ Phases (each raises on failure; the exit code is non-zero on any):
    Java DL4J zip and back, params bitwise; ``load_model_guess`` on a
    serializer zip served by the runner with (b)'s answer.  Launches no
    flash kernel.
+25. the last modules ([ui_cloud] lines, a ``{"ui_cloud": ...}`` JSON
+   line): (a) phase 24's LeNet-5 epoch (234 batches of 256 rows) as
+   ``.npz`` files uploaded to a ``file://`` bucket through
+   ``LocalFilesystemStorage``, one epoch of LeNet-5 (mixed_bf16) from
+   ``RemoteDataSetIterator``: samples/s, the cache's download ms, params
+   bitwise a plain ``fit`` over a ``ListDataSetIterator`` of the same
+   batches (both ``ingest="batch"``, deterministic cuDNN), the idle share
+   of 20 profiled batches; (b) on that fit ``HistogramIterationListener
+   (frequency=25)`` and ``ConvolutionalIterationListener`` over an
+   8-image probe: the last histograms equal ``np.histogram`` of
+   ``param_table()`` at that firing, every PNG decodes to
+   ``activation_grid`` of a separate eager ``feed_forward``, host ms a
+   firing beside the step's ms; (c) ``ui.main.serve`` over a sqlite
+   file, ``post_system_metrics`` of the trained net read back over HTTP,
+   the listeners' components through ``render_page``, the server
+   stopped; (d) under ``DL4J_TPU_LOCK_DEBUG=1`` and ``DL4J_TPU_SANITIZE=1``
+   (set before the objects are built): an epoch-cache fit of LeNet-5 on
+   60,000 rows (a warm-up epoch, ``sanitize_end_warmup()``, then 2 epochs,
+   each one group and its tail) and an ``InferenceEngine`` session of
+   phase 8's attention net decoding 1,030 single tokens across the
+   1024 -> 2048 hop after ``warmup_decode``: 0 violations, each
+   scenario's dispatches equal to its ceilings, lock-graph edges and no
+   cycle; (e) a ``KerasBridgeServer`` on the card with (a)'s net
+   registered: ``predict`` of 256 rows over TCP bitwise ``output()``,
+   ``save`` over the wire restoring the params bytewise, a round trip's
+   ms beside ``output()``'s, whether ``h5py`` imports (without it
+   ``import_model`` must answer an error naming it); (f) a 1-host
+   ``TpuPodProvisioner`` cluster whose command is the port's pod worker
+   (8 steps, data 2) on a free coordinator port, ``launch_host0.sh`` run
+   as a child: exit 0 and params bitwise the pod launcher's 1-rank pod of
+   the same seed.  Launches no flash kernel.
 
 Prints a JSON line of the reference, training, inference, ring, serving,
 feed-forward/convolutional, recurrent, harness, graph, fused, transfer,
@@ -503,7 +534,8 @@ embeddings and deepwalk results, a ``{"pretrain": ...}`` JSON line, a
 ``{"serving_v2": ..., "deploy": ...}`` JSON line, a ``{"fleet": ...}``
 JSON line, a ``{"parallel": ...}`` JSON line, a ``{"scaleout": ...}``
 JSON line, a ``{"clustering": ..., "streaming": ...}`` JSON line, a
-``{"native": ...}`` JSON line, one ``{"kernels":
+``{"native": ...}`` JSON line, a ``{"ui_cloud": ...}`` JSON line, one
+``{"kernels":
 [...]}`` JSON line, the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -9240,6 +9272,512 @@ def phase_native(A) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 25
+UC_DEV = "cuda"
+UC_BATCH = 256
+UC_ROWS = 234 * UC_BATCH     # phase 24's LeNet-5 epoch: 59,904 rows
+UC_CACHE_ROWS = 60000        # the armed epoch-cache fit: 234 steps + a tail
+UC_HIST_EVERY = 25           # HistogramIterationListener(frequency=25)
+UC_CONV_EVERY = 25
+UC_PROBE = 8
+UC_PROFILED_BATCHES = 20
+UC_PREDICT_ROWS = 256
+UC_DECODE_TOKENS = 1030      # single tokens: the ring hops 1024 -> 2048
+UC_PREDICT_T = 64            # the armed engine's one predict bucket
+UC_POD_STEPS = 8
+UC_POD_TIMEOUT_S = 300.0
+
+
+def uc_sync() -> None:
+    if UC_DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def uc_mnist():
+    """Phase 24's MNIST rows (its ``MNIST_KEPT``, else made here), float32
+    features as the readers decode them."""
+    from deeplearning4j_tpu_torch.datasets import mnist
+    from deeplearning4j_tpu_torch.datasets.normalizers import U8_PIXEL
+    rows = max(UC_ROWS, UC_CACHE_ROWS)
+    if "u8" in MNIST_KEPT and MNIST_KEPT["u8"].shape[0] >= rows:
+        u8, labels = MNIST_KEPT["u8"], MNIST_KEPT["labels"]
+    else:
+        u8, labels = mnist.mnist_arrays_u8(True, rows)
+    return U8_PIXEL.decode_host(u8[:rows]), np.asarray(labels[:rows])
+
+
+class uc_timed:
+    """A listener wrapper that keeps the host ms of each of the inner
+    listener's firings (``every``: its frequency)."""
+
+    def __init__(self, inner, every: int):
+        self.inner, self.every, self.ms = inner, every, []
+
+    def iteration_done(self, model, iteration: int) -> None:
+        t0 = time.perf_counter()
+        self.inner.iteration_done(model, iteration)
+        if iteration % self.every == 0:
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+
+class uc_witness:
+    """At each firing of the legacy listeners (after them in the list):
+    the param table, and the grids of a separate eager ``feed_forward`` of
+    the probe."""
+
+    def __init__(self, probe, every: int):
+        self.probe, self.every = probe, every
+        self.tables, self.grids = {}, {}
+
+    def iteration_done(self, model, iteration: int) -> None:
+        from deeplearning4j_tpu_torch.ui.legacy import (activation_grid,
+                                                        host_map)
+        if iteration % self.every:
+            return
+        self.tables[iteration] = model.param_table()
+        self.grids[iteration] = {
+            i: activation_grid(host_map(a[0]))
+            for i, a in enumerate(model.feed_forward(self.probe))
+            if a.ndim == 4}
+
+
+def uc_png(path: str) -> np.ndarray:
+    """Decode the legacy listener's 8-bit grayscale PNG (filter 0 rows)."""
+    import zlib
+    data = open(path, "rb").read()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w = int.from_bytes(body[:4], "big")
+            h = int.from_bytes(body[4:8], "big")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    return raw[:, 1:]
+
+
+def uc_cloud_fit(tmp: str, x: np.ndarray, y: np.ndarray) -> tuple:
+    """(a) and (b): the epoch as .npz batches in a file:// bucket, one
+    epoch of LeNet-5 from ``RemoteDataSetIterator`` under the legacy
+    listeners, against a plain fit over the same batches."""
+    from deeplearning4j_tpu_torch.cloud import (LocalFilesystemStorage,
+                                                RemoteDataSetIterator)
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.scaleout.data import DataSetExportFunction
+    from deeplearning4j_tpu_torch.ui.legacy import (
+        ConvolutionalIterationListener, HistogramIterationListener)
+
+    class TimedStorage(LocalFilesystemStorage):
+        download_ms = 0.0
+        downloads = 0
+
+        def download(self, uri, local_path):
+            t0 = time.perf_counter()
+            out = super().download(uri, local_path)
+            self.download_ms += (time.perf_counter() - t0) * 1e3
+            self.downloads += 1
+            return out
+
+    out = {}
+    n = (x.shape[0] // UC_BATCH) * UC_BATCH
+    steps = n // UC_BATCH
+    export = DataSetExportFunction(os.path.join(tmp, "export"))
+    storage = TimedStorage()
+    bucket = "file://" + os.path.join(tmp, "bucket")
+    t0 = time.perf_counter()
+    for i in range(steps):
+        rows = slice(i * UC_BATCH, (i + 1) * UC_BATCH)
+        path = export(DataSet(x[rows], y[rows]))
+        storage.upload(path, f"{bucket}/lenet/batch_{i:04d}.npz")
+        if i < UC_PROFILED_BATCHES:
+            storage.upload(path, f"{bucket}/profiled/batch_{i:04d}.npz")
+    out["export_upload_s"] = time.perf_counter() - t0
+    probe = x[:UC_PROBE]
+    hist = HistogramIterationListener(frequency=UC_HIST_EVERY)
+    conv = ConvolutionalIterationListener(
+        probe, frequency=UC_CONV_EVERY, output_dir=os.path.join(tmp, "png"))
+    timed = [uc_timed(hist, UC_HIST_EVERY), uc_timed(conv, UC_CONV_EVERY)]
+    witness = uc_witness(probe, UC_HIST_EVERY)
+    with cudnn_deterministic():
+        remote = MultiLayerNetwork(lenet(), device=UC_DEV).init()
+        plain = MultiLayerNetwork(lenet(), device=UC_DEV).init()
+        plain.set_flat_params(remote.get_flat_params())
+        remote.set_listeners(*timed, witness)
+        it = RemoteDataSetIterator(f"{bucket}/lenet", storage=storage,
+                                   cache_dir=os.path.join(tmp, "cache"))
+        uc_sync()
+        t0 = time.perf_counter()
+        remote.fit(it, ingest="batch")
+        uc_sync()
+        secs = time.perf_counter() - t0
+        remote.set_listeners()
+        t1 = time.perf_counter()
+        plain.fit(ListDataSetIterator(DataSet(x[:n], y[:n]), UC_BATCH),
+                  ingest="batch")
+        uc_sync()
+        plain_s = time.perf_counter() - t1
+    a, b = remote.get_flat_params(), plain.get_flat_params()
+    if remote.iteration != steps or not np.array_equal(a, b):
+        raise RuntimeError(
+            f"(a) the bucket's epoch differs from the plain fit: "
+            f"{remote.iteration} steps, max |diff| "
+            f"{float(np.max(np.abs(a - b)))}")
+    out.update({"rows": n, "steps": steps, "seconds": secs,
+                "samples_per_s": n / secs, "plain_seconds": plain_s,
+                "plain_samples_per_s": n / plain_s,
+                "download_ms": storage.download_ms,
+                "downloads": storage.downloads,
+                "download_ms_per_batch": storage.download_ms /
+                max(1, storage.downloads), "params_bitwise": True})
+    if UC_DEV == "cuda":
+        small = RemoteDataSetIterator(
+            f"{bucket}/profiled", storage=LocalFilesystemStorage(),
+            cache_dir=os.path.join(tmp, "cache_profiled"))
+        list(small)                     # downloaded before the profile
+        wall, events, _, busy = profiled(
+            lambda: plain.fit(small, ingest="batch"))
+        out["profiled"] = {"batches": UC_PROFILED_BATCHES, "wall_ms": wall,
+                           "device_events": events,
+                           "idle_share": 1.0 - busy / wall}
+    log(f"[ui_cloud] (a) {steps} batches of {UC_BATCH} ({n} rows) exported "
+        f"and uploaded to {bucket} in {out['export_upload_s']:.2f} s; "
+        f"LeNet-5 one epoch from RemoteDataSetIterator "
+        f"{out['samples_per_s']:.1f} samples/s ({secs:.3f} s, listeners "
+        f"on; the cache's downloads {storage.download_ms:.1f} ms for "
+        f"{storage.downloads} objects), a plain fit over a "
+        f"ListDataSetIterator {out['plain_samples_per_s']:.1f} samples/s; "
+        f"params bitwise"
+        + (f"; {UC_PROFILED_BATCHES} profiled batches idle share "
+           f"{out['profiled']['idle_share']:.3f}" if "profiled" in out
+           else ""))
+    # (b): the listeners' outputs against the host's own numbers
+    last = max(witness.tables)
+    if sorted(witness.tables) != [it_ for it_ in range(
+            UC_HIST_EVERY, steps + 1, UC_HIST_EVERY)]:
+        raise RuntimeError(f"(b) fired at {sorted(witness.tables)}")
+    for name, (it_, edges, counts) in hist.histograms.items():
+        want_counts, want_edges = np.histogram(witness.tables[last][name],
+                                               bins=hist.bins)
+        if it_ != last or not (np.array_equal(counts, want_counts)
+                               and np.array_equal(edges, want_edges)):
+            raise RuntimeError(f"(b) the histogram of {name} differs")
+    pngs = 0
+    for path in conv.written:
+        stem = os.path.basename(path)[len("conv_layer"):-len(".png")]
+        layer, iteration = stem.split("_iter")
+        want = witness.grids[int(iteration)][int(layer)]
+        if not np.array_equal(uc_png(path), want):
+            raise RuntimeError(f"(b) {path} differs from the eager grid")
+        pngs += 1
+    if pngs != len(witness.grids) * len(witness.grids[last]):
+        raise RuntimeError(f"(b) {pngs} PNGs written")
+    step_ms = secs * 1e3 / steps
+    listeners = {"histogram_ms": timed[0].ms, "conv_ms": timed[1].ms,
+                 "histogram_ms_median": float(np.median(timed[0].ms)),
+                 "conv_ms_median": float(np.median(timed[1].ms)),
+                 "firings": len(timed[0].ms), "pngs": pngs,
+                 "step_ms": step_ms,
+                 "histograms": len(hist.histograms),
+                 "update_histograms": len(hist.update_histograms)}
+    log(f"[ui_cloud] (b) {listeners['firings']} firings: the histogram "
+        f"listener {listeners['histogram_ms_median']:.2f} ms, the "
+        f"convolutional listener {listeners['conv_ms_median']:.2f} ms a "
+        f"firing (median, host) beside {step_ms:.2f} ms a step; "
+        f"{len(hist.histograms)} histograms equal np.histogram of "
+        f"param_table() at iteration {last}, {pngs} PNGs equal the grids "
+        f"of an eager feed_forward")
+    return remote, hist, out, listeners
+
+
+def uc_ui(net, hist, tmp: str) -> dict:
+    """(c): ui.main's server over a sqlite file, the monitor's record of
+    the trained net read back over HTTP, the listeners' page."""
+    import urllib.request
+
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.ui import components, main
+    server = main.serve(["--port", "0", "--storage-file",
+                         os.path.join(tmp, "stats.db")], block=False)
+    try:
+        monitor.post_system_metrics(server.storage, net, "smoke")
+        base = f"http://127.0.0.1:{server.port}"
+        t0 = time.perf_counter()
+        ov = json.loads(urllib.request.urlopen(
+            base + "/train/overview/data?sid=smoke", timeout=30).read())
+        get_ms = (time.perf_counter() - t0) * 1e3
+        sessions = json.loads(urllib.request.urlopen(
+            base + "/train/sessions", timeout=30).read())
+    finally:
+        server.stop()
+    if [p[0] for p in ov["score_vs_iter"]] != [net.iteration]:
+        raise RuntimeError(f"(c) the overview reads {ov['score_vs_iter']}")
+    page = components.render_page(hist.components(), "Histogram listener")
+    path = os.path.join(tmp, "histograms.html")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(page)
+    charts = page.count("<svg")
+    if charts != len(hist.components()):
+        raise RuntimeError(f"(c) {charts} charts on the page")
+    out = {"sessions": sessions, "overview_ms": get_ms,
+           "page_bytes": len(page.encode()), "charts": charts,
+           "score": ov["score_vs_iter"][0][1]}
+    log(f"[ui_cloud] (c) ui.main on port {server.port}: the monitor's "
+        f"record of iteration {net.iteration} read back over HTTP in "
+        f"{get_ms:.1f} ms; the listeners' page {out['page_bytes']} bytes, "
+        f"{charts} charts; server stopped")
+    return out
+
+
+def uc_armed(N, A, x: np.ndarray, y: np.ndarray) -> dict:
+    """(d): the lock graph and the sanitizer armed before the objects are
+    built: an epoch-cache fit of LeNet-5 (each epoch one group and its
+    tail) and, behind an engine with one predict bucket, a decode session
+    of phase 8's attention net across the 1024 -> 2048 hop between two
+    predicts."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.analyze import lockgraph, sanitizer
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.lenet import lenet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    saved = {k: os.environ.get(k) for k in (lockgraph.ENV_FLAG,
+                                            sanitizer.ENV_FLAG)}
+    os.environ[lockgraph.ENV_FLAG] = "1"
+    os.environ[sanitizer.ENV_FLAG] = "1"
+    lockgraph.reset()
+    sanitizer.reset()
+    out = {}
+    try:
+        net = MultiLayerNetwork(lenet(), device=UC_DEV).init()
+        src = ListDataSetIterator(DataSet(x, y), UC_BATCH)
+        t0 = time.perf_counter()
+        net.fit(src, ingest="cache")              # warm-up: the captures
+        uc_sync()
+        warm_s = time.perf_counter() - t0
+        monitor.sanitize_end_warmup()
+        t1 = time.perf_counter()
+        net.fit(src, epochs=2, ingest="cache")
+        uc_sync()
+        fit_s = time.perf_counter() - t1
+        att = build_net(N, A, seed=7, n_in=N_IN, hidden=HIDDEN,
+                        heads=HEADS, n_out=N_OUT, cache_len=SEQ,
+                        device=UC_DEV)
+        tok = np.random.RandomState(8).randn(
+            UC_DECODE_TOKENS, 1, N_IN).astype(np.float32)
+        req = np.random.RandomState(9).randn(
+            1, UC_PREDICT_T, N_IN).astype(np.float32)
+        with InferenceEngine(att, max_batch_size=1, max_latency_ms=1,
+                             timestep_buckets=(UC_PREDICT_T,),
+                             name="armed") as engine:
+            engine.warmup((UC_PREDICT_T, N_IN))
+            warmed = engine.warmup_decode((N_IN,))
+            monitor.sanitize_end_warmup()
+            engine.predict(req)
+            t2 = time.perf_counter()
+            for t in range(UC_DECODE_TOKENS):
+                engine.predict_session("armed", tok[t])
+            decode_s = time.perf_counter() - t2
+            cap = engine.sessions.session_capacity("armed")
+            engine.predict(req)
+        enforced = sanitizer.state().enforced()
+        out.update({
+            "cache_fit": {"warm_s": warm_s, "seconds": fit_s,
+                          "samples_per_s": 2 * x.shape[0] / fit_s},
+            "decode": {"tokens": UC_DECODE_TOKENS, "capacity": cap,
+                       "warmed_shapes": warmed,
+                       "ms_per_token": decode_s * 1e3 / UC_DECODE_TOKENS},
+            "enforced": enforced,
+            "violations": sanitizer.violations(),
+            "lockgraph": lockgraph.graph().snapshot(),
+            "lockgraph_edges": monitor.gauge("lockgraph_edges").value(),
+            "lockgraph_cycles": monitor.counter(
+                "lockgraph_cycles_total").value()})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    fit = enforced.get("fit.epoch_cache", {})
+    dec = enforced.get("serving.decode_step", {})
+    log(f"[ui_cloud] (d) armed: fit.epoch_cache {fit}, serving.decode_step "
+        f"{dec} (ring {out['decode']['capacity']}, "
+        f"{out['decode']['ms_per_token']:.2f} ms a token); violations "
+        f"{len(out['violations'])}; lock graph {out['lockgraph']}")
+    if out["violations"]:
+        raise RuntimeError(f"(d) sanitizer violations {out['violations']}")
+    if fit != {"occurrences": 2, "dispatches": 4, "ceilings": 4}:
+        raise RuntimeError(f"(d) the epoch-cache fit's dispatches {fit}")
+    if (dec.get("occurrences") != UC_DECODE_TOKENS - 1
+            or dec["dispatches"] != dec["ceilings"] or cap != 2048):
+        raise RuntimeError(f"(d) the decode session's dispatches {dec}, "
+                           f"ring {cap}")
+    if not out["lockgraph_edges"] > 0 or out["lockgraph_cycles"] \
+            or out["lockgraph"]["cycles"]:
+        raise RuntimeError(f"(d) lock graph {out['lockgraph']}")
+    return out
+
+
+def uc_bridge(net, tmp: str, x: np.ndarray) -> dict:
+    """(e): the Keras bridge on the card with (a)'s net registered."""
+    import importlib.util
+
+    from deeplearning4j_tpu_torch.keras.bridge import (KerasBridgeClient,
+                                                       KerasBridgeServer)
+    from deeplearning4j_tpu_torch.utils.model_serializer import \
+        restore_multi_layer_network
+    rows = x[:UC_PREDICT_ROWS]
+    h5py = importlib.util.find_spec("h5py") is not None
+    with KerasBridgeServer(port=0, device=UC_DEV) as server:
+        mid = server.register(net)
+        client = KerasBridgeClient(server.host, server.port)
+        try:
+            features = rows.tolist()
+            client.call("predict", model_id=mid, features=features[:2])
+            t0 = time.perf_counter()
+            reply = client.call("predict", model_id=mid, features=features)
+            wire_ms = (time.perf_counter() - t0) * 1e3
+            path = os.path.join(tmp, "bridge_lenet.zip")
+            saved = client.call("save", model_id=mid, path=path)
+            import_error = None
+            if not h5py:
+                try:
+                    client.call("import_model",
+                                path=os.path.join(tmp, "model.h5"))
+                except RuntimeError as e:
+                    import_error = str(e)
+                if import_error is None or "h5py" not in import_error:
+                    raise RuntimeError(f"(e) import_model without h5py "
+                                       f"answered {import_error!r}")
+        finally:
+            client.close()
+    got = np.asarray(reply["output"], np.float32)
+    uc_sync()
+    t1 = time.perf_counter()
+    want = net.output(rows)
+    uc_sync()
+    local_ms = (time.perf_counter() - t1) * 1e3
+    want = want.detach().float().cpu().numpy()
+    if not np.array_equal(got, want):
+        raise RuntimeError(f"(e) predict over TCP differs: max |diff| "
+                           f"{float(np.max(np.abs(got - want)))}")
+    back = restore_multi_layer_network(saved["path"], device=UC_DEV)
+    if back.get_flat_params().tobytes() != net.get_flat_params().tobytes():
+        raise RuntimeError("(e) save over the wire changed the params")
+    out = {"rows": UC_PREDICT_ROWS, "round_trip_ms": wire_ms,
+           "output_ms": local_ms, "predict_bitwise": True,
+           "save_bitwise": True, "h5py": h5py,
+           "import_model_error": import_error}
+    log(f"[ui_cloud] (e) the Keras bridge on {UC_DEV}: predict of "
+        f"{UC_PREDICT_ROWS} rows over TCP {wire_ms:.1f} ms (in-process "
+        f"output() {local_ms:.2f} ms), bitwise; save over the wire restores "
+        f"the params bytewise; h5py importable: {h5py}"
+        + ("" if h5py else f"; import_model answers {import_error[:80]!r}"))
+    return out
+
+
+def uc_provision(tmp: str) -> dict:
+    """(f): a 1-host cluster from TpuPodProvisioner whose command is the
+    port's pod worker, launched through its launch_host0.sh, against the
+    pod launcher's 1-rank pod of the same seed."""
+    import shlex
+    import socket
+
+    from deeplearning4j_tpu_torch.cloud import TpuPodProvisioner
+    from deeplearning4j_tpu_torch.parallel import main as pm
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = (f"{shlex.quote(sys.executable)} -m "
+           f"deeplearning4j_tpu_torch.parallel.main --pod-worker --steps "
+           f"{UC_POD_STEPS} --data 2 --device {UC_DEV}")
+    prov = TpuPodProvisioner(1, "127.0.0.1", coordinator_port=port,
+                             command=cmd)
+    paths = prov.write(os.path.join(tmp, "cluster"))
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(["/bin/sh", paths[1]], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=UC_POD_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    launch_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"(f) launch_host0.sh exited {proc.returncode}: "
+                           f"{stderr[-2000:]}")
+    report = json.loads(stdout.strip().splitlines()[-1])
+    single = pm.run_pod(k=1, data=2, mode="dp", steps=UC_POD_STEPS,
+                        device=UC_DEV, timeout=UC_POD_TIMEOUT_S)
+    if single["returncodes"] != [0]:
+        raise RuntimeError(f"(f) the 1-rank pod: {single['stderr_tail']}")
+    if (report["param_sha"] != single["param_sha"]
+            or report["scores"] != single["scores"]):
+        raise RuntimeError(f"(f) the provisioned pod differs: "
+                           f"{report['scores']} vs {single['scores']}")
+    out = {"files": [os.path.basename(p) for p in paths],
+           "coordinator": prov.coordinator_address, "returncode": 0,
+           "launch_s": launch_s, "param_sha": report["param_sha"],
+           "device": report["device"], "backend": report["backend"],
+           "steps": UC_POD_STEPS, "pid_reaped": proc.poll() is not None}
+    log(f"[ui_cloud] (f) launch_host0.sh ({prov.coordinator_address}) ran "
+        f"the pod worker on {report['device']} over {report['backend']} in "
+        f"{launch_s:.1f} s, exit 0; params bitwise the launcher's 1-rank "
+        f"pod (sha {report['param_sha'][:12]})")
+    return out
+
+
+def phase_ui_cloud(N, A) -> dict:
+    """Phase 25: the last modules (the ``ui_cloud`` path of the kernels
+    line: it launches none of K1-K4)."""
+    import tempfile
+    t0 = time.perf_counter()
+    uc_sync()
+    A.reset_launches()
+    marks = []
+    x, y = uc_mnist()
+    marks.append(("mnist", time.perf_counter()))
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        net, hist, result["cloud"], result["listeners"] = uc_cloud_fit(
+            tmp, x[:UC_ROWS], y[:UC_ROWS])
+        marks.append(("cloud_listeners", time.perf_counter()))
+        result["ui"] = uc_ui(net, hist, tmp)
+        marks.append(("ui", time.perf_counter()))
+        result["armed"] = uc_armed(N, A, x[:UC_CACHE_ROWS],
+                                   y[:UC_CACHE_ROWS])
+        marks.append(("armed", time.perf_counter()))
+        result["bridge"] = uc_bridge(net, tmp, x)
+        marks.append(("bridge", time.perf_counter()))
+        result["provision"] = uc_provision(tmp)
+        marks.append(("provision", time.perf_counter()))
+    result["launches"] = dict(A.LAUNCHES)
+    if any(result["launches"].values()):
+        raise RuntimeError("the ui_cloud path launched a flash kernel")
+    result["seconds_by_part"] = {
+        name: b - a for (_, a), (name, b) in zip(
+            [("start", t0)] + marks[:-1], marks)}
+    log(f"[ui_cloud] seconds by part {result['seconds_by_part']}")
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9324,9 +9862,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"[streaming] phase 23 in {streaming['seconds']:.1f} s; {card}")
     native = phase_native(A)
-    MNIST_KEPT.clear()
     torch.cuda.empty_cache()
     log(f"[native] phase 24 in {native['seconds']:.1f} s; {card}")
+    ui_cloud = phase_ui_cloud(N, A)
+    MNIST_KEPT.clear()
+    torch.cuda.empty_cache()
+    log(f"[ui_cloud] phase 25 in {ui_cloud['seconds']:.1f} s; {card}")
 
     sources = {"flash_fwd": "deeplearning4j_tpu/ops/attention.py:222",
                "flash_fwd_partials": "deeplearning4j_tpu/ops/attention.py:290",
@@ -9348,7 +9889,8 @@ def main(argv=None) -> int:
              "scaleout": scaleout["launches"],
              "clustering": clustering["launches"],
              "streaming": streaming["launches"],
-             "native": native["launches"]}
+             "native": native["launches"],
+             "ui_cloud": ui_cloud["launches"]}
     csrc = "deeplearning4j_tpu_torch/ops/csrc/"
     bodies = {"flash_fwd": csrc + "flash_fwd_sm90.cuh",
               "flash_fwd_partials": csrc + "flash_fwd_sm90.cuh",
@@ -9377,6 +9919,7 @@ def main(argv=None) -> int:
     print(json.dumps({"clustering": clustering, "streaming": streaming},
                      default=str))
     print(json.dumps({"native": native}, default=str))
+    print(json.dumps({"ui_cloud": ui_cloud}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,4 @@
-"""Keras 1.x import (``keras_model_import``) and the VGG-16 model path
-(``trained_models``); ``bridge.py``, the JSON-over-TCP bridge of the JAX
-package, is not ported yet (ROADMAP A11)."""
+"""Keras 1.x import (``keras_model_import``), the VGG-16 model path
+(``trained_models``) and the JSON-over-TCP training-backend bridge
+(``bridge``: ``KerasBridgeServer``, ``KerasBridgeClient``,
+``KerasBridgeEntryPoint``, ``HDF5MiniBatchDataSetIterator``)."""

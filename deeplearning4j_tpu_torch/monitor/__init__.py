@@ -13,10 +13,18 @@ and the kernel library, counted per signature) that feeds
 (:mod:`.attribution`: per-step wall-time decomposition and EWMA + MAD
 slow-step detection, ticked by the alert engine).  Call sites resolve
 metrics by name through :func:`registry` at call time.
+
+The dispatch sanitizer (``analyze/sanitizer.py``) is reached through
+:func:`sanitize_scenario` and :func:`sanitize_end_warmup`, null unless
+``DL4J_TPU_SANITIZE=1``; :func:`system_metrics_persistable` posts a
+snapshot of all of this into a ``StatsStorageRouter`` so the dashboard's
+overview picks it up unchanged.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Dict, Optional
 
 from . import health
@@ -46,9 +54,35 @@ __all__ = [
     "enable_health", "flight_recorder", "gauge", "health",
     "health_enabled", "health_snapshot", "histogram", "incident_dir",
     "new_trace_id", "observe_phase", "parse_traceparent",
-    "phase_breakdown", "prometheus_text", "record_incident", "registry",
-    "reset", "snapshot", "span", "trace_chrome_json", "trace_jsonl",
-    "jit_watch", "tracer", "wall_breakdown"]
+    "phase_breakdown", "post_system_metrics", "prometheus_text",
+    "record_incident", "registry", "reset", "sanitize_end_warmup",
+    "sanitize_scenario", "snapshot", "span", "system_metrics_persistable",
+    "trace_chrome_json", "trace_jsonl", "jit_watch", "tracer",
+    "wall_breakdown"]
+
+
+def _sanitizer_mod():
+    """The port's dispatch sanitizer when armed, else ``None``."""
+    from ..analyze import sanitizer as _san
+    return _san if _san.enabled() else None
+
+
+def sanitize_scenario(name: str, units: int = 1, extra: int = 0):
+    """Bracket one unit of dispatch-budgeted work (one epoch-cache fit
+    group, one serving session step) for the dispatch sanitizer; a null
+    context unless ``DL4J_TPU_SANITIZE=1``."""
+    san = _sanitizer_mod()
+    if san is None:
+        return contextlib.nullcontext()
+    return san.scenario(name, units=units, extra=extra)
+
+
+def sanitize_end_warmup() -> None:
+    """Tell the armed sanitizer warmup is over: from here on any
+    recompile is a contract violation."""
+    san = _sanitizer_mod()
+    if san is not None:
+        san.end_warmup()
 
 # host wall-clock phases of one training loop: "data" = host batch prep
 # and transfer, "step" = the train step's dispatch, "listener" = the
@@ -134,6 +168,41 @@ def trace_chrome_json(trace_id=None, name=None, limit=None) -> str:
     """A ready-to-load JSON array of Chrome trace events."""
     return tracer().to_chrome_json(trace_id=trace_id, name=name,
                                    limit=limit)
+
+
+def system_metrics_persistable(model, session_id: str,
+                               worker_id: str = "monitor_0"):
+    """A stats record carrying the monitor snapshot, shaped so that the
+    dashboard's overview renders it unchanged (the ``TYPE_ID`` and the
+    ``iteration``/``score``/``memory_rss_mb`` keys ``StatsListener``
+    posts), with the whole registry snapshot and the phase breakdown
+    under ``monitor``: the JAX package's record, key for key."""
+    import resource
+
+    from ..ui.stats_listener import TYPE_ID
+    from ..ui.storage import Persistable
+
+    data = {
+        "report_type": "update",
+        "iteration": int(getattr(model, "iteration", 0)),
+        "epoch": int(getattr(model, "epoch", 0)),
+        "score": float(model.score()),
+        "memory_rss_mb":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0,
+        "monitor": {
+            "phases": phase_breakdown(),
+            "metrics": snapshot(),
+        },
+    }
+    return Persistable(session_id, TYPE_ID, worker_id, time.time(), data)
+
+
+def post_system_metrics(router, model, session_id: str,
+                        worker_id: str = "monitor_0") -> None:
+    """Post a :func:`system_metrics_persistable` into a
+    ``StatsStorageRouter`` (the second export sink next to ``/metrics``)."""
+    router.put_update(system_metrics_persistable(model, session_id,
+                                                 worker_id))
 
 
 def reset() -> None:

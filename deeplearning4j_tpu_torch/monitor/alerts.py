@@ -58,10 +58,11 @@ ring with trace exemplars, and the rule's verdict — the post-mortem
 starts at the moment of detection.  ``deploy/rollout.py`` consults
 :func:`gating_alerts` as an extra canary gate.
 
-Two default rules read series that the port emits only once the
-matching JAX tools are ported (ROADMAP A11): ``sanitizer_violation``
-(``sanitizer_violations_total``) and ``lockgraph_cycle``
-(``lockgraph_cycles_total``).  They are kept and stay quiet until then.
+``sanitizer_violation`` reads ``sanitizer_violations_total``, which the
+port's dispatch sanitizer counts under ``DL4J_TPU_SANITIZE=1``
+(``analyze/sanitizer.py``), and ``lockgraph_cycle`` reads
+``lockgraph_cycles_total``, which its lock-order detector counts under
+``DL4J_TPU_LOCK_DEBUG=1`` (``analyze/lockgraph.py``).
 ``slow_step_anomalies`` reads ``train_step_anomalies_total``, which the
 step-time attributor (:mod:`.attribution`) counts: an engine builds one
 by default, as the JAX package's does, and ticks it after each pass.

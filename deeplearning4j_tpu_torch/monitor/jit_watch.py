@@ -34,15 +34,25 @@ tree prints as jax's ``PyTreeDef(...)`` over lists, tuples, dicts and
 ``None``, each leaf as ``dtype[shape]`` (a torch dtype by its numpy name).
 The XLA cost-analysis gauges have no counterpart: no compiler reports
 costs here.
+
+Under ``DL4J_TPU_SANITIZE=1`` every dispatch reports to the dispatch
+sanitizer (``analyze/sanitizer.py``), as every ``watched_jit`` call does in
+the JAX package: a :class:`WatchedCall` call itself, and the body of
+:func:`dispatching` at the sites that run one JAX dispatch's work (an
+epoch-cache fit group, a session's model step).  Whether a dispatch built,
+and whether it built a further signature of a function (``recompile``),
+is read from the builds :func:`compiling` counts on this thread.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Any, Callable, Iterator, List, Optional, Sequence, Set, \
     Tuple
 
+from ..analyze import sanitizer as _sanitizer
 from .metrics import registry
 from .tracing import tracer
 
@@ -119,6 +129,20 @@ def abstract_signature(args: Tuple, kwargs: dict,
     return "; ".join(parts)
 
 
+# builds (and recompiles among them) made on each thread, so that a
+# dispatch can tell whether it built
+_tls = threading.local()
+
+
+def _builds() -> Tuple[int, int]:
+    return getattr(_tls, "builds", 0), getattr(_tls, "recompiles", 0)
+
+
+def _armed():
+    """The dispatch sanitizer when ``DL4J_TPU_SANITIZE=1``, else None."""
+    return _sanitizer if _sanitizer.enabled() else None
+
+
 def cache_hit(name: str) -> None:
     """Count one call of ``name`` that found its build ready."""
     registry().counter(CACHE_HITS_TOTAL, _HELP[CACHE_HITS_TOTAL]).inc(
@@ -140,6 +164,25 @@ def compiling(name: str, signature: str = "",
     reg.counter(COMPILES_TOTAL, _HELP[COMPILES_TOTAL]).inc(fn=name)
     reg.histogram(COMPILE_MS, _HELP[COMPILE_MS]).observe(elapsed * 1e3,
                                                          fn=name)
+    builds, recompiles = _builds()
+    _tls.builds, _tls.recompiles = builds + 1, recompiles + int(recompile)
+
+
+@contextlib.contextmanager
+def dispatching(name: str) -> Iterator[None]:
+    """The enclosed work is one dispatch of ``name`` for the armed
+    dispatch sanitizer (a no-op unarmed); it built (``compiled``) if a
+    build of :func:`compiling` ran inside it, and recompiled if one of
+    those was a further signature of its function."""
+    san = _armed()
+    if san is None:
+        yield
+        return
+    builds, recompiles = _builds()
+    yield
+    after, re_after = _builds()
+    san.record_dispatch(name, compiled=after > builds,
+                        recompile=re_after > recompiles)
 
 
 class WatchedCall:
@@ -157,10 +200,17 @@ class WatchedCall:
 
     def __call__(self, *args, **kwargs):
         signature = abstract_signature(args, kwargs, self._static_argnums)
+        san = _armed()
         if signature in self._seen:
             cache_hit(self.name)
+            if san is not None:
+                san.record_dispatch(self.name, compiled=False,
+                                    recompile=False)
             return self._fn(*args, **kwargs)
         recompile = bool(self._seen)
+        if san is not None:
+            san.record_dispatch(self.name, compiled=True,
+                                recompile=recompile)
         with compiling(self.name, signature, recompile=recompile):
             out = self._fn(*args, **kwargs)
         self._seen.add(signature)

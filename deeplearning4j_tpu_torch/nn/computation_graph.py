@@ -439,18 +439,26 @@ class ComputationGraph(_Network):
         watched as ``cg.decode_grow`` (see ``MultiLayerNetwork.
         grow_decode_carries``)."""
         self.init()
-        return self._decode_grow(carries, int(cache_len))
+        cache_len = int(cache_len)
+        grow = self._decode_grow.get(cache_len)
+        if grow is None:
+            def grow_to(carries):
+                with torch.inference_mode():
+                    return {n: (self.vertices[n].layer.grow_carry(
+                                c, cache_len)
+                                if getattr(self.vertices[n].layer,
+                                           "HAS_KV_RING", False) else c)
+                            for n, c in carries.items()}
+            grow = self._decode_grow[cache_len] = \
+                _monitor.jit_watch.WatchedCall(grow_to,
+                                               name="cg.decode_grow")
+        return grow(carries)
 
     @functools.cached_property
-    def _decode_grow(self):
-        def grow(carries, cache_len):
-            with torch.inference_mode():
-                return {n: (self.vertices[n].layer.grow_carry(c, cache_len)
-                            if getattr(self.vertices[n].layer,
-                                       "HAS_KV_RING", False) else c)
-                        for n, c in carries.items()}
-        return _monitor.jit_watch.WatchedCall(grow, name="cg.decode_grow",
-                                          static_argnums=(1,))
+    def _decode_grow(self) -> Dict[int, Any]:
+        # one watched growth function per cache length, as the JAX
+        # package keeps one jitted function per target
+        return {}
 
     def rnn_get_previous_state(self, vertex_name: str):
         """Carry of one recurrent vertex (reference

@@ -495,8 +495,15 @@ def run_device_cached_fit(model, u, epochs: int, dispatch, *,
     uninterrupted run would have.  ``ckpt`` (a
     ``resilience.CheckpointManager``) bounds dispatch chunks to its step
     cadence, saves when due and gives the fault layer its preemption
-    point *after* each save (:class:`EpochBoundary`)."""
+    point *after* each save (:class:`EpochBoundary`).
+
+    Under the armed dispatch sanitizer each ``dispatch`` is one dispatch
+    of ``<mln|cg>.gather_train_step``, and the clean path (neither resumed
+    nor checkpointed by steps) is one ``fit.epoch_cache`` scenario per
+    fused group: ``units`` the fused epochs, ``extra`` 1 for the tail
+    batch, as in the JAX package."""
     from ..resilience import faults as _faults
+    from .step_graph import gather_step_name
 
     replay = ScoreReplayer(model)
     bound = EpochBoundary(model, ckpt, replay)
@@ -511,6 +518,13 @@ def run_device_cached_fit(model, u, epochs: int, dispatch, *,
         pos = 0
     step_cadence = (getattr(ckpt, "every_steps", None)
                     if ckpt is not None else None)
+
+    name = gather_step_name(model)
+    raw_dispatch = dispatch
+
+    def dispatch(*args):
+        with _monitor.jit_watch.dispatching(name):
+            return raw_dispatch(*args)
 
     def ran(scores, count, batch_rows):
         replay.add(model.iteration, scores)
@@ -529,23 +543,30 @@ def run_device_cached_fit(model, u, epochs: int, dispatch, *,
                          fused=fuse, start=pos):
             for _ in range(fuse):
                 consume_epoch(u)
-            if steps and (pos or step_cadence is not None):
-                # a resumed and/or checkpointed epoch: chunks over
-                # [pos, steps), each ending on a save point
-                while pos < steps:
-                    run = steps - pos
-                    if step_cadence is not None:
-                        run = min(run, ckpt.steps_to_next_save())
-                    ran(dispatch(model.epoch, 1, 0, pos, run), run, batch)
-                    pos += run
-                    if pos < steps:
-                        bound.save_if_due(pos)
-                        _faults.maybe_die(model.iteration)
-            elif steps:
-                ran(dispatch(model.epoch, fuse, 0, 0, steps), fuse * steps,
-                    batch)
-            if tail:
-                ran(dispatch(model.epoch, 1, tail, 0, 0), 1, tail)
+            chunked = bool(steps and (pos or step_cadence is not None))
+            # only the clean path is budgeted: resumed and checkpointed
+            # epochs chunk into several dispatches by design
+            with (contextlib.nullcontext() if chunked else
+                  _monitor.sanitize_scenario("fit.epoch_cache", units=fuse,
+                                             extra=1 if tail else 0)):
+                if chunked:
+                    # a resumed and/or checkpointed epoch: chunks over
+                    # [pos, steps), each ending on a save point
+                    while pos < steps:
+                        run = steps - pos
+                        if step_cadence is not None:
+                            run = min(run, ckpt.steps_to_next_save())
+                        ran(dispatch(model.epoch, 1, 0, pos, run), run,
+                            batch)
+                        pos += run
+                        if pos < steps:
+                            bound.save_if_due(pos)
+                            _faults.maybe_die(model.iteration)
+                elif steps:
+                    ran(dispatch(model.epoch, fuse, 0, 0, steps),
+                        fuse * steps, batch)
+                if tail:
+                    ran(dispatch(model.epoch, 1, tail, 0, 0), 1, tail)
         pos = 0
         done += fuse
     bound.finish()

@@ -437,7 +437,7 @@ class _Network:
                     p, u, s, data_fs, data_ls, wires, idx, 0, sc),
                 batch_rows, capacity, columns, score_dtype,
                 2 + 3 * len(self._slots()) if _health.in_step() else 0,
-                self._graph_pool)
+                self._graph_pool, recompile=bool(self._graphs))
             self._graphs[key] = step
         return step
 
@@ -1557,18 +1557,25 @@ class MultiLayerNetwork(_Network):
         cache_len) counts as a build of ``mln.decode_grow`` in the compile
         watch, later ones as cache hits."""
         self.init()
-        return self._decode_grow(carries, int(cache_len))
+        cache_len = int(cache_len)
+        grow = self._decode_grow.get(cache_len)
+        if grow is None:
+            def grow_to(carries):
+                with torch.inference_mode():
+                    return [layer.grow_carry(carries[i], cache_len)
+                            if getattr(layer, "HAS_KV_RING", False)
+                            else carries[i]
+                            for i, layer in enumerate(self.layers)]
+            grow = self._decode_grow[cache_len] = \
+                _monitor.jit_watch.WatchedCall(grow_to,
+                                               name="mln.decode_grow")
+        return grow(carries)
 
     @functools.cached_property
-    def _decode_grow(self):
-        def grow(carries, cache_len):
-            with torch.inference_mode():
-                return [layer.grow_carry(carries[i], cache_len)
-                        if getattr(layer, "HAS_KV_RING", False)
-                        else carries[i]
-                        for i, layer in enumerate(self.layers)]
-        return _monitor.jit_watch.WatchedCall(grow, name="mln.decode_grow",
-                                          static_argnums=(1,))
+    def _decode_grow(self) -> Dict[int, Any]:
+        # one watched growth function per cache length, as the JAX
+        # package keeps one jitted function per target
+        return {}
 
     def rnn_get_previous_state(self, layer: int):
         """Carry of one layer (reference ``rnnGetPreviousState``)."""

@@ -123,6 +123,13 @@ def _shallow(tree):
     return tree
 
 
+def gather_step_name(net) -> str:
+    """The compile watch's name of a network's gather step (the JAX
+    package's ``watched_jit`` name)."""
+    return ("cg" if type(net).__name__ == "ComputationGraph"
+            else "mln") + ".gather_train_step"
+
+
 class CapturedGatherStep:
     """One captured gather step for ``batch_rows`` rows a step and up to
     ``capacity`` steps a dispatch.  ``step_fn(params, updater_state,
@@ -131,7 +138,7 @@ class CapturedGatherStep:
 
     def __init__(self, net, static: StaticTrees, step_fn, batch_rows: int,
                  capacity: int, columns, score_dtype: torch.dtype,
-                 health_width: int, pool):
+                 health_width: int, pool, recompile: bool = False):
         dev = net.device
         self.capacity = capacity
         self.ctr = torch.zeros((1,), dtype=torch.long, device=dev)
@@ -148,7 +155,7 @@ class CapturedGatherStep:
         self._static = static
         self._columns = columns
         self._step_fn = step_fn
-        self.graph = self._capture(net, pool)
+        self.graph = self._capture(net, pool, recompile)
 
     def _scalars(self, row: torch.Tensor) -> Dict[Any, Dict[str, Any]]:
         out: Dict[Any, Dict[str, Any]] = {}
@@ -178,14 +185,13 @@ class CapturedGatherStep:
                 self.health.index_copy_(0, self.ctr, hvec.reshape(1, -1))
             self.ctr.add_(1)
 
-    def _capture(self, net, pool) -> torch.cuda.CUDAGraph:
+    def _capture(self, net, pool, recompile: bool) -> torch.cuda.CUDAGraph:
         # the warm-up steps and the capture are this step's build: one
-        # compile of "<mln|cg>.gather_train_step" in the compile watch
-        name = ("cg" if type(net).__name__ == "ComputationGraph"
-                else "mln") + ".gather_train_step"
-        with _jit_watch.compiling(name, signature=(
+        # compile of "<mln|cg>.gather_train_step" in the compile watch, a
+        # recompile when the network already holds a step for this dataset
+        with _jit_watch.compiling(gather_step_name(net), signature=(
                 f"rows={tuple(self.rows.shape)}; "
-                f"health={self.health is not None}")):
+                f"health={self.health is not None}"), recompile=recompile):
             return self._capture_graph(net, pool)
 
     def _capture_graph(self, net, pool) -> torch.cuda.CUDAGraph:

@@ -60,12 +60,12 @@ Differences from the JAX package: workers take ``--device`` (default
 ``cuda``; with no card a worker fails to start, there is no CPU
 fallback) and name it in their ready line (``WorkerHandle.ready``;
 ``GET /fleet`` keeps the JAX package's body keys); the spawn
-environment pins no JAX platform; the dispatch sanitizer (ROADMAP A11)
-has no counterpart, so a worker instead reports
-``serving_bucket_compiles_total`` at the end of its warmup, which must
-not move afterwards; a worker calls ``InferenceEngine.end_warmup`` after
-its warm session step and first reply; it prints an exit line with its
-hand-kernel launches (``WorkerHandle.exit_report``,
+environment pins no JAX platform; beside ``sanitize_end_warmup()`` (the
+port's dispatch sanitizer, armed by ``DL4J_TPU_SANITIZE=1``) a worker
+reports ``serving_bucket_compiles_total`` at the end of its warmup, which
+must not move afterwards; a worker calls ``InferenceEngine.end_warmup``
+after its warm session step and first reply; it prints an exit line with
+its hand-kernel launches (``WorkerHandle.exit_report``,
 ``FleetRouter.exit_reports``).
 """
 
@@ -990,6 +990,9 @@ def fleet_worker_main(argv: Optional[Sequence[str]] = None) -> int:
     bucket_compiles = _bucket_compiles()
     # the warm session step and the first reply are not serving latencies
     engine.end_warmup()
+    # after warmup, any further build is a contract violation the
+    # sanitizer (when armed via DL4J_TPU_SANITIZE=1) will record
+    _monitor.sanitize_end_warmup()
 
     registry = ModelRegistry()
     registry.register("fleet", engine, pinned=True, start=False)

@@ -189,6 +189,13 @@ class SessionCache:
         self._decode = bool(model.has_kv_ring())
         self._cache_ladder = (batch_ladder(model.max_cache_len())
                               if self._decode else ())
+        # the dispatch sanitizer's scenario and the step's dispatch name
+        # (the JAX package's watched_jit names)
+        self._scenario = ("serving.decode_step" if self._decode
+                          else "serving.rnn_step")
+        self._step_name = (("cg" if self._is_graph else "mln") + (
+            ".decode_step" if self._decode else
+            ".advance" if self._is_graph else ".rnn_step"))
 
     # ------------------------------------------------------------- metrics
     # Refreshed when the session SET changes (create/evict/clear), not per
@@ -297,16 +304,21 @@ class SessionCache:
             grow_to = (self._bucket_for(session_id, sess, steps)
                        if self._decode else 0)
             carries = sess.carries
-            if grow_to:
-                try:
-                    carries = self._model.grow_decode_carries(carries,
-                                                              grow_to)
-                except Exception:
-                    # same typed-error contract as the step itself
-                    self._check_structure(session_id, sess)
-                    raise
-            out, new_carries = self._dispatch(session_id, sess, carries,
-                                              xs, kw)
+            # one model step (+1 growth for a bucket hop): the budgeted
+            # contract the armed sanitizer asserts (analyze/budgets.json)
+            with _monitor.sanitize_scenario(
+                    self._scenario, units=steps if self._decode else 1,
+                    extra=1 if grow_to else 0):
+                if grow_to:
+                    try:
+                        carries = self._model.grow_decode_carries(carries,
+                                                                  grow_to)
+                    except Exception:
+                        # same typed-error contract as the step itself
+                        self._check_structure(session_id, sess)
+                        raise
+                out, new_carries = self._dispatch(session_id, sess,
+                                                  carries, xs, kw)
             # the session moves only once its step has succeeded
             if grow_to:
                 sess.capacity = grow_to
@@ -330,9 +342,10 @@ class SessionCache:
         step = self._step_fn or (model.decode_step if self._decode
                                  else model.rnn_stateless_step)
         try:
-            if not self._is_graph:
-                return step(carries, xs[0], **kw)
-            outs, new = step(carries, *xs, **kw)
+            with _monitor.jit_watch.dispatching(self._step_name):
+                if not self._is_graph:
+                    return step(carries, xs[0], **kw)
+                outs, new = step(carries, *xs, **kw)
         except SessionError:
             raise
         except Exception:

@@ -10,18 +10,31 @@
   receiver, and the serving front door (``POST /predict``, ``/metrics``,
   ``/trace``, ``/alerts``, ``/models``, ``/tenants``, ``/deploy``,
   ``/fleet``), plus ``RemoteStatsStorageRouter``.
-
-Not ported yet (ROADMAP A11): ``components.py`` (the chart components),
-``legacy.py`` (the Dropwizard-era listeners) and ``main.py``.
+- :mod:`components` — JSON-serializable chart, table and text components
+  with server-side SVG rendering (the JAX package's strings).
+- :mod:`legacy` — ``HistogramIterationListener`` and
+  ``ConvolutionalIterationListener`` (the Dropwizard-era listeners).
+- :mod:`main` — the dashboard's command line
+  (``python -m deeplearning4j_tpu_torch.ui.main --port 9000``).
 """
 
 from .storage import (FileStatsStorage, InMemoryStatsStorage, Persistable,
                       StatsStorage, StatsStorageRouter)
 from .stats_listener import StatsListener
 from .server import RemoteStatsStorageRouter, UIServer
+from .components import (ChartHistogram, ChartLine, ChartScatter, Component,
+                         ComponentDiv, ComponentTable, ComponentText,
+                         StyleChart, StyleTable, StyleText, render_page,
+                         render_to_file)
+from .legacy import (ConvolutionalIterationListener,
+                     HistogramIterationListener)
 
 __all__ = [
     "FileStatsStorage", "InMemoryStatsStorage", "Persistable",
     "RemoteStatsStorageRouter", "StatsListener", "StatsStorage",
     "StatsStorageRouter", "UIServer",
+    "ChartHistogram", "ChartLine", "ChartScatter", "Component",
+    "ComponentDiv", "ComponentTable", "ComponentText", "StyleChart",
+    "StyleTable", "StyleText", "render_page", "render_to_file",
+    "ConvolutionalIterationListener", "HistogramIterationListener",
 ]

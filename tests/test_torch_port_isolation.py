@@ -661,3 +661,83 @@ def test_no_source_names_a_path_under_native(path):
     # no directory named "native" joined onto a path (the JAX package's
     # os.path.join(<repo root>, "native"))
     assert not re.search(r"join\([^)]*[\"']native[\"']\)", text)
+
+
+UI_CLOUD_BRIDGE_ANALYZE_MODULES = [
+    "deeplearning4j_tpu_torch.ui.components",
+    "deeplearning4j_tpu_torch.ui.legacy",
+    "deeplearning4j_tpu_torch.ui.main",
+    "deeplearning4j_tpu_torch.cloud",
+    "deeplearning4j_tpu_torch.cloud.storage",
+    "deeplearning4j_tpu_torch.cloud.provision",
+    "deeplearning4j_tpu_torch.keras.bridge",
+    "deeplearning4j_tpu_torch.analyze",
+    "deeplearning4j_tpu_torch.analyze.lockgraph",
+    "deeplearning4j_tpu_torch.analyze.sanitizer",
+]
+
+
+def test_ui_cloud_bridge_analyze_modules_import_with_jax_blocked():
+    """The UI components, the legacy listeners, ``ui.main``, ``cloud/``,
+    the Keras bridge and the runtime analyzers import, and the armed lock
+    graph and sanitizer report into the port's registry, with every import
+    of ``jax``, the JAX package or ``tools.analyze`` refused; without a
+    card the bridge refuses to start unless asked for the CPU."""
+    run = _BLOCKED_IMPORT.replace(
+        'if root in ("jax", "jaxlib", "deeplearning4j_tpu"):',
+        'if root in ("jax", "jaxlib", "deeplearning4j_tpu") or '
+        'name.startswith("tools.analyze"):') + """
+import os
+import threading
+import numpy as np
+import torch
+os.environ["DL4J_TPU_LOCK_DEBUG"] = "1"
+os.environ["DL4J_TPU_SANITIZE"] = "1"
+from deeplearning4j_tpu_torch import monitor
+from deeplearning4j_tpu_torch.analyze import lockgraph
+from deeplearning4j_tpu_torch.keras.bridge import KerasBridgeServer
+from deeplearning4j_tpu_torch.monitor.jit_watch import WatchedCall
+from deeplearning4j_tpu_torch.monitor.locks import make_lock
+from deeplearning4j_tpu_torch.ui import components, main
+a, b = make_lock("t.a"), make_lock("t.b")
+assert isinstance(a, lockgraph.InstrumentedLock)
+for x, y in ((a, b), (b, a)):
+    with x:
+        with y:
+            pass
+assert monitor.counter("lockgraph_cycles_total").value() == 1
+f = WatchedCall(lambda t: t + 1, name="t.f")
+f(torch.ones(2))
+monitor.sanitize_end_warmup()
+f(torch.ones(3))
+assert monitor.counter("sanitizer_violations_total").value(
+    kind="recompile_after_warmup") == 1
+assert components.ChartLine("x").to_json().startswith('{"component_type"')
+server = main.serve(["--port", "0"], block=False)
+server.stop()
+with KerasBridgeServer(port=0, device="cpu") as bridge:
+    pass
+if not torch.cuda.is_available():
+    try:
+        KerasBridgeServer(port=0)
+    except RuntimeError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("ran without a card")
+"""
+    out = subprocess.run([sys.executable, "-c", run]
+                         + UI_CLOUD_BRIDGE_ANALYZE_MODULES, cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[0] == "ok"
+    assert "UIServer listening at http://127.0.0.1:" in out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_tools_analyze(path):
+    """The port keeps its own copies of the lock graph and the sanitizer:
+    no source imports ``tools`` (the JAX package's analyzer)."""
+    assert "tools" not in set(_imported_roots(path))
