@@ -1,0 +1,4 @@
+"""``device_idle`` (``perfbench/readers.py``) on the cells that report
+``train_samples_per_s``."""
+
+from perfbench.readers import device_idle as read  # noqa: F401
