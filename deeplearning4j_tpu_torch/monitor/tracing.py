@@ -38,6 +38,15 @@ append per span — sub-10 µs, safe to put around per-iteration work (the
 per-phase *histograms* in :mod:`.metrics` are the per-iteration hot-path
 surface; spans mark the structural regions: requests, batches, epochs,
 dispatch windows, compiles, parallel rounds).
+
+**The device trace.**  While ``torch.profiler`` runs on the calling
+thread, a live span (:meth:`Tracer.span`) also opens a range of its own
+name, so the span is a host event of the Kineto trace, on the trace's
+clock, enclosing the ops it ran; it stays off the device's timeline.
+With the profiler off the span pays one check of the profiler's
+thread-local state (well under a microsecond) and enters no range.
+Spans recorded after the fact (:meth:`Tracer.record_span`) stay in the
+ring only.
 """
 
 from __future__ import annotations
@@ -50,6 +59,13 @@ import time
 from collections import deque
 from contextlib import contextmanager
 from typing import Dict, Iterable, List, Optional, Union
+
+from torch._C._autograd import _profiler_enabled
+# a range that is an op of the host's timeline: a ``record_function``
+# range is a user annotation, which the profiler also copies onto the
+# device's timeline, spanning the kernels launched inside it, where it
+# would count as device work
+from torch._C._profiler import _RecordFunctionFast as _range
 
 DEFAULT_CAPACITY = 4096
 
@@ -229,7 +245,8 @@ class Tracer:
         enclosing span's id as ``parent``; with no enclosing span the
         explicit ``ctx`` (or the attached thread context) supplies both
         the parent span id and the trace id, otherwise a fresh trace
-        starts here."""
+        starts here.  While the profiler runs on this thread the region
+        is also a profiler range of the same name."""
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []
@@ -257,11 +274,17 @@ class Tracer:
         }
         with self._lock:
             self._active[span_id] = open_ev
+        # a range in the device trace, only while this thread profiles
+        rng = _range(name) if _profiler_enabled() else None
+        if rng is not None:
+            rng.__enter__()
         t0 = time.perf_counter()
         try:
             yield span_id
         finally:
             dur_ms = (time.perf_counter() - t0) * 1e3
+            if rng is not None:
+                rng.__exit__(None, None, None)
             stack.pop()
             event = dict(open_ev, dur_ms=round(dur_ms, 6))
             if links:

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -417,8 +418,11 @@ class EpochBoundary:
         self._mark = model.iteration
 
     def _flush(self) -> None:
+        """Replay the pending scores to the listeners, in a
+        ``fit/listeners`` span."""
         if self.replay is not None:
-            self.replay.replay()
+            with _monitor.span("fit/listeners"):
+                self.replay.replay()
 
     def note_steps(self) -> None:
         """Tell the checkpoint manager the steps run since the last
@@ -441,7 +445,9 @@ class EpochBoundary:
         ``fit/epoch`` trace span with attrs ``epoch``, ``path`` (the data
         path: ``"batch"``, ``"window"`` or ``"cache"``) and ``attrs``.
         The span closes after the listeners' epoch end and the epoch
-        count, before the checkpoint save, as in the JAX package.
+        count, before the checkpoint save, as in the JAX package.  On the
+        window and cache paths the score replay before the listeners'
+        epoch end is the epoch's ``phase_listener_ms``.
         ``fresh=False`` (a cache epoch resumed mid-way) skips the
         listeners' epoch start."""
         from ..resilience import faults as _faults
@@ -453,8 +459,10 @@ class EpochBoundary:
                     if hasattr(listener, "on_epoch_start"):
                         listener.on_epoch_start(model)
             yield
-            if model.listeners:
+            if model.listeners and self.replay is not None:
+                t0 = time.perf_counter()
                 self._flush()  # waits for the card: exact per-step scores
+                _monitor.observe_phase("listener", time.perf_counter() - t0)
             for listener in model.listeners:
                 if hasattr(listener, "on_epoch_end"):
                     listener.on_epoch_end(model)
@@ -522,9 +530,12 @@ def run_device_cached_fit(model, u, epochs: int, dispatch, *,
     name = gather_step_name(model)
     raw_dispatch = dispatch
 
-    def dispatch(*args):
-        with _monitor.jit_watch.dispatching(name):
-            return raw_dispatch(*args)
+    def dispatch(first_epoch, fused, tail_rows, start, run):
+        with _monitor.span("fit/dispatch",
+                           steps=1 if tail_rows else fused * run,
+                           rows=tail_rows or fused * run * batch), \
+                _monitor.jit_watch.dispatching(name):
+            return raw_dispatch(first_epoch, fused, tail_rows, start, run)
 
     def ran(scores, count, batch_rows):
         replay.add(model.iteration, scores)
@@ -541,8 +552,11 @@ def run_device_cached_fit(model, u, epochs: int, dispatch, *,
             fuse = min(epochs - done, fuse_cap)
         with bound.epoch("cache", count=fuse, fresh=pos == 0,
                          fused=fuse, start=pos):
+            t0 = time.perf_counter()
             for _ in range(fuse):
                 consume_epoch(u)
+            t1 = time.perf_counter()
+            _monitor.observe_phase("data", t1 - t0)
             chunked = bool(steps and (pos or step_cadence is not None))
             # only the clean path is budgeted: resumed and checkpointed
             # epochs chunk into several dispatches by design
@@ -567,6 +581,7 @@ def run_device_cached_fit(model, u, epochs: int, dispatch, *,
                         fuse * steps, batch)
                 if tail:
                     ran(dispatch(model.epoch, 1, tail, 0, 0), 1, tail)
+            _monitor.observe_phase("step", time.perf_counter() - t1)
         pos = 0
         done += fuse
     bound.finish()

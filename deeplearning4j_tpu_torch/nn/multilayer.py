@@ -592,13 +592,23 @@ class _Network:
         """Stack a window on the host (into pinned memory on the card),
         ship the uint8 wire where every batch has one, else cast float32
         features to a bf16 compute dtype on the host, and start the copy.
-        Returns what :meth:`_train_window` takes."""
+        Returns what :meth:`_train_window` takes.  The host's part runs in
+        a ``fit/stage`` span, the copy's start in ``fit/copy``; both
+        together (and the fault layer's straggler point) are the window's
+        ``phase_data_ms``."""
+        t0 = time.perf_counter()
         _faults.slow_worker()
-        fs, ls, fms, lms, wires = self._host_window(items, pin)
+        rows = sum(it.num_examples() for it in items)
+        with _monitor.span("fit/stage", steps=len(items), rows=rows):
+            fs, ls, fms, lms, wires = self._host_window(items, pin)
         parts = [fs, ls, fms or [], lms or []]
-        dev, done = self._stage([t for part in parts for t in part])
+        flat = [t for part in parts for t in part]
+        nbytes = sum(_ingest._nbytes(t) for t in flat)
+        with _monitor.span("fit/copy", bytes=nbytes):
+            dev, done = self._stage(flat)
         _monitor.gauge("ingest_staged_bytes", _ingest._STAGED_HELP).set(
             sum(_ingest._nbytes(t) for t in fs + ls), path="window")
+        _monitor.observe_phase("data", time.perf_counter() - t0)
         cut = [len(part) for part in parts]
         out, at = [], 0
         for k in cut:
@@ -609,10 +619,15 @@ class _Network:
                 len(items), items[0].num_examples())
 
     def _train_window(self, staged, replay) -> None:
+        """Enqueue a staged window's steps in a ``fit/dispatch`` span, the
+        window's ``phase_step_ms``."""
         fs, ls, fms, lms, wires, dev, done, count, rows = staged
-        self._await_staged(dev, done)
-        scores, hstack = self._multi_steps(fs, ls, fms, lms, wires)
-        _health.record_dispatch(self, hstack, self.iteration)
+        t0 = time.perf_counter()
+        with _monitor.span("fit/dispatch", steps=count, rows=count * rows):
+            self._await_staged(dev, done)
+            scores, hstack = self._multi_steps(fs, ls, fms, lms, wires)
+            _health.record_dispatch(self, hstack, self.iteration)
+        _monitor.observe_phase("step", time.perf_counter() - t0)
         replay.add(self.iteration, scores)
         _iterations().inc(count)
         self.iteration += count
@@ -626,17 +641,25 @@ class _Network:
         window ends at ``window`` batches or at a change of shape or
         masks.  ``ckpt`` saves at epoch boundaries (windows re-stack from
         the host iterator, so mid-epoch offsets are not replayable here;
-        the epoch-cache path owns exact mid-epoch resume)."""
+        the epoch-cache path owns exact mid-epoch resume).  Each call of
+        the iterator (the one that ends the epoch too) runs in a
+        ``fit/iterator`` span."""
         replay = _ingest.ScoreReplayer(self)
         bound = _ingest.EpochBoundary(self, ckpt, replay)
         pin = self.device.type == "cuda"
+        end = object()
         for _ in range(epochs):
             with bound.epoch("window"):
                 if hasattr(iterator, "reset"):
                     iterator.reset()
                 buf, sig, pending = [], None, None
-                for ds in iterator:
-                    item = self._window_item(ds)
+                batches = iter(iterator)
+                while True:
+                    with _monitor.span("fit/iterator"):
+                        ds = next(batches, end)
+                        item = ds if ds is end else self._window_item(ds)
+                    if item is end:
+                        break
                     s = self._window_sig(item)
                     if buf and (s != sig or len(buf) >= window):
                         staged = self._staged_window(buf, pin)

@@ -52,8 +52,10 @@ Serving v2 (as in the JAX package):
   before a swap stay pinned to the version they started on.
 - **Tracing**: each request carries a trace id and span id from submit
   time; a batch records one ``serve/request`` span per request with its
-  ``queue_wait``/``batch_assembly``/``dispatch`` segments and one
-  ``serve/batch`` span linking them (``monitor.tracing``).
+  ``serve/queue_wait`` segment and one ``serve/batch`` span linking
+  them, whose children time the worker's host work live:
+  ``serve/assemble``, ``serve/forward`` and ``serve/resolve``
+  (``monitor.tracing``).
 
 ``predict_session`` streams through the engine's :class:`SessionCache`
 (RNN carries or KV-cache rings kept on the device, one step per request);
@@ -1143,34 +1145,53 @@ class InferenceEngine:
                         r.future.set_exception(exc)
 
     def _run_batch(self, widx: int, job: _BatchJob):
+        """Run one batch on worker ``widx`` and answer its requests.  The
+        worker's host work is timed live in three spans, children of the
+        batch's ``serve/batch`` span: ``serve/assemble`` (the rows padded
+        into the bucket, the bucket's callable), ``serve/forward`` (the
+        forward and its copy to the host) and ``serve/resolve`` (the
+        histograms, the batch's spans and the answers)."""
         bb = self._policy.batch_bucket(job.rows)
-        feats, masks, wastes = [], [], []
-        for i, (kind, _trailing, tb) in enumerate(job.sig):
-            x, m, _, waste = assemble_batch(
-                [r.arrays[i] for r in job.requests], bb,
-                tb if kind == "seq" else None, mask_dtype=self._dtype)
-            feats.append(x)
-            masks.append(m)
-            wastes.append(waste)
-        key = (job.sig, bb)
-        self._ensure_executable(widx, key)
+        batch_id = _monitor.tracer().next_span_id()
+        ctx = _monitor.TraceContext(job.requests[0].trace_id, batch_id)
+        with _monitor.span("serve/assemble", ctx=ctx, rows=job.rows,
+                           bucket=bb):
+            feats, masks, wastes = [], [], []
+            for i, (kind, _trailing, tb) in enumerate(job.sig):
+                x, m, _, waste = assemble_batch(
+                    [r.arrays[i] for r in job.requests], bb,
+                    tb if kind == "seq" else None, mask_dtype=self._dtype)
+                feats.append(x)
+                masks.append(m)
+                wastes.append(waste)
+            key = (job.sig, bb)
+            self._ensure_executable(widx, key)
         t0 = time.perf_counter()
-        if self._runner is not None:
-            outs = self._runner.output(*feats)
-            outs = outs if isinstance(outs, list) else [outs]
-        else:
-            params, state = self._placed_params(widx, job.version)
-            fn = self._compiled[(widx, key)]
-            if self._is_graph:
-                outs = fn(params, state, tuple(feats),
-                          tuple(masks) if any(m is not None for m in masks)
-                          else None)
+        with _monitor.span("serve/forward", ctx=ctx, rows=bb):
+            if self._runner is not None:
+                outs = self._runner.output(*feats)
+                outs = outs if isinstance(outs, list) else [outs]
             else:
-                outs = [fn(params, state, feats[0], masks[0])]
-            # one copy to the host per output per batch; requests get
-            # slices
-            outs = [host_array(o) for o in outs]
+                params, state = self._placed_params(widx, job.version)
+                fn = self._compiled[(widx, key)]
+                if self._is_graph:
+                    outs = fn(params, state, tuple(feats),
+                              tuple(masks) if any(m is not None
+                                                  for m in masks)
+                              else None)
+                else:
+                    outs = [fn(params, state, feats[0], masks[0])]
+                # one copy to the host per output per batch; requests
+                # get slices
+                outs = [host_array(o) for o in outs]
         now = time.perf_counter()
+        with _monitor.span("serve/resolve", ctx=ctx,
+                           requests=len(job.requests)):
+            self._resolve(job, bb, wastes, outs, t0, now, batch_id)
+
+    def _resolve(self, job: _BatchJob, bb: int, wastes, outs,
+                 t0: float, now: float, batch_id: int) -> None:
+        """A batch's histograms and spans, and each request's answer."""
         _monitor.histogram("serving_batch_ms",
                            "device dispatch wall time per batch").observe(
             (now - t0) * 1000.0, engine=self._name)
@@ -1191,7 +1212,7 @@ class InferenceEngine:
                       if kind == "seq"]
         seq_i = seq_inputs[0] if len(seq_inputs) == 1 else None
         tb = job.sig[seq_i][2] if seq_i is not None else None
-        self._record_batch_spans(job, t0, now)
+        self._record_batch_spans(job, now, batch_id)
         off = 0
         for r in job.requests:
             sl = [o[off:off + r.n_rows] for o in outs]
@@ -1207,14 +1228,14 @@ class InferenceEngine:
                                   version=job.version, tenant=r.tenant)
             off += r.n_rows
 
-    def _record_batch_spans(self, job: _BatchJob, t_exec0: float,
-                            t_done: float) -> None:
+    def _record_batch_spans(self, job: _BatchJob, t_done: float,
+                            batch_id: int) -> None:
         """Reconstruct the request-level causality as trace spans: one
         ``serve/request`` span per member (parented under the context
-        captured at submit time), with ``queue_wait`` /
-        ``batch_assembly`` / ``dispatch`` child segments, plus one
-        ``serve/batch`` span that *links* every coalesced request span
-        (batch-to-request causality is N:1, not parent and child)."""
+        captured at submit time) with its ``serve/queue_wait`` segment,
+        plus the ``serve/batch`` span ``batch_id`` that *links* every
+        coalesced request span (batch-to-request causality is N:1, not
+        parent and child) and parents the worker's live spans."""
         tr = _monitor.tracer()
         wall_now = time.time()
 
@@ -1228,17 +1249,13 @@ class InferenceEngine:
                 parent_id=parent, ts=r.t_wall,
                 dur_ms=(t_done - r.t_enqueue) * 1e3,
                 model=self._name, rows=r.n_rows)
-            for seg, seg_t0, seg_t1 in (
-                    ("serve/queue_wait", r.t_enqueue, r.t_dequeue),
-                    ("serve/batch_assembly", r.t_dequeue, t_exec0),
-                    ("serve/dispatch", t_exec0, t_done)):
-                tr.record_span(
-                    seg, trace_id=r.trace_id, parent_id=r.span_id,
-                    ts=wall(seg_t0),
-                    dur_ms=max(0.0, (seg_t1 - seg_t0) * 1e3))
+            tr.record_span(
+                "serve/queue_wait", trace_id=r.trace_id,
+                parent_id=r.span_id, ts=wall(r.t_enqueue),
+                dur_ms=max(0.0, (r.t_dequeue - r.t_enqueue) * 1e3))
         lead = job.requests[0]
         tr.record_span(
-            "serve/batch", trace_id=lead.trace_id,
+            "serve/batch", trace_id=lead.trace_id, span_id=batch_id,
             ts=wall(lead.t_dequeue),
             dur_ms=max(0.0, (t_done - lead.t_dequeue) * 1e3),
             links=[r.span_id for r in job.requests],

@@ -185,14 +185,34 @@ def _span_shape(events):
 
 
 def test_engine_batch_spans_have_the_jax_shape():
+    """The requests, their parents and traces, the batches' links and
+    rows are the JAX engine's.  Per request the port keeps
+    ``serve/request`` and its ``serve/queue_wait`` segment; the JAX
+    engine's per-request ``serve/batch_assembly`` and ``serve/dispatch``
+    segments, which repeat the batch's interval, give way to the worker's
+    live ``serve/assemble``, ``serve/forward`` and ``serve/resolve``, one
+    each per batch, children of its ``serve/batch`` span."""
     jnet, pnet = pair(dense_conf(seed=4))
-    got = _span_shape(_batch_spans(InferenceEngine, pnet, "spans"))
+    events = _batch_spans(InferenceEngine, pnet, "spans")
+    got = _span_shape(events)
     want = _span_shape(_batch_spans(JaxEngine, jnet, "spans"))
+    assert want.pop("segments") == sorted(
+        ["serve/queue_wait", "serve/batch_assembly", "serve/dispatch"] * 3)
+    assert got.pop("segments") == ["serve/queue_wait"] * 3
     assert got == want
     assert got["requests"] == 3 and got["request_parents"] == [0x77]
     assert got["links_cover_requests"]
-    assert got["segments"] == sorted(
-        ["serve/queue_wait", "serve/batch_assembly", "serve/dispatch"] * 3)
+    batches = [e for e in events if e["name"] == "serve/batch"]
+    work = [e for e in events if e["name"] in (
+        "serve/assemble", "serve/forward", "serve/resolve")]
+    assert batches and len(work) == 3 * len(batches)
+    for b in batches:
+        kids = [e for e in work if e["parent"] == b["id"]]
+        assert sorted(e["name"] for e in kids) == [
+            "serve/assemble", "serve/forward", "serve/resolve"]
+        assert {e["trace"] for e in kids} == {b["trace"]}
+        (assemble,) = [e for e in kids if e["name"] == "serve/assemble"]
+        assert assemble["attrs"]["rows"] == b["attrs"]["rows"]
     # the request latency histogram carries the request's trace
     lat = monitor.snapshot()["serving_request_latency_ms"]["values"]
     exemplars = [x["trace_id"] for st in lat.values()
