@@ -95,7 +95,11 @@ class ListDataSetIterator(DataSetIterator):
     def total_examples(self) -> int:
         return self._ds.num_examples()
 
-    def __next__(self) -> DataSet:
+    def next_raw(self) -> DataSet:
+        """The next batch as the dataset holds its rows, before the
+        preprocessor: ``__next__`` is ``_pre(next_raw())``.  The windowed
+        ``fit`` draws an affine pixel scaler's uint8 rows this way and
+        decodes them on the device (``nn/ingest.wire_source``)."""
         if self._pos >= self._ds.num_examples():
             raise StopIteration
         idx = self._order[self._pos:self._pos + self._batch]
@@ -114,7 +118,10 @@ class ListDataSetIterator(DataSetIterator):
             # the uint8 twin sliced with the same rows; a preprocessor
             # drops it again in _pre
             attach_wire(batch, wire[0][idx], wire[1])
-        return self._pre(batch)
+        return batch
+
+    def __next__(self) -> DataSet:
+        return self._pre(self.next_raw())
 
 
 class ExistingDataSetIterator(DataSetIterator):

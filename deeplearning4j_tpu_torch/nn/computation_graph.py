@@ -75,7 +75,7 @@ def _as_multi(data) -> MultiDataSet:
                           else [data.labels_mask]))
         wire = wire_of(data)
         if wire is not None:
-            # the per-input wire list of ingest.multi_window_wire: a
+            # the per-input wire list of ingest.multi_window_wire_specs: a
             # wrapped DataSet wires its single input
             mds._wires = [wire]
         return mds
@@ -274,11 +274,11 @@ class ComputationGraph(_Network):
     def _window_sig(self, item):
         return _ingest.multi_window_signature(item)
 
-    def _window_stack(self, items, pin: bool):
-        return _ingest.stack_multi_window(items, pin)
+    def _window_stack(self, items, pin: bool, wires=None):
+        return _ingest.stack_multi_window(items, pin, wires)
 
-    def _window_wires(self, items, n_in: int, pin: bool):
-        return _ingest.multi_window_wire(items, n_in, pin)
+    def _window_wires(self, items):
+        return _ingest.multi_window_wire_specs(items)
 
     def _pretrain_features(self, ds):
         return tuple(self._tensor(f) for f in _as_multi(ds).features)

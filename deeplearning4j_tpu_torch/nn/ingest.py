@@ -18,7 +18,9 @@ and windowed staging (port of ``deeplearning4j_tpu/nn/ingest.py``).
    orders the copy before its use.
 
 Both ship the **uint8 wire** when the source carries one
-(``datasets/dataset.attach_wire``): 1 byte a pixel instead of 4, and the
+(``datasets/dataset.attach_wire``) or when the iterator's preprocessor is
+an affine pixel scaler over uint8 features (:func:`cacheable_source`,
+:func:`wire_source`): 1 byte a pixel instead of 4, and the
 ``f32(u8) / denom * mult + add`` decode runs on the device
 (:func:`device_decode`) in numpy's op order, bit-exact with the host's
 float32 path (``DL4J_TPU_WIRE_UINT8=0`` is the escape hatch).
@@ -49,7 +51,7 @@ import numpy as np
 import torch
 
 from .. import monitor as _monitor
-from ..datasets.dataset import wire_enabled, wire_of
+from ..datasets.dataset import attach_wire, wire_enabled, wire_of
 
 #: Datasets larger than this (features + labels bytes) never
 #: device-cache.  The JAX package's default, 2 GB.
@@ -58,6 +60,8 @@ DEVICE_CACHE_LIMIT_BYTES = int(os.environ.get(
 
 _CACHEABLE_DTYPES = ("float32", "bfloat16")
 _STAGED_HELP = "bytes uploaded to the device per staging event"
+_WINDOW_BATCHES_HELP = ("batches staged by the windowed fit, by the wire "
+                        "their features went as")
 
 
 def max_steps_per_dispatch() -> int:
@@ -91,18 +95,12 @@ def _scaler_wire(preprocessor, features):
     return None if fmt is None else (np.asarray(features), fmt)
 
 
-def cacheable_source(iterator):
-    """The underlying ``ListDataSetIterator`` when ``iterator`` can be
-    served by the device-resident epoch cache, else None.
-
-    Exact ``ListDataSetIterator`` semantics only (a subclass overriding
-    ``__next__``/``reset`` keeps its override by falling back), an
-    ``AsyncDataSetIterator`` without a preprocessor is unwrapped, dense
-    float32/bfloat16 features and labels, no masks, total bytes under
-    :data:`DEVICE_CACHE_LIMIT_BYTES`.  A preprocessor disqualifies, with
-    ONE exception: an affine pixel scaler (``ImagePreProcessingScaler``)
-    over uint8 features, whose transform is the wire decode (wire
-    enabled only)."""
+def _list_source(iterator):
+    """The exact ``ListDataSetIterator`` that serves ``iterator``, else
+    None: the iterator itself, or the one inside an
+    ``AsyncDataSetIterator`` without a preprocessor of its own.  A
+    subclass overriding ``__next__``/``reset`` keeps its override by
+    falling back."""
     from ..datasets.iterators import (AsyncDataSetIterator,
                                       ListDataSetIterator)
     u = iterator
@@ -114,6 +112,22 @@ def cacheable_source(iterator):
         return None
     if (type(u).__next__ is not ListDataSetIterator.__next__
             or type(u).reset is not ListDataSetIterator.reset):
+        return None
+    return u
+
+
+def cacheable_source(iterator):
+    """The underlying ``ListDataSetIterator`` when ``iterator`` can be
+    served by the device-resident epoch cache, else None.
+
+    Exact ``ListDataSetIterator`` semantics only (:func:`_list_source`),
+    dense float32/bfloat16 features and labels, no masks, total bytes
+    under :data:`DEVICE_CACHE_LIMIT_BYTES`.  A preprocessor disqualifies,
+    with ONE exception: an affine pixel scaler
+    (``ImagePreProcessingScaler``) over uint8 features, whose transform
+    is the wire decode (wire enabled only)."""
+    u = _list_source(iterator)
+    if u is None:
         return None
     ds = u._ds
     if ds.features is None or ds.labels is None:
@@ -132,6 +146,41 @@ def cacheable_source(iterator):
     if _nbytes(f) + _nbytes(l) > DEVICE_CACHE_LIMIT_BYTES:
         return None
     return u
+
+
+def wire_source(iterator):
+    """``(list_iterator, WireFormat)`` when the windowed path can draw
+    ``iterator``'s batches as raw uint8 rows and decode them on the
+    device, else None: the exact ``ListDataSetIterator`` of
+    :func:`_list_source` whose preprocessor is an affine pixel scaler
+    (``normalizers.wire_format_of``) over uint8 features, wire enabled.
+    No size limit: this is the path of datasets the cache refuses."""
+    u = _list_source(iterator)
+    if u is None or not wire_enabled() or u._ds.features is None:
+        return None
+    wire = _scaler_wire(u.get_preprocessor(), u._ds.features)
+    return None if wire is None else (u, wire[1])
+
+
+def wired_epoch(u, fmt):
+    """One epoch of ``u``'s batches before its preprocessor, each carrying
+    its own uint8 features as the wire twin in ``fmt`` (the scaler's
+    transform, decoded on the device).  ``u`` goes through the state
+    transitions of the float32 path: the explicit ``reset()`` and
+    ``__iter__``'s, then ``next_raw`` until the epoch ends, so its epoch
+    count, permutation and position are those ``fit`` leaves behind on
+    that path."""
+    u.reset()
+    u.reset()
+
+    def draw():
+        while True:
+            try:
+                ds = u.next_raw()
+            except StopIteration:
+                return
+            yield attach_wire(ds, ds.features, fmt)
+    return draw()
 
 
 def _to_device(a, device) -> torch.Tensor:
@@ -272,10 +321,21 @@ def _stack(arrays, pin: bool = False) -> torch.Tensor:
     return torch.stack(parts, out=out)
 
 
-def stack_window(batches, pin: bool = False) -> Tuple:
+def _multi_wire_of(mds, i: int):
+    """The uint8 twin of input ``i`` of a MultiDataSet (the per-input
+    ``_wires`` list ``computation_graph._as_multi`` sets), or None."""
+    wires = getattr(mds, "_wires", None)
+    return None if wires is None or len(wires) <= i else wires[i]
+
+
+def stack_window(batches, pin: bool = False, wired: bool = False) -> Tuple:
     """Stack a window of same-signature DataSets into host (W, B, ...)
-    tensors (pinned with ``pin``): (features, labels, fmask, lmask)."""
-    features = _stack([b.features for b in batches], pin)
+    tensors (pinned with ``pin``): (features, labels, fmask, lmask).
+    With ``wired`` (:func:`window_wire_spec` accepted the window) the
+    features stack is the batches' uint8 wire twins, not their
+    features."""
+    features = _stack([wire_of(b)[0] if wired else b.features
+                       for b in batches], pin)
     labels = _stack([b.labels for b in batches], pin)
     fm = (None if batches[0].features_mask is None else
           _stack([b.features_mask for b in batches], pin))
@@ -284,11 +344,15 @@ def stack_window(batches, pin: bool = False) -> Tuple:
     return features, labels, fm, lm
 
 
-def stack_multi_window(mbs, pin: bool = False) -> Tuple:
-    """:func:`stack_window` for MultiDataSets: per-input stacked lists."""
+def stack_multi_window(mbs, pin: bool = False, wires=None) -> Tuple:
+    """:func:`stack_window` for MultiDataSets: per-input stacked lists;
+    an input whose entry of ``wires`` (:func:`multi_window_wire_specs`)
+    is not None stacks its uint8 wire twins."""
     n_in = len(mbs[0].features)
     n_out = len(mbs[0].labels)
-    features = [_stack([m.features[i] for m in mbs], pin)
+    features = [_stack([_multi_wire_of(m, i)[0]
+                        if wires is not None and wires[i] is not None
+                        else m.features[i] for m in mbs], pin)
                 for i in range(n_in)]
     labels = [_stack([m.labels[i] for m in mbs], pin)
               for i in range(n_out)]
@@ -309,48 +373,39 @@ def stack_multi_window(mbs, pin: bool = False) -> Tuple:
     return features, labels, fmasks, lmasks
 
 
-def window_wire(batches, pin: bool = False
-                ) -> Tuple[Optional[torch.Tensor], Optional[Tuple]]:
-    """When EVERY batch of a window carries a same-format uint8 wire twin
-    (and the wire is enabled): the stacked (W, B, ...) uint8 tensor and
-    the ``(denom, mult, add)`` spec.  Else ``(None, None)``."""
-    if not wire_enabled():
-        return None, None
-    wires = [wire_of(b) for b in batches]
+def _common_wire(wires, features) -> Optional[Tuple]:
+    """The ``(denom, mult, add)`` spec when every entry of ``wires`` is a
+    uint8 twin of the same format and of its ``features``' shape, else
+    None."""
     if any(w is None for w in wires):
-        return None, None
+        return None
     if len({w[1] for w in wires}) != 1:
-        return None, None
-    if any(tuple(w[0].shape) != tuple(b.features.shape)
-           for w, b in zip(wires, batches)):
-        return None, None
-    return _stack([w[0] for w in wires], pin), wires[0][1].as_tuple()
+        return None
+    if any(tuple(w[0].shape) != tuple(f.shape)
+           for w, f in zip(wires, features)):
+        return None
+    return wires[0][1].as_tuple()
 
 
-def multi_window_wire(mbs, n_in: int, pin: bool = False):
-    """:func:`window_wire` per input of a window of MultiDataSets (the
-    twins ride on ``_wires``, set by ``computation_graph._as_multi``):
-    ``(stacks, specs)`` per-input lists with None for an unwired slot, or
-    ``(None, None)`` when no input wires."""
+def window_wire_spec(batches) -> Optional[Tuple]:
+    """When EVERY batch of a window carries a same-format uint8 wire twin
+    (and the wire is enabled): the ``(denom, mult, add)`` spec of the
+    decode, and :func:`stack_window` ships the twins.  Else None."""
     if not wire_enabled():
-        return None, None
-    wire_lists = [getattr(m, "_wires", None) for m in mbs]
-    stacks: List[Optional[torch.Tensor]] = []
-    specs: List[Optional[Tuple]] = []
-    for i in range(n_in):
-        ok = all(w is not None and len(w) > i and w[i] is not None
-                 for w in wire_lists)
-        if (ok and len({w[i][1] for w in wire_lists}) == 1
-                and all(tuple(w[i][0].shape) == tuple(m.features[i].shape)
-                        for w, m in zip(wire_lists, mbs))):
-            stacks.append(_stack([w[i][0] for w in wire_lists], pin))
-            specs.append(wire_lists[0][i][1].as_tuple())
-        else:
-            stacks.append(None)
-            specs.append(None)
-    if all(s is None for s in stacks):
-        return None, None
-    return stacks, tuple(specs)
+        return None
+    return _common_wire([wire_of(b) for b in batches],
+                        [b.features for b in batches])
+
+
+def multi_window_wire_specs(mbs) -> Tuple:
+    """:func:`window_wire_spec` per input of a window of MultiDataSets:
+    a per-input tuple with None for an unwired input."""
+    n_in = len(mbs[0].features)
+    if not wire_enabled():
+        return (None,) * n_in
+    return tuple(_common_wire([_multi_wire_of(m, i) for m in mbs],
+                              [m.features[i] for m in mbs])
+                 for i in range(n_in))
 
 
 def cast_for_transfer(features: torch.Tensor, compute_dtype) -> torch.Tensor:

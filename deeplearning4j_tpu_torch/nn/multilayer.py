@@ -379,13 +379,16 @@ class _Network:
     def _window_sig(self, item):
         raise NotImplementedError
 
-    def _window_stack(self, items, pin: bool):
+    def _window_stack(self, items, pin: bool, wires=None):
         """Host (W, B, ...) per-input lists (features, labels, features
-        masks or None, labels masks or None) of a window."""
+        masks or None, labels masks or None) of a window; an input whose
+        entry of ``wires`` is not None stacks its uint8 wire twins in
+        place of its features."""
         raise NotImplementedError
 
-    def _window_wires(self, items, n_in: int, pin: bool):
-        """(per-input uint8 stacks, specs) of a window, or (None, None)."""
+    def _window_wires(self, items):
+        """The per-input wire specs of a window (None for an input that
+        goes as its features)."""
         raise NotImplementedError
 
     # ---- the device-resident epoch cache ---------------------------------
@@ -573,20 +576,17 @@ class _Network:
             hs.append(hvec)
         return torch.stack(scores), _stacked(hs)
 
-    def _host_window(self, items, pin: bool):
+    def _host_window(self, items, pin: bool, wires):
         """A window stacked on the host (into pinned memory with ``pin``):
         per-input (features, labels, features masks or None, labels masks
-        or None) and the wire specs.  Features are the uint8 wire where
-        every batch has one, else float32 cast on the host to a bf16
-        compute dtype."""
-        fs, ls, fms, lms = self._window_stack(items, pin)
-        u8s, wires = self._window_wires(items, len(fs), pin)
+        or None).  Features are the uint8 wire where ``wires`` (from
+        :meth:`_window_wires`) has a spec, else float32 cast on the host
+        to a bf16 compute dtype."""
+        fs, ls, fms, lms = self._window_stack(items, pin, wires)
         cdt = self._pol().compute_dtype
-        fs = [u8s[i] if u8s is not None and u8s[i] is not None
-              else _ingest.cast_for_transfer(f, cdt)
-              for i, f in enumerate(fs)]
-        wires = tuple(wires) if wires is not None else (None,) * len(fs)
-        return fs, ls, fms, lms, wires
+        fs = [f if w is not None else _ingest.cast_for_transfer(f, cdt)
+              for f, w in zip(fs, wires)]
+        return fs, ls, fms, lms
 
     def _staged_window(self, items, pin: bool):
         """Stack a window on the host (into pinned memory on the card),
@@ -595,12 +595,22 @@ class _Network:
         Returns what :meth:`_train_window` takes.  The host's part runs in
         a ``fit/stage`` span, the copy's start in ``fit/copy``; both
         together (and the fault layer's straggler point) are the window's
-        ``phase_data_ms``."""
+        ``phase_data_ms``.  ``fit/stage``'s ``wire`` attr and the
+        ``ingest_window_batches_total`` counter's label say how the
+        features went: ``"uint8"`` when every input ships the wire, else
+        ``"float32"``."""
         t0 = time.perf_counter()
         _faults.slow_worker()
         rows = sum(it.num_examples() for it in items)
-        with _monitor.span("fit/stage", steps=len(items), rows=rows):
-            fs, ls, fms, lms, wires = self._host_window(items, pin)
+        wires = self._window_wires(items)
+        kind = ("uint8" if all(w is not None for w in wires)
+                else "float32")
+        with _monitor.span("fit/stage", steps=len(items), rows=rows,
+                           wire=kind):
+            fs, ls, fms, lms = self._host_window(items, pin, wires)
+        _monitor.counter("ingest_window_batches_total",
+                         _ingest._WINDOW_BATCHES_HELP).inc(len(items),
+                                                           wire=kind)
         parts = [fs, ls, fms or [], lms or []]
         flat = [t for part in parts for t in part]
         nbytes = sum(_ingest._nbytes(t) for t in flat)
@@ -643,17 +653,24 @@ class _Network:
         the host iterator, so mid-epoch offsets are not replayable here;
         the epoch-cache path owns exact mid-epoch resume).  Each call of
         the iterator (the one that ends the epoch too) runs in a
-        ``fit/iterator`` span."""
+        ``fit/iterator`` span.  Where ``ingest.wire_source`` accepts the
+        iterator (an affine pixel scaler over uint8 features), its
+        batches are drawn before the scaler and ship their uint8 rows,
+        which the step decodes on the device, bit-exactly."""
         replay = _ingest.ScoreReplayer(self)
         bound = _ingest.EpochBoundary(self, ckpt, replay)
         pin = self.device.type == "cuda"
         end = object()
         for _ in range(epochs):
             with bound.epoch("window"):
-                if hasattr(iterator, "reset"):
-                    iterator.reset()
+                source = _ingest.wire_source(iterator)
+                if source is not None:
+                    batches = _ingest.wired_epoch(*source)
+                else:
+                    if hasattr(iterator, "reset"):
+                        iterator.reset()
+                    batches = iter(iterator)
                 buf, sig, pending = [], None, None
-                batches = iter(iterator)
                 while True:
                     with _monitor.span("fit/iterator"):
                         ds = next(batches, end)
@@ -1309,14 +1326,14 @@ class MultiLayerNetwork(_Network):
     def _window_sig(self, item):
         return _ingest.window_signature(item)
 
-    def _window_stack(self, items, pin: bool):
-        f, l, fm, lm = _ingest.stack_window(items, pin)
+    def _window_stack(self, items, pin: bool, wires=None):
+        f, l, fm, lm = _ingest.stack_window(
+            items, pin, wired=wires is not None and wires[0] is not None)
         return ([f], [l], None if fm is None else [fm],
                 None if lm is None else [lm])
 
-    def _window_wires(self, items, n_in: int, pin: bool):
-        u8, spec = _ingest.window_wire(items, pin)
-        return (None, None) if u8 is None else ([u8], [spec])
+    def _window_wires(self, items):
+        return (_ingest.window_wire_spec(items),)
 
     def _pretrain_features(self, ds):
         return self._tensor(ds.features)

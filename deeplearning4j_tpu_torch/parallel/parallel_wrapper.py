@@ -260,7 +260,8 @@ class ParallelWrapper:
         for slot, dev in zip(self.runtime.local_slots, self.devices):
             mine = [items[j * w + slot] for j in range(k)]
             pin = dev.type == "cuda"
-            fs, ls, fms, lms, wires = net._host_window(mine, pin)
+            wires = net._window_wires(mine)
+            fs, ls, fms, lms = net._host_window(mine, pin, wires)
 
             def put(seq):
                 return None if seq is None else [

@@ -5,6 +5,11 @@
 - the uint8 wire: ``device_decode`` and ``MnistDataSetIterator``'s twin
   are bit-equal to the JAX package's in f32 and bf16, and the wire and
   float32 staging train bit-identically;
+- an ``ImagePreProcessingScaler`` over uint8 features ships its uint8 rows
+  on the window path (``ingest.wire_source``, counted by
+  ``ingest_window_batches_total``): the same params, bitwise, as the
+  float32 window and the per-batch path, and the iterator left as the
+  float32 path leaves it;
 - with ``shuffle=False`` and the JAX weights loaded, the port's cache,
   window and ``fit_scan`` paths equal the JAX package's same paths after
   2 epochs with a tail batch, for sgd and adam, in both containers, at
@@ -44,7 +49,7 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
     AsyncDataSetIterator, ExistingDataSetIterator, ListDataSetIterator)
 from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
 from deeplearning4j_tpu_torch.datasets.normalizers import (
-    U8_PIXEL, ImagePreProcessingScaler, WireFormat)
+    U8_PIXEL, ImagePreProcessingScaler, NormalizerStandardize, WireFormat)
 from deeplearning4j_tpu_torch import monitor
 from deeplearning4j_tpu_torch.nn import ingest
 from deeplearning4j_tpu_torch.nn import multilayer as pml
@@ -302,6 +307,134 @@ def test_a_scaler_over_uint8_fuses_into_the_cache(monkeypatch):
         return net.get_flat_params()
 
     np.testing.assert_array_equal(run("batch"), run("cache"))
+
+
+def _scaled_u8(n=70, n_in=8, seed=4, scaler=(-0.5, 0.5), shuffle=False,
+               batch=16):
+    """A ListDataSetIterator over uint8 features behind an
+    ImagePreProcessingScaler (``scaler`` its (a, b), None its default)."""
+    rng = np.random.RandomState(seed)
+    ds = DataSet(rng.randint(0, 256, (n, n_in), dtype=np.uint8),
+                 np.eye(3, dtype=np.float32)[rng.randint(0, 3, n)])
+    it = ListDataSetIterator(ds, batch, shuffle=shuffle, seed=5)
+    it.set_preprocessor(ImagePreProcessingScaler(*(scaler or ())))
+    return it
+
+
+def _window_batches(wire):
+    return monitor.counter("ingest_window_batches_total").value(wire=wire)
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("scaler", [(-0.5, 0.5), None])
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("container", ["mln", "graph"])
+def test_a_scaler_over_uint8_ships_the_wire_on_the_window(
+        monkeypatch, container, shuffle, scaler, compute_dtype):
+    """The window path draws the scaler's uint8 rows and decodes them on
+    the device: the same params, bit for bit, as the float32 window and
+    the per-batch path."""
+    def run(mode, flag):
+        monkeypatch.setenv("DL4J_TPU_WIRE_UINT8", flag)
+        monitor.reset()
+        net = _net(container, n_in=8, compute_dtype=compute_dtype)
+        net.fit(_scaled_u8(scaler=scaler, shuffle=shuffle), epochs=2,
+                ingest=mode, window=2)
+        return net.get_flat_params(), _window_batches("uint8")
+
+    wired, n_u8 = run("window", "1")
+    assert n_u8 == 2 * 5
+    f32, n_f32 = run("window", "0")
+    assert n_f32 == 0
+    np.testing.assert_array_equal(wired, f32)
+    np.testing.assert_array_equal(wired, run("batch", "1")[0])
+
+
+def _wire_case(case):
+    if case == "standardize":
+        it = _scaled_u8()
+        it.set_preprocessor(NormalizerStandardize().fit(it._ds))
+        return it
+    if case == "scaler_f32":
+        it = _scaled_u8()
+        it._ds.features = it._ds.features.astype(np.float32)
+        return it
+    if case == "subclass":
+        class Sub(ListDataSetIterator):
+            def __next__(self):
+                return super().__next__()
+        it = _scaled_u8()
+        sub = Sub(it._ds, 16)
+        sub.set_preprocessor(it.get_preprocessor())
+        return sub
+    if case == "async_preprocessed":
+        it = _scaled_u8()
+        scaler = it.get_preprocessor()
+        it.set_preprocessor(None)
+        outer = AsyncDataSetIterator(it)
+        outer.set_preprocessor(scaler)
+        return outer
+    if case == "async":
+        return AsyncDataSetIterator(_scaled_u8())
+    return _scaled_u8()                  # "list" and "nowire"
+
+
+@pytest.mark.parametrize("case", [
+    "standardize", "scaler_f32", "subclass", "async_preprocessed",
+    "nowire", "list", "async"])
+def test_wire_source_takes_only_the_scaler_over_uint8(monkeypatch, case):
+    monkeypatch.setenv("DL4J_TPU_WIRE_UINT8",
+                       "0" if case == "nowire" else "1")
+    monitor.reset()
+    it = _wire_case(case)
+    got = ingest.wire_source(it)
+    takes = case in ("list", "async")
+    assert (got is not None) == takes
+    if takes:
+        assert got[0] is getattr(it, "_under", it)
+        assert got[1].as_tuple() == (255.0, 1.0, -0.5)
+    _net(n_in=8).fit(it, epochs=1, ingest="window", window=2)
+    assert _window_batches("uint8") == (5 if takes else 0)
+    assert _window_batches("float32") == (0 if takes else 5)
+    stages = monitor.tracer().events(name="fit/stage")
+    assert {e["attrs"]["wire"] for e in stages} == \
+        {"uint8" if takes else "float32"}
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+def test_the_wired_window_leaves_the_iterator_as_the_float32_one(
+        monkeypatch, wrap):
+    """After a windowed fit on the wire, the user's iterator is where the
+    float32 path leaves it (epoch count, permutation, position) and its
+    own next() still yields the scaled float32 features."""
+    def run(flag):
+        monkeypatch.setenv("DL4J_TPU_WIRE_UINT8", flag)
+        it = _scaled_u8(shuffle=True)
+        _net(n_in=8).fit(AsyncDataSetIterator(it) if wrap else it,
+                         epochs=2, ingest="window", window=2)
+        return it
+
+    wired, f32 = run("1"), run("0")
+    assert wired._epoch == f32._epoch
+    assert wired._pos == f32._pos
+    np.testing.assert_array_equal(wired._order, f32._order)
+    wired.reset()
+    f32.reset()
+    a, b = next(wired), next(f32)
+    assert a.features.dtype == np.float32
+    np.testing.assert_array_equal(a.features, b.features)
+    np.testing.assert_array_equal(
+        a.features, ImagePreProcessingScaler(-0.5, 0.5).transform(
+            wired._ds.features[wired._order[:16]]))
+    assert pdataset.wire_of(a) is None
+
+
+def test_the_wired_window_stages_uint8_bytes(monkeypatch):
+    monkeypatch.setenv("DL4J_TPU_WIRE_UINT8", "1")
+    net = _net(n_in=8)
+    net.fit(_scaled_u8(n=64), ingest="window", window=4)
+    assert monitor.gauge("ingest_staged_bytes").value(path="window") == \
+        64 * (8 * 1 + 3 * 4)
 
 
 def test_cast_for_transfer_is_the_forward_cast():
