@@ -58,7 +58,9 @@ from ..datasets.dataset import attach_wire, wire_enabled, wire_of
 DEVICE_CACHE_LIMIT_BYTES = int(os.environ.get(
     "DL4J_TPU_DEVICE_CACHE_LIMIT", 2_000_000_000))
 
-_CACHEABLE_DTYPES = ("float32", "bfloat16")
+#: integer features and labels (token ids, class indices) go as they are:
+#: no float cast, so an id past 2**8 keeps every bit
+_CACHEABLE_DTYPES = ("float32", "bfloat16", "int32", "int64")
 _STAGED_HELP = "bytes uploaded to the device per staging event"
 _WINDOW_BATCHES_HELP = ("batches staged by the windowed fit, by the wire "
                         "their features went as")
@@ -121,7 +123,8 @@ def cacheable_source(iterator):
     served by the device-resident epoch cache, else None.
 
     Exact ``ListDataSetIterator`` semantics only (:func:`_list_source`),
-    dense float32/bfloat16 features and labels, no masks, total bytes
+    dense float32/bfloat16 or int32/int64 features and labels (integers
+    are uploaded and gathered as they are), no masks, total bytes
     under :data:`DEVICE_CACHE_LIMIT_BYTES`.  A preprocessor disqualifies,
     with ONE exception: an affine pixel scaler
     (``ImagePreProcessingScaler``) over uint8 features, whose transform

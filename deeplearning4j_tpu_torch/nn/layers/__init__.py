@@ -9,13 +9,15 @@ LocalResponseNormalization, CausalSelfAttention, GravesLSTM,
 GravesBidirectionalLSTM, RnnOutputLayer, the pretraining families
 (AutoEncoder, RBM, VariationalAutoencoder with its reconstruction
 distributions) and CenterLossOutputLayer (and the base and recurrent
-contracts they stand on).
+contracts they stand on).  ``decoder`` adds the port's own layers of a
+hybrid MoE language model (LFM2-MoE), which the JAX package has not.
 """
 
 from . import attention  # noqa: F401
 from . import base  # noqa: F401
 from . import convolution  # noqa: F401
 from . import core  # noqa: F401
+from . import decoder  # noqa: F401
 from . import normalization  # noqa: F401
 from . import pooling  # noqa: F401
 from . import pretrain  # noqa: F401

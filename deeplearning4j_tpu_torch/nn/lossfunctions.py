@@ -59,6 +59,21 @@ def negativeloglikelihood(labels: Tensor, preout: Tensor,
     return mcxent(labels, preout, activation, mask)
 
 
+def sparse_mcxent(labels: Tensor, preout: Tensor,
+                  activation: str = "softmax",
+                  mask: Optional[Tensor] = None) -> Tensor:
+    """Multi-class cross entropy against integer class indices: labels of
+    shape ``preout.shape[:-1]`` (a language model's (batch, time) next
+    tokens) in place of one-hot rows, so no (tokens, classes) label
+    tensor is made.  The log-softmax runs in ``preout``'s dtype."""
+    if activation != "softmax":
+        raise ValueError("sparse_mcxent takes softmax heads only, got "
+                         f"{activation!r}")
+    per = F.cross_entropy(preout.reshape(-1, preout.shape[-1]),
+                          labels.reshape(-1).long(), reduction="none")
+    return _reduce_features(_apply_mask(per.reshape(labels.shape), mask))
+
+
 def xent(labels: Tensor, preout: Tensor, activation: str = "sigmoid",
          mask: Optional[Tensor] = None) -> Tensor:
     """Binary cross entropy per output unit."""
@@ -159,6 +174,7 @@ def cosine_proximity(labels: Tensor, preout: Tensor,
 _LOSSES: dict[str, Callable[..., Tensor]] = {
     "mcxent": mcxent,
     "negativeloglikelihood": negativeloglikelihood,
+    "sparse_mcxent": sparse_mcxent,
     "xent": xent,
     "mse": mse,
     "l1": l1,

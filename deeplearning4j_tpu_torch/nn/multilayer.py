@@ -227,7 +227,8 @@ class _Network:
 
     # ------------------------------------------------------------- training
     def _train_step(self, params, updater_state, net_state, loss_fn,
-                    iteration: int, scalars=None, health: bool = False):
+                    iteration: int, scalars=None, health: bool = False,
+                    sink=None):
         """One forward, one autograd backward and the DL4J-order update, as
         a pure function of the trees it is given (the step every fit path
         shares, eager or captured).  ``loss_fn(params, net_state) ->
@@ -237,16 +238,21 @@ class _Network:
         vector of ``monitor.health`` and its guard, where
         ``health.in_step()`` asks for them (else ``hvec`` is None);
         ``scalars`` (per layer key) replaces the iteration's updater
-        scalars (a captured step reads them from the device)."""
+        scalars (a captured step reads them from the device).  ``sink``
+        (see :meth:`_updated`) takes each layer's new trees as they are
+        made, unless the step computes the health guard, which needs the
+        old and the new trees side by side."""
+        guard = health and _health.in_step()
         data_loss, new_state, new_carries, grads = self._loss_and_grads(
-            params, net_state, loss_fn, health and _health.in_step())
+            params, net_state, loss_fn, guard)
         with torch.no_grad():
             score = data_loss.detach() + self._reg_score(params)
             new_params, new_ustate = self._updated(
-                params, updater_state, grads, iteration, scalars)
+                params, updater_state, grads, iteration, scalars,
+                None if guard else sink)
             new_state = self._stored_state(new_state)
             hvec = None
-            if health and _health.in_step():
+            if guard:
                 hvec, bad = _health.layer_stats(
                     _flat_leaves(self, params), _flat_leaves(self, new_params),
                     grads, data_loss, _health.leaf_counts(self),
@@ -290,9 +296,14 @@ class _Network:
                 if all_layers or not getattr(layer, "frozen", False)}
 
     def _updated(self, params, updater_state, flat_grads, iteration: int,
-                 scalars=None):
+                 scalars=None, sink=None):
         """New (params, updater state) trees after the updater step of
-        every layer; ``flat_grads`` in flat-parameter order."""
+        every layer; ``flat_grads`` in flat-parameter order.  ``sink(old
+        params, old updater state, new params, new updater state)``, when
+        given, receives each layer's trees as soon as they are made and
+        returns the pair to keep: a captured step writes them into its
+        static trees there, so one layer's new state at a time exists
+        beside the old (``nn/step_graph.py``)."""
         grads_iter = iter(flat_grads)
         new_p, new_u = [], []
         for key, layer in self._slots():
@@ -302,6 +313,8 @@ class _Network:
                     self._updater_conf(key), layer, params[key],
                     updater_state[key], g, iteration,
                     scalars=None if scalars is None else scalars.get(key))
+                if sink is not None:
+                    p, u = sink(params[key], updater_state[key], p, u)
             else:
                 p, u = params[key], updater_state[key]
             new_p.append((key, p))
@@ -393,20 +406,22 @@ class _Network:
 
     # ---- the device-resident epoch cache ---------------------------------
     def _gather_step(self, params, updater_state, net_state, data_fs,
-                     data_ls, wires, idx, iteration: int, scalars=None):
+                     data_ls, wires, idx, iteration: int, scalars=None,
+                     sink=None):
         """The cache path's step: gather the minibatch ``idx`` from the
         resident per-input arrays (``index_select``), decode the wire,
-        train.  Returns ``(new_params, new_updater_state, new_state,
-        score, hvec)``."""
+        train (integer labels, class indices, go uncast).  Returns
+        ``(new_params, new_updater_state, new_state, score, hvec)``."""
         ldt = self._label_dtype()
         fs = [_ingest.device_decode(d.index_select(0, idx), w)
               for d, w in zip(data_fs, wires)]
-        ls = [d.index_select(0, idx).to(ldt) for d in data_ls]
+        ls = [d.index_select(0, idx) for d in data_ls]
+        ls = [l.to(ldt) if l.is_floating_point() else l for l in ls]
         batch = self._step_batch(fs, ls, None, None)
         return self._train_step(
             params, updater_state, net_state,
             lambda p, s: self._loss_fn(p, s, *batch, self._rng, True),
-            iteration, scalars=scalars, health=True)[:5]
+            iteration, scalars=scalars, health=True, sink=sink)[:5]
 
     def _captured_step(self, data_fs, data_ls, wires, batch_rows: int,
                        capacity: int, columns):
@@ -436,8 +451,8 @@ class _Network:
             net = weakref.ref(self)
             step = _step_graph.CapturedGatherStep(
                 self, self._static,
-                lambda p, u, s, idx, sc: net()._gather_step(
-                    p, u, s, data_fs, data_ls, wires, idx, 0, sc),
+                lambda p, u, s, idx, sc, sink: net()._gather_step(
+                    p, u, s, data_fs, data_ls, wires, idx, 0, sc, sink),
                 batch_rows, capacity, columns, score_dtype,
                 2 + 3 * len(self._slots()) if _health.in_step() else 0,
                 self._graph_pool, recompile=bool(self._graphs))
@@ -512,7 +527,7 @@ class _Network:
                 ckpt=ckpt)
         finally:
             if capture and self._static is not None:
-                self._static.release(self)
+                self._static.bind(self)
 
     # ---- windowed staging and fit_scan ------------------------------------
     def _stage(self, host):

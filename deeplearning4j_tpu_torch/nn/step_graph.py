@@ -9,11 +9,19 @@ sync between replays.  Everything the step reads or writes lives in
 static buffers:
 
 - the params, updater state (fp32 masters included) and layer state are
-  static copies of the network's trees: ``load`` copies the network's
-  current values in before a dispatch, the graph writes each step's
-  result back with ``copy_``, and the network's trees point at the
-  static copies between dispatches (``bind``) and at fresh clones after
-  the fit (``release``), so a caller's references never change under it;
+  static trees: the network's own tensors, adopted when the first step
+  is captured (a model whose trees fill most of the card has no room for
+  a copy); ``load`` copies in any leaf the caller replaced between fits,
+  the graph writes each step's result back with ``copy_``, and the
+  network's trees point at the static ones between and after dispatches
+  (``bind``), so the next cache fit writes the tensors a caller holds in
+  place, as an optimizer's step does.  The update writes each layer's
+  params and updater state back as soon as that layer's are made
+  (``_Network._updated``'s sink; the layer state after the step), so the
+  step holds one layer's new trees beside the static ones, not a second
+  copy of them all: what lets a model of billions of parameters train
+  with Adam and fp32 masters on one card.  The health guard, which picks
+  between old and new trees, keeps the whole new trees until the end;
 - the step counter ``ctr`` is a device scalar the graph increments; it
   selects the step's row of example indices (``rows``, filled on the
   device from the epoch permutation) and of iteration scalars (``table``:
@@ -70,14 +78,6 @@ def _matched(dst, src) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
             [t for _, s in pairs for t in s])
 
 
-def _clone(tree):
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_clone(v) for v in tree]
-    return tree.clone() if isinstance(tree, torch.Tensor) else tree
-
-
 def _copy_into(dst, src) -> None:
     d, s = _matched(dst, src)
     pairs = [(a, b) for a, b in zip(d, s) if a is not b]
@@ -87,30 +87,26 @@ def _copy_into(dst, src) -> None:
 
 class StaticTrees:
     """The static params, updater state and layer state of one network's
-    captured steps (shared by its full-batch and tail graphs)."""
+    captured steps (shared by its full-batch and tail graphs): the
+    network's tensors at the first capture, in new containers."""
 
     def __init__(self, net):
-        self.params = _clone(net.params)
-        self.updater_state = _clone(net.updater_state)
-        self.net_state = _clone(net.net_state)
+        self.params = _shallow(net.params)
+        self.updater_state = _shallow(net.updater_state)
+        self.net_state = _shallow(net.net_state)
 
     def load(self, net) -> None:
-        """Copy the network's current values in (device to device)."""
+        """Copy in the network's current values where it holds other
+        tensors than the static ones (device to device)."""
         _copy_into(self.params, net.params)
         _copy_into(self.updater_state, net.updater_state)
         _copy_into(self.net_state, net.net_state)
 
     def bind(self, net) -> None:
-        """Point the network's trees at the static copies."""
+        """Point the network's trees at the static ones."""
         net.params = _shallow(self.params)
         net.updater_state = _shallow(self.updater_state)
         net.net_state = _shallow(self.net_state)
-
-    def release(self, net) -> None:
-        """Give the network clones the graph will not write again."""
-        net.params = _clone(self.params)
-        net.updater_state = _clone(self.updater_state)
-        net.net_state = _clone(self.net_state)
 
 
 def _shallow(tree):
@@ -130,11 +126,26 @@ def gather_step_name(net) -> str:
             else "mln") + ".gather_train_step"
 
 
+def _commit(old_p, old_u, new_p, new_u):
+    """A layer's new trees written into the static ones (the sink of the
+    captured step)."""
+    _copy_into(old_p, new_p)
+    _copy_into(old_u, new_u)
+    return old_p, old_u
+
+
+def _discard(old_p, old_u, new_p, new_u):
+    """A warm-up step's layer trees dropped as they are made."""
+    return old_p, old_u
+
+
 class CapturedGatherStep:
     """One captured gather step for ``batch_rows`` rows a step and up to
     ``capacity`` steps a dispatch.  ``step_fn(params, updater_state,
-    net_state, idx, scalars)`` is the network's gather step; ``columns``
-    names the table's columns as ``(layer key, scalar name)``."""
+    net_state, idx, scalars, sink)`` is the network's gather step, which
+    hands each layer's new trees to ``sink`` (:func:`_commit` in the
+    graph, :func:`_discard` in the warm-up); ``columns`` names the table's
+    columns as ``(layer key, scalar name)``."""
 
     def __init__(self, net, static: StaticTrees, step_fn, batch_rows: int,
                  capacity: int, columns, score_dtype: torch.dtype,
@@ -163,16 +174,16 @@ class CapturedGatherStep:
             out.setdefault(key, {})[name] = row[col]
         return out
 
-    def _compute(self):
+    def _compute(self, sink):
         j = self.ctr
         idx = self.rows.index_select(0, j).reshape(-1)
         row = self.table.index_select(0, j).reshape(-1)
         st = self._static
         return self._step_fn(st.params, st.updater_state, st.net_state, idx,
-                             self._scalars(row))
+                             self._scalars(row), sink)
 
     def _body(self) -> None:
-        new_p, new_u, new_s, score, hvec = self._compute()
+        new_p, new_u, new_s, score, hvec = self._compute(_commit)
         st = self._static
         with torch.no_grad():
             _copy_into(st.params, new_p)
@@ -205,7 +216,7 @@ class CapturedGatherStep:
         side.wait_stream(torch.cuda.current_stream(net.device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
-                self._compute()
+                self._compute(_discard)
         torch.cuda.current_stream(net.device).wait_stream(side)
         gen.set_state(saved)           # the warm-up draws are not kept
         graph = torch.cuda.CUDAGraph()
