@@ -29,15 +29,24 @@ Phases (each raises on failure; the exit code is non-zero on any):
    ``flash_fwd_sm90_kernel``, ``flash_bwd_dkdv_sm90_kernel``,
    ``flash_bwd_dq_sm90_kernel``), the f32 ones the scalar bodies
    (``attention.BODY_LAUNCHES``; reported as ``body`` and
-   ``body_launches``);
+   ``body_launches``); then the updater's fused Adam
+   (``adam_master_step_kernel``, ``ops/adam.py``) at the LFM2 cell's
+   expert leaf (117,440,512 bf16 values with an fp32 master), a size with
+   a tail and a view off 16 bytes, in both forms with a host and a device
+   alpha, bit for bit against the torch ops it replaces, then timed in
+   place against them and its byte bound (``[adam]`` line; the
+   ``adam_master_step`` entry of the kernels line);
 4. reference: a small network trains 2 steps on the card (kernels) and on
    the CPU (plain versions) from the same weights, in fp32; scores and
-   params must agree;
+   params must agree, and each card step launches the fused Adam once a
+   leaf (the master-less f32 route);
 5. training: the full-width network (CausalSelfAttention(n_out=256,
    n_heads=4, cache_len=8192) -> RnnOutputLayer(n_out=32, softmax,
    mcxent), n_in=64, adam, the card's default mixed_bf16 policy) takes
    3 fit steps; the score must be finite and every kernel's
-   launch count must rise by exactly one per step, every K1-K3 launch on
+   launch count must rise by exactly one per step (the fused Adam's by one
+   an Adam leaf a step, each leaf counted fused in
+   ``updater_leaves_total``), every K1-K3 launch on
    its Hopper body (as on the bf16 ring of phase 7, the graph steps of
    phase 12 and the captured paths of phase 13: ``hopper_bodies``); then
    one
@@ -1196,6 +1205,146 @@ def phase_kernels(A, seed: int):
     return timing
 
 
+# The updater's fused Adam (phase 3, after K1-K4): at the leaf of the LFM2
+# cell that sets its time, one of an MoE layer's three expert weights (32
+# experts x 2048 x 1792, bf16 with an fp32 master), then a size whose tail
+# the scalar loop takes and a view off 16 bytes (the scalar path); each in
+# both forms, alpha a host float and the f64 entry of a device table, held
+# bit for bit against the torch ops it replaces (compute_update's Adam and
+# the master write) on the same inputs.  Bound by bytes: 28 a value.
+ADAM_DEV = "cuda"
+ADAM_N = 32 * 2048 * 1792
+ADAM_TAIL_N = 2 ** 22 + 3
+ADAM_BYTES_PER_VALUE = 28
+
+
+def adam_leaf(n: int, gen, off16: bool):
+    """A bf16 param of ``n`` values, its fp32 master and Adam moments (m
+    and v from an earlier step's size), and a bf16 gradient; with
+    ``off16`` each a view one element into its buffer."""
+    def place(t):
+        if not off16:
+            return t
+        buf = torch.empty(n + 1, dtype=t.dtype, device=t.device)
+        buf[1:].copy_(t)
+        return buf[1:]
+    w = torch.randn(n, generator=gen, device=ADAM_DEV)
+    m = torch.randn(n, generator=gen, device=ADAM_DEV) * 1e-2
+    v = torch.rand(n, generator=gen, device=ADAM_DEV) * 1e-4
+    g = (torch.randn(n, generator=gen, device=ADAM_DEV) * 1e-2).to(
+        torch.bfloat16)
+    return tuple(place(t) for t in (g, w, m, v, w.to(torch.bfloat16)))
+
+
+def adam_plain(U, conf, g, w, m, v, p_dtype, alpha):
+    """The torch ops the kernel replaces: ``(w', m', v', param')``."""
+    u, new = U.compute_update(conf, {"x": g.float()},
+                              {"m": {"x": m}, "v": {"x": v}}, 0,
+                              params={"x": w}, scalars={"alpha": alpha})
+    w1 = w - u["x"]
+    return w1, new["m"]["x"], new["v"]["x"], w1.to(p_dtype)
+
+
+def phase_adam(seed: int) -> dict:
+    """``adam_master_step_kernel`` against the torch ops, bit for bit, at
+    the LM's expert leaf, a tail and a view off 16 bytes, in both forms
+    with a host and a device alpha; then timed in place with the device
+    alpha (the captured step's call) against the ops and the byte
+    bound."""
+    from deeplearning4j_tpu_torch.nn import updaters as U
+    from deeplearning4j_tpu_torch.ops import adam
+    conf = U.UpdaterConfig(updater="adam", learning_rate=1e-3,
+                           adam_mean_decay=0.9, adam_var_decay=0.999)
+    sc = adam.scalars(conf.adam_mean_decay, conf.adam_var_decay, U._EPS_ADAM)
+    host = U.step_scalars(conf, 4)["alpha"]
+    dev = torch.tensor(host, dtype=torch.float64, device=ADAM_DEV)
+    gen = torch.Generator(device=ADAM_DEV).manual_seed(seed)
+    adam.reset_launches()
+    checks = []
+    for n, off16 in ((ADAM_N, False), (ADAM_TAIL_N, False),
+                     (ADAM_TAIL_N, True)):
+        g, w, m, v, p = adam_leaf(n, gen, off16)
+        with torch.no_grad():
+            want = adam_plain(U, conf, g, w, m, v, p.dtype, host)
+            for in_place in (False, True):
+                for alpha in (host, dev):
+                    ins = [t.clone() if in_place else t for t in (w, m, v, p)]
+                    got = adam.master_step(g, *ins, alpha, sc, in_place)
+                    if in_place and not all(a is b for a, b in
+                                            zip(got, ins)):
+                        raise RuntimeError("adam_master_step in place "
+                                           "returned other tensors")
+                    bad = [name for name, a, b in zip(
+                        ("master", "m", "v", "param"), got, want)
+                        if not (a.dtype == b.dtype and torch.equal(a, b))]
+                    what = (f"adam_master_step n={n}"
+                            f"{' off16' if off16 else ''} "
+                            f"{'in_place' if in_place else 'out_of_place'} "
+                            f"alpha {'device' if alpha is dev else 'host'}")
+                    log(f"[check] {what}: "
+                        f"{'bitwise' if not bad else 'differs in ' + str(bad)}")
+                    if bad:
+                        raise RuntimeError(f"{what}: not bitwise the torch "
+                                           f"ops ({bad})")
+                    checks.append(what)
+        del g, w, m, v, p, want, ins, got
+    launches = adam.LAUNCHES["adam_master_step"]
+    if launches != len(checks):
+        raise RuntimeError(f"adam_master_step launched {launches} times for "
+                           f"{len(checks)} checks")
+    g, w, m, v, p = adam_leaf(ADAM_N, gen, False)
+    with torch.no_grad():
+        ms = time_ms(lambda: adam.master_step(g, w, m, v, p, dev, sc, True))
+        plain_ms = time_ms(lambda: adam_plain(U, conf, g, w, m, v, p.dtype,
+                                              host))
+    bound = ADAM_N * ADAM_BYTES_PER_VALUE / PEAK_BYTES * 1e3
+    result = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+              "bound_by": "bytes",
+              "tb_per_s": ADAM_N * ADAM_BYTES_PER_VALUE / ms / 1e9,
+              "values": ADAM_N, "checks": checks, "check_launches": launches}
+    log(f"[adam] adam_master_step at {ADAM_N} bf16 values, in place, "
+        f"device alpha: {ms:.4f} ms ({result['tb_per_s']:.3f} TB/s), the "
+        f"torch ops {plain_ms:.4f} ms, bound {bound:.4f} ms by bytes; "
+        f"{len(checks)} checks bitwise")
+    return result
+
+
+def adam_leaves(U, net) -> int:
+    """The leaves of ``net`` its updater steps (frozen layers and direct
+    updates left out)."""
+    return sum(len(U.updatable_params(layer, net.params[key]))
+               for key, layer in net._slots()
+               if not getattr(layer, "frozen", False))
+
+
+def fused_leaves_counted() -> dict:
+    from deeplearning4j_tpu_torch.monitor import metrics
+    from deeplearning4j_tpu_torch.nn import updaters as U
+    c = metrics.registry().counter(U.LEAVES_COUNTER)
+    return {(path, form): c.value(rule="adam", path=path, form=form)
+            for path in ("fused", "ops")
+            for form in ("in_place", "out_of_place")}
+
+
+def check_adam_launches(what: str, net, steps: int, counted: dict) -> int:
+    """The fused Adam launched once an Adam leaf a step, each leaf counted
+    fused and out of place (eager steps); returns the launches."""
+    from deeplearning4j_tpu_torch.nn import updaters as U
+    from deeplearning4j_tpu_torch.ops import adam
+    leaves = adam_leaves(U, net)
+    launches = adam.LAUNCHES["adam_master_step"]
+    now = fused_leaves_counted()
+    delta = {k: now[k] - counted[k] for k in now if now[k] != counted[k]}
+    want = {("fused", "out_of_place"): steps * leaves}
+    log(f"[{what}] adam_master_step launches {launches} for {leaves} Adam "
+        f"leaves x {steps} steps; updater_leaves_total rose by {delta}")
+    if launches != steps * leaves or delta != want:
+        raise RuntimeError(f"{what}: adam_master_step launched {launches} "
+                           f"times, counted {delta}; expected one an Adam "
+                           f"leaf a step ({steps} x {leaves}), all fused")
+    return launches
+
+
 def build_net(N, A, *, seed, n_in, hidden, heads, n_out, cache_len,
               compute_dtype=None, device=None):
     from deeplearning4j_tpu_torch.nn.conf import inputs
@@ -1234,10 +1383,14 @@ def phase_reference(N, A, seed: int) -> dict:
     cpu = build_net(N, A, device="cpu", **kw)
     cpu.set_flat_params(card.get_flat_params())
     ds = make_batch(seed + 1, 2, 200, 16, 8)
+    from deeplearning4j_tpu_torch.ops import adam
     A.reset_launches()
     worst = 0.0
     for step in range(2):
+        adam.reset_launches()
+        counted = fused_leaves_counted()
         card.fit(ds)
+        adam_launches = check_adam_launches("reference", card, 1, counted)
         cpu.fit(ds)
         a, b = card.score(), cpu.score()
         pa, pb = card.get_flat_params(), cpu.get_flat_params()
@@ -1251,7 +1404,8 @@ def phase_reference(N, A, seed: int) -> dict:
     if A.LAUNCHES["flash_fwd"] != 2 or A.LAUNCHES["flash_bwd_dq"] != 2:
         raise RuntimeError(f"reference net did not run on the kernels: "
                            f"{A.LAUNCHES}")
-    return {"steps": 2, "max_rel": worst}
+    return {"steps": 2, "max_rel": worst,
+            "adam_launches": 2 * adam_launches}
 
 
 # profiler kernel names: the Hopper bodies on every bf16 call of the main
@@ -1338,7 +1492,10 @@ def phase_training(N, A, seed: int):
     ds = make_batch(seed, BATCH, SEQ, N_IN, N_OUT)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    from deeplearning4j_tpu_torch.ops import adam
     A.reset_launches()            # counts of the main path's run only
+    adam.reset_launches()
+    counted = fused_leaves_counted()
     scores, step_ms = [], []
     for _ in range(STEPS):
         t0 = time.perf_counter()
@@ -1347,6 +1504,7 @@ def phase_training(N, A, seed: int):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         scores.append(s)
     launches = dict(A.LAUNCHES)
+    adam_launches = check_adam_launches("training", net, STEPS, counted)
     bodies = hopper_bodies(A, "training")
     peak = torch.cuda.max_memory_allocated()
     log(f"[training] scores {scores}; step ms {step_ms}; launches "
@@ -1361,6 +1519,7 @@ def phase_training(N, A, seed: int):
                            f"expected {expected}")
     return net, ds, {"scores": scores, "step_ms": step_ms,
                      "peak_mem_bytes": peak, "launches": launches,
+                     "adam_launches": adam_launches,
                      "body_launches": bodies,
                      "profile": profile_step(net, ds, min(step_ms[1:]))}
 
@@ -9811,6 +9970,8 @@ def main(argv=None) -> int:
     log(f"[build] {len(builds)} source(s) in {build_s:.1f} s")
 
     timing = phase_kernels(A, args.seed)
+    adam_timing = phase_adam(args.seed)
+    torch.cuda.empty_cache()
     reference = phase_reference(N, A, args.seed)
     net, ds, training = phase_training(N, A, args.seed)
     inference = phase_inference(net, ds)
@@ -9903,6 +10064,15 @@ def main(argv=None) -> int:
                                       for path, counts in paths.items()},
                     **timing[name])
                for name in sources]
+    adam_paths = {"kernels": adam_timing["check_launches"],
+                  "reference": reference["adam_launches"],
+                  "training": training["adam_launches"]}
+    kernels.append(dict(
+        name="adam_master_step", route="cuda", source=csrc + "adam_update.cu",
+        replaces="deeplearning4j_tpu_torch/nn/updaters.py compute_update "
+                 "(adam) and apply_layer_updates' master write, torch ops",
+        launches=sum(adam_paths.values()), launches_by_path=adam_paths,
+        **adam_timing))
     print(json.dumps({"build_s": build_s, "reference": reference,
                       "training": training, "inference": inference,
                       "ring": ring, "serving": serving,

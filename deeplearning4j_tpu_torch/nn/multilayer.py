@@ -303,8 +303,12 @@ class _Network:
         given, receives each layer's trees as soon as they are made and
         returns the pair to keep: a captured step writes them into its
         static trees there, so one layer's new state at a time exists
-        beside the old (``nn/step_graph.py``)."""
+        beside the old (``nn/step_graph.py``).  A sink whose ``in_place``
+        is true lets the updater write the new values into the tensors of
+        ``params`` and ``updater_state`` (``updaters.apply_layer_updates``),
+        where the sink then finds them."""
         grads_iter = iter(flat_grads)
+        in_place = getattr(sink, "in_place", False)
         new_p, new_u = [], []
         for key, layer in self._slots():
             g = {name: next(grads_iter) for name in params[key]}
@@ -312,7 +316,8 @@ class _Network:
                 p, u = _updaters.apply_layer_updates(
                     self._updater_conf(key), layer, params[key],
                     updater_state[key], g, iteration,
-                    scalars=None if scalars is None else scalars.get(key))
+                    scalars=None if scalars is None else scalars.get(key),
+                    in_place=in_place)
                 if sink is not None:
                     p, u = sink(params[key], updater_state[key], p, u)
             else:

@@ -20,8 +20,11 @@ static buffers:
   (``_Network._updated``'s sink; the layer state after the step), so the
   step holds one layer's new trees beside the static ones, not a second
   copy of them all: what lets a model of billions of parameters train
-  with Adam and fp32 masters on one card.  The health guard, which picks
-  between old and new trees, keeps the whole new trees until the end;
+  with Adam and fp32 masters on one card.  Adam's fused kernel
+  (``ops/adam.py``) writes straight into the static tensors, so its
+  leaves are not copied back at all.  The health guard, which picks
+  between old and new trees, keeps the whole new trees until the end
+  (its step updates out of place);
 - the step counter ``ctr`` is a device scalar the graph increments; it
   selects the step's row of example indices (``rows``, filled on the
   device from the epoch permutation) and of iteration scalars (``table``:
@@ -128,10 +131,15 @@ def gather_step_name(net) -> str:
 
 def _commit(old_p, old_u, new_p, new_u):
     """A layer's new trees written into the static ones (the sink of the
-    captured step)."""
+    captured step).  ``in_place``: the updater may write them there itself
+    (``_Network._updated``), and the tensors it hands back are then the
+    static ones, which ``_copy_into`` skips."""
     _copy_into(old_p, new_p)
     _copy_into(old_u, new_u)
     return old_p, old_u
+
+
+_commit.in_place = True
 
 
 def _discard(old_p, old_u, new_p, new_u):

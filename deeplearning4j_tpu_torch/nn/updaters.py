@@ -15,7 +15,9 @@ rmsprop, adam, adadelta, lars, plus none).  Updater state is a dict of
 dicts of tensors mirroring the params; under a mixed precision policy it
 also carries fp32 masters under ``"_master"``.  Updates are applied under
 ``torch.no_grad`` and build new tensors (the JAX package's functional
-form), so a caller's references to the old params stay valid.
+form), so a caller's references to the old params stay valid, except
+where a captured step asks Adam's kernel to write in place
+(:func:`apply_layer_updates`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..monitor import metrics as _metrics
+from ..ops import adam as _adam
 from .conf import serde as _serde
 
 Tensor = torch.Tensor
@@ -37,6 +41,13 @@ _EPS_ADADELTA = 1e-6
 _EPS_RMSPROP = 1e-8
 
 MASTER_KEY = "_master"
+#: leaves through the updater, by rule, path ("fused": the Adam kernel of
+#: ``ops/adam.py``; "ops": torch ops) and form ("in_place",
+#: "out_of_place"), counted as each step is built or enqueued (a replayed
+#: graph counts nothing)
+LEAVES_COUNTER = "updater_leaves_total"
+_LEAVES_HELP = ("leaves through the updater, by rule, path (the fused "
+                "kernel or torch ops) and form")
 
 
 @_serde.register("updater_conf", custom=True)
@@ -371,15 +382,47 @@ def updatable_params(layer, params: ParamTree) -> ParamTree:
     return {k: v for k, v in params.items() if k not in direct}
 
 
+def _normalizes(layer) -> bool:
+    mode = layer.gradient_normalization
+    return bool(mode) and mode.lower() != "none"
+
+
+def _fused_leaves(uconf: UpdaterConfig, grads: ParamTree, work: ParamTree,
+                  state: dict, storage: Optional[ParamTree]) -> tuple:
+    """The leaves whose Adam step runs as one kernel (``ops/adam.py``):
+    Adam, with the f32 math on the card (fp32 masters, or f32 params that
+    have none), as :func:`ops.adam.takes` sees each leaf."""
+    if uconf.updater.lower() != "adam":
+        return ()
+    return tuple(k for k in grads if _adam.takes(
+        grads[k], work[k], state["m"][k], state["v"][k],
+        None if storage is None else storage[k]))
+
+
+def _count_leaves(rule: str, path: str, form: str, n: int) -> None:
+    if n:
+        _metrics.registry().counter(LEAVES_COUNTER, _LEAVES_HELP).inc(
+            n, rule=rule, path=path, form=form)
+
+
 def apply_layer_updates(uconf: UpdaterConfig, layer, params: ParamTree,
                         state: dict, grads: ParamTree, iteration: int,
-                        scalars: Optional[Dict[str, Any]] = None):
+                        scalars: Optional[Dict[str, Any]] = None,
+                        in_place: bool = False):
     """Full DL4J-order update of one layer: returns ``(new_params,
     new_state)``.  With fp32 masters in ``state`` every step of the
     updater math runs on the masters in fp32 and the storage params are
     re-derived by one cast.  The layer's ``direct_update_params`` go
     around all of it as ``p -= g`` (in fp32 for sub-fp32 storage).
-    ``scalars``: see :func:`compute_update`."""
+    ``scalars``: see :func:`compute_update`.
+
+    Adam's leaves on the card whose math runs in f32 take one kernel a
+    leaf (:func:`_fused_leaves`), bitwise the torch ops; every other leaf
+    takes the ops.  ``in_place``: the caller lets that kernel write the
+    new values into ``params``' and ``state``'s own tensors and gets them
+    back (a captured step's static trees); else every result is a new
+    tensor, as the ops make it.  Each leaf counts in
+    ``updater_leaves_total{rule, path, form}``."""
     if getattr(layer, "frozen", False):
         return dict(params), state
     masters = state.get(MASTER_KEY)
@@ -387,19 +430,42 @@ def apply_layer_updates(uconf: UpdaterConfig, layer, params: ParamTree,
     g_direct = {k: g.pop(k) for k in layer.direct_update_params() if k in g}
     if masters is not None:
         work = {k: masters[k] for k in g}
-        g = {k: v.float() for k, v in g.items()}
         mstate = {k: v for k, v in state.items() if k != MASTER_KEY}
     else:
         work = {k: params[k] for k in g}
         mstate = state
+    fused = _fused_leaves(uconf, g, work, mstate,
+                          None if masters is None else params)
+    if masters is not None:
+        # the kernel reads a bf16 gradient as it is (regularize's sums
+        # promote it to f32 exactly); the ops, and normalization, take f32
+        keep = () if _normalizes(layer) else fused
+        g = {k: v if k in keep else v.float() for k, v in g.items()}
     g = regularize(g, work, layer.l1_by_param(), layer.l2_by_param())
     g = normalize_gradients(g, layer.gradient_normalization,
                             layer.gradient_normalization_threshold)
-    updates, new_state = compute_update(uconf, g, mstate, iteration,
-                                        params=work, scalars=scalars)
+    updates, new_state = compute_update(
+        uconf, {k: v for k, v in g.items() if k not in fused}, mstate,
+        iteration, params=work, scalars=scalars)
     new_params = dict(params)
+    new_masters = None if masters is None else dict(masters)
+    if fused:
+        sc = step_scalars(uconf, iteration) if scalars is None else scalars
+        consts = _adam.scalars(uconf.adam_mean_decay, uconf.adam_var_decay,
+                               _EPS_ADAM)
+        made = {"m": {}, "v": {}}
+        for k in fused:
+            w1, made["m"][k], made["v"][k], new_params[k] = \
+                _adam.master_step(
+                    g[k], work[k], mstate["m"][k], mstate["v"][k],
+                    None if masters is None else params[k], sc["alpha"],
+                    consts, in_place)
+            if new_masters is not None:
+                new_masters[k] = w1
+        new_state = {name: {k: (made[name] if k in fused
+                                else new_state[name])[k] for k in g}
+                     for name in ("m", "v")}
     if masters is not None:
-        new_masters = dict(masters)
         for k, u in updates.items():
             new_masters[k] = work[k] - u
             new_params[k] = new_masters[k].to(params[k].dtype)
@@ -414,4 +480,8 @@ def apply_layer_updates(uconf: UpdaterConfig, layer, params: ParamTree,
             new_params[k] = (p.float() - gd.float()).to(p.dtype)
         else:
             new_params[k] = p - gd
+    rule = uconf.updater.lower()
+    _count_leaves(rule, "fused", "in_place" if in_place else "out_of_place",
+                  len(fused))
+    _count_leaves(rule, "ops", "out_of_place", len(g) - len(fused))
     return new_params, new_state

@@ -1,1 +1,2 @@
-"""Tensor ops of the port: the flash-attention kernels and the KV ring."""
+"""Tensor ops of the port: the flash-attention kernels, the KV ring and
+the updater's fused Adam kernel."""

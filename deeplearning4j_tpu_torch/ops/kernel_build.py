@@ -34,7 +34,7 @@ from ..monitor import jit_watch as _jit_watch
 CSRC = Path(__file__).resolve().parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 BUILD_DIR = DEFAULT_BUILD_DIR
-SOURCES = ("flash_attention.cu",)
+SOURCES = ("flash_attention.cu", "adam_update.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
